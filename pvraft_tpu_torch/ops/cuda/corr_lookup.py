@@ -1,0 +1,92 @@
+"""Fused point-voxel correlation lookup: CUDA kernel and its plain version.
+
+Replaces the Pallas TPU kernel ``pvraft_tpu/ops/pallas/corr_lookup.py``
+(``_fused_forward``, public ``fused_corr_lookup``). The kernel is
+``csrc/corr_lookup.cu``; its header states the bound (bytes: one read of
+the (B, N, K) candidates) and the design (one warp per query point,
+candidates in registers, a fixed-order voxel reduction and a
+warp-shuffle kNN argmin).
+
+:func:`fused_corr_lookup` launches the kernel for CUDA tensors and runs
+:func:`corr_lookup_plain` for CPU tensors. Its ``launches`` attribute
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from pvraft_tpu_torch.ops import cuda as _cuda
+from pvraft_tpu_torch.ops.corr import knn_select, take_candidates
+from pvraft_tpu_torch.ops.voxel import voxel_bin_means
+
+MAX_CANDIDATES = 512   # 16 per lane of the query point's warp
+MAX_KNN = 32           # one selection per lane
+
+Lookup = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def corr_lookup_plain(corr, xyz, coords, num_levels: int, base_scale: float,
+                      resolution: int, knn: int) -> Lookup:
+    """The lookup in plain PyTorch: ``rel`` materialized, the voxel means
+    by :func:`voxel_bin_means`, the kNN by a stable sort (lowest index
+    wins ties, the kernel's rule). Returns (vox (B, N, L*R^3), knn_corr
+    (B, N, knn), knn_rel (B, N, knn, 3), knn_idx (B, N, knn) int32)."""
+    rel = xyz - coords[:, :, None, :]
+    vox = voxel_bin_means(corr, rel, num_levels, base_scale, resolution)
+    idx = knn_select(rel, knn)
+    knn_corr, knn_rel = take_candidates(corr, rel, idx)
+    return vox, knn_corr, knn_rel, idx.to(torch.int32)
+
+
+def _signature(fn) -> None:
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def fused_corr_lookup(corr: torch.Tensor, xyz: torch.Tensor,
+                      coords: torch.Tensor, num_levels: int,
+                      base_scale: float, resolution: int, knn: int) -> Lookup:
+    """Both lookup branches from the cached candidates.
+
+    corr: (B, N, K) f32, xyz: (B, N, K, 3) f32 candidate positions,
+    coords: (B, N, 3) f32 current estimates. Returns (vox, knn_corr,
+    knn_rel, knn_idx) as :func:`corr_lookup_plain` does. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise.
+    """
+    if not corr.is_cuda:
+        return corr_lookup_plain(corr, xyz, coords, num_levels, base_scale,
+                                 resolution, knn)
+    b, n, k = corr.shape
+    what = "fused_corr_lookup"
+    _cuda.require_cuda(what, corr, xyz, coords)
+    if xyz.shape != (b, n, k, 3) or coords.shape != (b, n, 3):
+        raise ValueError(f"{what}: shapes {tuple(corr.shape)}, "
+                         f"{tuple(xyz.shape)}, {tuple(coords.shape)}")
+    if k > MAX_CANDIDATES or knn > min(MAX_KNN, k) or resolution != 3:
+        raise ValueError(
+            f"{what}: the kernel takes K <= {MAX_CANDIDATES}, knn <= "
+            f"min({MAX_KNN}, K) and resolution 3; got K={k}, knn={knn}, "
+            f"resolution={resolution}")
+    r3 = resolution**3
+    vox = torch.empty(b, n, num_levels * r3, device=corr.device)
+    kcorr = torch.empty(b, n, knn, device=corr.device)
+    krel = torch.empty(b, n, knn, 3, device=corr.device)
+    kidx = torch.empty(b, n, knn, dtype=torch.int32, device=corr.device)
+    fn = _cuda.library("corr_lookup").pvraft_corr_lookup
+    _signature(fn)
+    with torch.cuda.device(corr.device):
+        code = fn(corr.data_ptr(), xyz.data_ptr(), coords.data_ptr(),
+                  vox.data_ptr(), kcorr.data_ptr(), krel.data_ptr(),
+                  kidx.data_ptr(), b * n, n, k, num_levels, base_scale, knn,
+                  _cuda.stream_ptr(corr.device))
+    _cuda.check(code, what)
+    fused_corr_lookup.launches += 1
+    return vox, kcorr, krel, kidx
+
+
+fused_corr_lookup.launches = 0

@@ -1,0 +1,49 @@
+"""Voxel-branch correlation pooling (port of ``pvraft_tpu/ops/voxel.py``).
+
+For each query point and pyramid level, the mean truncated correlation of
+the candidates that fall into each cell of a ``resolution^3`` cube
+centred on the coordinate estimate:
+
+  * cell index = round((candidate - coord) / r) per axis, rounding half
+    to even; valid iff all three components lie within
+    +/- floor(resolution/2);
+  * invalid candidates contribute nothing;
+  * counts are clamped to [1, N] (N = query points) before the division.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def voxel_bin_means(
+    corr: torch.Tensor,
+    rel: torch.Tensor,
+    num_levels: int,
+    base_scale: float,
+    resolution: int = 3,
+) -> torch.Tensor:
+    """corr: (B, N, K), rel: (B, N, K, 3) -> (B, N, num_levels * resolution**3)."""
+    half = resolution // 2
+    r3 = resolution**3
+    b, n_pts, _ = corr.shape
+    feats = []
+    for lvl in range(num_levels):
+        # A 0-dim tensor on the same device keeps this a true division
+        # (a host scalar divisor becomes a reciprocal multiply on CUDA).
+        r = torch.tensor(base_scale * (2**lvl), dtype=rel.dtype,
+                         device=rel.device)
+        dv = torch.round(rel / r)
+        valid = torch.all(torch.abs(dv) <= half, dim=-1)         # (B, N, K)
+        cell = ((dv[..., 0] + half) * (resolution**2)
+                + (dv[..., 1] + half) * resolution
+                + (dv[..., 2] + half)).to(torch.int64)
+        # Invalid candidates go to a dump bin r3 that is dropped.
+        cell = torch.where(valid, cell, r3)
+        w = torch.where(valid, corr, 0.0)
+        sums = torch.zeros(b, n_pts, r3 + 1, dtype=corr.dtype,
+                           device=corr.device).scatter_add_(-1, cell, w)
+        cnts = torch.zeros_like(sums).scatter_add_(-1, cell,
+                                                   valid.to(corr.dtype))
+        feats.append(sums[..., :r3] / torch.clamp(cnts[..., :r3], 1, n_pts))
+    return torch.cat(feats, dim=-1)

@@ -1,0 +1,74 @@
+"""Weights of the port: the JAX package's flax params mapped onto the
+port's state_dict, and a seeded initialisation of its own.
+
+The port's submodules are named after the flax param paths, so the
+mapping is by name: a Dense ``kernel (in, out)`` becomes a
+``Linear.weight (out, in)``, a GroupNorm ``scale`` becomes ``weight``,
+``bias`` and the PReLU ``alpha (1,)`` keep their names. The flax tree is
+identical for both ``fused_gru`` settings, so one mapping serves both.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from pvraft_tpu_torch.config import ModelConfig
+
+_RENAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "alpha": "alpha"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    for key in sorted(tree):
+        val = tree[key]
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(val, Mapping):
+            yield from _flatten(val, path)
+        else:
+            yield path, val
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax params tree (nested dicts of arrays; the ``{"params":
+    ...}`` variables wrapper is accepted) onto a PVRaft state_dict of
+    fp32 CPU tensors, to load with ``strict=True``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, leaf in _flatten(tree):
+        module, _, name = path.rpartition(".")
+        if name not in _RENAME:
+            raise KeyError(f"unexpected flax leaf {path!r}")
+        arr = np.array(leaf, dtype=np.float32)
+        if name == "kernel":
+            arr = arr.T
+        out[f"{module}.{_RENAME[name]}"] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return out
+
+
+def seeded_state_dict(cfg: ModelConfig, seed: int) -> Dict[str, torch.Tensor]:
+    """A PVRaft state_dict initialised from ``seed`` the way flax
+    initialises the JAX model: Linear weights LeCun-normal truncated at
+    two standard deviations, biases 0, GroupNorm weight 1 and bias 0,
+    PReLU slope 0.25. The draws come from an explicit ``torch.Generator``
+    (not flax's numbers)."""
+    from pvraft_tpu_torch.models.raft import PVRaft
+
+    gen = torch.Generator().manual_seed(seed)
+    state = PVRaft(cfg).state_dict()
+    for key in sorted(state):
+        t = state[key]
+        if key.endswith(".weight") and t.dim() == 2:
+            # flax's variance_scaling(1, fan_in, "truncated_normal").
+            std = math.sqrt(1.0 / t.shape[1]) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+        elif key.endswith(".bias"):
+            t.zero_()
+    return state
