@@ -11,18 +11,31 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            torch and CUDA versions and the kernel build time; turns TF32
            off for matmuls and convolutions;
   phase 1  holds each kernel against its plain PyTorch version on the
-           card at the serve path's shapes (B=1 and B=4 at N=8192, B=4 at
-           N=4096, B=1 at N=2048; K=512, knn=32, width 64): identical kNN
-           indices, atol 1e-5, two launches bitwise equal; times kernel,
-           plain version and, where there is one, the library call with
-           CUDA events (median of 25 after warm-up);
+           card at the serve and train paths' shapes (B=1, 2 and 4 at
+           N=8192, B=4 at N=4096, B=1 at N=2048; K=512, knn=32, width
+           64): identical kNN indices, atol 1e-5, two launches bitwise
+           equal; times kernel, plain version and, where there is one,
+           the library call with CUDA events (median of 25 after
+           warm-up); holds each autograd Function's gradient (kernel
+           forward, hand-written backward) against autograd through the
+           plain version, atol 1e-5, at B=2 x 8192 and B=4 x 4096; then
+           runs the kernel bench (``python -m
+           pvraft_tpu_torch.kernel_bench``), the path through which the
+           port runs the voxel kernel's forward, counting its launches;
   phase 2  serves the flagship ModelConfig (8 GRU iterations, buckets
            2048/4096/8192) with seeded random weights: one 8,192-point
            request, a batch of 4 requests of 3,000-4,096 points, one
            2,048-point request; once with fused_gru=False and once with
            fused_gru=True, counting kernel launches; the same requests
            through the plain versions (use_pallas=False) bound the flow
-           difference (see ``serve_phase``).
+           difference (see ``serve_phase``);
+  phase 3  trains the flagship model at full width (B=2 x 8,192 points,
+           8 iterations, Adam) on seeded FT3D-like synthetic scenes with
+           the kernels (fused_gru off and on) and the plain versions:
+           gradients of 1 and 8 iterations against the plain versions,
+           every leaf's gradient finite and non-zero, launches per train
+           step, 20 Adam steps that must lower the loss, train and eval
+           step times and peak memory (see ``train_phase``).
 
 Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -33,9 +46,10 @@ line; so does a machine without CUDA, or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -48,7 +62,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
-LOOKUP_SHAPES = ((1, 8192), (4, 8192), (4, 4096), (1, 2048))
+LOOKUP_SHAPES = ((1, 8192), (2, 8192), (4, 8192), (4, 4096), (1, 2048))
+TRAIN_SHAPE = (2, 8192)      # B x N of the train step and the kernel bench
 K, KNN, LEVELS, BASE_SCALE, RESOLUTION = 512, 32, 3, 0.25, 3
 WIDTH = 64
 REPS = 25
@@ -82,12 +97,22 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def launch_counts():
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
+    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update
+    from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
+
+    return {f.__name__: f for f in (fused_corr_lookup, fused_gru_update,
+                                    voxel_bin_means_pallas)}
+
+
+def zero_counts():
+    for f in launch_counts().values():
+        f.launches = 0
+
+
+def read_counts():
+    return {name: f.launches for name, f in launch_counts().items()}
 
 
 # --------------------------------------------------------------- phase 1 --
@@ -205,6 +230,91 @@ def check_gru(rng, b, n, dev):
     }
 
 
+def check_voxel(rng, b, n, dev):
+    from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
+    from pvraft_tpu_torch.ops.voxel import voxel_bin_means
+
+    corr, xyz, coords = lookup_inputs(rng, b, n, dev)
+    rel = (xyz - coords[:, :, None, :]).contiguous()
+    args = (corr, rel, LEVELS, BASE_SCALE, RESOLUTION)
+    got = voxel_bin_means_pallas(*args)
+    again = voxel_bin_means_pallas(*args)
+    want = voxel_bin_means(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= 1e-5, f"voxel {b}x{n}: max |err| {err} > 1e-5")
+    check(torch.equal(got, again), f"voxel {b}x{n}: launches not bitwise equal")
+    check(bool((got != 0).float().mean() > 0.05),
+          f"voxel {b}x{n}: the voxel cells are empty")
+    vox_n = LEVELS * RESOLUTION**3
+    bytes_ = 4 * b * n * (K + 3 * K) + 4 * b * n * vox_n
+    # Per candidate and level: 3 divisions, 3 roundings, 3 range tests.
+    ops = b * n * K * 9 * LEVELS
+    return {
+        "shape": [b, n, K], "max_abs_err": err, "bitwise_repeat": True,
+        "ms": cuda_ms(lambda: voxel_bin_means_pallas(*args)),
+        "plain_ms": cuda_ms(lambda: voxel_bin_means(*args)),
+        "library_ms": None,
+        "bytes": bytes_, "ops": ops,
+        **bound(bytes_, ops),
+    }
+
+
+def grad_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def check_backward(rng, b, n, dev):
+    """Each Function's gradient (kernel forward, hand-written backward)
+    against autograd through its plain version on the same inputs and
+    the same random output cotangents, atol 1e-5."""
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import (
+        corr_lookup_plain, fused_corr_lookup)
+    from pvraft_tpu_torch.ops.cuda.gru_iter import (
+        fused_gru_update, gru_math, pack_gru_weights)
+    from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
+    from pvraft_tpu_torch.ops.voxel import voxel_bin_means
+
+    def grads(fn, leaves, make_args, cots):
+        xs = [t.detach().clone().requires_grad_() for t in leaves]
+        outs = fn(*make_args(xs))
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        total = sum((o * c).sum() for o, c in zip(outs, cots))
+        return torch.autograd.grad(total, xs)
+
+    def cot(t):
+        return torch.from_numpy(rng.normal(size=tuple(t.shape)).astype(
+            np.float32)).to(dev)
+
+    corr, xyz, coords = lookup_inputs(rng, b, n, dev)
+    geo = (LEVELS, BASE_SCALE, RESOLUTION)
+    out = {}
+    lk = corr_lookup_plain(corr, xyz, coords, *geo, KNN)
+    cots = [cot(t) for t in lk[:3]]
+    got, want = (grads(f, [corr], lambda xs: (xs[0], xyz, coords, *geo, KNN),
+                       cots) for f in (fused_corr_lookup, corr_lookup_plain))
+    out["fused_corr_lookup"] = grad_err(got, want)
+    rel = (xyz - coords[:, :, None, :]).contiguous()
+    cots = [cot(voxel_bin_means(corr, rel, *geo))]
+    got, want = (grads(f, [corr], lambda xs: (xs[0], rel, *geo), cots)
+                 for f in (voxel_bin_means_pallas, voxel_bin_means))
+    out["voxel_bin_means_pallas"] = grad_err(got, want)
+    me, gru, args, _ = gru_inputs(rng, b, n, dev)
+    raw = [*args[:4], *me, *gru]
+
+    def gru_args(xs):
+        return (*xs[:4], pack_gru_weights(xs[4:10], xs[10:16], WIDTH, WIDTH))
+
+    cots = [cot(args[0])]
+    got, want = (grads(f, raw, gru_args, cots)
+                 for f in (fused_gru_update, gru_math))
+    out["fused_gru_update"] = grad_err(got, want)
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        check(err <= 1e-5, f"{name} backward {b}x{n}: max |err| {err} > 1e-5")
+    return out
+
+
 # --------------------------------------------------------------- phase 2 --
 
 
@@ -270,8 +380,6 @@ def serve_phase(seed, dev):
     spreads to other points through the GroupNorm statistics and the
     graph: the median is held to FLOW_BOUND, the tail is reported."""
     from pvraft_tpu_torch.config import ModelConfig
-    from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
-    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update
     from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
     from pvraft_tpu_torch.weights import seeded_state_dict
 
@@ -291,23 +399,19 @@ def serve_phase(seed, dev):
         drive(engine, requests)                       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_corr_lookup.launches = 0
-        fused_gru_update.launches = 0
+        zero_counts()
         flows[name], times = drive(engine, requests)
-        launches[name] = {"fused_corr_lookup": fused_corr_lookup.launches,
-                          "fused_gru_update": fused_gru_update.launches}
+        launches[name] = read_counts()
         results[name] = {"requests": times, "launches": launches[name],
                          "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         del engine
-    n_batches = len(requests)
-    check(launches["unfused_gru"] == {"fused_corr_lookup": iters * n_batches,
-                                      "fused_gru_update": 0},
-          f"unfused pass launches {launches['unfused_gru']}")
-    check(launches["fused_gru"] == {"fused_corr_lookup": iters * n_batches,
-                                    "fused_gru_update": iters * n_batches},
-          f"fused pass launches {launches['fused_gru']}")
-    check(launches["plain"] == {"fused_corr_lookup": 0, "fused_gru_update": 0},
-          f"plain pass launches {launches['plain']}")
+    n = iters * len(requests)
+    for name, want in (("unfused_gru", (n, 0)), ("fused_gru", (n, n)),
+                       ("plain", (0, 0))):
+        want = {"fused_corr_lookup": want[0], "fused_gru_update": want[1],
+                "voxel_bin_means_pallas": 0}
+        check(launches[name] == want,
+              f"serve {name}: launches {launches[name]}, expected {want}")
     cmp = {}
     for a, b in (("unfused_gru", "plain"), ("fused_gru", "plain"),
                  ("fused_gru", "unfused_gru")):
@@ -332,6 +436,195 @@ def serve_phase(seed, dev):
     return results, launches["fused_gru"]
 
 
+# --------------------------------------------------------------- phase 3 --
+
+TRAIN_WAYS = (("unfused_gru", {"fused_gru": False}),
+              ("fused_gru", {"fused_gru": True}),
+              ("plain", {"use_pallas": False}))
+TRAIN_STEPS = 20             # Adam steps of the training run (4 scenes, bs 2)
+TIMED_STEPS = 6              # timed train steps per way, after 2 warm-up
+# Gradient bars, kernels vs plain versions on the same weights and batch.
+# The leaves are sums over 16,384 points x 32 edges that cancel, so ~1e-7
+# of summation-order noise in the forward reaches ~1e-3 relative on the
+# worst leaf. Measured on the H100 (PERF.md section 6): the plain path
+# against itself, PyTorch's default backward, worst leaf rel 6.9e-4 to
+# 2.0e-3 at 1 iteration and cosine 0.9982-0.9993 at 8; kernels vs plain
+# 2.1e-3 and 0.9983. Bars of 1e-3 (1 iteration) and 0.999 (8) sit inside
+# that noise, so these sit about 5x beyond the kernels' measured worst
+# leaf; a real fault (a missing or misrouted gradient) misses them by
+# orders of magnitude.
+GRAD_BOUNDS = {"iters1": {"loss_rel": 1e-5, "min_cos": 0.9999,
+                          "max_rel": 1e-2},
+               "iters8": {"loss_rel": 1e-3, "min_cos": 0.99}}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (sorted scatter-add and gather
+    backward instead of float atomics) for a gradient comparison: then
+    only the kernels' own summation order differs between two paths."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def loss_and_grads(model, batch, iters):
+    from pvraft_tpu_torch.engine.steps import sequence_loss_of
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = sequence_loss_of(model, batch, 0.8, iters)
+    loss.backward()
+    return loss.item(), {n: None if p.grad is None else p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def grad_agreement(got, want):
+    """Loss relative difference, and per leaf the cosine and the relative
+    error ||g_k - g_p|| / ||g_p|| (both 0-norm: agree); the worst leaves."""
+    (lk, gk), (lp, gp) = got, want
+    cos, rel = {}, {}
+    for n, p in gp.items():
+        k = gk[n]
+        if k is None or p is None:
+            cos[n], rel[n] = -1.0, float("inf")
+            continue
+        k, p = k.double(), p.double()
+        kn, pn = float(k.norm()), float(p.norm())
+        if kn == 0.0 and pn == 0.0:
+            cos[n], rel[n] = 1.0, 0.0
+        else:
+            cos[n] = float((k * p).sum()) / (kn * pn) if kn * pn else 0.0
+            rel[n] = float((k - p).norm()) / pn if pn else float("inf")
+    worst_cos = min(cos, key=cos.get)
+    worst_rel = max(rel, key=rel.get)
+    return {"loss_kernels": lk, "loss_plain": lp,
+            "loss_rel": abs(lk - lp) / abs(lp),
+            "min_cos": cos[worst_cos], "min_cos_leaf": worst_cos,
+            "max_rel": rel[worst_rel], "max_rel_leaf": worst_rel}
+
+
+def train_phase(seed, dev):
+    """Trains the flagship model at full width three ways on the same
+    seeded weights and batch: kernels with fused_gru off and on, and the
+    plain versions. Holds gradients of 1 and 8 iterations against the
+    plain versions, every leaf's gradient finite and non-zero, the
+    launches per train step, and that 20 Adam steps lower the loss;
+    times train and eval steps."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    grads, results = {}, {}
+    for name, kw in TRAIN_WAYS:
+        trainer = Trainer(flagship_train_config(seed, **kw), device=dev, weights=state)
+        batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+        with deterministic():
+            grads[name] = {it: loss_and_grads(trainer.model, batch, it)
+                           for it in (1, 8)}
+        if name == "plain":
+            # The plain path against itself with PyTorch's default
+            # (atomic, unordered) backward: the run-to-run floor.
+            floor = {f"iters{it}": grad_agreement(
+                loss_and_grads(trainer.model, batch, it),
+                loss_and_grads(trainer.model, batch, it)) for it in (1, 8)}
+        torch.cuda.synchronize()
+        zero_counts()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for _ in range(2):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: trainer.train_step(batch),
+                          reps=TIMED_STEPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        scene = to_device(next(batches(trainer.val_ds, 1)), dev)
+        eval_ms = cuda_ms(lambda: trainer.eval_step(scene), reps=3, warmup=1)
+        results[name] = {"launches_per_step": counts,
+                         "train_step_ms": step_ms, "eval_step_ms": eval_ms,
+                         "eval_iters": trainer.cfg.train.eval_iters,
+                         "peak_mem_bytes": peak}
+        del trainer, batch, scene
+        torch.cuda.empty_cache()
+    iters = 8
+    want_counts = {
+        "unfused_gru": {"fused_corr_lookup": iters, "fused_gru_update": 0,
+                        "voxel_bin_means_pallas": 0},
+        "fused_gru": {"fused_corr_lookup": iters, "fused_gru_update": iters,
+                      "voxel_bin_means_pallas": 0},
+        "plain": {"fused_corr_lookup": 0, "fused_gru_update": 0,
+                  "voxel_bin_means_pallas": 0}}
+    for name, _ in TRAIN_WAYS:
+        check(results[name]["launches_per_step"] == want_counts[name],
+              f"train {name}: launches per step "
+              f"{results[name]['launches_per_step']}")
+    parity = {}
+    for name in ("unfused_gru", "fused_gru"):
+        _, g8 = grads[name][8]
+        bad = [n for n, g in g8.items()
+               if g is None or not bool(torch.isfinite(g).all())
+               or float(g.abs().max()) == 0.0]
+        check(not bad, f"train {name}: leaves without a finite non-zero "
+                       f"gradient: {bad[:5]} ({len(bad)} of {len(g8)})")
+        one = grad_agreement(grads[name][1], grads["plain"][1])
+        eight = grad_agreement(grads[name][8], grads["plain"][8])
+        parity[name] = {"iters1": one, "iters8": eight,
+                        "leaves": len(g8)}
+        for key, got in (("iters1", one), ("iters8", eight)):
+            bar = GRAD_BOUNDS[key]
+            check(got["loss_rel"] <= bar["loss_rel"]
+                  and got["min_cos"] >= bar["min_cos"]
+                  and got["max_rel"] <= bar.get("max_rel", float("inf")),
+                  f"train {name} vs plain, {key}: {got} (bars {bar})")
+
+    # Training works: the kernels path (fused_gru off, the JAX default)
+    # through the Trainer's own epoch loop, 4 scenes, bs 2.
+    trainer = Trainer(flagship_train_config(seed, epochs=TRAIN_STEPS // 2),
+                      device=dev, weights=state)
+    losses = []
+    t0 = time.perf_counter()
+    for epoch in range(trainer.cfg.train.num_epochs):
+        losses += trainer.training(epoch)["losses"]
+    train_s = time.perf_counter() - t0
+    val = trainer.val_test(trainer.cfg.train.num_epochs - 1, "val")
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} train steps")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"training: mean loss of the last 5 steps {last} "
+                        f"is not below the first 5 {first}")
+    check(all(np.isfinite(v) for v in val.values()), f"val metrics {val}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"ways": results, "grad_parity": parity,
+            "grad_parity_mode": "torch.use_deterministic_algorithms(True)",
+            "plain_vs_plain_default_mode": floor,
+            "bounds": GRAD_BOUNDS,
+            "training": {"steps": TRAIN_STEPS, "losses": losses,
+                         "first5_mean": first, "last5_mean": last,
+                         "wall_s": train_s, "val": val}}
+
+
+def bench_phase(dev):
+    """The kernel bench (``python -m pvraft_tpu_torch.kernel_bench``), the
+    path through which the port runs kernel 3's forward, at its defaults
+    (2 x 8192 points, K=512), with the launches of that run."""
+    from pvraft_tpu_torch.kernel_bench import bench
+
+    zero_counts()
+    rows = bench(points=8192, k=512, batch=2, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["voxel_bin_means_pallas"] > 0,
+          "kernel bench: the voxel kernel was not launched")
+    return {"rows": rows, "launches": counts}
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -342,7 +635,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS is deterministic only with a fixed workspace; phase 3 compares
+    # gradients under torch.use_deterministic_algorithms.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from pvraft_tpu_torch.ops import cuda as kernels
+    from pvraft_tpu_torch.profile_serve import nvidia_smi
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -367,23 +664,37 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     lookup = {f"{b}x{n}": check_lookup(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
     gru = {f"{b}x{n}": check_gru(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
+    voxel = {f"{b}x{n}": check_voxel(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
+    backward = {f"{b}x{n}": check_backward(rng, b, n, dev)
+                for b, n in (TRAIN_SHAPE, (4, 4096))}
     emit({"phase": "kernels", "fused_corr_lookup": lookup,
-          "fused_gru_update": gru})
+          "fused_gru_update": gru, "voxel_bin_means_pallas": voxel,
+          "backward_max_abs_err": backward})
+    kbench = bench_phase(dev)
+    emit({"phase": "kernel_bench", **kbench})
 
     serve, launches = serve_phase(args.seed, dev)
     emit({"phase": "serve", **serve})
 
+    train = train_phase(args.seed, dev)
+    emit({"phase": "train", **train})
+    per_step = train["ways"]["fused_gru"]["launches_per_step"]
+
     main_key = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
     rows = []
-    for name, source, replaces, res in (
+    for name, source, replaces, res, runs in (
             ("fused_corr_lookup", "pvraft_tpu_torch/csrc/corr_lookup.cu",
-             "pvraft_tpu/ops/pallas/corr_lookup.py:109", lookup),
+             "pvraft_tpu/ops/pallas/corr_lookup.py:109", lookup, launches),
             ("fused_gru_update", "pvraft_tpu_torch/csrc/gru_iter.cu",
-             "pvraft_tpu/ops/pallas/gru_iter.py:129", gru)):
+             "pvraft_tpu/ops/pallas/gru_iter.py:129", gru, launches),
+            ("voxel_bin_means_pallas", "pvraft_tpu_torch/csrc/voxel_corr.cu",
+             "pvraft_tpu/ops/pallas/voxel_corr.py:114", voxel,
+             kbench["launches"])):
         r = res[main_key]
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": runs[name],
+            "train_launches_per_step": per_step[name],
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -18,9 +18,10 @@
 // l, l+32, ... (coalesced loads), and nothing but the outputs is written.
 //
 // Design against the TPU habit:
-//   * the voxel branch computes each candidate's cell index directly and
-//     adds it into a lane-private column of a per-warp shared-memory table
-//     (27 cells x 33 padded lanes); the 27 cell sums are then reduced over
+//   * the voxel branch is voxel_means (voxel_bins.cuh, shared with
+//     voxel_corr.cu): each candidate's cell index computed directly and
+//     added into a lane-private column of a per-warp shared-memory table
+//     (27 cells x 33 padded lanes), the 27 cell sums then reduced over
 //     lanes in lane order. No float atomics and a fixed summation order,
 //     so repeated launches are bitwise equal (the determinism claim of
 //     pvraft_tpu/ops/pallas/voxel_corr.py:21-22);
@@ -34,12 +35,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "voxel_bins.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxPerLane = 16;       // K <= 512 candidates
-constexpr int kCells = 27;            // resolution 3
-constexpr int kPad = kWarp + 1;       // padded row: conflict-free reduction
+using pvraft::kCells;
+using pvraft::kMaxPerLane;
+using pvraft::kPad;
+using pvraft::kWarp;
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -80,39 +83,9 @@ corr_lookup_kernel(const float* __restrict__ corr,
   }
 
   // ---- voxel branch ------------------------------------------------------
-  float* ss = s_sum[w];
-  float* sc = s_cnt[w];
-  const int n_vox = num_levels * kCells;
-  for (int lvl = 0; lvl < num_levels; ++lvl) {
-    const float r = base_scale * (float)(1 << lvl);
-    for (int b = 0; b < kCells; ++b) {
-      ss[b * kPad + lane] = 0.f;
-      sc[b * kPad + lane] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) {
-      const float dx = rintf(__fdiv_rn(rx[c], r));
-      const float dy = rintf(__fdiv_rn(ry[c], r));
-      const float dz = rintf(__fdiv_rn(rz[c], r));
-      if (fabsf(dx) <= 1.f && fabsf(dy) <= 1.f && fabsf(dz) <= 1.f) {
-        const int cell = (int)(dx + 1.f) * 9 + (int)(dy + 1.f) * 3 +
-                         (int)(dz + 1.f);
-        ss[cell * kPad + lane] += cv[c];
-        sc[cell * kPad + lane] += 1.f;
-      }
-    }
-    __syncwarp();
-    if (lane < kCells) {
-      float s = 0.f, cnt = 0.f;
-      for (int j = 0; j < kWarp; ++j) {
-        s += ss[lane * kPad + j];
-        cnt += sc[lane * kPad + j];
-      }
-      vox[row * n_vox + lvl * kCells + lane] =
-          __fdiv_rn(s, fminf(fmaxf(cnt, 1.f), (float)n));
-    }
-    __syncwarp();
-  }
+  pvraft::voxel_means(cv, rx, ry, rz, num_levels, base_scale, (float)n,
+                      s_sum[w], s_cnt[w], lane,
+                      vox + row * num_levels * kCells);
 
   // ---- kNN branch --------------------------------------------------------
   float d[kMaxPerLane];

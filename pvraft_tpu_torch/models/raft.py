@@ -29,8 +29,7 @@ class UpdateIter(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.corr_lookup = CorrLookup(cfg)
-        self.update_block = UpdateBlock(cfg.hidden_dim, cfg.context_dim,
-                                        fused_gru=cfg.fused_gru)
+        self.update_block = UpdateBlock(cfg)
 
     def forward(self, net, coords2, coords1, state: CorrState, inp,
                 graph: Graph, mask: Optional[torch.Tensor] = None):

@@ -9,9 +9,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from pvraft_tpu_torch.config import ModelConfig, resolve_use_pallas
 from pvraft_tpu_torch.models.layers import SetConv
 from pvraft_tpu_torch.ops.cuda.gru_iter import (
     fused_gru_update,
+    gru_math,
     pack_gru_weights,
     pad_flow,
 )
@@ -77,19 +79,19 @@ def _kernel_in(layer: nn.Linear) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class UpdateBlock(nn.Module):
-    """MotionEncoder -> ConvGRU -> FlowHead. ``fused_gru=True`` runs the
-    MotionEncoder + ConvGRU pair through :func:`fused_gru_update` on the
-    same parameters; the FlowHead stays unfused either way."""
+    """MotionEncoder -> ConvGRU -> FlowHead. ``cfg.fused_gru`` runs the
+    MotionEncoder + ConvGRU pair as one fused update on the same
+    parameters: :func:`fused_gru_update` (the CUDA kernel, with its
+    hand-written backward) when ``use_pallas`` resolves True, else its
+    plain version :func:`gru_math` under autograd. The FlowHead stays
+    unfused either way."""
 
-    def __init__(self, hidden: int = 64, context: int = 64,
-                 fused_gru: bool = False):
+    def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.hidden = hidden
-        self.context = context
-        self.fused_gru = fused_gru
-        self.motion_encoder = MotionEncoder(hidden)
-        self.gru = ConvGRU(hidden, context + hidden)
-        self.flow_head = FlowHead(hidden)
+        self.cfg = cfg
+        self.motion_encoder = MotionEncoder(cfg.hidden_dim)
+        self.gru = ConvGRU(cfg.hidden_dim, cfg.context_dim + cfg.hidden_dim)
+        self.flow_head = FlowHead(cfg.hidden_dim)
 
     def packed_weights(self):
         """The fused kernel's operand tuple (:func:`pack_gru_weights`)."""
@@ -98,15 +100,16 @@ class UpdateBlock(nn.Module):
                      *_kernel_in(me.conv))
         gru_params = (*_kernel_in(gru.convz), *_kernel_in(gru.convr),
                       *_kernel_in(gru.convq))
-        return pack_gru_weights(me_params, gru_params, self.hidden,
-                                self.context)
+        return pack_gru_weights(me_params, gru_params, self.cfg.hidden_dim,
+                                self.cfg.context_dim)
 
     def forward(self, net, inp, corr, flow, graph: Graph,
                 mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.fused_gru:
-            net = fused_gru_update(net, inp, corr, pad_flow(flow),
-                                   self.packed_weights())
+        if self.cfg.fused_gru:
+            update = (fused_gru_update if resolve_use_pallas(self.cfg, net)
+                      else gru_math)
+            net = update(net, inp, corr, pad_flow(flow), self.packed_weights())
         else:
             motion = self.motion_encoder(flow, corr)
             net = self.gru(net, torch.cat([inp, motion], dim=-1))

@@ -27,6 +27,9 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
+# Candidates per query point the voxel and lookup kernels take: 16 per
+# lane of the point's warp (kMaxPerLane, csrc/voxel_bins.cuh).
+MAX_CANDIDATES = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")

@@ -1,4 +1,4 @@
-"""Fused point-voxel correlation lookup: CUDA kernel and its plain version.
+"""Fused point-voxel correlation lookup: CUDA kernel, plain version, gradient.
 
 Replaces the Pallas TPU kernel ``pvraft_tpu/ops/pallas/corr_lookup.py``
 (``_fused_forward``, public ``fused_corr_lookup``). The kernel is
@@ -7,9 +7,15 @@ the (B, N, K) candidates) and the design (one warp per query point,
 candidates in registers, a fixed-order voxel reduction and a
 warp-shuffle kNN argmin).
 
-:func:`fused_corr_lookup` launches the kernel for CUDA tensors and runs
-:func:`corr_lookup_plain` for CPU tensors. Its ``launches`` attribute
-counts kernel launches.
+:func:`fused_corr_lookup` is a ``torch.autograd.Function``. Its forward
+launches the kernel for CUDA tensors and runs :func:`corr_lookup_plain`
+for CPU tensors; its backward is the JAX ``_fused_bwd``
+(``corr_lookup.py:182-198``) in plain PyTorch, gradient to ``corr`` only:
+the voxel backward (:func:`~pvraft_tpu_torch.ops.voxel.voxel_bwd`) plus
+the kNN branch's cotangent scattered onto the forward's own selected
+indices. On tie-free inputs that equals JAX's ``lax.top_k``
+re-selection, and on ties it keeps forward and backward on the same
+candidates. Its ``launches`` attribute counts kernel launches.
 """
 
 from __future__ import annotations
@@ -21,9 +27,8 @@ import torch
 
 from pvraft_tpu_torch.ops import cuda as _cuda
 from pvraft_tpu_torch.ops.corr import knn_select, take_candidates
-from pvraft_tpu_torch.ops.voxel import voxel_bin_means
+from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
-MAX_CANDIDATES = 512   # 16 per lane of the query point's warp
 MAX_KNN = 32           # one selection per lane
 
 Lookup = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -48,28 +53,18 @@ def _signature(fn) -> None:
     fn.restype = ctypes.c_int
 
 
-def fused_corr_lookup(corr: torch.Tensor, xyz: torch.Tensor,
-                      coords: torch.Tensor, num_levels: int,
-                      base_scale: float, resolution: int, knn: int) -> Lookup:
-    """Both lookup branches from the cached candidates.
-
-    corr: (B, N, K) f32, xyz: (B, N, K, 3) f32 candidate positions,
-    coords: (B, N, 3) f32 current estimates. Returns (vox, knn_corr,
-    knn_rel, knn_idx) as :func:`corr_lookup_plain` does. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise.
-    """
-    if not corr.is_cuda:
-        return corr_lookup_plain(corr, xyz, coords, num_levels, base_scale,
-                                 resolution, knn)
+def _launch(corr: torch.Tensor, xyz: torch.Tensor, coords: torch.Tensor,
+            num_levels: int, base_scale: float, resolution: int,
+            knn: int) -> Lookup:
     b, n, k = corr.shape
     what = "fused_corr_lookup"
     _cuda.require_cuda(what, corr, xyz, coords)
     if xyz.shape != (b, n, k, 3) or coords.shape != (b, n, 3):
         raise ValueError(f"{what}: shapes {tuple(corr.shape)}, "
                          f"{tuple(xyz.shape)}, {tuple(coords.shape)}")
-    if k > MAX_CANDIDATES or knn > min(MAX_KNN, k) or resolution != 3:
+    if k > _cuda.MAX_CANDIDATES or knn > min(MAX_KNN, k) or resolution != 3:
         raise ValueError(
-            f"{what}: the kernel takes K <= {MAX_CANDIDATES}, knn <= "
+            f"{what}: the kernel takes K <= {_cuda.MAX_CANDIDATES}, knn <= "
             f"min({MAX_KNN}, K) and resolution 3; got K={k}, knn={knn}, "
             f"resolution={resolution}")
     r3 = resolution**3
@@ -87,6 +82,41 @@ def fused_corr_lookup(corr: torch.Tensor, xyz: torch.Tensor,
     _cuda.check(code, what)
     fused_corr_lookup.launches += 1
     return vox, kcorr, krel, kidx
+
+
+class _FusedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, corr, xyz, coords, num_levels, base_scale, resolution,
+                knn):
+        run = _launch if corr.is_cuda else corr_lookup_plain
+        out = run(corr, xyz, coords, num_levels, base_scale, resolution, knn)
+        ctx.save_for_backward(corr, xyz, coords, out[3])
+        ctx.geometry = (num_levels, base_scale, resolution)
+        ctx.mark_non_differentiable(out[3])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_vox, g_kcorr, _g_krel, _g_kidx):
+        corr, xyz, coords, kidx = ctx.saved_tensors
+        rel = xyz - coords[:, :, None, :]
+        dcorr = voxel_bwd(corr, rel, g_vox, *ctx.geometry)
+        dcorr = dcorr.scatter_add(-1, kidx.long(), g_kcorr)
+        return dcorr, None, None, None, None, None, None
+
+
+def fused_corr_lookup(corr: torch.Tensor, xyz: torch.Tensor,
+                      coords: torch.Tensor, num_levels: int,
+                      base_scale: float, resolution: int, knn: int) -> Lookup:
+    """Both lookup branches from the cached candidates.
+
+    corr: (B, N, K) f32, xyz: (B, N, K, 3) f32 candidate positions,
+    coords: (B, N, 3) f32 current estimates. Returns (vox, knn_corr,
+    knn_rel, knn_idx) as :func:`corr_lookup_plain` does. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise. Gradients
+    reach ``corr`` only.
+    """
+    return _FusedLookup.apply(corr, xyz, coords, num_levels, base_scale,
+                              resolution, knn)
 
 
 fused_corr_lookup.launches = 0

@@ -7,10 +7,14 @@ multiply-adds per point) and the design (one block per 32-point tile,
 every intermediate on chip, the 211 KB of packed fp32 weights read
 through L1/L2 rather than staged whole in shared memory).
 
-:func:`fused_gru_update` launches the kernel for CUDA tensors and runs
-:func:`gru_math` for CPU tensors. Its ``launches`` attribute counts
-kernel launches. :func:`pack_gru_weights` and :func:`pad_flow` build the
-kernel's operands exactly as the JAX package does.
+:func:`fused_gru_update` is a ``torch.autograd.Function``. Its forward
+launches the kernel for CUDA tensors and runs :func:`gru_math` for CPU
+tensors; its backward recomputes :func:`gru_math` and differentiates it
+(the JAX ``_fused_gru_bwd``, ``gru_iter.py:256-262``). Its ``launches``
+attribute counts kernel launches. :func:`pack_gru_weights` and
+:func:`pad_flow` build the kernel's operands exactly as the JAX package
+does, outside the Function, so gradients reach the raw ``Linear``
+parameters through their pads and concatenations.
 """
 
 from __future__ import annotations
@@ -90,17 +94,8 @@ def _signature(fn) -> None:
     fn.restype = ctypes.c_int
 
 
-def fused_gru_update(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
-                     flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
-    """Fused MotionEncoder + ConvGRU hidden-state update.
-
-    net, inp, cor: (B, N, 64) f32; flow8: (B, N, FLOW_PAD) f32, padded by
-    :func:`pad_flow`; weights: the 8-tuple of :func:`pack_gru_weights`.
-    Returns the new (B, N, 64) f32 hidden state. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.
-    """
-    if not net.is_cuda:
-        return gru_math(net, inp, cor, flow8, weights)
+def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
+            flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
     what = "fused_gru_update"
     b, n, h = net.shape
     _cuda.require_cuda(what, net, inp, cor, flow8, *weights)
@@ -121,6 +116,38 @@ def fused_gru_update(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     _cuda.check(code, what)
     fused_gru_update.launches += 1
     return out
+
+
+class _FusedGru(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, net, inp, cor, flow8, *weights):
+        ctx.save_for_backward(net, inp, cor, flow8, *weights)
+        if not net.is_cuda:
+            return gru_math(net, inp, cor, flow8, weights)
+        return _launch(net, inp, cor, flow8, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(r)
+                  for t, r in zip(ctx.saved_tensors, need)]
+            out = gru_math(*xs[:4], tuple(xs[4:]))
+            wrt = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+        return tuple(next(got) if r else None for r in need)
+
+
+def fused_gru_update(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
+                     flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """Fused MotionEncoder + ConvGRU hidden-state update.
+
+    net, inp, cor: (B, N, 64) f32; flow8: (B, N, FLOW_PAD) f32, padded by
+    :func:`pad_flow`; weights: the 8-tuple of :func:`pack_gru_weights`.
+    Returns the new (B, N, 64) f32 hidden state. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.
+    """
+    return _FusedGru.apply(net, inp, cor, flow8, *weights)
 
 
 fused_gru_update.launches = 0

@@ -50,17 +50,32 @@ def _clipped_busy_us(kernels, lo: float, hi: float) -> float:
                     if e > lo and s < hi)
 
 
-def profile_group(engine, group, bucket, top: int):
+RANGE_PREFIXES = ("pvraft.", "phase.")
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def profile_call(fn, top: int) -> dict:
+    """Run ``fn()`` once under ``torch.profiler``: wall time, device-busy
+    time, idle share, kernel count, device-busy time within each
+    ``pvraft.*`` range and the ``top`` kernels by device time."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.predict_batch(group, bucket)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    # The pvraft.* ranges also appear on the device timeline, spanning
-    # the kernels they enclose; they are not kernels.
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    # The pvraft.* and phase.* ranges also appear on the device timeline,
+    # spanning the kernels they enclose; they are not kernels.
     ranges = [e for e in device if e.name.startswith("pvraft.")]
-    kernels = [e for e in device if not e.name.startswith("pvraft.")]
+    kernels = [e for e in device if not e.name.startswith(RANGE_PREFIXES)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
@@ -69,16 +84,24 @@ def profile_group(engine, group, bucket, top: int):
     for r in ranges:
         stages[r.name] = stages.get(r.name, 0.0) + _clipped_busy_us(
             spans, r.time_range.start, r.time_range.end) / 1e3
+    # phase.* ranges are host-side ranges that end in a synchronize (see
+    # profile_train.py): every kernel launched inside one also ran inside
+    # it, whichever thread launched it.
+    phases: dict = {}
+    for r in events:
+        if r.device_type == DeviceType.CPU and r.name.startswith("phase."):
+            phases[r.name] = phases.get(r.name, 0.0) + _clipped_busy_us(
+                spans, r.time_range.start, r.time_range.end) / 1e3
     by_name: dict = {}
     for e in kernels:
         calls, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (calls + 1, us + e.time_range.end - e.time_range.start)
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     return {
-        "bucket": bucket, "requests": len(group),
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / wall_us, "kernels": len(kernels),
         "stage_busy_ms": stages,
+        **({"phase_busy_ms": phases} if phases else {}),
         "top_kernels": [{"name": name[:100], "calls": calls,
                          "device_ms": us / 1e3}
                         for name, (calls, us) in ranked[:top]],
@@ -106,15 +129,14 @@ def main(argv=None) -> int:
     groups = [([(cloud(8192), cloud(8192))], 8192),
               ([(cloud(4096), cloud(4096)) for _ in range(4)], 4096),
               ([(cloud(2048), cloud(2048))], 2048)]
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    gpu = nvidia_smi()
     for group, bucket in groups:
         engine.predict_batch(group, bucket)           # warm-up
         torch.cuda.synchronize()
-        row = profile_group(engine, group, bucket, args.top)
-        print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru, **row}),
+        row = profile_call(lambda: engine.predict_batch(group, bucket),
+                           args.top)
+        print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru,
+                          "bucket": bucket, "requests": len(group), **row}),
               flush=True)
     return 0
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.config import ModelConfig
+from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.models.raft import PVRaft
 from pvraft_tpu_torch.weights import params_from_jax
 
@@ -107,18 +108,6 @@ def pad_points(pc: np.ndarray, bucket: int, coord_limit: float) -> np.ndarray:
     ray = base + np.arange(bucket - n, dtype=np.float32)
     pad = np.repeat(ray[:, None], 3, axis=1)
     return np.concatenate([np.asarray(pc, np.float32), pad], axis=0)
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``cuda`` unless the caller asks for another device; raises when no
-    CUDA device is present and none was named."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: pass device='cpu' to run the "
-                "plain PyTorch path on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class InferenceEngine:

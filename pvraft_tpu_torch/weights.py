@@ -6,13 +6,16 @@ mapping is by name: a Dense ``kernel (in, out)`` becomes a
 ``Linear.weight (out, in)``, a GroupNorm ``scale`` becomes ``weight``,
 ``bias`` and the PReLU ``alpha (1,)`` keep their names. The flax tree is
 identical for both ``fused_gru`` settings, so one mapping serves both.
+:func:`opt_state_from_jax` carries optax's Adam state over with the same
+names and transposes, so a JAX run's parameters and optimizer state both
+resume in the port.
 """
 
 from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -72,3 +75,55 @@ def seeded_state_dict(cfg: ModelConfig, seed: int) -> Dict[str, torch.Tensor]:
         elif key.endswith(".bias"):
             t.zero_()
     return state
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The node of an optax state that holds Adam's ``count``, ``mu`` and
+    ``nu``: a ``ScaleByAdamState`` inside the chain's tuple, or its
+    ``flax.serialization.to_state_dict`` form (nested dicts)."""
+    if isinstance(opt_state, Mapping):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state
+        children = [opt_state[k] for k in sorted(opt_state)]
+    elif all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return {"count": opt_state.count, "mu": opt_state.mu,
+                "nu": opt_state.nu}
+    elif isinstance(opt_state, Sequence) and not isinstance(opt_state, str):
+        children = list(opt_state)
+    else:
+        children = []
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(opt_state: Any, model: torch.nn.Module
+                       ) -> Dict[str, Any]:
+    """Map optax's Adam state (``optax.adam``: ``mu``, ``nu``, ``count``)
+    onto a ``torch.optim.Adam(model.parameters())`` state_dict, to load
+    with ``optimizer.load_state_dict``. ``mu``/``nu`` become
+    ``exp_avg``/``exp_avg_sq`` under the names and transposes of
+    :func:`params_from_jax`; ``count`` becomes every parameter's ``step``.
+    Raises if a parameter of ``model`` has no moment, a moment no
+    parameter, or a moment another shape than its parameter."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no Adam state (count, mu, nu) in the optax state")
+    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    names = [n for n, _ in model.named_parameters()]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise KeyError(
+            f"Adam moments do not match the model's parameters: "
+            f"{sorted(set(mu) ^ set(names))[:5]}")
+    for n, p in model.named_parameters():
+        if mu[n].shape != p.shape or nu[n].shape != p.shape:
+            raise ValueError(f"Adam moments of {n!r} have shape "
+                             f"{tuple(mu[n].shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    sd = torch.optim.Adam(model.parameters()).state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
+                       "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
+    return sd

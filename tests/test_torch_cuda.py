@@ -5,7 +5,10 @@ Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` and skip elsewhere
 with the card: ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 Shapes are small and ragged (tails of warps and of point tiles); the
 flagship shapes are ``chip_smoke.py``'s. Bars: identical kNN indices,
-atol 1e-5, bitwise-equal repeated launches.
+atol 1e-5, bitwise-equal repeated launches; each Function's gradient
+against autograd through its plain version, atol 1e-5; one train step
+with the kernels against the plain versions at the bars of
+``tests/test_torch_grad.py``.
 """
 
 import numpy as np
@@ -13,8 +16,13 @@ import pytest
 import torch
 
 from pvraft_tpu_torch.config import ModelConfig
+from pvraft_tpu_torch.data import SyntheticDataset, collate, to_device
+from pvraft_tpu_torch.engine.steps import sequence_loss_of
+from pvraft_tpu_torch.models import PVRaft
 from pvraft_tpu_torch.ops.cuda import corr_lookup as lk
 from pvraft_tpu_torch.ops.cuda import gru_iter as gr
+from pvraft_tpu_torch.ops.cuda import voxel_corr as vx
+from pvraft_tpu_torch.ops.voxel import voxel_bin_means
 from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
 from pvraft_tpu_torch.weights import seeded_state_dict
 
@@ -88,3 +96,102 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     gpu = InferenceEngine(weights, cfg).predict(pc1, pc2)
     cpu = InferenceEngine(weights, cfg, device="cpu").predict(pc1, pc2)
     np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-4)
+
+
+def _candidates(dev, b, n, k, seed=0):
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    xyz = (coords[:, :, None] + rng.normal(0, 0.6, (b, n, k, 3))).astype(np.float32)
+    corr = rng.normal(size=(b, n, k)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (corr, xyz, coords))
+
+
+@pytest.mark.parametrize("b,n,k", [(2, 100, 512), (1, 37, 64), (3, 5, 40)])
+def test_voxel_kernel_matches_plain(dev, b, n, k):
+    corr, xyz, coords = _candidates(dev, b, n, k)
+    rel = (xyz - coords[:, :, None]).contiguous()
+    before = vx.voxel_bin_means_pallas.launches
+    got = vx.voxel_bin_means_pallas(corr, rel, 3, 0.25, 3)
+    again = vx.voxel_bin_means_pallas(corr, rel, 3, 0.25, 3)
+    assert vx.voxel_bin_means_pallas.launches == before + 2
+    torch.testing.assert_close(got, voxel_bin_means(corr, rel, 3, 0.25, 3),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="K <= 512"):
+        vx.voxel_bin_means_pallas(torch.zeros(1, 4, 600, device=dev),
+                                  torch.zeros(1, 4, 600, 3, device=dev),
+                                  3, 0.25, 3)
+
+
+def _grad(fn, leaves, make_args, cots):
+    xs = [t.detach().clone().requires_grad_() for t in leaves]
+    outs = fn(*make_args(xs))
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    return [x.grad for x in xs]
+
+
+def test_functions_backward_match_plain_autograd(dev):
+    corr, xyz, coords = _candidates(dev, 2, 100, 512, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def cot(t):
+        return torch.randn(t.shape, device=dev, generator=gen)
+
+    lk_out = lk.corr_lookup_plain(corr, xyz, coords, 3, 0.25, 3, 32)
+    cots = [cot(t) for t in lk_out[:3]]
+    for got, want in zip(*(_grad(f, [corr], lambda xs: (xs[0], xyz, coords,
+                                                        3, 0.25, 3, 32), cots)
+                           for f in (lk.fused_corr_lookup,
+                                     lk.corr_lookup_plain))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    rel = (xyz - coords[:, :, None]).contiguous()
+    cots = [cot(voxel_bin_means(corr, rel, 3, 0.25, 3))]
+    for got, want in zip(*(_grad(f, [corr], lambda xs: (xs[0], rel, 3, 0.25, 3),
+                                 cots)
+                           for f in (vx.voxel_bin_means_pallas,
+                                     voxel_bin_means))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    h = 64
+    raw = [0.15 * torch.randn(s, device=dev, generator=gen) for s in
+           [(h, h), (h,), (3, h), (h,), (2 * h, h - 3), (h - 3,)]
+           + [(3 * h, h), (h,)] * 3]
+    acts = [torch.randn(2, 37, c, device=dev, generator=gen)
+            for c in (h, h, h, gr.FLOW_PAD)]
+
+    def args(xs):
+        return (*xs[:4], gr.pack_gru_weights(xs[4:10], xs[10:], h, h))
+
+    cots = [cot(acts[0])]
+    for got, want in zip(*(_grad(f, acts + raw, args, cots)
+                           for f in (gr.fused_gru_update, gr.gru_math))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fused_gru", [False, True])
+def test_train_step_with_kernels_matches_plain(dev, fused_gru):
+    tiny = dict(truncate_k=64, corr_knn=16, graph_k=8)
+    ds = SyntheticDataset(size=2, nb_points=256, noise=0.01, seed=1,
+                          n_objects=3)
+    batch = to_device(collate([ds[0], ds[1]]), dev)
+    weights = seeded_state_dict(ModelConfig(**tiny), 0)
+    out = {}
+    for name, kw in (("kernels", {"fused_gru": fused_gru}),
+                     ("plain", {"use_pallas": False})):
+        model = PVRaft(ModelConfig(**tiny, **kw)).to(dev)
+        model.load_state_dict(weights)
+        loss, _ = sequence_loss_of(model, batch, 0.8, 1)
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()})
+    (lk_loss, g_k), (pl_loss, g_p) = out["kernels"], out["plain"]
+    assert abs(lk_loss - pl_loss) <= 1e-5 * abs(pl_loss)
+    for n, gp in g_p.items():
+        gk = g_k[n]
+        assert gk is not None and torch.isfinite(gk).all(), n
+        if gp.norm() == 0:     # conv_flow.weight: the flow is 0 at step 1
+            assert gk.norm() == 0, n
+            continue
+        cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
+        rel = float((gk - gp).norm() / gp.norm())
+        assert cos >= 0.9999 and rel <= 1e-3, (n, cos, rel)

@@ -162,11 +162,15 @@ def test_gru_wrapper_takes_plain_path_on_cpu():
 
 
 def test_kernel_sources_and_lazy_build():
-    assert set(tcuda.sources()) == {"corr_lookup", "gru_iter"}
+    assert set(tcuda.sources()) == {"corr_lookup", "gru_iter", "voxel_corr"}
     for path in tcuda.sources().values():
         with open(path) as f:
             src = f.read()
         assert 'extern "C"' in src and "cudaGetLastError" in src
+    # One binning source for both voxel kernels; the build hash covers it.
+    for name in ("corr_lookup", "voxel_corr"):
+        with open(tcuda.sources()[name]) as f:
+            assert '#include "voxel_bins.cuh"' in f.read()
     assert "arch=compute_90a,code=sm_90a" in tcuda.NVCC_FLAGS
     # Importing every module of the port and running its CPU path builds
     # and loads nothing (a fresh interpreter: this one may hold a build).
