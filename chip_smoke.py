@@ -14,9 +14,18 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            card at the serve and train paths' shapes (B=1, 2 and 4 at
            N=8192, B=4 at N=4096, B=1 at N=2048; K=512, knn=32, width
            64): identical kNN indices, atol 1e-5, two launches bitwise
-           equal; times kernel, plain version and, where there is one,
-           the library call with CUDA events (median of 25 after
-           warm-up); holds each autograd Function's gradient (kernel
+           equal; the same for the lookup and the voxel kernel at
+           1 x 8192 on the cases of ``EDGE_CASES`` (exact distance ties,
+           offsets at exactly +-0.5 r and +-1.5 r, K=40 with knn 8,
+           base_scale 0.3) and for the lookup on the model's own inputs
+           (``model_lookup_inputs``); times kernel, plain version and,
+           where there is one, the library call with CUDA events (the
+           kernel's device time from 25 launches replayed as one CUDA
+           graph, ``device_ms``; its time around one call with the
+           wrapper's host work, ``call_ms``; the others median of 25
+           after warm-up), and the lookup without its kNN branch,
+           without its voxel branch and with neither (``lookup_split``);
+           holds each autograd Function's gradient (kernel
            forward, hand-written backward) against autograd through the
            plain version, atol 1e-5, at B=2 x 8192 and B=4 x 4096; then
            runs the kernel bench (``python -m
@@ -97,6 +106,38 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one ``fn()`` in ms: ``reps`` calls captured in one
+    CUDA graph, the median of 5 replays divided by ``reps``. Unlike
+    ``cuda_ms`` around one call, no host time (argument checks,
+    allocations, the ctypes call) lies between the events, so a kernel
+    shorter than its wrapper's host time is still timed as the card runs
+    it. Inputs read again from launch to launch stay in the 50 MB L2
+    where they fit (below 1 x 8192 at K=512)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def launch_counts():
     from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
     from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update
@@ -128,36 +169,120 @@ def lookup_inputs(rng, b, n, dev):
                  for a in (corr, xyz, coords))
 
 
-def check_lookup(rng, b, n, dev):
+def lookup_case(name, args):
+    """Holds the lookup kernel against its plain version on ``args``
+    (corr, xyz, coords, levels, base_scale, resolution, knn): identical
+    kNN indices, max |err| <= 1e-5, two launches bitwise equal; times
+    both."""
     from pvraft_tpu_torch.ops.cuda.corr_lookup import (
         corr_lookup_plain, fused_corr_lookup)
 
-    args = (*lookup_inputs(rng, b, n, dev), LEVELS, BASE_SCALE, RESOLUTION, KNN)
     got = fused_corr_lookup(*args)
     again = fused_corr_lookup(*args)
     want = corr_lookup_plain(*args)
     torch.cuda.synchronize()
     check(torch.equal(got[3], want[3]),
-          f"lookup {b}x{n}: kNN indices differ from the plain version")
-    err = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
-    check(err <= 1e-5, f"lookup {b}x{n}: max |err| {err} > 1e-5")
+          f"lookup {name}: kNN indices differ from the plain version")
+    err = max([float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])
+               if g.numel()], default=0.0)
+    check(err <= 1e-5, f"lookup {name}: max |err| {err} > 1e-5")
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
-          f"lookup {b}x{n}: two launches are not bitwise equal")
-    check(bool((got[0] != 0).float().mean() > 0.05),
-          f"lookup {b}x{n}: the voxel cells are empty")
-    vox_n = LEVELS * RESOLUTION**3
-    bytes_ = 4 * b * n * (K + 3 * K + 3) + 4 * b * n * (vox_n + 5 * KNN)
+          f"lookup {name}: two launches are not bitwise equal")
+    filled = float((got[0] != 0).float().mean()) if got[0].numel() else 0.0
+    corr, _, _, levels, _, _, knn = args
+    b, n, k = corr.shape
+    vox_n = levels * RESOLUTION**3
+    bytes_ = 4 * b * n * (k + 3 * k + 3) + 4 * b * n * (vox_n + 5 * knn)
     # Per candidate: 3 offsets, 5 for the distance, per level 3 divisions,
-    # 3 roundings and 3 range tests; KNN argmin comparisons.
-    ops = b * n * K * (3 + 5 + 9 * LEVELS + KNN)
+    # 3 roundings and 3 range tests; knn comparisons.
+    ops = b * n * k * (3 + 5 + 9 * levels + knn)
     return {
-        "shape": [b, n, K], "max_abs_err": err, "bitwise_repeat": True,
-        "ms": cuda_ms(lambda: fused_corr_lookup(*args)),
+        "shape": [b, n, k], "knn": knn, "levels": levels,
+        "base_scale": args[4], "max_abs_err": err, "bitwise_repeat": True,
+        "filled_cells": filled,
+        "ms": device_ms(lambda: fused_corr_lookup(*args)),
+        "call_ms": cuda_ms(lambda: fused_corr_lookup(*args)),
         "plain_ms": cuda_ms(lambda: corr_lookup_plain(*args)),
         "library_ms": None,
         "bytes": bytes_, "ops": ops,
         **bound(bytes_, ops),
     }
+
+
+def check_lookup(rng, b, n, dev):
+    args = (*lookup_inputs(rng, b, n, dev), LEVELS, BASE_SCALE, RESOLUTION, KNN)
+    out = lookup_case(f"{b}x{n}", args)
+    check(out["filled_cells"] > 0.05, f"lookup {b}x{n}: the voxel cells are empty")
+    return out
+
+
+def edge_inputs(rng, kind, b, n, k, dev):
+    """Inputs the selection and the binning must survive, each exactly
+    representable so that rel = xyz - coords is what was meant:
+    ``ties``, every offset four times (twice as itself, once negated,
+    once with its axes permuted: bitwise-equal distances, so the kNN cut
+    falls inside groups of equal distances); ``boundaries``, offsets of
+    m * r/2 on every axis, m in -3..3, r the edge of a random level, so
+    that candidates sit at exactly +-0.5 r and +-1.5 r (half to even:
+    cell 0 and out of range) and at the cell centres; ``random``, the
+    phase's continuous offsets."""
+    coords = (rng.integers(-64, 65, (b, n, 3)) / 64).astype(np.float32)
+    if kind == "ties":
+        base = np.round(rng.normal(0, 0.6, (b, n, -(-k // 4), 3)) * 256) / 256
+        off = np.concatenate([base, base, -base, base[..., ::-1]], axis=2)
+        off = off[:, :, rng.permutation(off.shape[2])[:k]]
+    elif kind == "boundaries":
+        lvl = rng.integers(0, LEVELS, (b, n, k, 1))
+        off = rng.integers(-3, 4, (b, n, k, 3)) * (BASE_SCALE / 2) * 2.0**lvl
+    else:
+        off = rng.normal(0, 0.6, (b, n, k, 3))
+    xyz = (coords[:, :, None, :] + off).astype(np.float32)
+    corr = rng.normal(size=(b, n, k)).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (corr, xyz, coords))
+
+
+# name: (inputs, K, knn, base_scale), at 1 x 8192
+EDGE_CASES = {"ties": ("ties", K, KNN, BASE_SCALE),
+              "boundaries": ("boundaries", K, KNN, BASE_SCALE),
+              "k40_knn8": ("random", 40, 8, BASE_SCALE),
+              "scale0.3": ("random", K, KNN, 0.3),
+              "boundaries_scale0.3": ("boundaries", K, KNN, 0.3)}
+
+
+def model_lookup_inputs(seed, dev):
+    """The lookup's inputs inside the model: the seeded flagship PVRaft's
+    ``corr_init`` state on phase 2's 8,192-point scene, coords = pc1 (the
+    first iteration)."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.models import PVRaft
+    from pvraft_tpu_torch.ops.corr import corr_init
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    cfg = ModelConfig()
+    model = PVRaft(cfg).to(dev)
+    model.load_state_dict(seeded_state_dict(cfg, seed))
+    pc1, pc2 = serve_requests(np.random.default_rng(seed + 1))[0][1][0]
+    x1, x2 = (torch.from_numpy(p)[None].to(dev) for p in (pc1, pc2))
+    with torch.no_grad():
+        f1, _ = model.feature_extractor(x1)
+        f2, _ = model.feature_extractor(x2)
+        state = corr_init(f1, f2, x2, cfg.truncate_k)
+    del model
+    return state.corr.contiguous(), state.xyz.contiguous(), x1.contiguous()
+
+
+def lookup_split(inputs):
+    """The lookup kernel's time as it is, without the kNN branch, without
+    the voxel branch, and with neither (the loads alone)."""
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
+
+    out = {}
+    for name, levels, knn in (("full", LEVELS, KNN), ("no_knn", LEVELS, 0),
+                              ("no_voxel", 0, KNN), ("loads_only", 0, 0)):
+        args = (*inputs, levels, BASE_SCALE, RESOLUTION, knn)
+        out[name] = device_ms(lambda: fused_corr_lookup(*args))
+    return out
 
 
 def bound(bytes_: float, ops: float):
@@ -222,7 +347,8 @@ def check_gru(rng, b, n, dev):
         lib_ms = cuda_ms(unfused)
     return {
         "shape": [b, n, WIDTH], "max_abs_err": err, "bitwise_repeat": True,
-        "ms": cuda_ms(lambda: fused_gru_update(*args)),
+        "ms": device_ms(lambda: fused_gru_update(*args)),
+        "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
         "plain_ms": cuda_ms(lambda: gru_math(*args)),
         "library_ms": lib_ms,
         "bytes": bytes_, "ops": flops,
@@ -230,34 +356,43 @@ def check_gru(rng, b, n, dev):
     }
 
 
-def check_voxel(rng, b, n, dev):
+def voxel_case(name, corr, xyz, coords, scale):
+    """Holds the voxel kernel against ``voxel_bin_means`` on rel = xyz -
+    coords: max |err| <= 1e-5, two launches bitwise equal; times both."""
     from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
     from pvraft_tpu_torch.ops.voxel import voxel_bin_means
 
-    corr, xyz, coords = lookup_inputs(rng, b, n, dev)
     rel = (xyz - coords[:, :, None, :]).contiguous()
-    args = (corr, rel, LEVELS, BASE_SCALE, RESOLUTION)
+    args = (corr, rel, LEVELS, scale, RESOLUTION)
     got = voxel_bin_means_pallas(*args)
     again = voxel_bin_means_pallas(*args)
     want = voxel_bin_means(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(err <= 1e-5, f"voxel {b}x{n}: max |err| {err} > 1e-5")
-    check(torch.equal(got, again), f"voxel {b}x{n}: launches not bitwise equal")
-    check(bool((got != 0).float().mean() > 0.05),
-          f"voxel {b}x{n}: the voxel cells are empty")
+    check(err <= 1e-5, f"voxel {name}: max |err| {err} > 1e-5")
+    check(torch.equal(got, again), f"voxel {name}: launches not bitwise equal")
+    filled = float((got != 0).float().mean())
+    b, n, k = corr.shape
     vox_n = LEVELS * RESOLUTION**3
-    bytes_ = 4 * b * n * (K + 3 * K) + 4 * b * n * vox_n
+    bytes_ = 4 * b * n * (k + 3 * k) + 4 * b * n * vox_n
     # Per candidate and level: 3 divisions, 3 roundings, 3 range tests.
-    ops = b * n * K * 9 * LEVELS
+    ops = b * n * k * 9 * LEVELS
     return {
-        "shape": [b, n, K], "max_abs_err": err, "bitwise_repeat": True,
-        "ms": cuda_ms(lambda: voxel_bin_means_pallas(*args)),
+        "shape": [b, n, k], "base_scale": scale, "max_abs_err": err,
+        "bitwise_repeat": True, "filled_cells": filled,
+        "ms": device_ms(lambda: voxel_bin_means_pallas(*args)),
+        "call_ms": cuda_ms(lambda: voxel_bin_means_pallas(*args)),
         "plain_ms": cuda_ms(lambda: voxel_bin_means(*args)),
         "library_ms": None,
         "bytes": bytes_, "ops": ops,
         **bound(bytes_, ops),
     }
+
+
+def check_voxel(rng, b, n, dev):
+    out = voxel_case(f"{b}x{n}", *lookup_inputs(rng, b, n, dev), BASE_SCALE)
+    check(out["filled_cells"] > 0.05, f"voxel {b}x{n}: the voxel cells are empty")
+    return out
 
 
 def grad_err(got, want) -> float:
@@ -665,10 +800,28 @@ def main() -> int:
     lookup = {f"{b}x{n}": check_lookup(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
     gru = {f"{b}x{n}": check_gru(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
     voxel = {f"{b}x{n}": check_voxel(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
+    edge_rng = np.random.default_rng(args.seed + 7)
+    lookup_edges, voxel_edges = {}, {}
+    for name, (kind, k, knn, scale) in EDGE_CASES.items():
+        corr, xyz, coords = edge_inputs(edge_rng, kind, *MAIN_SHAPE, k, dev)
+        lookup_edges[name] = lookup_case(
+            name, (corr, xyz, coords, LEVELS, scale, RESOLUTION, knn))
+        voxel_edges[name] = voxel_case(name, corr, xyz, coords, scale)
+    model_in = model_lookup_inputs(args.seed, dev)
+    lookup_model = lookup_case(
+        "model_inputs", (*model_in, LEVELS, BASE_SCALE, RESOLUTION, KNN))
+    split = {"synthetic": lookup_split(lookup_inputs(
+                 np.random.default_rng(args.seed), *MAIN_SHAPE, dev)),
+             "model_inputs": lookup_split(model_in)}
+    del model_in
     backward = {f"{b}x{n}": check_backward(rng, b, n, dev)
                 for b, n in (TRAIN_SHAPE, (4, 4096))}
     emit({"phase": "kernels", "fused_corr_lookup": lookup,
+          "fused_corr_lookup_cases": {**lookup_edges,
+                                      "model_inputs": lookup_model},
+          "fused_corr_lookup_split_ms": split,
           "fused_gru_update": gru, "voxel_bin_means_pallas": voxel,
+          "voxel_bin_means_pallas_cases": voxel_edges,
           "backward_max_abs_err": backward})
     kbench = bench_phase(dev)
     emit({"phase": "kernel_bench", **kbench})
@@ -682,21 +835,27 @@ def main() -> int:
 
     main_key = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
     rows = []
+    extra = {"fused_corr_lookup": {"model_inputs_ms": lookup_model["ms"],
+                                   "split_ms": split["synthetic"]}}
     for name, source, replaces, res, runs in (
             ("fused_corr_lookup", "pvraft_tpu_torch/csrc/corr_lookup.cu",
-             "pvraft_tpu/ops/pallas/corr_lookup.py:109", lookup, launches),
+             "pvraft_tpu/ops/pallas/corr_lookup.py:109",
+             {**lookup, **lookup_edges, "model_inputs": lookup_model},
+             launches),
             ("fused_gru_update", "pvraft_tpu_torch/csrc/gru_iter.cu",
              "pvraft_tpu/ops/pallas/gru_iter.py:129", gru, launches),
             ("voxel_bin_means_pallas", "pvraft_tpu_torch/csrc/voxel_corr.cu",
-             "pvraft_tpu/ops/pallas/voxel_corr.py:114", voxel,
-             kbench["launches"])):
+             "pvraft_tpu/ops/pallas/voxel_corr.py:114",
+             {**voxel, **voxel_edges}, kbench["launches"])):
         r = res[main_key]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[name],
             "train_launches_per_step": per_step[name],
+            **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
-            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
     print(smi, flush=True)

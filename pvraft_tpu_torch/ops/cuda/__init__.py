@@ -10,6 +10,15 @@ directory ``.gitignore`` lists. A build failure raises.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.
+
+The two voxel kernels (``csrc/corr_lookup.cu`` and ``csrc/voxel_corr.cu``,
+binning in ``csrc/voxel_bins.cuh``) run one warp per query point, 16
+candidates per lane in registers, so they take up to
+:data:`MAX_CANDIDATES` candidates per point. Two host-side facts choose
+their paths, both computing the same values: :func:`vector_loads` (16-byte
+loads, else scalar loads of the same slots) and
+:func:`reciprocal_is_exact` (multiply by ``1/r`` instead of dividing by
+``r``, bitwise equal where it holds).
 """
 
 from __future__ import annotations
@@ -17,8 +26,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
+import struct
 import subprocess
 from typing import Dict
 
@@ -28,7 +39,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
 # Candidates per query point the voxel and lookup kernels take: 16 per
-# lane of the point's warp (kMaxPerLane, csrc/voxel_bins.cuh).
+# lane of the point's warp, 4 groups of 4 (kMaxPerLane, csrc/voxel_bins.cuh).
 MAX_CANDIDATES = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -119,6 +130,30 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
+
+
+@functools.lru_cache(maxsize=64)
+def reciprocal_is_exact(base_scale: float, num_levels: int) -> bool:
+    """True when every level's edge ``r = base_scale * 2^l`` (float32,
+    ``l < num_levels``) is a power of two whose reciprocal is a normal
+    float32. Then ``rel * (1 / r)`` is the correctly rounded value of the
+    same real number as ``rel / r``, so it is bitwise the division the
+    plain version makes, and the voxel kernels multiply; otherwise they
+    keep the IEEE division."""
+    if not (math.isfinite(base_scale) and 0 < base_scale < 2.0**127):
+        return False
+    r = struct.unpack("f", struct.pack("f", base_scale))[0]  # float32
+    mant, exp = math.frexp(r)           # r = mant * 2^exp, mant in [0.5, 1)
+    if mant != 0.5:
+        return False
+    top = exp - 1 + max(num_levels, 1) - 1
+    return -126 <= exp - 1 and top <= 126
+
+
+def vector_loads(k: int, *tensors: torch.Tensor) -> bool:
+    """Whether the voxel kernels may read each point's candidates with
+    16-byte loads: K a multiple of 4 and every row 16-byte aligned."""
+    return k % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -3,9 +3,13 @@
 Replaces the Pallas TPU kernel ``pvraft_tpu/ops/pallas/corr_lookup.py``
 (``_fused_forward``, public ``fused_corr_lookup``). The kernel is
 ``csrc/corr_lookup.cu``; its header states the bound (bytes: one read of
-the (B, N, K) candidates) and the design (one warp per query point,
-candidates in registers, a fixed-order voxel reduction and a
-warp-shuffle kNN argmin).
+the (B, N, K) candidates, 8 KB per point at K = 512) and the design: one
+warp per query point, 16 candidates per lane in registers after 16-byte
+loads; the voxel binning of ``csrc/voxel_bins.cuh`` (a reciprocal multiply
+where every level's edge is a power of two, a conflict-free shared table
+reduced in a fixed order, integer counts); the kNN by a radix select of
+the knn-th distance, a compaction in candidate order and a warp bitonic
+sort, which gives a stable sort's order.
 
 :func:`fused_corr_lookup` is a ``torch.autograd.Function``. Its forward
 launches the kernel for CUDA tensors and runs :func:`corr_lookup_plain`
@@ -29,7 +33,7 @@ from pvraft_tpu_torch.ops import cuda as _cuda
 from pvraft_tpu_torch.ops.corr import knn_select, take_candidates
 from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
-MAX_KNN = 32           # one selection per lane
+MAX_KNN = 32           # one sorted (distance, index) pair per lane
 
 Lookup = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -49,7 +53,7 @@ def corr_lookup_plain(corr, xyz, coords, num_levels: int, base_scale: float,
 
 def _signature(fn) -> None:
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -78,6 +82,8 @@ def _launch(corr: torch.Tensor, xyz: torch.Tensor, coords: torch.Tensor,
         code = fn(corr.data_ptr(), xyz.data_ptr(), coords.data_ptr(),
                   vox.data_ptr(), kcorr.data_ptr(), krel.data_ptr(),
                   kidx.data_ptr(), b * n, n, k, num_levels, base_scale, knn,
+                  int(_cuda.vector_loads(k, corr, xyz)),
+                  int(_cuda.reciprocal_is_exact(base_scale, num_levels)),
                   _cuda.stream_ptr(corr.device))
     _cuda.check(code, what)
     fused_corr_lookup.launches += 1

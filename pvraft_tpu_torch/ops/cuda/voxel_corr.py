@@ -4,8 +4,10 @@ Replaces the Pallas TPU kernel ``pvraft_tpu/ops/pallas/voxel_corr.py``
 (``_voxel_forward_pallas``, public ``voxel_bin_means_pallas``). The kernel
 is ``csrc/voxel_corr.cu``; its header states the bound (bytes: one read
 of the (B, N, K) correlation and (B, N, K, 3) offsets) and the design
-(one warp per query point, the binning of ``csrc/voxel_bins.cuh`` shared
-with the lookup kernel, a fixed-order shared-memory reduction).
+(one warp per query point, 16-byte loads, the binning of
+``csrc/voxel_bins.cuh`` shared with the lookup kernel: a reciprocal
+multiply where every level's edge is a power of two, a conflict-free
+shared table reduced in a fixed order, integer counts).
 
 :func:`voxel_bin_means_pallas` is a ``torch.autograd.Function``: its
 forward launches the kernel for CUDA tensors and runs
@@ -27,7 +29,7 @@ from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
 def _signature(fn) -> None:
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -48,7 +50,10 @@ def _launch(corr: torch.Tensor, rel: torch.Tensor, num_levels: int,
     _signature(fn)
     with torch.cuda.device(corr.device):
         code = fn(corr.data_ptr(), rel.data_ptr(), out.data_ptr(), b * n, n,
-                  k, num_levels, base_scale, _cuda.stream_ptr(corr.device))
+                  k, num_levels, base_scale,
+                  int(_cuda.vector_loads(k, corr, rel)),
+                  int(_cuda.reciprocal_is_exact(base_scale, num_levels)),
+                  _cuda.stream_ptr(corr.device))
     _cuda.check(code, what)
     voxel_bin_means_pallas.launches += 1
     return out

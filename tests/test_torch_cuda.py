@@ -4,7 +4,10 @@ Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` and skip elsewhere
 (the check is made inside the fixture, never at import). On a machine
 with the card: ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 Shapes are small and ragged (tails of warps and of point tiles); the
-flagship shapes are ``chip_smoke.py``'s. Bars: identical kNN indices,
+flagship shapes are ``chip_smoke.py``'s. The edge cases hold the
+selection and the binning at exact distance ties, at cell boundaries
+(+-0.5 r, +-1.5 r), at K = 37 (the scalar-load path) and 40, and at
+base_scale 0.3 (the division path). Bars: identical kNN indices,
 atol 1e-5, bitwise-equal repeated launches; each Function's gradient
 against autograd through its plain version, atol 1e-5; one train step
 with the kernels against the plain versions at the bars of
@@ -121,6 +124,66 @@ def test_voxel_kernel_matches_plain(dev, b, n, k):
         vx.voxel_bin_means_pallas(torch.zeros(1, 4, 600, device=dev),
                                   torch.zeros(1, 4, 600, 3, device=dev),
                                   3, 0.25, 3)
+
+
+def _edge(dev, kind, b, n, k, seed=5):
+    """Exactly representable inputs: ``ties`` (every offset four times:
+    itself twice, negated, axes permuted, so equal distances straddle the
+    kNN cut), ``boundaries`` (offsets m * r/2, m in -3..3, r a random
+    level's edge: candidates at exactly +-0.5 r and +-1.5 r), ``random``."""
+    rng = np.random.default_rng(seed)
+    coords = (rng.integers(-64, 65, (b, n, 3)) / 64).astype(np.float32)
+    if kind == "ties":
+        base = np.round(rng.normal(0, 0.6, (b, n, -(-k // 4), 3)) * 256) / 256
+        off = np.concatenate([base, base, -base, base[..., ::-1]], axis=2)
+        off = off[:, :, rng.permutation(off.shape[2])[:k]]
+    elif kind == "boundaries":
+        lvl = rng.integers(0, 3, (b, n, k, 1))
+        off = rng.integers(-3, 4, (b, n, k, 3)) * 0.125 * 2.0**lvl
+    else:
+        off = rng.normal(0, 0.6, (b, n, k, 3))
+    xyz = (coords[:, :, None] + off).astype(np.float32)
+    corr = rng.normal(size=(b, n, k)).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (corr, xyz, coords))
+
+
+EDGES = [("ties", 512, 32, 0.25), ("ties", 37, 16, 0.25),
+         ("boundaries", 512, 32, 0.25), ("random", 40, 8, 0.25),
+         ("random", 512, 32, 0.3), ("boundaries", 64, 32, 0.3)]
+
+
+@pytest.mark.parametrize("kind,k,knn,scale", EDGES)
+def test_lookup_kernel_edge_cases(dev, kind, k, knn, scale):
+    args = (*_edge(dev, kind, 2, 45, k), 3, scale, 3, knn)
+    got = lk.fused_corr_lookup(*args)
+    want = lk.corr_lookup_plain(*args)
+    assert torch.equal(got[3], want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+    assert all(torch.equal(x, y)
+               for x, y in zip(got, lk.fused_corr_lookup(*args)))
+
+
+@pytest.mark.parametrize("kind,k,knn,scale", EDGES)
+def test_voxel_kernel_edge_cases(dev, kind, k, knn, scale):
+    corr, xyz, coords = _edge(dev, kind, 2, 45, k)
+    rel = (xyz - coords[:, :, None]).contiguous()
+    got = vx.voxel_bin_means_pallas(corr, rel, 3, scale, 3)
+    torch.testing.assert_close(got, voxel_bin_means(corr, rel, 3, scale, 3),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(got, vx.voxel_bin_means_pallas(corr, rel, 3, scale, 3))
+
+
+def test_lookup_kernel_without_a_branch(dev):
+    """knn = 0 or num_levels = 0 leaves the other branch as it was."""
+    corr, xyz, coords = _candidates(dev, 1, 33, 512, seed=4)
+    full = lk.fused_corr_lookup(corr, xyz, coords, 3, 0.25, 3, 32)
+    vox = lk.fused_corr_lookup(corr, xyz, coords, 3, 0.25, 3, 0)
+    knn = lk.fused_corr_lookup(corr, xyz, coords, 0, 0.25, 3, 32)
+    assert torch.equal(vox[0], full[0]) and vox[3].shape == (1, 33, 0)
+    assert knn[0].shape == (1, 33, 0)
+    assert all(torch.equal(a, b) for a, b in zip(knn[1:], full[1:]))
 
 
 def _grad(fn, leaves, make_args, cots):
