@@ -18,13 +18,15 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            1 x 8192 on the cases of ``EDGE_CASES`` (exact distance ties,
            offsets at exactly +-0.5 r and +-1.5 r, K=40 with knn 8,
            base_scale 0.3) and for the lookup on the model's own inputs
-           (``model_lookup_inputs``); times kernel, plain version and,
-           where there is one, the library call with CUDA events (the
-           kernel's device time from 25 launches replayed as one CUDA
-           graph, ``device_ms``; its time around one call with the
-           wrapper's host work, ``call_ms``; the others median of 25
-           after warm-up), and the lookup without its kNN branch,
-           without its voxel branch and with neither (``lookup_split``);
+           (``model_lookup_inputs``), and the GRU kernel on the cases of
+           ``GRU_CASES`` (point counts off its 64-point tile, activations
+           x10 that saturate sigmoid and tanh, atol 1e-4 there); times
+           kernel, plain version and, where there is one, the library
+           call by device time (25 calls replayed as one CUDA graph,
+           ``device_ms``), and the kernel also around one call with the
+           wrapper's host work (``call_ms``); times the lookup without
+           its kNN branch, without its voxel branch and with neither
+           (``lookup_split``);
            holds each autograd Function's gradient (kernel
            forward, hand-written backward) against autograd through the
            plain version, atol 1e-5, at B=2 x 8192 and B=4 x 4096; then
@@ -65,11 +67,15 @@ import time
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# CUDA-core FLOP/s. The bound of a kernel is the larger of its bytes over
-# the memory rate and its operations over the compute rate.
+from pvraft_tpu_torch.kernel_bench import device_ms
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# CUDA-core FLOP/s and dense TF32 tensor-core FLOP/s. The bound of a kernel
+# is the larger of its bytes over the memory rate and its operations over
+# the compute rate of the units it runs on.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 LOOKUP_SHAPES = ((1, 8192), (2, 8192), (4, 8192), (4, 4096), (1, 2048))
 TRAIN_SHAPE = (2, 8192)      # B x N of the train step and the kernel bench
@@ -103,38 +109,6 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = REPS) -> float:
-    """Device time of one ``fn()`` in ms: ``reps`` calls captured in one
-    CUDA graph, the median of 5 replays divided by ``reps``. Unlike
-    ``cuda_ms`` around one call, no host time (argument checks,
-    allocations, the ctypes call) lies between the events, so a kernel
-    shorter than its wrapper's host time is still timed as the card runs
-    it. Inputs read again from launch to launch stay in the 50 MB L2
-    where they fit (below 1 x 8192 at K=512)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
     return statistics.median(times)
 
 
@@ -202,7 +176,7 @@ def lookup_case(name, args):
         "filled_cells": filled,
         "ms": device_ms(lambda: fused_corr_lookup(*args)),
         "call_ms": cuda_ms(lambda: fused_corr_lookup(*args)),
-        "plain_ms": cuda_ms(lambda: corr_lookup_plain(*args)),
+        "plain_ms": device_ms(lambda: corr_lookup_plain(*args)),
         "library_ms": None,
         "bytes": bytes_, "ops": ops,
         **bound(bytes_, ops),
@@ -285,14 +259,18 @@ def lookup_split(inputs):
     return out
 
 
-def bound(bytes_: float, ops: float):
+def bound(bytes_: float, ops: float, flops_per_s: float = FP32_FLOPS_PER_S):
+    """The least time for ``bytes_`` moved and ``ops`` done at
+    ``flops_per_s``, and which of the two sets it."""
     t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / FP32_FLOPS_PER_S
+    t_ops = 1e3 * ops / flops_per_s
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def gru_inputs(rng, b, n, dev):
+def gru_inputs(rng, b, n, dev, scale=1.0):
+    """Seeded GRU operands: weights 0.15 N(0,1); net = tanh, inp = relu and
+    cor of ``scale`` N(0,1); flow 0.3 ``scale`` N(0,1)."""
     from pvraft_tpu_torch.ops.cuda.gru_iter import pack_gru_weights, pad_flow
 
     h = WIDTH
@@ -303,24 +281,38 @@ def gru_inputs(rng, b, n, dev):
     me = (a(h, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
     gru = (a(3 * h, h), a(h), a(3 * h, h), a(h), a(3 * h, h), a(h))
     weights = pack_gru_weights(me, gru, h, h)
-    net = torch.tanh(a(b, n, h, scale=1.0))
-    inp = torch.relu(a(b, n, h, scale=1.0))
-    cor = a(b, n, h, scale=1.0)
-    flow = a(b, n, 3, scale=0.3)
+    net = torch.tanh(a(b, n, h, scale=scale))
+    inp = torch.relu(a(b, n, h, scale=scale))
+    cor = a(b, n, h, scale=scale)
+    flow = a(b, n, 3, scale=0.3 * scale)
     return me, gru, (net, inp, cor, pad_flow(flow).contiguous(), weights), flow
 
 
-def check_gru(rng, b, n, dev):
+# name: (B, N, activation scale, atol). Point counts off the kernel's
+# 64-point tile, and activations x10 that saturate sigmoid and tanh: there
+# fp32 gru_math itself is ~1e-5 from fp64 (tests/test_torch_gru_split.py),
+# so that case holds 1e-4.
+GRU_CASES = {"ragged_2x2056": (2, 2056, 1.0, 1e-5),
+             "ragged_1x8191": (1, 8191, 1.0, 1e-5),
+             "saturating_1x8192": (1, 8192, 10.0, 1e-4)}
+
+
+def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5):
+    """Holds the GRU kernel against ``gru_math``: max |err| <= ``tol``, two
+    launches bitwise equal; the unfused modules (the library yardstick)
+    against it too; times all three. The bound is the 3xTF32 one (three
+    tensor-core products per fp32 product), beside the fp32 CUDA-core
+    bound of the same work (``fp32_bound_ms``)."""
     from pvraft_tpu_torch.models.update import ConvGRU, MotionEncoder
     from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update, gru_math
 
-    me, gru, args, flow = gru_inputs(rng, b, n, dev)
+    me, gru, args, flow = gru_inputs(rng, b, n, dev, scale)
     got = fused_gru_update(*args)
     again = fused_gru_update(*args)
     want = gru_math(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(err <= 1e-5, f"gru {b}x{n}: max |err| {err} > 1e-5")
+    check(err <= tol, f"gru {b}x{n} scale {scale}: max |err| {err} > {tol}")
     check(torch.equal(got, again), f"gru {b}x{n}: launches not bitwise equal")
     # The library yardstick: the unfused MotionEncoder + ConvGRU modules on
     # the same weights (the port never calls them on the kernel path).
@@ -335,24 +327,24 @@ def check_gru(rng, b, n, dev):
     net, inp, cor = args[:3]
 
     def unfused():
-        return cgru(net, torch.cat([inp, menc(flow, cor)], dim=-1))
+        with torch.no_grad():
+            return cgru(net, torch.cat([inp, menc(flow, cor)], dim=-1))
 
-    with torch.inference_mode():
-        lib_err = float((unfused() - want).abs().max())
-    check(lib_err <= 1e-5, f"gru {b}x{n}: unfused modules differ by {lib_err}")
+    lib_err = float((unfused() - want).abs().max())
+    check(lib_err <= tol, f"gru {b}x{n}: unfused modules differ by {lib_err}")
     weight_bytes = sum(4 * w.numel() for w in args[4])
     bytes_ = 4 * b * n * (3 * WIDTH + 8 + WIDTH) + weight_bytes
     flops = 2 * 51200 * b * n
-    with torch.inference_mode():
-        lib_ms = cuda_ms(unfused)
     return {
-        "shape": [b, n, WIDTH], "max_abs_err": err, "bitwise_repeat": True,
+        "shape": [b, n, WIDTH], "activation_scale": scale,
+        "max_abs_err": err, "atol": tol, "bitwise_repeat": True,
         "ms": device_ms(lambda: fused_gru_update(*args)),
         "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
-        "plain_ms": cuda_ms(lambda: gru_math(*args)),
-        "library_ms": lib_ms,
+        "plain_ms": device_ms(lambda: gru_math(*args)),
+        "library_ms": device_ms(unfused),
         "bytes": bytes_, "ops": flops,
-        **bound(bytes_, flops),
+        **bound(bytes_, 3 * flops, TF32_FLOPS_PER_S),
+        "fp32_bound_ms": bound(bytes_, flops)["bound_ms"],
     }
 
 
@@ -382,7 +374,7 @@ def voxel_case(name, corr, xyz, coords, scale):
         "bitwise_repeat": True, "filled_cells": filled,
         "ms": device_ms(lambda: voxel_bin_means_pallas(*args)),
         "call_ms": cuda_ms(lambda: voxel_bin_means_pallas(*args)),
-        "plain_ms": cuda_ms(lambda: voxel_bin_means(*args)),
+        "plain_ms": device_ms(lambda: voxel_bin_means(*args)),
         "library_ms": None,
         "bytes": bytes_, "ops": ops,
         **bound(bytes_, ops),
@@ -799,6 +791,9 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     lookup = {f"{b}x{n}": check_lookup(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
     gru = {f"{b}x{n}": check_gru(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
+    gru_rng = np.random.default_rng(args.seed + 11)
+    gru_edges = {name: check_gru(gru_rng, b, n, dev, scale, tol)
+                 for name, (b, n, scale, tol) in GRU_CASES.items()}
     voxel = {f"{b}x{n}": check_voxel(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
     edge_rng = np.random.default_rng(args.seed + 7)
     lookup_edges, voxel_edges = {}, {}
@@ -820,7 +815,8 @@ def main() -> int:
           "fused_corr_lookup_cases": {**lookup_edges,
                                       "model_inputs": lookup_model},
           "fused_corr_lookup_split_ms": split,
-          "fused_gru_update": gru, "voxel_bin_means_pallas": voxel,
+          "fused_gru_update": gru, "fused_gru_update_cases": gru_edges,
+          "voxel_bin_means_pallas": voxel,
           "voxel_bin_means_pallas_cases": voxel_edges,
           "backward_max_abs_err": backward})
     kbench = bench_phase(dev)
@@ -836,14 +832,17 @@ def main() -> int:
     main_key = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
     rows = []
     extra = {"fused_corr_lookup": {"model_inputs_ms": lookup_model["ms"],
-                                   "split_ms": split["synthetic"]}}
+                                   "split_ms": split["synthetic"]},
+             "fused_gru_update": {
+                 "fp32_bound_ms": gru[main_key]["fp32_bound_ms"]}}
     for name, source, replaces, res, runs in (
             ("fused_corr_lookup", "pvraft_tpu_torch/csrc/corr_lookup.cu",
              "pvraft_tpu/ops/pallas/corr_lookup.py:109",
              {**lookup, **lookup_edges, "model_inputs": lookup_model},
              launches),
             ("fused_gru_update", "pvraft_tpu_torch/csrc/gru_iter.cu",
-             "pvraft_tpu/ops/pallas/gru_iter.py:129", gru, launches),
+             "pvraft_tpu/ops/pallas/gru_iter.py:129", {**gru, **gru_edges},
+             launches),
             ("voxel_bin_means_pallas", "pvraft_tpu_torch/csrc/voxel_corr.cu",
              "pvraft_tpu/ops/pallas/voxel_corr.py:114",
              {**voxel, **voxel_edges}, kbench["launches"])):

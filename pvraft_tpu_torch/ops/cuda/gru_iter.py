@@ -1,11 +1,23 @@
 """Fused MotionEncoder + ConvGRU update: CUDA kernel and its plain version.
 
 Replaces the Pallas TPU kernel ``pvraft_tpu/ops/pallas/gru_iter.py``
-(``_gru_forward``, public ``fused_gru_update``). The kernel is
-``csrc/gru_iter.cu``; its header states the bound (operations: 51,200
-multiply-adds per point) and the design (one block per 32-point tile,
-every intermediate on chip, the 211 KB of packed fp32 weights read
-through L1/L2 rather than staged whole in shared memory).
+(``_gru_forward``, public ``fused_gru_update``; the math is ``_gru_math``,
+``:78``). The kernel is ``csrc/gru_iter.cu``, on the tensor cores at fp32
+accuracy: every stage is a (points x IN) . (IN x OUT) product on
+``mma.sync`` TF32, each fp32 operand split into a TF32 ``hi`` and ``lo = x
+- hi`` and three products summed per step (3xTF32), in partial sums that
+rounded fp32 adds take onto the accumulators. Its bound at 1 x 8192
+points: 2.6 us of bytes (8.86 MB at 3.35 TB/s), 5.1 us of 3xTF32
+operations (3 x 0.839 GFLOP at 495 TFLOP/s; the kernel's bound), 12.5 us
+had the same work run on the fp32 CUDA cores (67 TFLOP/s). Design (the
+source header says what each part addresses and what it measured): 64
+points per block, 8 warps, each owning 32 points x 16 channels of every
+stage, so that z, r, q and net of a (point, channel) meet in one thread;
+activations split once into shared (hi, lo) tiles; weights streamed from
+L2 through a three-slot shared-memory ring by ``cp.async``; bias,
+activations, ``r * net`` and the blend on the accumulator fragments; the
+new state leaves by 16-byte stores. ``python -m pvraft_tpu_torch.gru_ab``
+times it against other sources of the same entry point.
 
 :func:`fused_gru_update` is a ``torch.autograd.Function``. Its forward
 launches the kernel for CUDA tensors and runs :func:`gru_math` for CPU
@@ -106,6 +118,9 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     if shapes != want:
         raise ValueError(f"{what}: the kernel takes width {WIDTH}; "
                          f"operand shapes {shapes}, expected {want}")
+    if any(t.data_ptr() % 16 for t in (net, inp, cor, flow8, *weights)):
+        raise ValueError(f"{what}: every operand must be 16-byte aligned "
+                         "(the kernel reads them by 16-byte copies)")
     out = torch.empty_like(net)
     fn = _cuda.library("gru_iter").pvraft_gru_update
     _signature(fn)

@@ -29,8 +29,9 @@ def voxel_cells(rel: torch.Tensor, scale: float, resolution: int
     and its validity. rel: (B, N, K, 3) -> (B, N, K), (B, N, K)."""
     half = resolution // 2
     # A 0-dim tensor on the same device keeps this a true division
-    # (a host scalar divisor becomes a reciprocal multiply on CUDA).
-    r = torch.tensor(scale, dtype=rel.dtype, device=rel.device)
+    # (a host scalar divisor becomes a reciprocal multiply on CUDA); filled
+    # on the device, not copied from the host, so a CUDA graph can hold it.
+    r = torch.full((), scale, dtype=rel.dtype, device=rel.device)
     dv = torch.round(rel / r)
     valid = torch.all(torch.abs(dv) <= half, dim=-1)
     cell = ((dv[..., 0] + half) * (resolution**2)
