@@ -37,16 +37,44 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            2048/4096/8192) with seeded random weights: one 8,192-point
            request, a batch of 4 requests of 3,000-4,096 points, one
            2,048-point request; once with fused_gru=False and once with
-           fused_gru=True, counting kernel launches; the same requests
-           through the plain versions (use_pallas=False) bound the flow
-           difference (see ``serve_phase``);
+           fused_gru=True; the same requests through the plain versions
+           (use_pallas=False) bound the flow difference (see
+           ``serve_phase``); each engine replays the programs it captured
+           at construction (no wrapper may launch eagerly);
   phase 3  trains the flagship model at full width (B=2 x 8,192 points,
            8 iterations, Adam) on seeded FT3D-like synthetic scenes with
            the kernels (fused_gru off and on) and the plain versions:
            gradients of 1 and 8 iterations against the plain versions,
-           every leaf's gradient finite and non-zero, launches per train
-           step, 20 Adam steps that must lower the loss, train and eval
-           step times and peak memory (see ``train_phase``).
+           every leaf's gradient finite and non-zero, 20 Adam steps that
+           must lower the loss, train and eval step times and peak memory
+           (see ``train_phase``); the Trainer runs its graphed steps,
+           captured at construction;
+  phase 4  the captured paths (``graphs``): the flagship serve table
+           captured at engine construction (``compile_report``: capture
+           seconds and pool bytes per program), phase 2's requests
+           replayed against the eager forward on the same padded inputs
+           (bitwise, else the first differing submodule,
+           ``serve/aot.py::first_difference``, and phase 2's bar),
+           replayed and eager latency per group; 20 graphed train steps
+           against 20 eager ones on the same capturable Adam under
+           ``deterministic()`` from the same weights and batches
+           (per-step losses and final parameters bitwise, else
+           ``GRAD_BOUNDS``; the loss must fall); the 32-iteration eval
+           step graphed against eager; train and eval step times against
+           the eager trainer's (plain Adam), peak memory and the
+           programs' pools (see ``graph_serve``, ``graph_train``);
+  phase 5  the launches of the main paths (``launches_phase``): each
+           serve group of phases 2 and 4, one train step and one eval step
+           of every way of phase 3, each pass alone under
+           ``torch.profiler`` with the counts zeroed just before it.
+
+Launch counts: a wrapper counts its eager launches where it launches
+its kernel; a replayed graph runs no wrapper, so every count on a
+captured path is measured: phase 5 counts the card's kernels by their
+device symbols (``ops/cuda.measured_launches``), and the launches each
+program's capture recorded are the cross-check. Phase 5 runs last: a
+profiler session leaves the process's eager launches slower, so it would
+tilt the eager-against-graphed times of phases 2-4.
 
 Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -58,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -112,22 +141,49 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def launch_counts():
-    from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
-    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update
-    from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
-
-    return {f.__name__: f for f in (fused_corr_lookup, fused_gru_update,
-                                    voxel_bin_means_pallas)}
-
-
 def zero_counts():
-    for f in launch_counts().values():
-        f.launches = 0
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    kernels.zero_launch_counts()
 
 
 def read_counts():
-    return {name: f.launches for name, f in launch_counts().items()}
+    """Each wrapper's eager launches since ``zero_counts``."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    return kernels.launch_counts()
+
+
+def measured(fn):
+    """Zero the counts and run ``fn()`` under the profiler; returns its
+    result, the kernels of each wrapper that the card ran (replays of
+    captured graphs included) and each wrapper's eager launches."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    zero_counts()
+    out, counts = kernels.measured_launches(fn)
+    return out, counts, read_counts()
+
+
+def memory_state():
+    """The allocator's state: bytes allocated and reserved, and how often
+    it had to free its cache and retry a cudaMalloc (a host stall)."""
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "alloc_retries": torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0)}
+
+
+NO_LAUNCHES = {"fused_corr_lookup": 0, "fused_gru_update": 0,
+               "voxel_bin_means_pallas": 0}
+
+
+def captured_share(report, want):
+    """Whether every program's capture recorded ``want`` per replay (the
+    cross-check of a measured count)."""
+    share = {k: v for k, v in want.items() if v}
+    return all(r["launches"] == share for r in report)
 
 
 # --------------------------------------------------------------- phase 1 --
@@ -497,6 +553,11 @@ def point_diffs(a, b) -> np.ndarray:
                            for ga, gb in zip(a, b) for x, y in zip(ga, gb)])
 
 
+SERVE_WAYS = (("unfused_gru", {"fused_gru": False}),
+              ("fused_gru", {"fused_gru": True}),
+              ("plain", {"use_pallas": False}))
+
+
 def serve_phase(seed, dev):
     """Serve the requests with the kernels (fused_gru off, then on) and
     with the plain versions. After one iteration every discrete choice
@@ -513,10 +574,8 @@ def serve_phase(seed, dev):
     state = seeded_state_dict(ModelConfig(), seed)
     requests = serve_requests(np.random.default_rng(seed + 1))
     iters = ServeConfig().num_iters
-    results, flows, flows1, launches = {}, {}, {}, {}
-    for name, kw in (("unfused_gru", {"fused_gru": False}),
-                     ("fused_gru", {"fused_gru": True}),
-                     ("plain", {"use_pallas": False})):
+    results, flows, flows1 = {}, {}, {}
+    for name, kw in SERVE_WAYS:
         one = InferenceEngine(state, ServeConfig(ModelConfig(**kw),
                                                  num_iters=1), device=dev)
         flows1[name], _ = drive(one, requests)
@@ -528,17 +587,15 @@ def serve_phase(seed, dev):
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         flows[name], times = drive(engine, requests)
-        launches[name] = read_counts()
-        results[name] = {"requests": times, "launches": launches[name],
+        eager = read_counts()
+        results[name] = {"requests": times, "eager_wrapper_launches": eager,
                          "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        # A replay runs no wrapper: its launches are measured in phase 5.
+        check(eager == NO_LAUNCHES and captured_share(
+                  engine.compile_report(), want_serve(name, iters, 1)),
+              f"serve {name}: a wrapper launched eagerly ({eager}) or a "
+              f"capture recorded other launches: {engine.compile_report()}")
         del engine
-    n = iters * len(requests)
-    for name, want in (("unfused_gru", (n, 0)), ("fused_gru", (n, n)),
-                       ("plain", (0, 0))):
-        want = {"fused_corr_lookup": want[0], "fused_gru_update": want[1],
-                "voxel_bin_means_pallas": 0}
-        check(launches[name] == want,
-              f"serve {name}: launches {launches[name]}, expected {want}")
     cmp = {}
     for a, b in (("unfused_gru", "plain"), ("fused_gru", "plain"),
                  ("fused_gru", "unfused_gru")):
@@ -560,7 +617,17 @@ def serve_phase(seed, dev):
                               "iters8_median": FLOW_BOUND}
     results["max_abs_flow"] = max(float(np.abs(f).max())
                                   for g in flows["fused_gru"] for f in g)
-    return results, launches["fused_gru"]
+    return results
+
+
+def want_serve(name, iters, calls=1):
+    """The kernel launches of ``calls`` serve calls (or steps) of ``iters``
+    GRU iterations each, one way (``SERVE_WAYS``, ``TRAIN_WAYS``)."""
+    n = iters * calls
+    lookup, gru = {"unfused_gru": (n, 0), "fused_gru": (n, n),
+                   "plain": (0, 0)}[name]
+    return {**NO_LAUNCHES, "fused_corr_lookup": lookup,
+            "fused_gru_update": gru}
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -648,6 +715,7 @@ def train_phase(seed, dev):
     state = seeded_state_dict(ModelConfig(), seed)
     grads, results = {}, {}
     for name, kw in TRAIN_WAYS:
+        memory = memory_state()
         trainer = Trainer(flagship_train_config(seed, **kw), device=dev, weights=state)
         batch = to_device(next(batches(trainer.train_ds, 2)), dev)
         with deterministic():
@@ -663,7 +731,13 @@ def train_phase(seed, dev):
         zero_counts()
         trainer.train_step(batch)
         torch.cuda.synchronize()
-        counts = read_counts()
+        eager = read_counts()
+        check(eager == NO_LAUNCHES and captured_share(
+                  trainer.compile_report()[:1],
+                  want_serve(name, trainer.cfg.train.iters)),
+              f"train {name}: a wrapper launched eagerly in a graphed step "
+              f"({eager}) or the capture recorded other launches: "
+              f"{trainer.compile_report()}")
         for _ in range(2):
             trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -673,24 +747,11 @@ def train_phase(seed, dev):
         peak = torch.cuda.max_memory_allocated()
         scene = to_device(next(batches(trainer.val_ds, 1)), dev)
         eval_ms = cuda_ms(lambda: trainer.eval_step(scene), reps=3, warmup=1)
-        results[name] = {"launches_per_step": counts,
-                         "train_step_ms": step_ms, "eval_step_ms": eval_ms,
+        results[name] = {"train_step_ms": step_ms, "eval_step_ms": eval_ms,
                          "eval_iters": trainer.cfg.train.eval_iters,
-                         "peak_mem_bytes": peak}
+                         "peak_mem_bytes": peak, "memory_before": memory}
         del trainer, batch, scene
         torch.cuda.empty_cache()
-    iters = 8
-    want_counts = {
-        "unfused_gru": {"fused_corr_lookup": iters, "fused_gru_update": 0,
-                        "voxel_bin_means_pallas": 0},
-        "fused_gru": {"fused_corr_lookup": iters, "fused_gru_update": iters,
-                      "voxel_bin_means_pallas": 0},
-        "plain": {"fused_corr_lookup": 0, "fused_gru_update": 0,
-                  "voxel_bin_means_pallas": 0}}
-    for name, _ in TRAIN_WAYS:
-        check(results[name]["launches_per_step"] == want_counts[name],
-              f"train {name}: launches per step "
-              f"{results[name]['launches_per_step']}")
     parity = {}
     for name in ("unfused_gru", "fused_gru"):
         _, g8 = grads[name][8]
@@ -735,6 +796,320 @@ def train_phase(seed, dev):
             "training": {"steps": TRAIN_STEPS, "losses": losses,
                          "first5_mean": first, "last5_mean": last,
                          "wall_s": train_s, "val": val}}
+
+
+# --------------------------------------------------------------- phase 4 --
+
+GRAPH_REPS = 5               # timed calls per serve group and path
+
+
+def graph_serve(seed, dev):
+    """The flagship serve table captured at construction; phase 2's
+    requests replayed and held against the eager forward (``engine.model``)
+    on the same padded inputs: bitwise, else the first submodule that
+    differs and phase 2's 8-iteration median bar. Replayed and eager
+    latency per group (host clock around the call, median of
+    GRAPH_REPS)."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.profile_serve import eager_predict_batch
+    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.serve.aot import first_difference
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    cfg = ServeConfig()
+    state = seeded_state_dict(cfg.model, seed)
+    requests = serve_requests(np.random.default_rng(seed + 1))
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(state, cfg, device=dev)
+    table_s = time.perf_counter() - t0
+    report = engine.compile_report()
+    check(len(report) == len(cfg.buckets) * len(cfg.batch_sizes)
+          and all(r["graph"] for r in report),
+          f"serve table: not every program was captured: {report}")
+    want = want_serve("unfused_gru", cfg.num_iters, 1)
+    check(captured_share(report, want),
+          f"serve table: captures recorded other launches: {report}")
+    groups, memory = [], {"before": memory_state()}
+    for kind, group, bucket in requests:
+        padded = engine.padded_batch(group, bucket)
+        program = engine.program(bucket, padded[0].shape[0])
+        zero_counts()
+        got = engine.predict_batch(group, bucket)
+        check(read_counts() == NO_LAUNCHES,
+              f"graphs serve {kind} {bucket}: a wrapper launched eagerly "
+              f"in a replay: {read_counts()}")
+        replay_flow = program.outputs[0].clone()
+        inputs = [torch.from_numpy(a).to(dev) for a in padded]
+        with torch.no_grad():
+            flows, _ = engine.model(inputs[0], inputs[1], cfg.num_iters,
+                                    *inputs[2:])
+        bitwise = torch.equal(replay_flow, flows[-1])
+        entry = {"call": kind, "bucket": bucket, "requests": len(group),
+                 "program": program.name, "bitwise": bitwise}
+        if not bitwise:
+            eager = eager_predict_batch(engine, group, bucket)
+            d = point_diffs([got], [eager])
+            entry["differs_first_at"] = first_difference(
+                engine.model, lambda x1, x2, v1, v2: engine.model(
+                    x1, x2, cfg.num_iters, v1, v2), inputs, dev)
+            entry["iters8_max"] = float(d.max())
+            entry["iters8_median"] = float(np.median(d))
+            check(np.median(d) <= FLOW_BOUND,
+                  f"graphs serve {kind} {bucket}: replay vs eager median "
+                  f"|dflow| {np.median(d)} ({entry['differs_first_at']})")
+        for path, run in (("replay_ms", engine.predict_batch),
+                          ("eager_ms", lambda g, b: eager_predict_batch(
+                              engine, g, b))):
+            times = []
+            for _ in range(GRAPH_REPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run(group, bucket)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t1))
+            entry[path] = statistics.median(times)
+        groups.append(entry)
+    out = {"table_s": table_s, "programs": report,
+           "pool_reserved_bytes": torch.cuda.memory_reserved() - reserved,
+           "groups": groups, "memory": {**memory, "after": memory_state()}}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def param_agreement(got, want, start):
+    """Parameters after training, as their change from ``start``: the
+    worst leaf's cosine and relative error (grad_agreement's measures)."""
+    cos, rel = {}, {}
+    for n in want:
+        a, b = (got[n] - start[n]).double(), (want[n] - start[n]).double()
+        na, nb = float(a.norm()), float(b.norm())
+        cos[n] = (float((a * b).sum()) / (na * nb) if na * nb
+                  else float(na == nb))
+        rel[n] = float((a - b).norm()) / nb if nb else float(na != 0.0)
+    worst_cos, worst_rel = min(cos, key=cos.get), max(rel, key=rel.get)
+    return {"min_cos": cos[worst_cos], "min_cos_leaf": worst_cos,
+            "max_rel": rel[worst_rel], "max_rel_leaf": worst_rel}
+
+
+def graph_train(seed, dev):
+    """The flagship train step captured as one graph (forward, loss,
+    backward, capturable Adam with a device lr) against the eager step on
+    the same Adam: under ``deterministic()``, TRAIN_STEPS steps each from
+    the same weights and batches, per-step losses and the final
+    parameters bitwise, else held to GRAD_BOUNDS; the loss must fall.
+    Then, in the default mode, the graphed trainer against the eager one
+    (``Trainer(graphs=False)``: plain Adam, a float lr): the 32-iteration
+    eval step on one scene (bitwise, else phase 2's bar), train and eval
+    step times, peak memory and the programs' pools."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    start = {n: t.to(dev) for n, t in state.items()}
+    cfg = flagship_train_config(seed, epochs=TRAIN_STEPS // 2)
+    runs = {}
+    with deterministic():
+        for path in ("graphed", "eager"):
+            trainer = Trainer(cfg, device=dev, weights=state,
+                              graphs=path == "graphed", capturable=True)
+            zero_counts()
+            losses, step_ms = [], []
+            for epoch in range(cfg.train.num_epochs):
+                out = trainer.training(epoch)
+                losses += out["losses"]
+                step_ms.append(out["step_ms"])
+            counts = read_counts()
+            runs[path] = {"losses": losses, "launches": counts,
+                          "epoch_step_ms": step_ms,
+                          "params": {n: p.detach().clone() for n, p in
+                                     trainer.model.named_parameters()}}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    g, e = runs["graphed"], runs["eager"]
+    check(len(g["losses"]) == TRAIN_STEPS and all(np.isfinite(g["losses"])),
+          f"graphs train: losses {g['losses']}")
+    want = {"fused_corr_lookup": cfg.train.iters * TRAIN_STEPS,
+            "fused_gru_update": 0, "voxel_bin_means_pallas": 0}
+    # Wrapper counts: the eager steps launch every kernel through the
+    # wrapper, the graphed steps none (their launches: phase 5).
+    check(g["launches"] == NO_LAUNCHES and e["launches"] == want,
+          f"graphs train: eager wrapper launches {g['launches']} (graphed) "
+          f"/ {e['launches']} (eager), expected none / {want}")
+    bitwise = g["losses"] == e["losses"] and all(
+        torch.equal(g["params"][n], e["params"][n]) for n in g["params"])
+    result = {"steps": TRAIN_STEPS, "bitwise": bitwise,
+              "graphed_losses": g["losses"], "eager_losses": e["losses"],
+              "deterministic_epoch_step_ms": {
+                  "graphed": g["epoch_step_ms"], "eager": e["epoch_step_ms"]}}
+    if not bitwise:
+        first = next((i for i, (a, b) in enumerate(zip(g["losses"],
+                                                       e["losses"]))
+                      if a != b), None)
+        agree = param_agreement(g["params"], e["params"], start)
+        worst_loss = max(abs(a - b) / abs(b)
+                         for a, b in zip(g["losses"], e["losses"]))
+        result.update({"first_differing_step": first,
+                       "worst_loss_rel": worst_loss, "params": agree})
+        bar = GRAD_BOUNDS["iters8"]
+        check(worst_loss <= bar["loss_rel"]
+              and agree["min_cos"] >= bar["min_cos"],
+              f"graphs train: graphed vs eager {result} (bars {bar})")
+    first5, last5 = np.mean(g["losses"][:5]), np.mean(g["losses"][-5:])
+    check(last5 < first5,
+          f"graphs train: loss {first5} -> {last5} did not fall")
+    result["first5_mean"], result["last5_mean"] = float(first5), float(last5)
+
+    timed = {}
+    for path in ("graphed", "eager"):
+        torch.cuda.synchronize()
+        memory = {"before": memory_state()}
+        reserved = memory["before"]["reserved"]
+        t0 = time.perf_counter()
+        trainer = Trainer(flagship_train_config(seed), device=dev,
+                          weights=state, graphs=path == "graphed")
+        setup_s = time.perf_counter() - t0
+        scene = to_device(next(batches(trainer.val_ds, 1)), dev)
+        zero_counts()
+        metrics, flow = trainer.eval_step(scene)
+        eval_launches = read_counts()
+        metrics = {k: v.clone() for k, v in metrics.items()}
+        flow = flow.clone()
+        eval_ms = cuda_ms(lambda: trainer.eval_step(scene), reps=3, warmup=1)
+        batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+        for _ in range(2):
+            trainer.train_step(batch)
+        zero_counts()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_launches = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: trainer.train_step(batch),
+                          reps=TIMED_STEPS, warmup=0)
+        timed[path] = {"setup_s": setup_s, "train_step_ms": step_ms,
+                       "eval_step_ms": eval_ms,
+                       "eager_wrapper_launches": {
+                           "train_step": step_launches,
+                           "eval_step": eval_launches},
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "reserved_growth_bytes":
+                           torch.cuda.memory_reserved() - reserved,
+                       "programs": trainer.compile_report(),
+                       "memory": {**memory, "after": memory_state()},
+                       "metrics": {k: v.tolist() for k, v in metrics.items()},
+                       "flow": flow}
+        del trainer, batch, scene
+        gc.collect()
+        torch.cuda.empty_cache()
+    eval_want = {**NO_LAUNCHES, "fused_corr_lookup": cfg.train.eval_iters}
+    want_step = {**NO_LAUNCHES, "fused_corr_lookup": cfg.train.iters}
+    check(timed["eager"]["eager_wrapper_launches"] == {
+              "train_step": want_step, "eval_step": eval_want}
+          and timed["graphed"]["eager_wrapper_launches"] == {
+              "train_step": NO_LAUNCHES, "eval_step": NO_LAUNCHES}
+          and captured_share(timed["graphed"]["programs"][:1], want_step)
+          and captured_share(timed["graphed"]["programs"][1:], eval_want),
+          f"graphs train: wrapper launches "
+          f"{ {p: t['eager_wrapper_launches'] for p, t in timed.items()} }, "
+          f"captures {timed['graphed']['programs']}")
+    gf, ef = timed["graphed"].pop("flow"), timed["eager"].pop("flow")
+    eval_bitwise = torch.equal(gf, ef) and \
+        timed["graphed"]["metrics"] == timed["eager"]["metrics"]
+    result["eval"] = {"iters": cfg.train.eval_iters, "bitwise": eval_bitwise,
+                      "max_abs_flow_diff": float((gf - ef).abs().max())}
+    if not eval_bitwise:
+        d = (gf - ef).abs().amax(dim=-1).flatten().cpu().numpy()
+        check(np.median(d) <= FLOW_BOUND,
+              f"graphs eval: median |dflow| {np.median(d)} > {FLOW_BOUND}")
+    check(len(timed["graphed"]["programs"]) == 2
+          and all(p["graph"] for p in timed["graphed"]["programs"]),
+          f"graphs train: programs {timed['graphed']['programs']}")
+    result["timed"] = timed
+    return result
+
+
+# --------------------------------------------------------------- phase 5 --
+
+
+def launches_phase(seed, dev):
+    """The main paths driven once more, each pass alone under the
+    profiler with the counts zeroed just before it and read just after:
+    each serve group of phase 2's requests through ``predict`` or
+    ``predict_batch`` of a freshly captured engine, and one train step and
+    one eval step of a freshly captured ``Trainer``, every way of phases 2
+    and 3. The kernels the card ran are counted by their device symbols
+    (``measured``): what the replays launched, which no wrapper sees.
+    Each pass must launch what its capture recorded and no wrapper may
+    launch eagerly. This phase runs last: after a profiler session the
+    process's eager launches run slower (CUPTI stays attached), which
+    would tilt every eager-against-graphed time; the eager train step is
+    timed once more here to show it."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    requests = serve_requests(np.random.default_rng(seed + 1))
+    serve = {}
+    for name, kw in SERVE_WAYS:
+        cfg = ServeConfig(ModelConfig(**kw))
+        engine = InferenceEngine(state, cfg, device=dev)
+        total = dict(NO_LAUNCHES)
+        for request in requests:
+            _, counts, wrapper = measured(lambda: drive(engine, [request]))
+            want = want_serve(name, cfg.num_iters)
+            check(counts == want and wrapper == NO_LAUNCHES,
+                  f"launches: serve {name} {request[0]} {request[2]}: the "
+                  f"card ran {counts} (wrappers {wrapper}), expected {want}")
+            total = {k: total[k] + counts[k] for k in total}
+        serve[name] = total
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    train = {}
+    for name, kw in TRAIN_WAYS:
+        trainer = Trainer(flagship_train_config(seed, **kw), device=dev,
+                          weights=state)
+        batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+        scene = to_device(next(batches(trainer.val_ds, 1)), dev)
+        t = trainer.cfg.train
+        got = {}
+        for step, run, iters in (
+                ("train_step", lambda: trainer.train_step(batch), t.iters),
+                ("eval_step", lambda: trainer.eval_step(scene),
+                 t.eval_iters)):
+            _, counts, wrapper = measured(run)
+            want = want_serve(name, iters)
+            check(counts == want and wrapper == NO_LAUNCHES,
+                  f"launches: {step} {name}: the card ran {counts} "
+                  f"(wrappers {wrapper}), expected {want}")
+            got[step] = counts
+        train[name] = got
+        del trainer, batch, scene
+        gc.collect()
+        torch.cuda.empty_cache()
+    trainer = Trainer(flagship_train_config(seed), device=dev, weights=state,
+                      graphs=False)
+    batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+    for _ in range(2):
+        trainer.train_step(batch)
+    after_ms = cuda_ms(lambda: trainer.train_step(batch),
+                       reps=TIMED_STEPS, warmup=0)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": serve, "train": train,
+            "eager_train_step_ms_after_profiler": after_ms}
 
 
 def bench_phase(dev):
@@ -822,12 +1197,19 @@ def main() -> int:
     kbench = bench_phase(dev)
     emit({"phase": "kernel_bench", **kbench})
 
-    serve, launches = serve_phase(args.seed, dev)
+    serve = serve_phase(args.seed, dev)
     emit({"phase": "serve", **serve})
 
     train = train_phase(args.seed, dev)
     emit({"phase": "train", **train})
-    per_step = train["ways"]["fused_gru"]["launches_per_step"]
+
+    graphs = {"serve": graph_serve(args.seed, dev),
+              "train": graph_train(args.seed, dev)}
+    emit({"phase": "graphs", **graphs})
+
+    launches = launches_phase(args.seed, dev)
+    emit({"phase": "launches", **launches})
+    steps = launches["train"]["fused_gru"]
 
     main_key = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
     rows = []
@@ -839,10 +1221,10 @@ def main() -> int:
             ("fused_corr_lookup", "pvraft_tpu_torch/csrc/corr_lookup.cu",
              "pvraft_tpu/ops/pallas/corr_lookup.py:109",
              {**lookup, **lookup_edges, "model_inputs": lookup_model},
-             launches),
+             launches["serve"]["fused_gru"]),
             ("fused_gru_update", "pvraft_tpu_torch/csrc/gru_iter.cu",
              "pvraft_tpu/ops/pallas/gru_iter.py:129", {**gru, **gru_edges},
-             launches),
+             launches["serve"]["fused_gru"]),
             ("voxel_bin_means_pallas", "pvraft_tpu_torch/csrc/voxel_corr.cu",
              "pvraft_tpu/ops/pallas/voxel_corr.py:114",
              {**voxel, **voxel_edges}, kbench["launches"])):
@@ -850,7 +1232,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[name],
-            "train_launches_per_step": per_step[name],
+            "train_launches_per_step": steps["train_step"][name],
+            "eval_launches_per_step": steps["eval_step"][name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

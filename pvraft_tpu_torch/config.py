@@ -8,8 +8,21 @@ Fields whose feature a later slice of the port brings raise
 default: a knob is never silently ignored.
 
 ``use_pallas`` keeps its name. In the port it means "the hand-written
-CUDA kernels" (``ops/cuda/``); ``None`` resolves per tensor: True on a
-CUDA tensor, False on a CPU tensor (:func:`resolve_use_pallas`).
+CUDA kernels" (``ops/cuda/``); ``None`` resolves per tensor and per
+kernel (:func:`resolve_use_pallas`): the plain PyTorch version on a CPU
+tensor, the kernel on a CUDA tensor. A configuration that a kernel does
+not take (``ops/cuda/__init__.py::kernel_takes``) raises on a CUDA
+tensor and names ``use_pallas=False``: the plain version runs on the
+card only where the caller chose it.
+
+``ModelConfig.scan_unroll`` is accepted, so that configs shared with the
+JAX package load, and changes nothing: the JAX package unrolls its
+``nn.scan`` over the GRU iterations by it, and the result is the same for
+every value; the port's iterations are a Python loop, which a captured
+CUDA graph holds fully unrolled whatever the value. The train CLI
+refuses ``--scan_unroll`` for that reason. ``TrainConfig.strict_retrace`` makes a graphed step raise
+``obs/retrace.py::RetraceError`` when it meets an input signature it has
+not captured.
 """
 
 from __future__ import annotations
@@ -18,6 +31,8 @@ import dataclasses
 from typing import Any, Iterable, Optional, Tuple
 
 import torch
+
+from pvraft_tpu_torch.ops.cuda import kernel_takes
 
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch", "save_corr")
 
@@ -81,16 +96,15 @@ class ModelConfig:
             ("approx_knn", self.approx_knn, "the approximate top-k slice"),
             ("seq_shard", self.seq_shard, "the parallel slice"),
             ("remat", self.remat, "the memory levers (torch.utils."
-             "checkpoint), ROADMAP queue 1 item 9"),
+             "checkpoint), ROADMAP queue 1 item 7"),
             ("remat_policy", self.remat_policy != "none",
              "the memory levers (torch.utils.checkpoint), ROADMAP queue 1 "
-             "item 9"),
+             "item 7"),
             ("scatter_free_vjp", self.scatter_free_vjp,
-             "its recorded disposition (ROADMAP queue 1 item 9): a "
+             "its recorded disposition (ROADMAP queue 1 item 7): a "
              "TPU-motivated VJP whose forward equals the default path's"),
             ("compute_dtype", self.compute_dtype not in ("float32", "f32"),
              "the bf16 slice"),
-            ("scan_unroll", self.scan_unroll != 1, "the CUDA-graph slice"),
         )
         reject_later(self, later)
 
@@ -185,8 +199,8 @@ class TrainConfig:
              "the parallel slice"),
             ("refine", self.refine, "the stage-2 slice"),
             ("grad_dtype", self.grad_dtype != "float32", "the bf16 slice"),
-            ("eval_scan", self.eval_scan != 1, "the CUDA-graph slice"),
-            ("strict_retrace", self.strict_retrace, "the CUDA-graph slice"),
+            ("eval_scan", self.eval_scan != 1,
+             "the evaluator (ROADMAP queue 1 item 2)"),
         ]
         later += non_default(self, ("checkpoint_interval", "ckpt_backend"),
                              "the trainer slice (checkpoints and resume)")
@@ -217,10 +231,24 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def resolve_use_pallas(cfg: ModelConfig, like: torch.Tensor) -> bool:
-    """``use_pallas`` with the auto default resolved for ``like``'s
-    device: ``None`` means the CUDA kernels on a CUDA tensor and the plain
-    PyTorch path on a CPU tensor."""
-    if cfg.use_pallas is None:
-        return like.is_cuda
-    return cfg.use_pallas
+def resolve_use_pallas(cfg: ModelConfig, like: torch.Tensor,
+                       kernel: str) -> bool:
+    """Whether ``kernel`` ("corr_lookup", "voxel_corr" or "gru_iter")
+    runs for ``like``'s device: ``use_pallas`` where it is set (True on a
+    configuration the kernel does not take raises in the kernel's
+    wrapper); ``None`` means the plain version on a CPU tensor and the
+    CUDA kernel on a CUDA tensor, where a configuration the kernel does
+    not take (``kernel_takes``) raises."""
+    if cfg.use_pallas is not None:
+        return cfg.use_pallas
+    if not like.is_cuda:
+        return False
+    if not kernel_takes(cfg)[kernel]:
+        raise ValueError(
+            f"the CUDA kernel {kernel} does not take this configuration "
+            f"(truncate_k={cfg.truncate_k}, corr_knn={cfg.corr_knn}, "
+            f"resolution={cfg.resolution}, hidden_dim={cfg.hidden_dim}, "
+            f"context_dim={cfg.context_dim}; ops/cuda/__init__.py::"
+            f"kernel_takes); set use_pallas=False to run its plain PyTorch "
+            f"version on the card")
+    return True

@@ -20,9 +20,9 @@ from pvraft_tpu_torch.ops.cuda.corr_lookup import (
 class CorrLookup(nn.Module):
     """Queries the cached candidates at the coordinate estimate through
     the voxel and kNN branches, projects each to 64 channels and sums.
-    The lookup is the CUDA kernel when ``use_pallas`` resolves True, else
-    its plain PyTorch version. ``mask`` (B, N) excludes padding rows from
-    the head GroupNorms."""
+    The lookup is the CUDA kernel when ``use_pallas`` resolves True for
+    it, else its plain PyTorch version. ``mask`` (B, N) excludes padding
+    rows from the head GroupNorms."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -40,8 +40,8 @@ class CorrLookup(nn.Module):
     def forward(self, state: CorrState, coords: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
-        lookup = (fused_corr_lookup if resolve_use_pallas(cfg, coords)
-                  else corr_lookup_plain)
+        kernel = resolve_use_pallas(cfg, coords, "corr_lookup")
+        lookup = fused_corr_lookup if kernel else corr_lookup_plain
         vox, knn_corr, rel_xyz, _ = lookup(
             state.corr, state.xyz, coords, cfg.corr_levels, cfg.base_scale,
             cfg.resolution, cfg.corr_knn)

@@ -107,8 +107,8 @@ class UpdateBlock(nn.Module):
                 mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.cfg.fused_gru:
-            update = (fused_gru_update if resolve_use_pallas(self.cfg, net)
-                      else gru_math)
+            kernel = resolve_use_pallas(self.cfg, net, "gru_iter")
+            update = fused_gru_update if kernel else gru_math
             net = update(net, inp, corr, pad_flow(flow), self.packed_weights())
         else:
             motion = self.motion_encoder(flow, corr)

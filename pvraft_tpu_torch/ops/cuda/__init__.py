@@ -18,20 +18,37 @@ candidates per lane in registers, so they take up to
 their paths, both computing the same values: :func:`vector_loads` (16-byte
 loads, else scalar loads of the same slots) and
 :func:`reciprocal_is_exact` (multiply by ``1/r`` instead of dividing by
-``r``, bitwise equal where it holds).
+``r``, bitwise equal where it holds). :func:`kernel_takes` says which
+model configurations each kernel takes; under ``use_pallas=None`` a
+CUDA tensor with a configuration that a kernel does not take raises and
+names ``use_pallas=False`` (``config.py::resolve_use_pallas``).
+
+Launch counts: each wrapper's ``launches`` attribute counts its eager
+launches, where it launches its kernel. A launch made while a CUDA graph
+is being captured is recorded into the graph, not run: the wrapper
+counts it into :data:`captured` instead, and the program keeps that
+share (``serve/aot.py::GraphProgram.launches``). What a replay launches
+is measured, not inferred: :func:`measured_launches` runs a function
+under ``torch.profiler`` and counts the card's kernels by their device
+symbols (:data:`KERNEL_SYMBOLS`), replayed ones included. A kernel's
+first launch on a device builds and loads its library and, for the GRU
+kernel, opts in to its shared memory; :func:`check_capturable` refuses a
+capture before that first eager launch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
 import math
 import os
+import re
 import shutil
 import struct
 import subprocess
-from typing import Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -41,6 +58,9 @@ BUILD_ROOT = os.path.join(PKG_DIR, "_build")
 # Candidates per query point the voxel and lookup kernels take: 16 per
 # lane of the point's warp, 4 groups of 4 (kMaxPerLane, csrc/voxel_bins.cuh).
 MAX_CANDIDATES = 512
+MAX_KNN = 32           # the lookup's kNN: a sorted (distance, index) per lane
+RESOLUTION = 3         # the voxel kernels' cube: 27 cells per level
+GRU_WIDTH = 64         # the GRU kernel's hidden, context and feature width
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")
@@ -158,3 +178,98 @@ def vector_loads(k: int, *tensors: torch.Tensor) -> bool:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def kernel_takes(cfg) -> Dict[str, bool]:
+    """Kernel name -> whether that CUDA kernel takes ``cfg``'s shapes (a
+    ``ModelConfig``): K (``truncate_k``) <= MAX_CANDIDATES and a
+    resolution of RESOLUTION for the two voxel kernels, ``corr_knn`` <=
+    MAX_KNN for the lookup, hidden and context widths of GRU_WIDTH for
+    the GRU kernel."""
+    voxel = cfg.truncate_k <= MAX_CANDIDATES and cfg.resolution == RESOLUTION
+    return {"corr_lookup": voxel and cfg.corr_knn <= MAX_KNN,
+            "voxel_corr": voxel,
+            "gru_iter": cfg.hidden_dim == cfg.context_dim == GRU_WIDTH}
+
+
+# Launches recorded into CUDA graphs while capturing, by wrapper name.
+captured: Dict[str, int] = collections.Counter()
+_warm = set()          # (wrapper name, device index) launched eagerly
+
+
+def check_capturable(what: str, device: torch.device) -> None:
+    """Raise if a capture is under way and ``what`` has not yet launched
+    eagerly on ``device``: its first launch builds, loads and (GRU) sets
+    a function attribute, none of which a graph can hold."""
+    if (torch.cuda.is_current_stream_capturing()
+            and (what, device.index) not in _warm):
+        raise RuntimeError(
+            f"{what}: first launch on {device} inside a CUDA graph capture; "
+            "run it once eagerly first (serve/aot.py warms up)")
+
+
+def record_launch(wrapper, device: torch.device) -> None:
+    """Count one launch of ``wrapper``'s kernel: into ``captured`` while
+    a graph is being captured, else into ``wrapper.launches``."""
+    name = wrapper.__name__
+    if torch.cuda.is_current_stream_capturing():
+        captured[name] += 1
+    else:
+        wrapper.launches += 1
+        _warm.add((name, device.index))
+
+
+def _wrappers():
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
+    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update
+    from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
+
+    return (fused_corr_lookup, fused_gru_update, voxel_bin_means_pallas)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Wrapper name -> eager kernel launches since the last
+    :func:`zero_launch_counts`."""
+    return {f.__name__: f.launches for f in _wrappers()}
+
+
+def zero_launch_counts() -> None:
+    for f in _wrappers():
+        f.launches = 0
+
+
+# Wrapper name -> the device function it launches (csrc/*.cu), as the
+# profiler names the kernel ("(anonymous namespace)::gru_kernel(float
+# const*, ...)").
+KERNEL_SYMBOLS = {"fused_corr_lookup": "corr_lookup_kernel",
+                  "fused_gru_update": "gru_kernel",
+                  "voxel_bin_means_pallas": "voxel_corr_kernel"}
+
+
+def kernel_of(event_name: str):
+    """The wrapper whose kernel a profiler event names, or None."""
+    for wrapper, symbol in KERNEL_SYMBOLS.items():
+        if re.search(rf"(^|[\s:]){symbol}[(<]", event_name):
+            return wrapper
+    return None
+
+
+def measured_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+    """Run ``fn()`` under ``torch.profiler`` (CUPTI) with a synchronize
+    at its end; returns its result and, per wrapper, the kernels of
+    :data:`KERNEL_SYMBOLS` that the card ran meanwhile: eager launches
+    and those a CUDA graph's replay made alike."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            wrapper = kernel_of(e.name)
+            if wrapper is not None:
+                counts[wrapper] += 1
+    return out, counts

@@ -19,7 +19,7 @@ the voxel backward (:func:`~pvraft_tpu_torch.ops.voxel.voxel_bwd`) plus
 the kNN branch's cotangent scattered onto the forward's own selected
 indices. On tie-free inputs that equals JAX's ``lax.top_k``
 re-selection, and on ties it keeps forward and backward on the same
-candidates. Its ``launches`` attribute counts kernel launches.
+candidates. Its ``launches`` attribute counts eager kernel launches.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from pvraft_tpu_torch.ops import cuda as _cuda
 from pvraft_tpu_torch.ops.corr import knn_select, take_candidates
 from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
-MAX_KNN = 32           # one sorted (distance, index) pair per lane
+MAX_KNN = _cuda.MAX_KNN
 
 Lookup = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -66,11 +66,13 @@ def _launch(corr: torch.Tensor, xyz: torch.Tensor, coords: torch.Tensor,
     if xyz.shape != (b, n, k, 3) or coords.shape != (b, n, 3):
         raise ValueError(f"{what}: shapes {tuple(corr.shape)}, "
                          f"{tuple(xyz.shape)}, {tuple(coords.shape)}")
-    if k > _cuda.MAX_CANDIDATES or knn > min(MAX_KNN, k) or resolution != 3:
+    if (k > _cuda.MAX_CANDIDATES or knn > min(MAX_KNN, k)
+            or resolution != _cuda.RESOLUTION):
         raise ValueError(
             f"{what}: the kernel takes K <= {_cuda.MAX_CANDIDATES}, knn <= "
-            f"min({MAX_KNN}, K) and resolution 3; got K={k}, knn={knn}, "
-            f"resolution={resolution}")
+            f"min({MAX_KNN}, K) and resolution {_cuda.RESOLUTION}; got "
+            f"K={k}, knn={knn}, resolution={resolution}")
+    _cuda.check_capturable(what, corr.device)
     r3 = resolution**3
     vox = torch.empty(b, n, num_levels * r3, device=corr.device)
     kcorr = torch.empty(b, n, knn, device=corr.device)
@@ -86,7 +88,7 @@ def _launch(corr: torch.Tensor, xyz: torch.Tensor, coords: torch.Tensor,
                   int(_cuda.reciprocal_is_exact(base_scale, num_levels)),
                   _cuda.stream_ptr(corr.device))
     _cuda.check(code, what)
-    fused_corr_lookup.launches += 1
+    _cuda.record_launch(fused_corr_lookup, corr.device)
     return vox, kcorr, krel, kidx
 
 

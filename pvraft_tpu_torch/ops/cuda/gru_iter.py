@@ -23,7 +23,7 @@ times it against other sources of the same entry point.
 launches the kernel for CUDA tensors and runs :func:`gru_math` for CPU
 tensors; its backward recomputes :func:`gru_math` and differentiates it
 (the JAX ``_fused_gru_bwd``, ``gru_iter.py:256-262``). Its ``launches``
-attribute counts kernel launches. :func:`pack_gru_weights` and
+attribute counts eager kernel launches. :func:`pack_gru_weights` and
 :func:`pad_flow` build the kernel's operands exactly as the JAX package
 does, outside the Function, so gradients reach the raw ``Linear``
 parameters through their pads and concatenations.
@@ -42,7 +42,7 @@ from pvraft_tpu_torch.ops import cuda as _cuda
 # Flow is zero-padded from 3 to FLOW_PAD channels; the zero columns
 # contribute exact zeros.
 FLOW_PAD = 8
-WIDTH = 64     # the kernel's hidden, context and correlation-feature width
+WIDTH = _cuda.GRU_WIDTH   # hidden, context and correlation-feature width
 
 Weights = Tuple[torch.Tensor, ...]
 
@@ -121,6 +121,7 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (net, inp, cor, flow8, *weights)):
         raise ValueError(f"{what}: every operand must be 16-byte aligned "
                          "(the kernel reads them by 16-byte copies)")
+    _cuda.check_capturable(what, net.device)
     out = torch.empty_like(net)
     fn = _cuda.library("gru_iter").pvraft_gru_update
     _signature(fn)
@@ -129,7 +130,7 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
                                            out)),
                   b * n, _cuda.stream_ptr(net.device))
     _cuda.check(code, what)
-    fused_gru_update.launches += 1
+    _cuda.record_launch(fused_gru_update, net.device)
     return out
 
 

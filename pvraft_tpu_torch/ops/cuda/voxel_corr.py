@@ -14,7 +14,7 @@ forward launches the kernel for CUDA tensors and runs
 :func:`~pvraft_tpu_torch.ops.voxel.voxel_bin_means` for CPU tensors; its
 backward is :func:`~pvraft_tpu_torch.ops.voxel.voxel_bwd` (the JAX
 ``_voxel_bwd``), gradient to ``corr`` only. Its ``launches`` attribute
-counts kernel launches.
+counts eager kernel launches.
 """
 
 from __future__ import annotations
@@ -41,10 +41,12 @@ def _launch(corr: torch.Tensor, rel: torch.Tensor, num_levels: int,
     if rel.shape != (b, n, k, 3):
         raise ValueError(f"{what}: shapes {tuple(corr.shape)}, "
                          f"{tuple(rel.shape)}")
-    if k > _cuda.MAX_CANDIDATES or resolution != 3:
+    if k > _cuda.MAX_CANDIDATES or resolution != _cuda.RESOLUTION:
         raise ValueError(f"{what}: the kernel takes K <= "
-                         f"{_cuda.MAX_CANDIDATES} and resolution 3; got "
-                         f"K={k}, resolution={resolution}")
+                         f"{_cuda.MAX_CANDIDATES} and resolution "
+                         f"{_cuda.RESOLUTION}; got K={k}, "
+                         f"resolution={resolution}")
+    _cuda.check_capturable(what, corr.device)
     out = torch.empty(b, n, num_levels * resolution**3, device=corr.device)
     fn = _cuda.library("voxel_corr").pvraft_voxel_corr
     _signature(fn)
@@ -55,7 +57,7 @@ def _launch(corr: torch.Tensor, rel: torch.Tensor, num_levels: int,
                   int(_cuda.reciprocal_is_exact(base_scale, num_levels)),
                   _cuda.stream_ptr(corr.device))
     _cuda.check(code, what)
-    voxel_bin_means_pallas.launches += 1
+    _cuda.record_launch(voxel_bin_means_pallas, corr.device)
     return out
 
 

@@ -6,7 +6,7 @@ centred on the coordinate estimate:
 
   * cell index = round((candidate - coord) / r) per axis, rounding half
     to even; valid iff all three components lie within
-    +/- floor(resolution/2);
+    +/- floor(resolution/2) and the flat index is below resolution^3;
   * invalid candidates contribute nothing;
   * counts are clamped to [1, N] (N = query points) before the division.
 
@@ -37,6 +37,12 @@ def voxel_cells(rel: torch.Tensor, scale: float, resolution: int
     cell = ((dv[..., 0] + half) * (resolution**2)
             + (dv[..., 1] + half) * resolution
             + (dv[..., 2] + half)).to(torch.int64)
+    if resolution % 2 == 0:
+        # An even resolution's range spans resolution + 1 offsets per axis,
+        # so an index can pass the last of the resolution^3 cells: such a
+        # candidate is dropped, as the JAX package's per-cell sums over
+        # range(resolution^3) drop it.
+        valid = valid & (cell < resolution**3)
     return torch.where(valid, cell, 0), valid
 
 

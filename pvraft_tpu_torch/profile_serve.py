@@ -4,12 +4,16 @@
 
 Serves the flagship ``ModelConfig`` (seeded random weights, 8 GRU
 iterations) on one CUDA device: one 8,192-point request, a batch of four
-4,096-point requests, one 2,048-point request. Each group runs once to
-warm up, then once under ``torch.profiler`` (CPU and CUDA activity). One
-JSON line per group gives the wall time, the device-busy time (union of
-the kernel intervals), the idle share, the kernel count, the device-busy time
-within each model stage (the ``pvraft.*`` ranges of ``models/raft.py``)
-and the kernels with the most device time. Needs a CUDA device.
+4,096-point requests, one 2,048-point request, each two ways: ``eager``,
+the forward run op by op on the padded inputs (:func:`eager_predict_batch`,
+the engine's path before it captured its programs), and ``graphed``,
+``InferenceEngine.predict_batch`` replaying the captured program. Each
+runs once to warm up, then once under ``torch.profiler`` (CPU and CUDA
+activity). One JSON line per group and path gives the wall time, the
+device-busy time (union of the kernel intervals), the idle share, the
+kernel count, the device-busy time within each model stage (the
+``pvraft.*`` ranges of ``models/raft.py``; a replay has none) and the
+kernels with the most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -72,10 +76,12 @@ def profile_call(fn, top: int) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
-    # The pvraft.* and phase.* ranges also appear on the device timeline,
+    # Ranges (the pvraft.* and phase.* ones, the optimizer's own
+    # "Optimizer.step#..." range) also appear on the device timeline,
     # spanning the kernels they enclose; they are not kernels.
     ranges = [e for e in device if e.name.startswith("pvraft.")]
-    kernels = [e for e in device if not e.name.startswith(RANGE_PREFIXES)]
+    kernels = [e for e in device if not e.name.startswith(RANGE_PREFIXES)
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
@@ -108,6 +114,17 @@ def profile_call(fn, top: int) -> dict:
     }
 
 
+def eager_predict_batch(engine: InferenceEngine, requests, bucket: int):
+    """``engine.predict_batch`` without its captured program: the same
+    padding, copies and forward, run op by op on ``engine.model``."""
+    inputs = engine.padded_batch(requests, bucket)
+    x1, x2, v1, v2 = (torch.from_numpy(a).to(engine.device) for a in inputs)
+    with torch.no_grad():
+        flows, _ = engine.model(x1, x2, engine.cfg.num_iters, v1, v2)
+    flow = flows[-1].cpu().numpy()
+    return [flow[i, : requests[i][0].shape[0]] for i in range(len(requests))]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -131,13 +148,16 @@ def main(argv=None) -> int:
               ([(cloud(2048), cloud(2048))], 2048)]
     gpu = nvidia_smi()
     for group, bucket in groups:
-        engine.predict_batch(group, bucket)           # warm-up
-        torch.cuda.synchronize()
-        row = profile_call(lambda: engine.predict_batch(group, bucket),
-                           args.top)
-        print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru,
-                          "bucket": bucket, "requests": len(group), **row}),
-              flush=True)
+        for path, run in (("eager", eager_predict_batch),
+                          ("graphed", InferenceEngine.predict_batch)):
+            run(engine, group, bucket)                # warm-up
+            torch.cuda.synchronize()
+            row = profile_call(lambda: run(engine, group, bucket), args.top)
+            print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru,
+                              "path": path, "bucket": bucket,
+                              "requests": len(group), **row}), flush=True)
+    print(json.dumps({"gpu": gpu, "programs": engine.compile_report()}),
+          flush=True)
     return 0
 
 

@@ -5,20 +5,26 @@
 
 Trains the flagship ``ModelConfig`` at the ``TrainConfig`` defaults
 (B=2 scenes of 8,192 points, 8 GRU iterations, fp32, Adam) on seeded
-FT3D-like synthetic scenes, on one CUDA device: two warm-up steps, then
-one step under ``torch.profiler``, then the same step's work with a
-synchronize after each phase. One JSON line gives, for the step, the
-wall time, device-busy time, idle share, kernel count, the device-busy
-time within the model's ``pvraft.*`` stage ranges and the kernels with
-the most device time; and for the synchronised step, the device-busy
-time of its forward, backward and optimizer phases (the autograd engine
-launches the backward from its own thread, which the device-side ranges
-of the unsynchronised step do not cover). Needs a CUDA device.
+FT3D-like synthetic scenes, on one CUDA device, two ways: ``eager``
+(``Trainer(graphs=False)``: the step op by op, with a plain Adam at a
+float learning rate) and ``graphed`` (the
+captured train step that ``Trainer`` runs by default). Each: two warm-up
+steps, then one step under ``torch.profiler``. One JSON line per way
+gives the wall time, device-busy time, idle share, kernel count, the
+device-busy time within the model's ``pvraft.*`` stage ranges (a replay
+has none) and the kernels with the most device time. The eager line
+also gives, from the same step's work with a synchronize after each
+phase, the device-busy time of its forward, backward and optimizer
+phases (the autograd engine launches the backward from its own thread,
+which the device-side ranges of the unsynchronised step do not cover;
+inside one graph the phases cannot be told apart). The graphed line
+gives its programs' capture records. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 
@@ -74,20 +80,31 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = flagship_train_config(args.seed, fused_gru=args.fused_gru,
                                 use_pallas=args.use_pallas)
-    trainer = Trainer(cfg)
-    batch = to_device(next(batches(trainer.train_ds, 2)), trainer.device)
-    for _ in range(2):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    row = profile_call(lambda: trainer.train_step(batch), args.top)
-    phased = profile_call(lambda: phased_step(trainer, batch), args.top)
-    print(json.dumps({"gpu": nvidia_smi(), "fused_gru": args.fused_gru,
-                      "use_pallas": args.use_pallas, "batch": 2,
-                      "points": cfg.data.max_points,
-                      "iters": cfg.train.iters, **row,
-                      "phase_busy_ms": phased["phase_busy_ms"],
-                      "phased_top_kernels": phased["top_kernels"]}),
-          flush=True)
+    gpu = nvidia_smi()
+    for path in ("eager", "graphed"):
+        trainer = Trainer(cfg, graphs=path == "graphed")
+        batch = to_device(next(batches(trainer.train_ds, 2)), trainer.device)
+        for _ in range(2):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row = profile_call(lambda: trainer.train_step(batch), args.top)
+        row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if path == "eager":
+            phased = profile_call(lambda: phased_step(trainer, batch),
+                                  args.top)
+            row["phase_busy_ms"] = phased["phase_busy_ms"]
+            row["phased_top_kernels"] = phased["top_kernels"]
+        else:
+            row["programs"] = trainer.compile_report()
+            row["reserved_bytes"] = torch.cuda.memory_reserved()
+        print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru,
+                          "use_pallas": args.use_pallas, "path": path,
+                          "batch": 2, "points": cfg.data.max_points,
+                          "iters": cfg.train.iters, **row}), flush=True)
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -6,17 +6,26 @@ padding points on a far diagonal ray beyond ``ServeConfig.coord_limit``
 so that a real point's kNN sets are the unpadded ones; boolean validity
 masks exclude the padding from every GroupNorm statistic and from the
 correlation truncation. Unused batch slots repeat request 0 (every model
-op is batch-parallel). The stage-1 forward runs under
-``torch.inference_mode()``, fp32.
+op is batch-parallel). The stage-1 forward runs fp32, without autograd.
 
-Not in this slice: HTTP, the micro-batcher, replicas, CUDA-graph capture
-and weight hot-swap.
+The engine captures its whole (bucket, batch size) table at construction
+(the JAX ``_compile``): one :class:`~pvraft_tpu_torch.serve.aot.GraphProgram`
+per entry, named by :func:`~pvraft_tpu_torch.serve.aot.predict_program_name`,
+all in one shared memory pool (they never run at once);
+:meth:`InferenceEngine.compile_report` lists them. A request copies its
+padded clouds and masks into the program's static inputs, every slot
+included, replays the graph, and copies the flow out. On the CPU the
+programs run the forward on the same static buffers without a graph.
+
+Not in this slice: HTTP, the micro-batcher, replicas and weight
+hot-swap.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -24,6 +33,11 @@ import torch
 from pvraft_tpu_torch.config import ModelConfig
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.models.raft import PVRaft
+from pvraft_tpu_torch.serve.aot import (
+    GraphProgram,
+    capture,
+    predict_program_name,
+)
 from pvraft_tpu_torch.weights import params_from_jax
 
 SERVE_DEFAULT_BUCKETS = (2048, 4096, 8192)
@@ -115,7 +129,9 @@ class InferenceEngine:
 
     ``weights`` is a port state_dict (flat mapping of tensors) or the JAX
     package's flax params tree (nested mapping, mapped by
-    :func:`params_from_jax`); either loads with ``strict=True``.
+    :func:`params_from_jax`); either loads with ``strict=True``. The
+    constructor captures every (bucket, batch size) program; a failed
+    capture raises.
     """
 
     def __init__(self, weights: Mapping, cfg: ServeConfig,
@@ -128,6 +144,38 @@ class InferenceEngine:
         self.model = PVRaft(model_cfg)
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device).eval()
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        self._programs: Dict[Tuple[int, int], GraphProgram] = {}
+        for bucket in cfg.buckets:
+            for bs in cfg.batch_sizes:
+                self._programs[(bucket, bs)] = self._compile(bucket, bs, pool)
+
+    def _compile(self, bucket: int, bs: int, pool) -> GraphProgram:
+        """Capture the forward at (bs, bucket): padded clouds and validity
+        masks in, the last flow out. Warmed up on seeded clouds inside
+        the coordinate limit, every point valid."""
+        model, iters = self.model, self.cfg.num_iters
+
+        def forward(xyz1, xyz2, valid1, valid2):
+            with torch.no_grad():
+                flows, _ = model(xyz1, xyz2, iters, valid1, valid2)
+            return (flows[-1],)
+
+        gen = torch.Generator().manual_seed(bucket * 16 + bs)
+        cloud = torch.rand(bs, bucket, 3, generator=gen) * 2 - 1
+        valid = torch.ones(bs, bucket, dtype=torch.bool)
+        return capture(predict_program_name(bucket, bs, self.cfg.dtype),
+                       forward, (cloud, cloud.flip(1), valid, valid),
+                       self.device, pool)
+
+    def compile_report(self) -> List[Dict[str, Any]]:
+        """Each program's record (``GraphProgram.report``), in table
+        order."""
+        return [p.report() for p in self._programs.values()]
+
+    def program(self, bucket: int, bs: int) -> GraphProgram:
+        return self._programs[(bucket, bs)]
 
     def bucket_for(self, n_points: int) -> Optional[int]:
         """Smallest bucket holding ``n_points``, or None if too large."""
@@ -172,12 +220,12 @@ class InferenceEngine:
                 f"{self.cfg.buckets[-1]}")
         return bucket
 
-    def predict_batch(self, requests: Sequence[Tuple[np.ndarray, np.ndarray]],
-                      bucket: int) -> List[np.ndarray]:
-        """Run a group of validated same-bucket requests as one batch;
-        returns each request's un-padded (n1, 3) flow."""
-        if not requests:
-            return []
+    def padded_batch(self, requests: Sequence[Tuple[np.ndarray, np.ndarray]],
+                     bucket: int) -> Tuple[np.ndarray, ...]:
+        """A group of validated same-bucket requests as the program's
+        inputs at ``batch_size_for(len(requests))``: padded pc1 and pc2
+        (bs, bucket, 3) f32 and their (bs, bucket) validity masks, fill
+        slots repeating request 0."""
         bs = self.batch_size_for(len(requests))
         if len(requests) > bs:
             raise ValueError(
@@ -199,14 +247,20 @@ class InferenceEngine:
             rows2.append(rows2[0])
             v1.append(v1[0])
             v2.append(v2[0])
+        return tuple(np.stack(a) for a in (rows1, rows2, v1, v2))
 
-        def put(arrays):
-            return torch.from_numpy(np.stack(arrays)).to(self.device)
-
-        with torch.inference_mode():
-            flows, _ = self.model(put(rows1), put(rows2), self.cfg.num_iters,
-                                  put(v1), put(v2))
-            flow = flows[-1].cpu().numpy()
+    def predict_batch(self, requests: Sequence[Tuple[np.ndarray, np.ndarray]],
+                      bucket: int) -> List[np.ndarray]:
+        """Run a group of validated same-bucket requests as one batch;
+        returns each request's un-padded (n1, 3) flow."""
+        if not requests:
+            return []
+        inputs = self.padded_batch(requests, bucket)
+        program = self._programs[(bucket, inputs[0].shape[0])]
+        # Every slot of every static input is overwritten; the flow is
+        # copied to the host before the next request can overwrite it.
+        flow, = program(*(torch.from_numpy(a) for a in inputs))
+        flow = flow.to("cpu", copy=True).numpy()
         return [flow[i, : requests[i][0].shape[0]]
                 for i in range(len(requests))]
 

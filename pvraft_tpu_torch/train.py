@@ -47,22 +47,23 @@ LATER_FLAGS = {
     "--grad_dtype": "the bf16 slice",
     "--approx_topk": "the approximate top-k slice",
     "--approx_knn": "the approximate top-k slice",
-    "--remat": "the memory levers (ROADMAP queue 1 item 9)",
-    "--remat_policy": "the memory levers (ROADMAP queue 1 item 9)",
-    "--scatter_free_vjp": "its recorded disposition (ROADMAP queue 1 item 9)",
-    "--packed_state": "the CUDA-graph slice (the H100 counterpart of "
-                      "packed dispatch)",
-    "--host_roundtrip": "the CUDA-graph slice",
-    "--steps_per_dispatch": "the CUDA-graph slice",
-    "--scan_unroll": "the CUDA-graph slice",
+    "--remat": "the memory levers (ROADMAP queue 1 item 7)",
+    "--remat_policy": "the memory levers (ROADMAP queue 1 item 7)",
+    "--scatter_free_vjp": "its recorded disposition (ROADMAP queue 1 item 7)",
+    "--packed_state": "the K-step train graph (ROADMAP queue 1 item 1)",
+    "--host_roundtrip": "the K-step train graph (ROADMAP queue 1 item 1)",
+    "--steps_per_dispatch": "the K-step train graph (ROADMAP queue 1 item 1)",
     "--device_prefetch": "the data slice (PrefetchLoader)",
     "--platform": "no slice: the port picks its device with --device",
+    "--scan_unroll": "no slice: a captured graph holds the GRU iterations "
+                     "unrolled, whatever the unroll (ModelConfig.scan_unroll "
+                     "is accepted only to load configs shared with the JAX "
+                     "package)",
     "--profile_dir": "the observability slice",
     "--telemetry": "the observability slice",
     "--divergence_zscore": "the observability slice",
     "--divergence_window": "the observability slice",
     "--halt_on_divergence": "the observability slice",
-    "--strict_retrace": "the CUDA-graph slice",
 }
 
 
@@ -98,6 +99,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "(default: the kernels on a CUDA device)")
     p.add_argument("--fused_gru", action="store_true",
                    help="fused MotionEncoder+ConvGRU update")
+    p.add_argument("--strict_retrace", action="store_true",
+                   help="raise RetraceError when a graphed step meets an "
+                        "input signature it has not captured")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without one)")
     return p.parse_args(argv)
@@ -114,7 +118,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
         train=TrainConfig(batch_size=a.batch_size, num_epochs=a.num_epochs,
                           lr=a.lr, gamma=a.gamma, iters=a.iters,
                           eval_iters=a.eval_iters, seed=a.seed,
-                          lr_schedule=a.lr_schedule),
+                          lr_schedule=a.lr_schedule,
+                          strict_retrace=a.strict_retrace),
     )
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -99,15 +99,19 @@ def _adam_state(opt_state: Any) -> Any:
     return None
 
 
-def opt_state_from_jax(opt_state: Any, model: torch.nn.Module
+def opt_state_from_jax(opt_state: Any, model: torch.nn.Module,
+                       optimizer: Optional[torch.optim.Adam] = None
                        ) -> Dict[str, Any]:
     """Map optax's Adam state (``optax.adam``: ``mu``, ``nu``, ``count``)
     onto a ``torch.optim.Adam(model.parameters())`` state_dict, to load
     with ``optimizer.load_state_dict``. ``mu``/``nu`` become
     ``exp_avg``/``exp_avg_sq`` under the names and transposes of
     :func:`params_from_jax`; ``count`` becomes every parameter's ``step``.
-    Raises if a parameter of ``model`` has no moment, a moment no
-    parameter, or a moment another shape than its parameter."""
+    ``optimizer``, where given, supplies the param groups (its learning
+    rate tensor, ``capturable``): loaded into it, a capturable Adam's
+    ``step`` lands on the parameters' device, where a captured step
+    reads it. Raises if a parameter of ``model`` has no moment, a moment
+    no parameter, or a moment another shape than its parameter."""
     adam = _adam_state(opt_state)
     if adam is None:
         raise KeyError("no Adam state (count, mu, nu) in the optax state")
@@ -123,7 +127,9 @@ def opt_state_from_jax(opt_state: Any, model: torch.nn.Module
                              f"{tuple(mu[n].shape)}, the parameter "
                              f"{tuple(p.shape)}")
     step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
-    sd = torch.optim.Adam(model.parameters()).state_dict()
+    if optimizer is None:
+        optimizer = torch.optim.Adam(model.parameters())
+    sd = optimizer.state_dict()
     sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
                        "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
     return sd

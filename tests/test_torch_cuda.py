@@ -11,7 +11,11 @@ base_scale 0.3 (the division path). Bars: identical kNN indices,
 atol 1e-5, bitwise-equal repeated launches; each Function's gradient
 against autograd through its plain version, atol 1e-5; one train step
 with the kernels against the plain versions at the bars of
-``tests/test_torch_grad.py``.
+``tests/test_torch_grad.py``. The captured paths: a config the kernels
+do not take raises under ``use_pallas=None`` and ``True`` and runs under
+``False``; the serve programs' replays (their kernel launches measured
+by the profiler) and three graphed train steps equal their eager runs
+bitwise.
 """
 
 import numpy as np
@@ -265,3 +269,168 @@ def test_train_step_with_kernels_matches_plain(dev, fused_gru):
         cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
         rel = float((gk - gp).norm() / gp.norm())
         assert cos >= 0.9999 and rel <= 1e-3, (n, cos, rel)
+
+
+@pytest.mark.parametrize("kw", [{"resolution": 2},
+                                {"corr_knn": 48, "truncate_k": 64}])
+def test_config_the_kernels_do_not_take_raises_unless_plain(dev, kw):
+    """A config the lookup kernel does not take raises on the card under
+    ``use_pallas=None`` (naming ``use_pallas=False``) and under ``True``,
+    and runs its plain version under ``False``."""
+    tiny = dict(truncate_k=64, corr_knn=16, graph_k=8)
+    tiny.update(kw)
+    ds = SyntheticDataset(size=2, nb_points=128, noise=0.01, seed=2)
+    batch = to_device(collate([ds[0], ds[1]]), dev)
+    weights = seeded_state_dict(ModelConfig(**tiny), 0)
+    for use_pallas, match in ((None, "use_pallas=False"),
+                              (True, "the kernel takes")):
+        model = PVRaft(ModelConfig(**tiny, use_pallas=use_pallas)).to(dev)
+        model.load_state_dict(weights)
+        with pytest.raises(ValueError, match=match):
+            model(batch["pc1"], batch["pc2"], 1)
+    model = PVRaft(ModelConfig(**tiny, use_pallas=False)).to(dev)
+    model.load_state_dict(weights)
+    with torch.no_grad():
+        flows, _ = model(batch["pc1"], batch["pc2"], 2)
+    assert flows.shape == (2, 2, 128, 3) and bool(flows.isfinite().all())
+
+
+@pytest.mark.parametrize("fused_gru", [False, True])
+def test_engine_replays_equal_the_eager_forward(dev, fused_gru):
+    """The captured serve programs against ``engine.model`` run eagerly on
+    the same padded inputs: bitwise; the profiler sees each replay launch
+    the kernels its capture recorded, and no wrapper launches eagerly."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    tiny = ModelConfig(truncate_k=16, corr_knn=8, graph_k=4,
+                       fused_gru=fused_gru)
+    cfg = ServeConfig(model=tiny, buckets=(32, 64), batch_sizes=(1, 2),
+                      num_iters=2)
+    engine = InferenceEngine(seeded_state_dict(tiny, 0), cfg)
+    report = engine.compile_report()
+    assert [r["name"] for r in report] == [
+        "predict_b32_bs1", "predict_b32_bs2", "predict_b64_bs1",
+        "predict_b64_bs2"]
+    want = {"fused_corr_lookup": 2}
+    if fused_gru:
+        want["fused_gru_update"] = 2
+    assert all(r["graph"] and r["launches"] == want for r in report)
+    rng = np.random.default_rng(3)
+    for n in (64, 40, 33, 20):
+        pc1 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        m = n + 2 if n < 64 else n
+        pc2 = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+        bucket = engine.validate_request(pc1, pc2)
+        kernels.zero_launch_counts()
+        got, counts = kernels.measured_launches(
+            lambda: engine.predict(pc1, pc2))
+        assert counts == {**dict.fromkeys(kernels.KERNEL_SYMBOLS, 0), **want}
+        assert set(kernels.launch_counts().values()) == {0}
+        x1, x2, v1, v2 = (torch.from_numpy(a).to(dev) for a in
+                          engine.padded_batch([(pc1, pc2)], bucket))
+        with torch.no_grad():
+            flows, _ = engine.model(x1, x2, cfg.num_iters, v1, v2)
+        np.testing.assert_array_equal(got, flows[-1][0, :n].cpu().numpy())
+
+
+def test_graphed_train_step_equals_eager_on_the_card(dev, monkeypatch):
+    """Three captured steps (forward, loss, backward, capturable Adam with
+    a device lr) against the eager step under deterministic algorithms:
+    losses and parameters bitwise; a new shape captures a second graph."""
+    from pvraft_tpu_torch.engine.schedule import make_lr_schedule
+    from pvraft_tpu_torch.engine.steps import (
+        make_graphed_train_step,
+        make_train_step,
+    )
+
+    tiny = ModelConfig(truncate_k=64, corr_knn=16, graph_k=8, fused_gru=True)
+    weights = seeded_state_dict(tiny, 0)
+    schedule = make_lr_schedule("cosine", 1e-3, 1, 4, 4)
+    ds = SyntheticDataset(size=6, nb_points=256, noise=0.01, seed=1,
+                          n_objects=3)
+    steps, models = {}, {}
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, make in (("graphed", make_graphed_train_step),
+                           ("eager", make_train_step)):
+            model = PVRaft(tiny).to(dev)
+            model.load_state_dict(weights)
+            opt = torch.optim.Adam(model.parameters(),
+                                   lr=torch.tensor(1e-3, device=dev),
+                                   capturable=True)
+            extra = (dev,) if name == "graphed" else ()
+            steps[name] = make(model, opt, schedule, 0.8, 2, *extra)
+            models[name] = model
+        for i in range(3):
+            batch = to_device(collate([ds[2 * i], ds[2 * i + 1]]), dev)
+            g, e = steps["graphed"](batch), steps["eager"](batch)
+            assert torch.equal(g["loss"], e["loss"]), i
+            assert torch.equal(g["epe"], e["epe"]), i
+        for (n, p), q in zip(models["graphed"].named_parameters(),
+                             models["eager"].parameters()):
+            assert torch.equal(p, q), n
+        steps["graphed"](to_device(collate([ds[0]]), dev))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(steps["graphed"].graphs.report()) == 2
+    assert steps["graphed"].graphs.retraces
+
+
+def _flax_tree(state):
+    """A port state_dict as a flax params tree (the inverse of
+    ``params_from_jax``): Linear weights back to (in, out) kernels,
+    GroupNorm weights to scales."""
+    tree = {}
+    for name, t in state.items():
+        module, _, leaf = name.rpartition(".")
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        arr = t.numpy()
+        if leaf == "weight":
+            leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+def test_trainer_resumes_an_optax_state_on_the_card(dev, monkeypatch):
+    """An optax Adam state (count 3) loaded into the capturable Adam: its
+    step lands on the card before the capture, the graphed steps continue
+    the count and equal the eager steps on the same Adam bitwise."""
+    from pvraft_tpu_torch.config import Config, DataConfig, TrainConfig
+    from pvraft_tpu_torch.engine.steps import optimizer_steps
+    from pvraft_tpu_torch.engine.trainer import Trainer
+
+    tiny = ModelConfig(truncate_k=64, corr_knn=16, graph_k=8)
+    cfg = Config(model=tiny,
+                 data=DataConfig(dataset="synthetic", max_points=256,
+                                 synthetic_size=4),
+                 train=TrainConfig(num_epochs=1, iters=2, eval_iters=2,
+                                   lr_schedule="cosine"))
+    state = seeded_state_dict(tiny, 1)
+    rng = np.random.default_rng(0)
+    moments = {k: 1e-3 * rng.normal(size=v.shape).astype(np.float32)
+               for k, v in state.items()}
+    opt_state = {"count": np.asarray(3, np.int32),
+                 "mu": _flax_tree({k: torch.from_numpy(v)
+                                   for k, v in moments.items()}),
+                 "nu": _flax_tree({k: torch.from_numpy(v * v)
+                                   for k, v in moments.items()})}
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for graphs in (True, False):
+            trainer = Trainer(cfg, device=dev, weights=state,
+                              opt_state=opt_state, graphs=graphs,
+                              capturable=True)
+            group = trainer.optimizer.param_groups[0]
+            assert group["capturable"] and group["lr"].is_cuda
+            assert all(s["step"].is_cuda and float(s["step"]) == 3.0
+                       for s in trainer.optimizer.state.values())
+            runs[graphs] = trainer.training(0)["losses"]
+            assert optimizer_steps(trainer.optimizer) == 5
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert runs[True] == runs[False] and len(runs[True]) == 2

@@ -247,7 +247,7 @@ def test_model_config_defaults_match_jax():
     {"corr_chunk": 256}, {"graph_chunk": 256}, {"approx_topk": True},
     {"approx_knn": True}, {"seq_shard": True}, {"remat": True},
     {"remat_policy": "dots"}, {"scatter_free_vjp": True},
-    {"compute_dtype": "bfloat16"}, {"scan_unroll": 2},
+    {"compute_dtype": "bfloat16"},
 ])
 def test_model_config_rejects_later_slices(kw):
     jconfig.ModelConfig(**kw)            # the JAX package honors it
@@ -270,5 +270,8 @@ def test_model_config_rejects_like_jax(kw):
 
 def test_use_pallas_auto_resolves_per_tensor():
     cpu = torch.zeros(1)
-    assert tconfig.resolve_use_pallas(tconfig.ModelConfig(), cpu) is False
-    assert tconfig.resolve_use_pallas(tconfig.ModelConfig(use_pallas=True), cpu)
+    for kernel in ("corr_lookup", "voxel_corr", "gru_iter"):
+        assert tconfig.resolve_use_pallas(tconfig.ModelConfig(), cpu,
+                                          kernel) is False
+        assert tconfig.resolve_use_pallas(
+            tconfig.ModelConfig(use_pallas=True), cpu, kernel)

@@ -131,3 +131,8 @@ def test_serve_config_defaults_are_the_flagship_table():
     jcfg = JServeConfig()
     assert (jcfg.buckets, jcfg.batch_sizes, jcfg.num_iters) == \
         (cfg.buckets, cfg.batch_sizes, cfg.num_iters)
+    # The gap, pinned: JAX serves bf16 on one replica per device by
+    # default, the port fp32 on one replica. ROADMAP queue 1 item 4 (bf16)
+    # and item 6 (the serving tier) close it.
+    assert (jcfg.dtype, jcfg.replicas) == ("bfloat16", 0)
+    assert (cfg.dtype, cfg.replicas) == ("float32", 1)
