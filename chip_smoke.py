@@ -29,7 +29,15 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            (``lookup_split``);
            holds each autograd Function's gradient (kernel
            forward, hand-written backward) against autograd through the
-           plain version, atol 1e-5, at B=2 x 8192 and B=4 x 4096; then
+           plain version, atol 1e-5, at B=2 x 8192 and B=4 x 4096; holds
+           the general kernels (``corr_lookup_general``,
+           ``gru_iter_general``) against the plain versions at 1 x 8192
+           at shapes the tuned kernels do not take (``GENERAL_LOOKUPS``:
+           K 1024 / knn 64 / r 3, K 510 / knn 48 / r 2, K 512 / knn 32 /
+           r 5 with 4 levels; GRU widths 32, 96, 128, and hidden 32 /
+           context 96 as phase 6 runs it) at the same bars,
+           timing them the same way, and the Functions' gradients there
+           at atol 1e-4 (``check_general_backward``); then
            runs the kernel bench (``python -m
            pvraft_tpu_torch.kernel_bench``), the path through which the
            port runs the voxel kernel's forward, counting its launches;
@@ -63,18 +71,34 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            step graphed against eager; train and eval step times against
            the eager trainer's (plain Adam), peak memory and the
            programs' pools (see ``graph_serve``, ``graph_train``);
-  phase 5  the launches of the main paths (``launches_phase``): each
+  phase 5  the slice's checkpoints at full width (``checkpoints``,
+           ``checkpoint_phase``): ``fit`` for 2 epochs of the flagship
+           model, graphed, under ``deterministic()``; a second Trainer
+           resumed from the epoch-0 checkpoint runs epoch 1 bitwise like
+           the uninterrupted run (losses, validation, parameters, Adam
+           state); the Evaluator (32 iterations, one scene per step) on
+           ``best_checkpoint`` gives ``fit``'s test means bitwise;
+           ``InferenceEngine.from_checkpoint`` answers a request bitwise
+           like the eager forward; the checkpoint's bytes,
+           save and load seconds, the evaluator's ms per scene;
+  phase 6  off the flagship (``off_flagship``): one 8,192-point request
+           at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
+           context 96 with fused_gru, ``use_pallas=None``: the profiler
+           must see the general kernels launched, never the plain path;
+  phase 7  the launches of the main paths (``launches_phase``): each
            serve group of phases 2 and 4, one train step and one eval step
            of every way of phase 3, each pass alone under
            ``torch.profiler`` with the counts zeroed just before it.
 
 Launch counts: a wrapper counts its eager launches where it launches
 its kernel; a replayed graph runs no wrapper, so every count on a
-captured path is measured: phase 5 counts the card's kernels by their
-device symbols (``ops/cuda.measured_launches``), and the launches each
-program's capture recorded are the cross-check. Phase 5 runs last: a
-profiler session leaves the process's eager launches slower, so it would
-tilt the eager-against-graphed times of phases 2-4.
+captured path is measured: phases 6 and 7 count the card's kernels by
+their device symbols (``ops/cuda.measured_launches``), and the launches
+each program's capture recorded are the cross-check. Phases 6 and 7 run
+last: a profiler session leaves the process's eager launches slower, so
+it would tilt the eager-against-graphed times of phases 2-4. The
+``kernels`` line lists the three tuned kernels (launches from phase 7 and
+the kernel bench) and the two general ones (launches from phase 6).
 
 Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -86,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -97,6 +122,7 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.kernel_bench import device_ms
+from pvraft_tpu_torch.ops.cuda import KERNEL_SYMBOLS, gru_variant, lookup_variant
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # CUDA-core FLOP/s and dense TF32 tensor-core FLOP/s. The bound of a kernel
@@ -175,8 +201,13 @@ def memory_state():
                 "num_alloc_retries", 0)}
 
 
-NO_LAUNCHES = {"fused_corr_lookup": 0, "fused_gru_update": 0,
-               "voxel_bin_means_pallas": 0}
+NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
+# The kernel (by its wrapper's count) each Function runs, per variant.
+LOOKUP_KERNELS = {"tuned": "fused_corr_lookup",
+                  "general": "corr_lookup_general"}
+VOXEL_KERNELS = {"tuned": "voxel_bin_means_pallas",
+                 "general": "corr_lookup_general"}
+GRU_KERNELS = {"tuned": "fused_gru_update", "general": "gru_iter_general"}
 
 
 def captured_share(report, want):
@@ -189,12 +220,12 @@ def captured_share(report, want):
 # --------------------------------------------------------------- phase 1 --
 
 
-def lookup_inputs(rng, b, n, dev):
+def lookup_inputs(rng, b, n, dev, k=K):
     """Candidates around the query coords with continuous offsets (no
     exact distance ties), spread over all three voxel levels."""
     coords = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
-    xyz = coords[:, :, None, :] + rng.normal(0, 0.6, (b, n, K, 3)).astype(np.float32)
-    corr = rng.normal(size=(b, n, K)).astype(np.float32)
+    xyz = coords[:, :, None, :] + rng.normal(0, 0.6, (b, n, k, 3)).astype(np.float32)
+    corr = rng.normal(size=(b, n, k)).astype(np.float32)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for a in (corr, xyz, coords))
 
@@ -207,10 +238,16 @@ def lookup_case(name, args):
     from pvraft_tpu_torch.ops.cuda.corr_lookup import (
         corr_lookup_plain, fused_corr_lookup)
 
+    corr, _, _, levels, _, res, knn = args
+    b, n, k = corr.shape
+    kernel = LOOKUP_KERNELS[lookup_variant(k, knn, res)]
+    before = read_counts()[kernel]
     got = fused_corr_lookup(*args)
     again = fused_corr_lookup(*args)
     want = corr_lookup_plain(*args)
     torch.cuda.synchronize()
+    check(read_counts()[kernel] == before + 2,
+          f"lookup {name}: {kernel} did not run it")
     check(torch.equal(got[3], want[3]),
           f"lookup {name}: kNN indices differ from the plain version")
     err = max([float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])
@@ -219,14 +256,13 @@ def lookup_case(name, args):
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"lookup {name}: two launches are not bitwise equal")
     filled = float((got[0] != 0).float().mean()) if got[0].numel() else 0.0
-    corr, _, _, levels, _, _, knn = args
-    b, n, k = corr.shape
-    vox_n = levels * RESOLUTION**3
+    vox_n = levels * res**3
     bytes_ = 4 * b * n * (k + 3 * k + 3) + 4 * b * n * (vox_n + 5 * knn)
     # Per candidate: 3 offsets, 5 for the distance, per level 3 divisions,
     # 3 roundings and 3 range tests; knn comparisons.
     ops = b * n * k * (3 + 5 + 9 * levels + knn)
     return {
+        "kernel": kernel, "resolution": res,
         "shape": [b, n, k], "knn": knn, "levels": levels,
         "base_scale": args[4], "max_abs_err": err, "bitwise_repeat": True,
         "filled_cells": filled,
@@ -324,22 +360,25 @@ def bound(bytes_: float, ops: float, flops_per_s: float = FP32_FLOPS_PER_S):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def gru_inputs(rng, b, n, dev, scale=1.0):
-    """Seeded GRU operands: weights 0.15 N(0,1); net = tanh, inp = relu and
-    cor of ``scale`` N(0,1); flow 0.3 ``scale`` N(0,1)."""
+def gru_inputs(rng, b, n, dev, scale=1.0, h=WIDTH, c=None):
+    """Seeded GRU operands at hidden width ``h``, context width ``c``
+    (default ``h``) and correlation features of WIDTH (the lookup
+    head's): weights 0.15 N(0,1); net = tanh, inp = relu and cor of
+    ``scale`` N(0,1); flow 0.3 ``scale`` N(0,1)."""
     from pvraft_tpu_torch.ops.cuda.gru_iter import pack_gru_weights, pad_flow
 
-    h = WIDTH
+    f = WIDTH
+    c = h if c is None else c
 
     def a(*s, scale=0.15):
         return torch.from_numpy((scale * rng.normal(size=s)).astype(np.float32)).to(dev)
 
-    me = (a(h, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
-    gru = (a(3 * h, h), a(h), a(3 * h, h), a(h), a(3 * h, h), a(h))
-    weights = pack_gru_weights(me, gru, h, h)
+    me = (a(f, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
+    gru = (a(2 * h + c, h), a(h)) * 3
+    weights = pack_gru_weights(me, gru, h, c)
     net = torch.tanh(a(b, n, h, scale=scale))
-    inp = torch.relu(a(b, n, h, scale=scale))
-    cor = a(b, n, h, scale=scale)
+    inp = torch.relu(a(b, n, c, scale=scale))
+    cor = a(b, n, f, scale=scale)
     flow = a(b, n, 3, scale=0.3 * scale)
     return me, gru, (net, inp, cor, pad_flow(flow).contiguous(), weights), flow
 
@@ -353,26 +392,38 @@ GRU_CASES = {"ragged_2x2056": (2, 2056, 1.0, 1e-5),
              "saturating_1x8192": (1, 8192, 10.0, 1e-4)}
 
 
-def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5):
-    """Holds the GRU kernel against ``gru_math``: max |err| <= ``tol``, two
-    launches bitwise equal; the unfused modules (the library yardstick)
-    against it too; times all three. The bound is the 3xTF32 one (three
-    tensor-core products per fp32 product), beside the fp32 CUDA-core
-    bound of the same work (``fp32_bound_ms``)."""
+def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None):
+    """Holds the GRU kernel that the wrapper picks for hidden width ``h``
+    and context width ``c`` (default ``h``; the tuned kernel at WIDTH,
+    else the general one) against ``gru_math``: max
+    |err| <= ``tol``, two launches bitwise equal; the unfused modules (the
+    library yardstick) against it too; times all three. The tuned
+    kernel's bound is the 3xTF32 one (three tensor-core products per fp32
+    product), beside the fp32 CUDA-core bound of the same work
+    (``fp32_bound_ms``); the general kernel's is the fp32 CUDA-core one."""
     from pvraft_tpu_torch.models.update import ConvGRU, MotionEncoder
     from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update, gru_math
 
-    me, gru, args, flow = gru_inputs(rng, b, n, dev, scale)
+    c = h if c is None else c
+    variant = gru_variant(h, c, WIDTH)
+    kernel = GRU_KERNELS[variant]
+    me, gru, args, flow = gru_inputs(rng, b, n, dev, scale, h, c)
+    before = read_counts()[kernel]
     got = fused_gru_update(*args)
     again = fused_gru_update(*args)
     want = gru_math(*args)
     torch.cuda.synchronize()
+    check(read_counts()[kernel] == before + 2,
+          f"gru {h}/{c}: {kernel} did not run it")
     err = float((got - want).abs().max())
-    check(err <= tol, f"gru {b}x{n} scale {scale}: max |err| {err} > {tol}")
-    check(torch.equal(got, again), f"gru {b}x{n}: launches not bitwise equal")
+    check(err <= tol, f"gru {b}x{n} {h}/{c} scale {scale}: max |err| {err} "
+                      f"> {tol}")
+    check(torch.equal(got, again),
+          f"gru {b}x{n} {h}/{c}: launches not bitwise equal")
     # The library yardstick: the unfused MotionEncoder + ConvGRU modules on
     # the same weights (the port never calls them on the kernel path).
-    menc, cgru = MotionEncoder(WIDTH).to(dev), ConvGRU(WIDTH, 2 * WIDTH).to(dev)
+    menc = MotionEncoder(h, WIDTH).to(dev)
+    cgru = ConvGRU(h, c + h).to(dev)
     with torch.no_grad():
         for layer, (w, bias) in zip(
                 (menc.conv_corr, menc.conv_flow, menc.conv,
@@ -389,43 +440,57 @@ def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5):
     lib_err = float((unfused() - want).abs().max())
     check(lib_err <= tol, f"gru {b}x{n}: unfused modules differ by {lib_err}")
     weight_bytes = sum(4 * w.numel() for w in args[4])
-    bytes_ = 4 * b * n * (3 * WIDTH + 8 + WIDTH) + weight_bytes
-    flops = 2 * 51200 * b * n
+    # Per point: net, inp, cor and flow8 read, the new net written.
+    bytes_ = 4 * b * n * (2 * h + c + WIDTH + 8) + weight_bytes
+    # Per point: conv_corr, conv_flow (8 padded rows), conv, the three
+    # gates over concat(inp, hid, flow8), and net into the gates.
+    flops = 2 * b * n * (WIDTH * h + 8 * h + 2 * h * h
+                         + (c + h + 8) * 3 * h + h * 3 * h)
+    tuned = variant == "tuned"
     return {
-        "shape": [b, n, WIDTH], "activation_scale": scale,
+        "kernel": kernel, "shape": [b, n, h, c], "activation_scale": scale,
         "max_abs_err": err, "atol": tol, "bitwise_repeat": True,
         "ms": device_ms(lambda: fused_gru_update(*args)),
         "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
         "plain_ms": device_ms(lambda: gru_math(*args)),
         "library_ms": device_ms(unfused),
         "bytes": bytes_, "ops": flops,
-        **bound(bytes_, 3 * flops, TF32_FLOPS_PER_S),
+        **(bound(bytes_, 3 * flops, TF32_FLOPS_PER_S) if tuned
+           else bound(bytes_, flops)),
         "fp32_bound_ms": bound(bytes_, flops)["bound_ms"],
     }
 
 
-def voxel_case(name, corr, xyz, coords, scale):
-    """Holds the voxel kernel against ``voxel_bin_means`` on rel = xyz -
-    coords: max |err| <= 1e-5, two launches bitwise equal; times both."""
+def voxel_case(name, corr, xyz, coords, scale, levels=LEVELS,
+               res=RESOLUTION):
+    """Holds the voxel Function's kernel (the tuned one where it takes the
+    shapes, else the general lookup kernel with knn = 0) against
+    ``voxel_bin_means`` on rel = xyz - coords: max |err| <= 1e-5, two
+    launches bitwise equal; times both."""
     from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
     from pvraft_tpu_torch.ops.voxel import voxel_bin_means
 
     rel = (xyz - coords[:, :, None, :]).contiguous()
-    args = (corr, rel, LEVELS, scale, RESOLUTION)
+    args = (corr, rel, levels, scale, res)
+    kernel = VOXEL_KERNELS[lookup_variant(corr.shape[-1], 0, res)]
+    before = read_counts()[kernel]
     got = voxel_bin_means_pallas(*args)
     again = voxel_bin_means_pallas(*args)
     want = voxel_bin_means(*args)
     torch.cuda.synchronize()
+    check(read_counts()[kernel] == before + 2,
+          f"voxel {name}: {kernel} did not run it")
     err = float((got - want).abs().max())
     check(err <= 1e-5, f"voxel {name}: max |err| {err} > 1e-5")
     check(torch.equal(got, again), f"voxel {name}: launches not bitwise equal")
     filled = float((got != 0).float().mean())
     b, n, k = corr.shape
-    vox_n = LEVELS * RESOLUTION**3
+    vox_n = levels * res**3
     bytes_ = 4 * b * n * (k + 3 * k) + 4 * b * n * vox_n
     # Per candidate and level: 3 divisions, 3 roundings, 3 range tests.
-    ops = b * n * k * 9 * LEVELS
+    ops = b * n * k * 9 * levels
     return {
+        "kernel": kernel, "resolution": res, "levels": levels,
         "shape": [b, n, k], "base_scale": scale, "max_abs_err": err,
         "bitwise_repeat": True, "filled_cells": filled,
         "ms": device_ms(lambda: voxel_bin_means_pallas(*args)),
@@ -495,6 +560,90 @@ def check_backward(rng, b, n, dev):
     torch.cuda.synchronize()
     for name, err in out.items():
         check(err <= 1e-5, f"{name} backward {b}x{n}: max |err| {err} > 1e-5")
+    return out
+
+
+# name: (K, knn, resolution, levels), at 1 x 8192: shapes the tuned kernels
+# do not take, which the general kernels run. GRU (hidden, context) widths
+# likewise (the correlation features stay at WIDTH), among them phase 6's
+# hidden 32 / context 96.
+GENERAL_LOOKUPS = {"k1024_knn64_r3": (1024, 64, 3, 3),
+                   "k510_knn48_r2": (510, 48, 2, 3),
+                   "k512_knn32_r5_l4": (512, 32, 5, 4)}
+GENERAL_GRU_WIDTHS = {"width32": (32, 32), "width96": (96, 96),
+                      "width128": (128, 128),
+                      "hidden32_context96": (32, 96)}
+# The kernels line's shapes: those of phase 6's requests, whose launches
+# the line reports.
+MAIN_GENERAL = ("k1024_knn64_r3", "hidden32_context96")
+
+
+def check_general(rng, dev):
+    """The general kernels against their plain versions at phase 1's bars,
+    through the wrappers the model calls: the lookup and the voxel means
+    at each of GENERAL_LOOKUPS, the GRU update at each width of
+    GENERAL_GRU_WIDTHS, all at 1 x 8192 (``lookup_case``, ``voxel_case``,
+    ``check_gru``: each checks that the general kernel ran)."""
+    lookup, voxel = {}, {}
+    for name, (k, knn, res, levels) in GENERAL_LOOKUPS.items():
+        corr, xyz, coords = lookup_inputs(rng, *MAIN_SHAPE, dev, k)
+        lookup[name] = lookup_case(
+            name, (corr, xyz, coords, levels, BASE_SCALE, res, knn))
+        voxel[name] = voxel_case(name, corr, xyz, coords, BASE_SCALE,
+                                 levels, res)
+        del corr, xyz, coords
+    gru = {name: check_gru(rng, *MAIN_SHAPE, dev, h=h, c=c)
+           for name, (h, c) in GENERAL_GRU_WIDTHS.items()}
+    for group in (lookup, voxel, gru):
+        check(all(v["kernel"] in ("corr_lookup_general", "gru_iter_general")
+                  for v in group.values()),
+              f"general shapes ran a tuned kernel: {group}")
+    return {"lookup": lookup, "voxel": voxel, "gru": gru}
+
+
+def check_general_backward(rng, dev):
+    """Each Function's plain-PyTorch backward at the general kernels'
+    shapes (lookup K=1024, knn 64, resolution 2; GRU widths 32, 128 and
+    hidden 32 / context 96; 1 x 8192) against autograd through the plain versions: max |err| <=
+    1e-4."""
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import (
+        corr_lookup_plain, fused_corr_lookup)
+    from pvraft_tpu_torch.ops.cuda.gru_iter import (
+        fused_gru_update, gru_math, pack_gru_weights)
+
+    def grads(fn, leaves, make_args, cots):
+        xs = [t.detach().clone().requires_grad_() for t in leaves]
+        outs = fn(*make_args(xs))
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        total = sum((o * c).sum() for o, c in zip(outs, cots))
+        return torch.autograd.grad(total, xs)
+
+    def cot(t):
+        return torch.from_numpy(rng.normal(size=tuple(t.shape)).astype(
+            np.float32)).to(dev)
+
+    out = {}
+    corr, xyz, coords = lookup_inputs(rng, *MAIN_SHAPE, dev, 1024)
+    geo = (LEVELS, BASE_SCALE, 2, 64)
+    cots = [cot(t) for t in corr_lookup_plain(corr, xyz, coords, *geo)[:3]]
+    got, want = (grads(f, [corr], lambda xs: (xs[0], xyz, coords, *geo),
+                       cots) for f in (fused_corr_lookup, corr_lookup_plain))
+    out["lookup_k1024_knn64_r2"] = grad_err(got, want)
+    del corr, xyz, coords
+    for h, c in ((32, 32), (128, 128), (32, 96)):
+        me, gru, args, _ = gru_inputs(rng, *MAIN_SHAPE, dev, h=h, c=c)
+        raw = [*args[:4], *me, *gru]
+
+        def gru_args(xs, h=h, c=c):
+            return (*xs[:4], pack_gru_weights(xs[4:10], xs[10:16], h, c))
+
+        cots = [cot(args[0])]
+        got, want = (grads(f, raw, gru_args, cots)
+                     for f in (fused_gru_update, gru_math))
+        out[f"gru_hidden{h}_context{c}"] = grad_err(got, want)
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        check(err <= 1e-4, f"{name} backward: max |err| {err} > 1e-4")
     return out
 
 
@@ -590,7 +739,7 @@ def serve_phase(seed, dev):
         eager = read_counts()
         results[name] = {"requests": times, "eager_wrapper_launches": eager,
                          "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        # A replay runs no wrapper: its launches are measured in phase 5.
+        # A replay runs no wrapper: its launches are measured in phase 7.
         check(eager == NO_LAUNCHES and captured_share(
                   engine.compile_report(), want_serve(name, iters, 1)),
               f"serve {name}: a wrapper launched eagerly ({eager}) or a "
@@ -662,6 +811,23 @@ def deterministic():
         yield
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def scratch_dir():
+    """A fresh directory under the checkout's gitignored ``experiments/``,
+    removed on exit: where the phases' trainers write checkpoints."""
+    import shutil
+    import tempfile
+
+    parent = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "experiments")
+    os.makedirs(parent, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="chip_smoke_", dir=parent)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def loss_and_grads(model, batch, iters):
@@ -773,14 +939,17 @@ def train_phase(seed, dev):
 
     # Training works: the kernels path (fused_gru off, the JAX default)
     # through the Trainer's own epoch loop, 4 scenes, bs 2.
-    trainer = Trainer(flagship_train_config(seed, epochs=TRAIN_STEPS // 2),
-                      device=dev, weights=state)
-    losses = []
-    t0 = time.perf_counter()
-    for epoch in range(trainer.cfg.train.num_epochs):
-        losses += trainer.training(epoch)["losses"]
-    train_s = time.perf_counter() - t0
-    val = trainer.val_test(trainer.cfg.train.num_epochs - 1, "val")
+    # The validation saves best_checkpoint: into a scratch exp_path.
+    with scratch_dir() as exp:
+        trainer = Trainer(flagship_train_config(
+            seed, epochs=TRAIN_STEPS // 2).replace(exp_path=exp),
+            device=dev, weights=state)
+        losses = []
+        t0 = time.perf_counter()
+        for epoch in range(trainer.cfg.train.num_epochs):
+            losses += trainer.training(epoch)["losses"]
+        train_s = time.perf_counter() - t0
+        val = trainer.val_test(trainer.cfg.train.num_epochs - 1, "val")
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} train steps")
     check(all(np.isfinite(losses)), "non-finite training loss")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -936,10 +1105,10 @@ def graph_train(seed, dev):
     g, e = runs["graphed"], runs["eager"]
     check(len(g["losses"]) == TRAIN_STEPS and all(np.isfinite(g["losses"])),
           f"graphs train: losses {g['losses']}")
-    want = {"fused_corr_lookup": cfg.train.iters * TRAIN_STEPS,
-            "fused_gru_update": 0, "voxel_bin_means_pallas": 0}
+    want = {**NO_LAUNCHES,
+            "fused_corr_lookup": cfg.train.iters * TRAIN_STEPS}
     # Wrapper counts: the eager steps launch every kernel through the
-    # wrapper, the graphed steps none (their launches: phase 5).
+    # wrapper, the graphed steps none (their launches: phase 7).
     check(g["launches"] == NO_LAUNCHES and e["launches"] == want,
           f"graphs train: eager wrapper launches {g['launches']} (graphed) "
           f"/ {e['launches']} (eager), expected none / {want}")
@@ -1036,6 +1205,218 @@ def graph_train(seed, dev):
 
 
 # --------------------------------------------------------------- phase 5 --
+
+
+def _state_trees_equal(a, b) -> bool:
+    """Two optax state dicts (``opt_state_to_jax``) equal leaf for leaf."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_state_trees_equal(a[k], b[k])
+                                        for k in a)
+    return np.asarray(a).dtype == np.asarray(b).dtype and \
+        np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def checkpoint_phase(seed, dev):
+    """The slice at full width: the flagship model trained graphed (B=2 x
+    8,192, 4 synthetic scenes) by ``fit`` for 2 epochs into a scratch
+    ``exp_path`` under ``deterministic()``, with ``000`` kept by
+    ``checkpoint_interval=1``. A second Trainer resumes from that epoch-0
+    checkpoint as its ``last_checkpoint`` and runs epoch 1: its losses,
+    validation, parameters and Adam state must equal the uninterrupted
+    run's bitwise. The Evaluator (32 iterations, one scene per step) on
+    ``best_checkpoint`` must give ``fit``'s test means bitwise, and ``InferenceEngine.from_checkpoint`` must answer an
+    8,192-point request bitwise like the eager forward on the same
+    weights. Reports the checkpoint's bytes, its save and load seconds
+    and the evaluator's ms per scene."""
+    import shutil
+
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.engine.checkpoint import (
+        find_checkpoint, latest_checkpoint)
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.weights import opt_state_to_jax, seeded_state_dict
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    base = flagship_train_config(seed, epochs=2)
+    out = {}
+    with scratch_dir() as root:
+        cfg = base.replace(train=dataclasses.replace(base.train,
+                                                     checkpoint_interval=1),
+                           exp_path=os.path.join(root, "whole"))
+        runs = {}
+        with deterministic():
+            for name in ("whole", "resumed"):
+                trainer = Trainer(cfg.replace(
+                    exp_path=os.path.join(root, name)), device=dev,
+                    weights=state if name == "whole" else None)
+                if name == "resumed":
+                    os.makedirs(trainer.ckpt_dir)
+                    shutil.copy(os.path.join(root, "whole", "checkpoints",
+                                             "000.msgpack"),
+                                os.path.join(trainer.ckpt_dir,
+                                             "last_checkpoint.msgpack"))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    epoch = trainer.load_weights(
+                        latest_checkpoint(trainer.ckpt_dir), resume=True)
+                    torch.cuda.synchronize()
+                    out["resume_load_s"] = time.perf_counter() - t0
+                    check(epoch == 0 and trainer.begin_epoch == 1,
+                          f"resume: epoch {epoch}, begin {trainer.begin_epoch}")
+                kept = {}
+
+                def report(epoch, train, val, trainer=trainer, kept=kept):
+                    kept[epoch] = {
+                        "losses": train["losses"], "val": val,
+                        "params": {n: p.detach().clone() for n, p in
+                                   trainer.model.named_parameters()},
+                        "adam": opt_state_to_jax(
+                            trainer.optimizer, trainer.model,
+                            trainer.train_step.count[0])}
+
+                test = trainer.fit(report)
+                runs[name] = {"kept": kept, "test": test,
+                              "save_s": list(trainer.save_s)}
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            whole, resumed = runs["whole"], runs["resumed"]
+            check(sorted(whole["kept"]) == [0, 1]
+                  and sorted(resumed["kept"]) == [1],
+                  f"epochs run: {sorted(whole['kept'])}, "
+                  f"{sorted(resumed['kept'])}")
+            a, b = whole["kept"][1], resumed["kept"][1]
+            resume_bitwise = (
+                a["losses"] == b["losses"] and a["val"] == b["val"]
+                and all(torch.equal(a["params"][n], b["params"][n])
+                        for n in a["params"])
+                and _state_trees_equal(a["adam"], b["adam"]))
+            check(resume_bitwise,
+                  f"resume: epoch 1 differs from the uninterrupted run "
+                  f"(losses {a['losses']} / {b['losses']}, val {a['val']} / "
+                  f"{b['val']})")
+            check(all(np.isfinite(whole["kept"][e]["losses"]).all()
+                      for e in (0, 1)), "checkpoints: non-finite losses")
+            ckpt_dir = os.path.join(root, "whole", "checkpoints")
+            best = find_checkpoint(ckpt_dir, "best_checkpoint")
+            ev = Evaluator(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.load(best)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            means = ev.run()
+            torch.cuda.synchronize()
+            evaluator = {"means": means, "load_s": load_s,
+                         "ms_per_scene": 1e3 * (time.perf_counter() - t0)
+                         / len(ev.dataset),
+                         "scenes": len(ev.dataset),
+                         "programs": ev.compile_report()}
+            del ev
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(means == whole["test"],
+              f"evaluator on best_checkpoint {means} against fit's test "
+              f"means {whole['test']}")
+        serve_cfg = ServeConfig(buckets=(8192,), batch_sizes=(1,))
+        engine = InferenceEngine.from_checkpoint(best, serve_cfg, device=dev)
+        check(engine.checkpoint_path == best
+              and engine.checkpoint_epoch in (0, 1),
+              f"from_checkpoint kept {engine.checkpoint_path}, epoch "
+              f"{engine.checkpoint_epoch}")
+        _, group, bucket = serve_requests(np.random.default_rng(seed + 1))[0]
+        got = engine.predict_batch(group, bucket)[0]
+        padded = [torch.from_numpy(x).to(dev)
+                  for x in engine.padded_batch(group, bucket)]
+        with torch.no_grad():
+            flows, _ = engine.model(padded[0], padded[1],
+                                    serve_cfg.num_iters, *padded[2:])
+        eager = flows[-1][0, :group[0][0].shape[0]].cpu().numpy()
+        check(np.array_equal(got, eager),
+              f"from_checkpoint: replay vs eager max |dflow| "
+              f"{float(np.abs(got - eager).max())}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update({
+            "epochs": 2, "resume_bitwise": resume_bitwise,
+            "losses": {e: whole["kept"][e]["losses"] for e in (0, 1)},
+            "resumed_losses": resumed["kept"][1]["losses"],
+            "test_means": whole["test"],
+            "evaluator_bitwise": True, "evaluator": evaluator,
+            "serve_from_checkpoint_bitwise": True,
+            "checkpoint_bytes": os.path.getsize(latest_checkpoint(ckpt_dir)),
+            "save_s": whole["save_s"],
+            "evaluator_ms_per_scene": evaluator["ms_per_scene"]})
+    return out
+
+
+# --------------------------------------------------------------- phase 6 --
+
+# name: ModelConfig keywords of an 8,192-point serve request that the tuned
+# kernels do not take: the general lookup, and the general GRU update
+# (hidden + context must stay 128, the context encoder's width).
+OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
+                                          "corr_knn": 64}),
+                ("hidden32_context96_fused_gru",
+                 {"hidden_dim": 32, "context_dim": 96, "fused_gru": True}))
+
+
+def off_flagship_phase(seed, dev):
+    """One 8,192-point request per OFF_FLAGSHIP configuration, seeded
+    weights, ``use_pallas=None``, through ``predict`` of a captured engine
+    with the counts zeroed just before it: the profiler must see the
+    general kernel launched once per GRU iteration and nothing of the
+    plain path's kernels in its place; the flow must be finite and, after
+    1 iteration, within FLOW_BOUND_1 of the plain versions'."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    request = serve_requests(np.random.default_rng(seed + 1))[0]
+    out = {}
+    for name, kw in OFF_FLAGSHIP:
+        model = ModelConfig(**kw)
+        state = seeded_state_dict(model, seed)
+        cfg = ServeConfig(model, buckets=(8192,), batch_sizes=(1,))
+        engine = InferenceEngine(state, cfg, device=dev)
+        (flows, times), counts, wrapper = measured(
+            lambda: drive(engine, [request]))
+        takes = engine.model.cfg
+        want = dict(NO_LAUNCHES)
+        want[LOOKUP_KERNELS[lookup_variant(takes.truncate_k, takes.corr_knn,
+                                           takes.resolution)]] = cfg.num_iters
+        if takes.fused_gru:
+            want[GRU_KERNELS[gru_variant(takes.hidden_dim, takes.context_dim,
+                                         WIDTH)]] = cfg.num_iters
+        check(counts == want and wrapper == NO_LAUNCHES,
+              f"off-flagship {name}: the card ran {counts} (wrappers "
+              f"{wrapper}), expected {want}")
+        del engine
+        one = {}
+        for plain in (False, True):
+            m = dataclasses.replace(model, use_pallas=False if plain else None)
+            engine = InferenceEngine(state, ServeConfig(
+                m, buckets=(8192,), batch_sizes=(1,), num_iters=1), device=dev)
+            one[plain], _ = drive(engine, [request])
+            del engine
+        d1 = point_diffs(one[False], one[True])
+        check(d1.max() <= FLOW_BOUND_1,
+              f"off-flagship {name}, 1 iteration: kernels vs plain max "
+              f"|dflow| {d1.max()}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = {"config": kw, "launches": counts, "request": times[0],
+                     "iters1_max_vs_plain": float(d1.max()),
+                     "max_abs_flow": float(np.abs(flows[0][0]).max())}
+    return out
+
+
+# --------------------------------------------------------------- phase 7 --
 
 
 def launches_phase(seed, dev):
@@ -1186,7 +1567,11 @@ def main() -> int:
     del model_in
     backward = {f"{b}x{n}": check_backward(rng, b, n, dev)
                 for b, n in (TRAIN_SHAPE, (4, 4096))}
-    emit({"phase": "kernels", "fused_corr_lookup": lookup,
+    general_rng = np.random.default_rng(args.seed + 13)
+    general = check_general(general_rng, dev)
+    backward["general_1x8192"] = check_general_backward(general_rng, dev)
+    emit({"phase": "kernels", "general": general,
+          "fused_corr_lookup": lookup,
           "fused_corr_lookup_cases": {**lookup_edges,
                                       "model_inputs": lookup_model},
           "fused_corr_lookup_split_ms": split,
@@ -1207,9 +1592,19 @@ def main() -> int:
               "train": graph_train(args.seed, dev)}
     emit({"phase": "graphs", **graphs})
 
+    checkpoints = checkpoint_phase(args.seed, dev)
+    emit({"phase": "checkpoints", **checkpoints})
+
+    # Phases 6 and 7 run the profiler, which slows the process's later
+    # eager launches: they come last.
+    off = off_flagship_phase(args.seed, dev)
+    emit({"phase": "off_flagship", **off})
+
     launches = launches_phase(args.seed, dev)
     emit({"phase": "launches", **launches})
     steps = launches["train"]["fused_gru"]
+    off_runs = {k: sum(o["launches"][k] for o in off.values())
+                for k in NO_LAUNCHES}
 
     main_key = f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}"
     rows = []
@@ -1217,18 +1612,28 @@ def main() -> int:
                                    "split_ms": split["synthetic"]},
              "fused_gru_update": {
                  "fp32_bound_ms": gru[main_key]["fp32_bound_ms"]}}
-    for name, source, replaces, res, runs in (
+    for name, source, replaces, res, runs, key in (
             ("fused_corr_lookup", "pvraft_tpu_torch/csrc/corr_lookup.cu",
              "pvraft_tpu/ops/pallas/corr_lookup.py:109",
              {**lookup, **lookup_edges, "model_inputs": lookup_model},
-             launches["serve"]["fused_gru"]),
+             launches["serve"]["fused_gru"], main_key),
             ("fused_gru_update", "pvraft_tpu_torch/csrc/gru_iter.cu",
              "pvraft_tpu/ops/pallas/gru_iter.py:129", {**gru, **gru_edges},
-             launches["serve"]["fused_gru"]),
+             launches["serve"]["fused_gru"], main_key),
             ("voxel_bin_means_pallas", "pvraft_tpu_torch/csrc/voxel_corr.cu",
              "pvraft_tpu/ops/pallas/voxel_corr.py:114",
-             {**voxel, **voxel_edges}, kbench["launches"])):
-        r = res[main_key]
+             {**voxel, **voxel_edges}, kbench["launches"], main_key),
+            ("corr_lookup_general",
+             "pvraft_tpu_torch/csrc/corr_lookup_general.cu",
+             "pvraft_tpu/ops/pallas/corr_lookup.py:109",
+             {**general["lookup"],
+              **{f"voxel_{k}": v for k, v in general["voxel"].items()}},
+             off_runs, MAIN_GENERAL[0]),
+            ("gru_iter_general", "pvraft_tpu_torch/csrc/gru_iter_general.cu",
+             "pvraft_tpu/ops/pallas/gru_iter.py:129", general["gru"],
+             off_runs, MAIN_GENERAL[1])):
+        r = res[key]
+        check(runs[name] > 0, f"{name}: no launch on its main path")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[name],

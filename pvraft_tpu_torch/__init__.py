@@ -4,11 +4,15 @@ The JAX package ``pvraft_tpu`` stays the reference; this package mirrors
 its layout module for module. It imports ``torch`` and numpy only: never
 JAX, flax, optax or anything of ``pvraft_tpu``.
 
-It covers the stage-1 model's serving path (``serve.engine.InferenceEngine``)
-and training path (``engine.trainer.Trainer``, ``python -m
-pvraft_tpu_torch.train``), with hand-written CUDA kernels (``csrc/``) for
+It covers the stage-1 model's serving path (``serve.engine.InferenceEngine``),
+training path (``engine.trainer.Trainer``, ``python -m
+pvraft_tpu_torch.train``, with the JAX package's checkpoints and resume)
+and standalone evaluation (``engine.evaluator.Evaluator``, ``python -m
+pvraft_tpu_torch.test``), with hand-written CUDA kernels (``csrc/``) for
 the fused correlation lookup, the fused MotionEncoder+ConvGRU update and
-the voxel means, each behind an autograd Function (``ops/cuda/``).
+the voxel means, each behind an autograd Function (``ops/cuda/``): a
+tuned kernel at the flagship's shapes and a general one for every other
+shape.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -10,17 +10,21 @@ default: a knob is never silently ignored.
 ``use_pallas`` keeps its name. In the port it means "the hand-written
 CUDA kernels" (``ops/cuda/``); ``None`` resolves per tensor and per
 kernel (:func:`resolve_use_pallas`): the plain PyTorch version on a CPU
-tensor, the kernel on a CUDA tensor. A configuration that a kernel does
-not take (``ops/cuda/__init__.py::kernel_takes``) raises on a CUDA
-tensor and names ``use_pallas=False``: the plain version runs on the
-card only where the caller chose it.
+tensor, a CUDA kernel on a CUDA tensor: the tuned kernel where it takes
+the configuration, else the general one
+(``ops/cuda/__init__.py::kernel_takes``). The plain version runs on the
+card only where the caller chose it (``use_pallas=False``).
 
 ``ModelConfig.scan_unroll`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX package unrolls its
 ``nn.scan`` over the GRU iterations by it, and the result is the same for
 every value; the port's iterations are a Python loop, which a captured
 CUDA graph holds fully unrolled whatever the value. The train CLI
-refuses ``--scan_unroll`` for that reason. ``TrainConfig.strict_retrace`` makes a graphed step raise
+refuses ``--scan_unroll`` for that reason. ``TrainConfig.eval_scan`` is
+accepted likewise and changes nothing: the JAX ``Evaluator`` scans S
+scenes per dispatch to save dispatches, and a replay of the port's
+captured eval step is one launch per scene already
+(``engine/evaluator.py``). ``TrainConfig.strict_retrace`` makes a graphed step raise
 ``obs/retrace.py::RetraceError`` when it meets an input signature it has
 not captured.
 """
@@ -199,11 +203,11 @@ class TrainConfig:
              "the parallel slice"),
             ("refine", self.refine, "the stage-2 slice"),
             ("grad_dtype", self.grad_dtype != "float32", "the bf16 slice"),
-            ("eval_scan", self.eval_scan != 1,
-             "the evaluator (ROADMAP queue 1 item 2)"),
+            ("ckpt_backend", self.ckpt_backend == "orbax",
+             "its recorded disposition (ROADMAP queue 1 item 2): Orbax is "
+             "not installed where the port runs, so the port writes and "
+             "reads msgpack checkpoints only"),
         ]
-        later += non_default(self, ("checkpoint_interval", "ckpt_backend"),
-                             "the trainer slice (checkpoints and resume)")
         later += non_default(
             self, ("profile_dir", "telemetry", "divergence_window",
                    "divergence_zscore", "max_snapshots",
@@ -215,17 +219,13 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Model, data and training configuration (the JAX ``Config`` without
-    its ``parallel`` part, which arrives with the parallel slice)."""
+    its ``parallel`` part, which arrives with the parallel slice).
+    ``exp_path`` holds the run's checkpoints (``exp_path/checkpoints``)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     exp_path: str = "experiments/default"
-
-    def __post_init__(self):
-        reject_later(self, non_default(
-            self, ("exp_path",),
-            "the trainer slice (checkpoints, logs and TensorBoard)"))
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -234,21 +234,11 @@ class Config:
 def resolve_use_pallas(cfg: ModelConfig, like: torch.Tensor,
                        kernel: str) -> bool:
     """Whether ``kernel`` ("corr_lookup", "voxel_corr" or "gru_iter")
-    runs for ``like``'s device: ``use_pallas`` where it is set (True on a
-    configuration the kernel does not take raises in the kernel's
-    wrapper); ``None`` means the plain version on a CPU tensor and the
-    CUDA kernel on a CUDA tensor, where a configuration the kernel does
-    not take (``kernel_takes``) raises."""
+    runs for ``like``'s device: ``use_pallas`` where it is set; ``None``
+    means the plain version on a CPU tensor and the CUDA kernel on a CUDA
+    tensor, tuned or general (``kernel_takes(cfg)[kernel]``)."""
+    if kernel not in kernel_takes(cfg):
+        raise KeyError(f"unknown kernel {kernel!r}")
     if cfg.use_pallas is not None:
         return cfg.use_pallas
-    if not like.is_cuda:
-        return False
-    if not kernel_takes(cfg)[kernel]:
-        raise ValueError(
-            f"the CUDA kernel {kernel} does not take this configuration "
-            f"(truncate_k={cfg.truncate_k}, corr_knn={cfg.corr_knn}, "
-            f"resolution={cfg.resolution}, hidden_dim={cfg.hidden_dim}, "
-            f"context_dim={cfg.context_dim}; ops/cuda/__init__.py::"
-            f"kernel_takes); set use_pallas=False to run its plain PyTorch "
-            f"version on the card")
-    return True
+    return bool(like.is_cuda)

@@ -1,0 +1,123 @@
+"""Standalone evaluation (port of ``pvraft_tpu/engine/evaluator.py::
+Evaluator``, the reference's ``test.py:70-156``).
+
+The reference protocol: one scene per step (batch 1) at ``eval_iters``
+(32) GRU iterations, running means of the per-scene metrics, and an
+optional dump of each scene's ``pc1``, ``pc2`` and flow as
+``<dump_dir>/<dataset>/<idx>/{pc1,pc2,flow}.npy`` (the layout the
+reference's ``visual.py`` reads). The eval step is the graphed one
+(``engine/steps.py::make_graphed_eval_step``), captured at construction.
+The running sums add the scenes one by one in dataset order, as
+``Trainer.val_test`` does, so the means equal the trainer's test pass on
+the same weights to the bit.
+
+``TrainConfig.eval_scan`` is accepted, so that configs shared with the
+JAX package load, and changes nothing: the JAX ``Evaluator`` runs S
+scenes per dispatch through a ``lax.scan`` to save the per-scene
+dispatches, and a replay of the port's captured step is already one
+launch per scene.
+
+Synthetic scenes use seed 2 (the JAX ``build_eval_dataset``); FT3D and
+KITTI arrive with the data slice (ROADMAP queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from pvraft_tpu_torch.config import Config
+from pvraft_tpu_torch.data import SyntheticDataset, batches, to_device
+from pvraft_tpu_torch.device import resolve_device
+from pvraft_tpu_torch.engine.checkpoint import (
+    load_checkpoint,
+    load_torch_checkpoint,
+)
+from pvraft_tpu_torch.engine.steps import (
+    BATCH_KEYS,
+    make_graphed_eval_step,
+)
+from pvraft_tpu_torch.models.raft import PVRaft
+from pvraft_tpu_torch.rng import torch_seed
+from pvraft_tpu_torch.weights import params_from_jax, seeded_state_dict
+
+
+def build_eval_dataset(cfg: Config):
+    """The evaluation set: synthetic scenes from seed 2; FT3D and KITTI
+    raise."""
+    d = cfg.data
+    if d.dataset == "synthetic":
+        return SyntheticDataset(size=d.synthetic_size, nb_points=d.max_points,
+                                noise=0.01, seed=2,
+                                n_objects=d.synthetic_objects)
+    raise NotImplementedError(
+        f"dataset {d.dataset!r} is not ported yet: it arrives with the data "
+        f"slice (ROADMAP queue 1 item 3); the evaluator runs 'synthetic'")
+
+
+class Evaluator:
+    """``Evaluator(cfg, device=None)``: the eval dataset, a PVRaft with
+    seeded weights (``cfg.train.seed``'s ``model.init`` stream, as the
+    Trainer seeds it) until :meth:`load` or :meth:`load_torch`, and the
+    captured eval program. Runs on ``cuda`` unless ``device`` names
+    another device."""
+
+    def __init__(self, cfg: Config,
+                 device: Union[str, torch.device, None] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dataset = build_eval_dataset(cfg)
+        self.model = PVRaft(cfg.model)
+        self.model.load_state_dict(seeded_state_dict(
+            cfg.model, torch_seed(cfg.train.seed, "model.init")), strict=True)
+        self.model.to(self.device).eval()
+        self.epoch: Optional[int] = None
+        t = cfg.train
+        self.eval_step = make_graphed_eval_step(
+            self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
+            strict_retrace=t.strict_retrace)
+        scene = to_device(next(batches(self.dataset, 1)), self.device)
+        inputs = [scene[k] for k in BATCH_KEYS]
+        self.eval_step.graphs.program_for(inputs)
+
+    def compile_report(self):
+        """The captured program's records."""
+        return self.eval_step.graphs.report()
+
+    def load(self, path: str) -> int:
+        """Load a checkpoint's parameters (the port's or the JAX
+        package's msgpack file), in place; returns its epoch."""
+        params, _, self.epoch = load_checkpoint(path, with_opt_state=False)
+        self.model.load_state_dict(params_from_jax(params), strict=True)
+        return self.epoch
+
+    def load_torch(self, path: str) -> int:
+        """Load a reference-published torch ``.params`` checkpoint
+        (``test.py:101-106``), in place; returns its epoch."""
+        state, self.epoch = load_torch_checkpoint(path)
+        self.model.load_state_dict(state, strict=True)
+        return self.epoch
+
+    def run(self, dump_dir: Optional[str] = None) -> Dict[str, float]:
+        """The running means of the per-scene metrics over the dataset.
+        ``dump_dir`` writes each scene's clouds and flow."""
+        sums: Dict[str, torch.Tensor] = {}
+        count = 0
+        for batch in batches(self.dataset, 1, drop_last=False):
+            metrics, flow = self.eval_step(to_device(batch, self.device))
+            if dump_dir is not None:
+                flow = flow.cpu().numpy()
+                for row in range(flow.shape[0]):
+                    scene = os.path.join(dump_dir, self.cfg.data.dataset,
+                                         str(count + row))
+                    os.makedirs(scene, exist_ok=True)
+                    np.save(os.path.join(scene, "pc1.npy"), batch["pc1"][row])
+                    np.save(os.path.join(scene, "pc2.npy"), batch["pc2"][row])
+                    np.save(os.path.join(scene, "flow.npy"), flow[row])
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v.sum()
+            count += batch["pc1"].shape[0]
+        return {k: float(v) / max(1, count) for k, v in sums.items()}

@@ -123,7 +123,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     tensors on the batch's device). After it, each parameter's ``.grad``
     holds this step's gradient. The step count is read from the optimizer
     once, here, and kept on the host (under ``capturable`` the optimizer's
-    own count is a device tensor)."""
+    own count is a device tensor) in ``step.count[0]``, the schedule's
+    position, which a resume sets."""
     _check_levers(grad_dtype, telemetry)
     body = _train_body(model, optimizer, gamma, num_iters)
     count = [optimizer_steps(optimizer)]
@@ -134,6 +135,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         count[0] += 1
         return {"loss": loss, "epe": epe}
 
+    train_step.count = count
     return train_step
 
 
@@ -150,7 +152,7 @@ def make_graphed_train_step(model, optimizer: torch.optim.Adam,
     "epe"}``: static tensors that the next step overwrites. ``step.graphs``
     is its :class:`GraphCache` (``step.graphs.program_for(inputs)``
     captures without running a step; ``step.graphs.report()``). The step
-    count is read from the optimizer once, here."""
+    count is read from the optimizer once, here, into ``step.count[0]``."""
     _check_levers(grad_dtype, telemetry)
     lrs = [g["lr"] for g in optimizer.param_groups]
     if not all(torch.is_tensor(lr) for lr in lrs):
@@ -182,6 +184,7 @@ def make_graphed_train_step(model, optimizer: torch.optim.Adam,
         return {"loss": loss, "epe": epe}
 
     train_step.graphs = graphs
+    train_step.count = count
     return train_step
 
 

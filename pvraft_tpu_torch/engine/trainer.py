@@ -3,10 +3,18 @@
 One card: seeded (or JAX-imported) weights, Adam with the configured
 learning-rate schedule, the train step over the shuffled synthetic
 training set, and per-epoch validation at ``eval_iters`` with one scene
-per step. ``fit`` trains and validates every epoch, then tests once on
-the weights of the epoch with the lowest validation EPE (strict ``<``,
-as the JAX trainer chooses its best checkpoint), kept as a device copy
-until the checkpoint slice puts them on disk.
+per step. ``fit`` trains, saves and validates every epoch from
+``begin_epoch``, then tests once on the weights of the epoch with the
+lowest validation EPE (strict ``<``), read back from ``best_checkpoint``.
+
+Checkpoints (``engine/checkpoint.py``, the JAX package's files) go to
+``exp_path/checkpoints``: ``last_checkpoint`` after every epoch of
+``fit`` (and ``{epoch:03d}`` every ``checkpoint_interval`` epochs),
+``best_checkpoint`` (with ``last_checkpoint``) after a validation
+improvement.
+:meth:`Trainer.load_weights` loads one, and with ``resume`` also Adam's
+moments and step, the schedule's position and ``begin_epoch``: copied
+into the tensors the captured steps read, never swapped for new ones.
 
 The train and eval steps are the graphed ones (``engine/steps.py``): at
 construction the trainer captures the train step at the training batch's
@@ -18,16 +26,16 @@ a plain Adam (a float learning rate): the yardstick of the graphed
 steps. ``capturable=True`` gives the eager steps the graphed steps' Adam
 instead, for a bitwise comparison.
 
-Not in this slice: checkpoints and resume, TensorBoard and the event
-log, divergence snapshots (the trainer slice and the observability
-slice), FT3D and KITTI (the data slice), data-parallel meshes (the
-parallel slice).
+Not in this slice: TensorBoard and the event log, divergence snapshots
+(the observability slice), FT3D and KITTI (the data slice), data-parallel
+meshes (the parallel slice).
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,9 +43,15 @@ import torch
 from pvraft_tpu_torch.config import Config
 from pvraft_tpu_torch.data import SyntheticDataset, batches, to_device
 from pvraft_tpu_torch.device import resolve_device
+from pvraft_tpu_torch.engine.checkpoint import (
+    find_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from pvraft_tpu_torch.engine.schedule import make_lr_schedule
 from pvraft_tpu_torch.engine.steps import (
     BATCH_KEYS,
+    init_adam_state,
     make_eval_step,
     make_graphed_eval_step,
     make_graphed_train_step,
@@ -47,7 +61,9 @@ from pvraft_tpu_torch.models.raft import PVRaft
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import (
     opt_state_from_jax,
+    opt_state_to_jax,
     params_from_jax,
+    params_to_jax,
     seeded_state_dict,
 )
 
@@ -118,8 +134,10 @@ class Trainer:
             self.optimizer.load_state_dict(
                 opt_state_from_jax(opt_state, self.model, self.optimizer))
         t = cfg.train
+        self.ckpt_dir = os.path.join(cfg.exp_path, "checkpoints")
         self.best_epe = float("inf")
-        self.best_state: Optional[Dict[str, torch.Tensor]] = None
+        self.begin_epoch = 0
+        self.save_s: List[float] = []     # seconds of each checkpoint save
         self._graphs = ()
         if not graphs:
             self.train_step = make_train_step(
@@ -172,15 +190,61 @@ class Trainer:
                 "steps": n, "losses": losses,
                 "step_ms": wall_ms / n if n else 0.0}
 
+    def save(self, epoch: int, checkpoint_interval: int,
+             best: bool = False) -> Tuple[str, ...]:
+        """Write the model's parameters, Adam's state and the schedule's
+        position as ``last_checkpoint`` (``save_checkpoint``'s names:
+        also ``{epoch:03d}`` by ``checkpoint_interval``, and
+        ``best_checkpoint`` with ``best``);
+        returns the paths and appends the seconds it took to
+        ``save_s``."""
+        t0 = time.perf_counter()
+        paths = save_checkpoint(
+            self.ckpt_dir, params_to_jax(self.model.state_dict()),
+            opt_state_to_jax(self.optimizer, self.model,
+                             self.train_step.count[0]),
+            epoch, checkpoint_interval, best=best,
+            backend=self.cfg.train.ckpt_backend)
+        self.save_s.append(time.perf_counter() - t0)
+        return paths
+
+    def load_weights(self, path: str, resume: bool = False) -> int:
+        """Load a checkpoint's parameters (``tools/engine.py:100-108``)
+        and, with ``resume``, Adam's moments and step, the schedule's
+        position (the optax state's ``"1"`` count) and ``begin_epoch =
+        epoch + 1``. Every value is copied into the tensor that holds it
+        now, which is the one a captured step reads. Returns the
+        checkpoint's epoch."""
+        params, opt_state, epoch = load_checkpoint(path, with_opt_state=resume)
+        self.model.load_state_dict(params_from_jax(params), strict=True)
+        if resume:
+            if opt_state is None:
+                raise KeyError(f"{path}: no optimizer state to resume")
+            want = opt_state_from_jax(opt_state, self.model,
+                                      self.optimizer)["state"]
+            init_adam_state(self.optimizer)
+            with torch.no_grad():
+                for i, p in enumerate(self.model.parameters()):
+                    state = self.optimizer.state[p]
+                    for key in ("exp_avg", "exp_avg_sq", "step"):
+                        state[key].copy_(want[i][key])
+            sched = opt_state.get("1", {}).get(
+                "count", int(float(want[0]["step"])))
+            self.train_step.count[0] = int(np.asarray(sched))
+            self.begin_epoch = epoch + 1
+        return epoch
+
     def val_test(self, epoch: int, mode: str = "val") -> Dict[str, float]:
         """Means of the per-scene eval metrics over the val (or test) set,
         one scene per step at ``eval_iters`` iterations. A val pass whose
-        EPE is the lowest so far keeps a device copy of the weights; the
-        test pass loads the kept weights first (the JAX ``val_test``
-        loading ``best_checkpoint``)."""
+        EPE is the lowest so far saves ``best_checkpoint``; the test pass
+        loads ``best_checkpoint`` first where there is one (the JAX
+        ``val_test``, ``engine.py:191``)."""
         ds = self.val_ds if mode == "val" else self.test_ds
-        if mode == "test" and self.best_state is not None:
-            self.model.load_state_dict(self.best_state)
+        if mode == "test":
+            best = find_checkpoint(self.ckpt_dir, "best_checkpoint")
+            if best is not None:
+                self.load_weights(best)
         self.model.eval()
         sums: Dict[str, torch.Tensor] = {}
         count = 0
@@ -192,17 +256,18 @@ class Trainer:
         means = {k: float(v) / max(1, count) for k, v in sums.items()}
         if mode == "val" and means["epe3d"] < self.best_epe:
             self.best_epe = means["epe3d"]
-            self.best_state = {k: v.detach().clone()
-                               for k, v in self.model.state_dict().items()}
+            self.save(epoch, 0, best=True)
         return means
 
     def fit(self, report: Optional[Callable[[int, Dict, Dict], None]] = None
             ) -> Dict[str, float]:
-        """Train and validate every epoch (``report(epoch, train, val)``
-        after each), then test once on the best validation epoch's
-        weights; returns the test means."""
-        for epoch in range(self.cfg.train.num_epochs):
+        """Train, save ``last_checkpoint`` (the JAX ``training``'s save)
+        and validate every epoch from ``begin_epoch`` (``report(epoch,
+        train, val)`` after each), then test once on the best validation
+        epoch's weights; returns the test means."""
+        for epoch in range(self.begin_epoch, self.cfg.train.num_epochs):
             train = self.training(epoch)
+            self.save(epoch, self.cfg.train.checkpoint_interval)
             val = self.val_test(epoch, "val")
             if report is not None:
                 report(epoch, train, val)

@@ -11,17 +11,21 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.
 
-The two voxel kernels (``csrc/corr_lookup.cu`` and ``csrc/voxel_corr.cu``,
-binning in ``csrc/voxel_bins.cuh``) run one warp per query point, 16
-candidates per lane in registers, so they take up to
-:data:`MAX_CANDIDATES` candidates per point. Two host-side facts choose
-their paths, both computing the same values: :func:`vector_loads` (16-byte
-loads, else scalar loads of the same slots) and
-:func:`reciprocal_is_exact` (multiply by ``1/r`` instead of dividing by
-``r``, bitwise equal where it holds). :func:`kernel_takes` says which
-model configurations each kernel takes; under ``use_pallas=None`` a
-CUDA tensor with a configuration that a kernel does not take raises and
-names ``use_pallas=False`` (``config.py::resolve_use_pallas``).
+The two tuned voxel kernels (``csrc/corr_lookup.cu`` and
+``csrc/voxel_corr.cu``, binning in ``csrc/voxel_bins.cuh``) run one warp
+per query point, 16 candidates per lane in registers, so they take up to
+:data:`MAX_CANDIDATES` candidates per point, a kNN of up to
+:data:`MAX_KNN` and a resolution of :data:`RESOLUTION`; the tuned GRU
+kernel (``csrc/gru_iter.cu``) takes widths of :data:`GRU_WIDTH`. Two
+host-side facts choose their paths, both computing the same values:
+:func:`vector_loads` (16-byte loads, else scalar loads of the same slots)
+and :func:`reciprocal_is_exact` (multiply by ``1/r`` instead of dividing
+by ``r``, bitwise equal where it holds). Every other shape the Pallas
+kernels take runs a general kernel: ``csrc/corr_lookup_general.cu`` for
+the lookup and the voxel means, ``csrc/gru_iter_general.cu`` for the GRU
+update. :func:`kernel_takes` says which variant ("tuned" or "general")
+each kernel runs for a model configuration; a CUDA tensor never takes
+the plain version unless the caller chose ``use_pallas=False``.
 
 Launch counts: each wrapper's ``launches`` attribute counts its eager
 launches, where it launches its kernel. A launch made while a CUDA graph
@@ -31,9 +35,9 @@ share (``serve/aot.py::GraphProgram.launches``). What a replay launches
 is measured, not inferred: :func:`measured_launches` runs a function
 under ``torch.profiler`` and counts the card's kernels by their device
 symbols (:data:`KERNEL_SYMBOLS`), replayed ones included. A kernel's
-first launch on a device builds and loads its library and, for the GRU
-kernel, opts in to its shared memory; :func:`check_capturable` refuses a
-capture before that first eager launch.
+first launch on a device builds and loads its library and, for the tuned
+GRU kernel, opts in to its shared memory; :func:`check_capturable`
+refuses a capture before that first eager launch.
 """
 
 from __future__ import annotations
@@ -61,6 +65,9 @@ MAX_CANDIDATES = 512
 MAX_KNN = 32           # the lookup's kNN: a sorted (distance, index) per lane
 RESOLUTION = 3         # the voxel kernels' cube: 27 cells per level
 GRU_WIDTH = 64         # the GRU kernel's hidden, context and feature width
+# Shared memory of one block on the H100: without an opt-in, and at most.
+SMEM_DEFAULT = 48 * 1024
+SMEM_MAX = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")
@@ -180,16 +187,32 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def kernel_takes(cfg) -> Dict[str, bool]:
-    """Kernel name -> whether that CUDA kernel takes ``cfg``'s shapes (a
-    ``ModelConfig``): K (``truncate_k``) <= MAX_CANDIDATES and a
-    resolution of RESOLUTION for the two voxel kernels, ``corr_knn`` <=
-    MAX_KNN for the lookup, hidden and context widths of GRU_WIDTH for
-    the GRU kernel."""
-    voxel = cfg.truncate_k <= MAX_CANDIDATES and cfg.resolution == RESOLUTION
-    return {"corr_lookup": voxel and cfg.corr_knn <= MAX_KNN,
-            "voxel_corr": voxel,
-            "gru_iter": cfg.hidden_dim == cfg.context_dim == GRU_WIDTH}
+def lookup_variant(k: int, knn: int, resolution: int) -> str:
+    """"tuned" where the tuned lookup kernel takes the shapes (K <=
+    MAX_CANDIDATES, knn <= min(MAX_KNN, K), resolution RESOLUTION), else
+    "general". The voxel-only pass is the knn = 0 case."""
+    tuned = (k <= MAX_CANDIDATES and knn <= min(MAX_KNN, k)
+             and resolution == RESOLUTION)
+    return "tuned" if tuned else "general"
+
+
+def gru_variant(hidden: int, context: int, corr_ch: int) -> str:
+    """"tuned" where the tuned GRU kernel takes the widths (all
+    GRU_WIDTH), else "general"."""
+    tuned = hidden == context == corr_ch == GRU_WIDTH
+    return "tuned" if tuned else "general"
+
+
+def kernel_takes(cfg) -> Dict[str, str]:
+    """Kernel name -> the variant ("tuned" or "general") that runs
+    ``cfg``'s shapes (a ``ModelConfig``) on a CUDA tensor. The
+    correlation features reach the GRU update at width 64 (the
+    ``CorrLookup`` head)."""
+    k, res = cfg.truncate_k, cfg.resolution
+    return {"corr_lookup": lookup_variant(k, cfg.corr_knn, res),
+            "voxel_corr": lookup_variant(k, 0, res),
+            "gru_iter": gru_variant(cfg.hidden_dim, cfg.context_dim,
+                                    GRU_WIDTH)}
 
 
 # Launches recorded into CUDA graphs while capturing, by wrapper name.
@@ -220,16 +243,26 @@ def record_launch(wrapper, device: torch.device) -> None:
 
 
 def _wrappers():
-    from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
-    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import (
+        corr_lookup_general,
+        fused_corr_lookup,
+    )
+    from pvraft_tpu_torch.ops.cuda.gru_iter import (
+        fused_gru_update,
+        gru_iter_general,
+    )
     from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
 
-    return (fused_corr_lookup, fused_gru_update, voxel_bin_means_pallas)
+    return (fused_corr_lookup, fused_gru_update, voxel_bin_means_pallas,
+            corr_lookup_general, gru_iter_general)
 
 
 def launch_counts() -> Dict[str, int]:
     """Wrapper name -> eager kernel launches since the last
-    :func:`zero_launch_counts`."""
+    :func:`zero_launch_counts`: the three tuned kernels under their
+    Functions' names, the general kernels under their own
+    (``corr_lookup_general``, which the lookup and the voxel Function
+    both launch, and ``gru_iter_general``)."""
     return {f.__name__: f.launches for f in _wrappers()}
 
 
@@ -243,7 +276,9 @@ def zero_launch_counts() -> None:
 # const*, ...)").
 KERNEL_SYMBOLS = {"fused_corr_lookup": "corr_lookup_kernel",
                   "fused_gru_update": "gru_kernel",
-                  "voxel_bin_means_pallas": "voxel_corr_kernel"}
+                  "voxel_bin_means_pallas": "voxel_corr_kernel",
+                  "corr_lookup_general": "corr_lookup_general_kernel",
+                  "gru_iter_general": "gru_general_kernel"}
 
 
 def kernel_of(event_name: str):

@@ -17,13 +17,19 @@ activations split once into shared (hi, lo) tiles; weights streamed from
 L2 through a three-slot shared-memory ring by ``cp.async``; bias,
 activations, ``r * net`` and the blend on the accumulator fragments; the
 new state leaves by 16-byte stores. ``python -m pvraft_tpu_torch.gru_ab``
-times it against other sources of the same entry point.
+times it against other sources of the same entry point. That kernel is
+built on width 64 (its 222 KB of shared memory); every other width runs
+the general kernel ``csrc/gru_iter_general.cu`` (:func:`gru_iter_general`:
+one thread per output channel and group of 8 points, each weight read
+once through ``__ldg`` for the group's 8 fp32 FMA chains on the CUDA
+cores).
 
 :func:`fused_gru_update` is a ``torch.autograd.Function``. Its forward
-launches the kernel for CUDA tensors and runs :func:`gru_math` for CPU
-tensors; its backward recomputes :func:`gru_math` and differentiates it
+launches the tuned kernel where it takes the widths, else the general
+one, for CUDA tensors, and runs :func:`gru_math` for CPU tensors; its backward recomputes :func:`gru_math` and differentiates it
 (the JAX ``_fused_gru_bwd``, ``gru_iter.py:256-262``). Its ``launches``
-attribute counts eager kernel launches. :func:`pack_gru_weights` and
+attribute counts eager launches of the tuned kernel,
+``gru_iter_general.launches`` those of the general one. :func:`pack_gru_weights` and
 :func:`pad_flow` build the kernel's operands exactly as the JAX package
 does, outside the Function, so gradients reach the raw ``Linear``
 parameters through their pads and concatenations.
@@ -108,6 +114,8 @@ def _signature(fn) -> None:
 
 def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
             flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """The tuned kernel where it takes the operands (every width
+    :data:`WIDTH`, every operand 16-byte aligned), else the general one."""
     what = "fused_gru_update"
     b, n, h = net.shape
     _cuda.require_cuda(what, net, inp, cor, flow8, *weights)
@@ -115,12 +123,9 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     want = [(b, n, WIDTH)] * 3 + [(b, n, FLOW_PAD), (WIDTH, WIDTH),
                                   (FLOW_PAD, WIDTH), (2 * WIDTH, WIDTH)] \
         + [(WIDTH, 3 * WIDTH)] * 3 + [(FLOW_PAD, 3 * WIDTH)] * 2
-    if shapes != want:
-        raise ValueError(f"{what}: the kernel takes width {WIDTH}; "
-                         f"operand shapes {shapes}, expected {want}")
-    if any(t.data_ptr() % 16 for t in (net, inp, cor, flow8, *weights)):
-        raise ValueError(f"{what}: every operand must be 16-byte aligned "
-                         "(the kernel reads them by 16-byte copies)")
+    if shapes != want or any(t.data_ptr() % 16 for t in
+                             (net, inp, cor, flow8, *weights)):
+        return gru_iter_general(net, inp, cor, flow8, weights)
     _cuda.check_capturable(what, net.device)
     out = torch.empty_like(net)
     fn = _cuda.library("gru_iter").pvraft_gru_update
@@ -131,6 +136,72 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
                   b * n, _cuda.stream_ptr(net.device))
     _cuda.check(code, what)
     _cuda.record_launch(fused_gru_update, net.device)
+    return out
+
+
+GENERAL_POINTS = 8     # points per thread in the general kernel
+
+
+def general_gru_plan(hidden: int, context: int, corr_ch: int
+                     ) -> Tuple[int, int, int]:
+    """The general kernel's launch shape: (groups of GENERAL_POINTS points
+    per block, threads per block, dynamic shared memory bytes). One point
+    holds 4 * (7 pad4(H) + pad4(C) + pad4(F) + FLOW_PAD) bytes (its inputs
+    and every intermediate, each padded to 4 floats); a thread computes one
+    channel of one group's points, and a block takes as many groups as
+    keep about 256 threads busy within 48 KB. Raises where one group does
+    not fit in the SMEM_MAX a block can have, naming the limit."""
+    def pad4(x):
+        return (x + 3) // 4 * 4
+
+    per_point = 4 * (7 * pad4(hidden) + pad4(context) + pad4(corr_ch)
+                     + FLOW_PAD)
+    group = GENERAL_POINTS * per_point
+    if min(hidden, context, corr_ch) < 1 or group > _cuda.SMEM_MAX:
+        raise ValueError(
+            f"gru_iter_general: widths hidden={hidden}, context={context}, "
+            f"corr={corr_ch} need {group} bytes of shared memory for "
+            f"{GENERAL_POINTS} points; the kernel takes widths >= 1 within "
+            f"the {_cuda.SMEM_MAX} a block can have")
+    groups = max(1, min(256 // hidden, _cuda.SMEM_DEFAULT // group))
+    threads = min(256, -(-groups * hidden // 32) * 32)
+    return groups, threads, groups * group
+
+
+def _general_signature(fn) -> None:
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def gru_iter_general(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
+                     flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """The general GRU kernel (``csrc/gru_iter_general.cu``) at any hidden
+    width H, context width C and correlation width F, on the operands of
+    :func:`pack_gru_weights` and :func:`pad_flow`. Launches the kernel
+    or raises (CPU tensors take :func:`gru_math` in the Function that
+    calls this)."""
+    what = "gru_iter_general"
+    b, n, h = net.shape
+    c, f = inp.shape[-1], cor.shape[-1]
+    operands = (net, inp, cor, flow8, *weights)
+    _cuda.require_cuda(what, *operands)
+    shapes = [tuple(t.shape) for t in operands]
+    want = [(b, n, h), (b, n, c), (b, n, f), (b, n, FLOW_PAD), (f, h),
+            (FLOW_PAD, h), (2 * h, h), (h, 3 * h), (c, 3 * h), (h, 3 * h),
+            (FLOW_PAD, 3 * h), (FLOW_PAD, 3 * h)]
+    if shapes != want:
+        raise ValueError(f"{what}: operand shapes {shapes}, expected {want}")
+    groups, threads, smem = general_gru_plan(h, c, f)
+    _cuda.check_capturable(what, net.device)
+    out = torch.empty_like(net)
+    fn = _cuda.library("gru_iter_general").pvraft_gru_update_general
+    _general_signature(fn)
+    with torch.cuda.device(net.device):
+        code = fn(*(t.data_ptr() for t in (*operands, out)), b * n, h, c, f,
+                  groups, threads, smem, _cuda.stream_ptr(net.device))
+    _cuda.check(code, what)
+    _cuda.record_launch(gru_iter_general, net.device)
     return out
 
 
@@ -158,12 +229,14 @@ def fused_gru_update(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
                      flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
     """Fused MotionEncoder + ConvGRU hidden-state update.
 
-    net, inp, cor: (B, N, 64) f32; flow8: (B, N, FLOW_PAD) f32, padded by
-    :func:`pad_flow`; weights: the 8-tuple of :func:`pack_gru_weights`.
-    Returns the new (B, N, 64) f32 hidden state. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.
+    net (B, N, H), inp (B, N, C), cor (B, N, F) f32; flow8: (B, N,
+    FLOW_PAD) f32, padded by :func:`pad_flow`; weights: the 8-tuple of
+    :func:`pack_gru_weights`. Returns the new (B, N, H) f32 hidden state.
+    CPU tensors take the plain version; CUDA tensors launch the tuned
+    kernel at width 64, else the general one, or raise.
     """
     return _FusedGru.apply(net, inp, cor, flow8, *weights)
 
 
 fused_gru_update.launches = 0
+gru_iter_general.launches = 0

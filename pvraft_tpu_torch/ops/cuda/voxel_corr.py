@@ -10,7 +10,8 @@ multiply where every level's edge is a power of two, a conflict-free
 shared table reduced in a fixed order, integer counts).
 
 :func:`voxel_bin_means_pallas` is a ``torch.autograd.Function``: its
-forward launches the kernel for CUDA tensors and runs
+forward launches the tuned kernel where it takes the shapes, else the
+general one, for CUDA tensors, and runs
 :func:`~pvraft_tpu_torch.ops.voxel.voxel_bin_means` for CPU tensors; its
 backward is :func:`~pvraft_tpu_torch.ops.voxel.voxel_bwd` (the JAX
 ``_voxel_bwd``), gradient to ``corr`` only. Its ``launches`` attribute
@@ -24,6 +25,7 @@ import ctypes
 import torch
 
 from pvraft_tpu_torch.ops import cuda as _cuda
+from pvraft_tpu_torch.ops.cuda.corr_lookup import corr_lookup_general
 from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
 
@@ -41,11 +43,9 @@ def _launch(corr: torch.Tensor, rel: torch.Tensor, num_levels: int,
     if rel.shape != (b, n, k, 3):
         raise ValueError(f"{what}: shapes {tuple(corr.shape)}, "
                          f"{tuple(rel.shape)}")
-    if k > _cuda.MAX_CANDIDATES or resolution != _cuda.RESOLUTION:
-        raise ValueError(f"{what}: the kernel takes K <= "
-                         f"{_cuda.MAX_CANDIDATES} and resolution "
-                         f"{_cuda.RESOLUTION}; got K={k}, "
-                         f"resolution={resolution}")
+    if _cuda.lookup_variant(k, 0, resolution) == "general":
+        return corr_lookup_general(corr, rel, None, num_levels, base_scale,
+                                   resolution, 0)[0]
     _cuda.check_capturable(what, corr.device)
     out = torch.empty(b, n, num_levels * resolution**3, device=corr.device)
     fn = _cuda.library("voxel_corr").pvraft_voxel_corr
@@ -83,9 +83,10 @@ def voxel_bin_means_pallas(corr: torch.Tensor, rel: torch.Tensor,
     """Per-cell mean correlation of every pyramid level.
 
     corr: (B, N, K) f32, rel: (B, N, K, 3) f32 candidate offsets from the
-    current estimate. Returns (B, N, num_levels * 27). CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise. Gradients
-    reach ``corr`` only.
+    current estimate. Returns (B, N, num_levels * resolution**3). CPU tensors take
+    the plain version; CUDA tensors launch the tuned kernel where it takes
+    the shapes, else the general one, or raise. Gradients reach ``corr``
+    only.
     """
     return _VoxelBinMeans.apply(corr, rel, num_levels, base_scale, resolution)
 

@@ -17,8 +17,10 @@ padded clouds and masks into the program's static inputs, every slot
 included, replays the graph, and copies the flow out. On the CPU the
 programs run the forward on the same static buffers without a graph.
 
-Not in this slice: HTTP, the micro-batcher, replicas and weight
-hot-swap.
+:meth:`InferenceEngine.from_checkpoint` builds an engine from a msgpack
+checkpoint (the port's or the JAX package's) and keeps its path and
+epoch. Not in this slice: HTTP, the micro-batcher, replicas, weight
+hot-swap and checkpoint reload (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from pvraft_tpu_torch.config import ModelConfig
 from pvraft_tpu_torch.device import resolve_device
+from pvraft_tpu_torch.engine.checkpoint import load_params
 from pvraft_tpu_torch.models.raft import PVRaft
 from pvraft_tpu_torch.serve.aot import (
     GraphProgram,
@@ -150,6 +153,21 @@ class InferenceEngine:
         for bucket in cfg.buckets:
             for bs in cfg.batch_sizes:
                 self._programs[(bucket, bs)] = self._compile(bucket, bs, pool)
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_epoch: Optional[int] = None
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: ServeConfig,
+                        device: Union[str, torch.device, None] = None
+                        ) -> "InferenceEngine":
+        """An engine serving the parameters of the msgpack checkpoint at
+        ``path`` (``engine/checkpoint.py::load_params``); keeps ``path``
+        and the checkpoint's epoch (-1 when it has none) as
+        ``checkpoint_path`` and ``checkpoint_epoch``."""
+        variables, epoch = load_params(path)
+        engine = cls(variables, cfg, device)
+        engine.checkpoint_path, engine.checkpoint_epoch = path, epoch
+        return engine
 
     def _compile(self, bucket: int, bs: int, pool) -> GraphProgram:
         """Capture the forward at (bs, bucket): padded clouds and validity

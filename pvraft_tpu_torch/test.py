@@ -1,0 +1,118 @@
+"""Evaluation entry point of the port (the counterpart of the root
+``test.py``, as ``pvraft_tpu_torch/train.py`` is of ``train.py``).
+
+    python -m pvraft_tpu_torch.test --dataset synthetic --weights
+        EXP/checkpoints/best_checkpoint.msgpack [--eval_iters 32]
+        [--dump_dir result] [--device cpu] ...
+
+The reference protocol (``engine/evaluator.py``): one scene per step at
+``eval_iters`` GRU iterations, running means. ``--weights`` takes a
+msgpack checkpoint of the port or of the JAX package, ``--torch_weights``
+a reference-published ``.params`` file. The flags are ``test.py``'s for
+the fields this slice evaluates with, plus ``--synthetic_objects``,
+``--fused_gru`` and ``--device``; every other flag of ``test.py`` is
+rejected with the slice that brings it. Runs on the card unless
+``--device`` names another device. Prints the means as one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import List, Optional
+
+from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+
+# test.py flags of features a later slice of the port brings.
+LATER_FLAGS = {
+    "--root": "the data slice (FT3D, KITTI)",
+    "--num_workers": "the data slice (PrefetchLoader)",
+    "--no_strict_sizes": "the data slice (FT3D, KITTI)",
+    "--refine": "the stage-2 slice",
+    "--seq_parallel": "the parallel slice",
+    "--corr_chunk": "the streaming correlation slice",
+    "--graph_chunk": "the streaming graph slice",
+    "--bf16": "the bf16 slice",
+    "--approx_topk": "the approximate top-k slice",
+    "--approx_knn": "the approximate top-k slice",
+    "--platform": "no slice: the port picks its device with --device",
+}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    argv = sys.argv[1:] if argv is None else argv
+    p = argparse.ArgumentParser("pvraft_tpu_torch test", allow_abbrev=False)
+    for arg in argv:
+        flag = arg.split("=", 1)[0]
+        if flag in LATER_FLAGS:
+            p.error(f"{flag} is not ported yet: it arrives with "
+                    f"{LATER_FLAGS[flag]}")
+    p.add_argument("--exp_path", default="experiments/default")
+    p.add_argument("--dataset", default="FT3D",
+                   choices=["FT3D", "KITTI", "synthetic"])
+    p.add_argument("--max_points", type=int, default=8192)
+    p.add_argument("--synthetic_size", type=int, default=16)
+    p.add_argument("--synthetic_objects", type=int, default=1,
+                   help="independently moving rigid objects per synthetic "
+                        "scene (1: one global transform)")
+    p.add_argument("--corr_levels", type=int, default=3)
+    p.add_argument("--base_scales", type=float, default=0.25)
+    p.add_argument("--truncate_k", type=int, default=512)
+    p.add_argument("--corr_knn", type=int, default=32)
+    p.add_argument("--eval_iters", type=int, default=32)
+    p.add_argument("--eval_scan", type=int, default=1,
+                   help="accepted so that the JAX package's commands "
+                        "run, and changes nothing: a replay of the "
+                        "captured eval step is one launch per scene")
+    p.add_argument("--eval_batch", type=int, default=0,
+                   help="scenes per eval step; one card evaluates one "
+                        "scene per step (0 and 1 are the same)")
+    p.add_argument("--weights", default=None,
+                   help="a msgpack checkpoint (the port's or the JAX "
+                        "package's)")
+    p.add_argument("--torch_weights", default=None,
+                   help="reference-published torch .params checkpoint")
+    p.add_argument("--use_pallas", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="the CUDA kernels vs their plain PyTorch versions "
+                        "(default: the kernels on a CUDA device)")
+    p.add_argument("--fused_gru", action="store_true",
+                   help="fused MotionEncoder+ConvGRU update")
+    p.add_argument("--dump_dir", default=None,
+                   help="write <dump_dir>/<dataset>/<idx>/{pc1,pc2,flow}.npy "
+                        "for visual.py")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without one)")
+    return p.parse_args(argv)
+
+
+def config_from_args(a: argparse.Namespace) -> Config:
+    return Config(
+        model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
+                          corr_levels=a.corr_levels, base_scale=a.base_scales,
+                          use_pallas=a.use_pallas, fused_gru=a.fused_gru),
+        data=DataConfig(dataset=a.dataset, max_points=a.max_points,
+                        synthetic_size=a.synthetic_size,
+                        synthetic_objects=a.synthetic_objects),
+        train=TrainConfig(eval_iters=a.eval_iters, eval_batch=a.eval_batch,
+                          eval_scan=a.eval_scan),
+        exp_path=a.exp_path,
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+
+    ev = Evaluator(config_from_args(args), device=args.device)
+    if args.weights:
+        ev.load(args.weights)
+    if args.torch_weights:
+        ev.load_torch(args.torch_weights)
+    means = ev.run(dump_dir=args.dump_dir)
+    print(json.dumps(dict(sorted(means.items()))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,9 @@ mapping is by name: a Dense ``kernel (in, out)`` becomes a
 identical for both ``fused_gru`` settings, so one mapping serves both.
 :func:`opt_state_from_jax` carries optax's Adam state over with the same
 names and transposes, so a JAX run's parameters and optimizer state both
-resume in the port.
+resume in the port. :func:`params_to_jax` and :func:`opt_state_to_jax`
+are their exact inverses (the transposes and renames undone, bit for
+bit), so the port writes checkpoints that the JAX package loads.
 """
 
 from __future__ import annotations
@@ -53,6 +55,27 @@ def params_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]"
         out[f"{module}.{_RENAME[name]}"] = torch.from_numpy(
             np.ascontiguousarray(arr))
     return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a PVRaft state_dict (or
+    any name -> tensor mapping of its parameters: Adam's moments) as the
+    flax variables dict ``{"params": tree}`` of float32 numpy arrays. A
+    2-D ``weight`` becomes the (in, out) Dense ``kernel``, a 1-D
+    ``weight`` the GroupNorm ``scale``."""
+    tree: Dict[str, Any] = {}
+    for name, t in state.items():
+        module, _, leaf = name.rpartition(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+        elif leaf not in ("bias", "alpha"):
+            raise KeyError(f"unexpected parameter {name!r}")
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
+    return {"params": tree}
 
 
 def seeded_state_dict(cfg: ModelConfig, seed: int) -> Dict[str, torch.Tensor]:
@@ -133,3 +156,30 @@ def opt_state_from_jax(opt_state: Any, model: torch.nn.Module,
     sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
                        "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
     return sd
+
+
+def opt_state_to_jax(optimizer: torch.optim.Adam, model: torch.nn.Module,
+                     schedule_count: Optional[int] = None) -> Dict[str, Any]:
+    """The inverse of :func:`opt_state_from_jax`: a ``torch.optim.Adam``
+    over ``model.parameters()`` as the optax state of ``optax.adam(
+    schedule)`` in its ``flax.serialization.to_state_dict`` form,
+    ``{"0": {"count", "mu", "nu"}, "1": {"count"}}``: ``exp_avg`` and
+    ``exp_avg_sq`` under the flax names and transposes, Adam's ``step``
+    as int32 ``count``; ``"1"`` is the schedule's count
+    (``schedule_count``, default Adam's). Before the first step the
+    moments are zeros and both counts 0 (``tx.init``)."""
+    named = list(model.named_parameters())
+    mu, nu, steps = {}, {}, set()
+    for name, p in named:
+        state = optimizer.state.get(p, {})
+        mu[name] = state.get("exp_avg", torch.zeros_like(p))
+        nu[name] = state.get("exp_avg_sq", torch.zeros_like(p))
+        steps.add(int(state["step"]) if "step" in state else 0)
+    if len(steps) != 1:
+        raise ValueError(f"Adam's parameters are at different steps: "
+                         f"{sorted(steps)}")
+    count = steps.pop()
+    sched = count if schedule_count is None else schedule_count
+    return {"0": {"count": np.asarray(count, np.int32),
+                  "mu": params_to_jax(mu), "nu": params_to_jax(nu)},
+            "1": {"count": np.asarray(sched, np.int32)}}

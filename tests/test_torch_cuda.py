@@ -11,9 +11,13 @@ base_scale 0.3 (the division path). Bars: identical kNN indices,
 atol 1e-5, bitwise-equal repeated launches; each Function's gradient
 against autograd through its plain version, atol 1e-5; one train step
 with the kernels against the plain versions at the bars of
-``tests/test_torch_grad.py``. The captured paths: a config the kernels
-do not take raises under ``use_pallas=None`` and ``True`` and runs under
-``False``; the serve programs' replays (their kernel launches measured
+``tests/test_torch_grad.py``. The general kernels (``corr_lookup_general``,
+``gru_iter_general``) against the plain versions at shapes the tuned
+kernels do not take (K past 512, knn past 32 and up to K, resolutions
+1, 2, 4 and 5, GRU widths 32, 48, 96 and 128), forward and gradient.
+The captured paths: a config the tuned kernels do not take runs the
+general kernel under ``use_pallas=None`` and ``True`` and the plain
+version under ``False``; the serve programs' replays (their kernel launches measured
 by the profiler) and three graphed train steps equal their eager runs
 bitwise.
 """
@@ -66,10 +70,17 @@ def test_lookup_kernel_matches_plain(dev, b, n, k, knn):
 
 
 def test_lookup_kernel_rejects_what_it_does_not_take(dev):
+    """K = 600 is beyond the tuned kernel and runs the general one; a
+    resolution whose cell table does not fit a block's shared memory
+    raises and names the limit."""
     z = torch.zeros(1, 4, 600, device=dev)
-    with pytest.raises(ValueError, match="K <= 512"):
-        lk.fused_corr_lookup(z, torch.zeros(1, 4, 600, 3, device=dev),
-                             torch.zeros(1, 4, 3, device=dev), 3, 0.25, 3, 8)
+    xyz, coords = torch.zeros(1, 4, 600, 3, device=dev), \
+        torch.zeros(1, 4, 3, device=dev)
+    before = lk.corr_lookup_general.launches
+    lk.fused_corr_lookup(z, xyz, coords, 3, 0.25, 3, 8)
+    assert lk.corr_lookup_general.launches == before + 1
+    with pytest.raises(ValueError, match="232448"):
+        lk.fused_corr_lookup(z, xyz, coords, 1, 0.25, 10, 8)
 
 
 # Point counts off the kernel's 64-point tile, the flagship 1 x 8192, and
@@ -131,10 +142,14 @@ def test_voxel_kernel_matches_plain(dev, b, n, k):
     torch.testing.assert_close(got, voxel_bin_means(corr, rel, 3, 0.25, 3),
                                rtol=0, atol=1e-5)
     assert torch.equal(got, again)
-    with pytest.raises(ValueError, match="K <= 512"):
-        vx.voxel_bin_means_pallas(torch.zeros(1, 4, 600, device=dev),
-                                  torch.zeros(1, 4, 600, 3, device=dev),
-                                  3, 0.25, 3)
+    # K = 600 is beyond the tuned kernel: the general one runs it.
+    before = lk.corr_lookup_general.launches
+    corr, xyz, coords = _candidates(dev, 1, 4, 600)
+    rel = (xyz - coords[:, :, None]).contiguous()
+    torch.testing.assert_close(vx.voxel_bin_means_pallas(corr, rel, 3, 0.25, 3),
+                               voxel_bin_means(corr, rel, 3, 0.25, 3),
+                               rtol=0, atol=1e-5)
+    assert lk.corr_lookup_general.launches == before + 1
 
 
 def _edge(dev, kind, b, n, k, seed=5):
@@ -274,25 +289,30 @@ def test_train_step_with_kernels_matches_plain(dev, fused_gru):
 @pytest.mark.parametrize("kw", [{"resolution": 2},
                                 {"corr_knn": 48, "truncate_k": 64}])
 def test_config_the_kernels_do_not_take_raises_unless_plain(dev, kw):
-    """A config the lookup kernel does not take raises on the card under
-    ``use_pallas=None`` (naming ``use_pallas=False``) and under ``True``,
-    and runs its plain version under ``False``."""
+    """A config the tuned lookup kernel does not take runs the general
+    kernel on the card under ``use_pallas=None`` and ``True`` (the
+    profiler sees it launched, the plain path never), and its plain
+    version under ``False``; the flows agree at 1e-4 after 1 iteration."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+
     tiny = dict(truncate_k=64, corr_knn=16, graph_k=8)
     tiny.update(kw)
     ds = SyntheticDataset(size=2, nb_points=128, noise=0.01, seed=2)
     batch = to_device(collate([ds[0], ds[1]]), dev)
     weights = seeded_state_dict(ModelConfig(**tiny), 0)
-    for use_pallas, match in ((None, "use_pallas=False"),
-                              (True, "the kernel takes")):
+    flows = {}
+    for use_pallas in (None, True, False):
         model = PVRaft(ModelConfig(**tiny, use_pallas=use_pallas)).to(dev)
         model.load_state_dict(weights)
-        with pytest.raises(ValueError, match=match):
-            model(batch["pc1"], batch["pc2"], 1)
-    model = PVRaft(ModelConfig(**tiny, use_pallas=False)).to(dev)
-    model.load_state_dict(weights)
-    with torch.no_grad():
-        flows, _ = model(batch["pc1"], batch["pc2"], 2)
-    assert flows.shape == (2, 2, 128, 3) and bool(flows.isfinite().all())
+        with torch.no_grad():
+            (flows[use_pallas], _), counts = kernels.measured_launches(
+                lambda: model(batch["pc1"], batch["pc2"], 1))
+        want = 0 if use_pallas is False else 1
+        assert counts["corr_lookup_general"] == want, counts
+        assert counts["fused_corr_lookup"] == 0, counts
+    for use_pallas in (None, True):
+        torch.testing.assert_close(flows[use_pallas], flows[False],
+                                   rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("fused_gru", [False, True])
@@ -434,3 +454,111 @@ def test_trainer_resumes_an_optax_state_on_the_card(dev, monkeypatch):
     finally:
         torch.use_deterministic_algorithms(False)
     assert runs[True] == runs[False] and len(runs[True]) == 2
+
+
+# --- the general kernels -----------------------------------------------------
+
+# (b, n, K, knn, resolution, levels): K past 512 and not a multiple of 4,
+# knn past 32 and knn = K, even and odd resolutions, 1 to 4 levels.
+GENERAL_LOOKUPS = [(1, 70, 1024, 64, 3, 3), (2, 33, 510, 48, 2, 3),
+                   (1, 40, 512, 32, 5, 4), (2, 9, 37, 37, 3, 2),
+                   (1, 20, 7, 0, 4, 1), (2, 50, 100, 5, 1, 2)]
+
+
+@pytest.mark.parametrize("b,n,k,knn,res,levels", GENERAL_LOOKUPS)
+def test_general_lookup_matches_plain(dev, b, n, k, knn, res, levels):
+    args = (*_candidates(dev, b, n, k, seed=k), levels, 0.25, res, knn)
+    assert lk.general_lookup_plan(k, knn, res)[0] >= 1
+    before = (lk.corr_lookup_general.launches, lk.fused_corr_lookup.launches)
+    got = lk.fused_corr_lookup(*args)
+    again = lk.fused_corr_lookup(*args)
+    assert (lk.corr_lookup_general.launches,
+            lk.fused_corr_lookup.launches) == (before[0] + 2, before[1])
+    want = lk.corr_lookup_plain(*args)
+    assert torch.equal(got[3], want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    rel = (args[1] - args[2][:, :, None]).contiguous()
+    vox = vx.voxel_bin_means_pallas(args[0], rel, levels, 0.25, res)
+    torch.testing.assert_close(vox, voxel_bin_means(args[0], rel, levels,
+                                                    0.25, res),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["ties", "boundaries"])
+def test_general_lookup_edge_cases(dev, kind):
+    """Exact distance ties at the kNN cut (the lowest index wins, as in
+    the stable sort) and offsets on cell boundaries, at K = 600."""
+    args = (*_edge(dev, kind, 2, 45, 600), 3, 0.25, 3, 48)
+    got = lk.fused_corr_lookup(*args)
+    want = lk.corr_lookup_plain(*args)
+    assert torch.equal(got[3], want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def _gru_operands(dev, b, n, h, c, f, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def a(*s, scale=0.15):
+        return torch.from_numpy((scale * rng.normal(size=s)).astype(
+            np.float32)).to(dev)
+
+    me = (a(f, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
+    gru = tuple(t for _ in range(3) for t in (a(h + c + h, h), a(h)))
+    acts = (torch.tanh(a(b, n, h, scale=1.0)), torch.relu(a(b, n, c, scale=1.0)),
+            a(b, n, f, scale=1.0),
+            gr.pad_flow(a(b, n, 3, scale=0.3)).contiguous())
+    return acts, me, gru
+
+
+@pytest.mark.parametrize("h,c,f", [(32, 32, 64), (96, 96, 64),
+                                   (128, 128, 64), (48, 80, 40),
+                                   (32, 96, 64), (33, 50, 37)])
+def test_general_gru_matches_plain(dev, h, c, f):
+    acts, me, gru = _gru_operands(dev, 2, 129, h, c, f)
+    args = (*acts, gr.pack_gru_weights(me, gru, h, c))
+    before = (gr.gru_iter_general.launches, gr.fused_gru_update.launches)
+    got = gr.fused_gru_update(*args)
+    assert (gr.gru_iter_general.launches,
+            gr.fused_gru_update.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(got, gr.gru_math(*args), rtol=0, atol=1e-5)
+    assert torch.equal(got, gr.fused_gru_update(*args))
+
+
+def test_general_kernels_backward_match_plain_autograd(dev):
+    """The Functions' plain-PyTorch backward passes at the general
+    kernels' shapes, against autograd through the plain versions: 1e-4."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def cot(t):
+        return torch.randn(t.shape, device=dev, generator=gen)
+
+    corr, xyz, coords = _candidates(dev, 1, 40, 1024, seed=9)
+    geo = (3, 0.25, 2)
+    cots = [cot(t) for t in lk.corr_lookup_plain(corr, xyz, coords, *geo,
+                                                  48)[:3]]
+    for got, want in zip(*(_grad(f, [corr], lambda xs: (xs[0], xyz, coords,
+                                                        *geo, 48), cots)
+                           for f in (lk.fused_corr_lookup,
+                                     lk.corr_lookup_plain))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    rel = (xyz - coords[:, :, None]).contiguous()
+    cots = [cot(voxel_bin_means(corr, rel, *geo))]
+    for got, want in zip(*(_grad(f, [corr], lambda xs: (xs[0], rel, *geo),
+                                 cots)
+                           for f in (vx.voxel_bin_means_pallas,
+                                     voxel_bin_means))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    h, c, f = 32, 32, 64
+    acts, me, gru = _gru_operands(dev, 2, 37, h, c, f, seed=2)
+
+    def args(xs):
+        return (*xs[:4], gr.pack_gru_weights(xs[4:10], xs[10:], h, c))
+
+    cots = [cot(acts[0])]
+    for got, want in zip(*(_grad(fn, list(acts) + list(me) + list(gru),
+                                 args, cots)
+                           for fn in (gr.fused_gru_update, gr.gru_math))):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

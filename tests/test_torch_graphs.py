@@ -1,7 +1,7 @@
 """The port's compiled-program layer on the CPU: captured serve programs,
 graphed train and eval steps, the retrace guard, and the routing of
-``use_pallas=None`` by what each CUDA kernel takes (the kernel, or an
-error that names ``use_pallas=False``).
+``use_pallas=None`` by what each CUDA kernel takes (the tuned kernel,
+else the general one; the plain version only under ``use_pallas=False``).
 
 On the CPU a captured program runs its function on the same static
 buffers that the card replays (``serve/aot.py``), so these tests hold
@@ -82,28 +82,23 @@ def _cloud(rng, n):
 
 
 @pytest.mark.parametrize("kw,takes", [
-    ({}, (True, True, True)),
-    ({"resolution": 2}, (False, False, True)),
-    ({"corr_knn": 48, "truncate_k": 64}, (False, True, True)),
-    ({"truncate_k": 1024}, (False, False, True)),
-    ({"hidden_dim": 32}, (True, True, False)),
-    ({"context_dim": 128}, (True, True, False)),
+    ({}, ("tuned", "tuned", "tuned")),
+    ({"resolution": 2}, ("general", "general", "tuned")),
+    ({"corr_knn": 48, "truncate_k": 64}, ("general", "tuned", "tuned")),
+    ({"truncate_k": 1024}, ("general", "general", "tuned")),
+    ({"hidden_dim": 32}, ("tuned", "tuned", "general")),
+    ({"context_dim": 128}, ("tuned", "tuned", "general")),
 ])
 def test_kernel_takes_table_and_routing(kw, takes):
     cfg = tconfig.ModelConfig(**kw)
     kernels = ("corr_lookup", "voxel_corr", "gru_iter")
     assert kernel_takes(cfg) == dict(zip(kernels, takes))
     card, host = SimpleNamespace(is_cuda=True), SimpleNamespace(is_cuda=False)
-    for kernel, ok in zip(kernels, takes):
-        if ok:
-            assert tconfig.resolve_use_pallas(cfg, card, kernel) is True
-        else:
-            # Never the plain version on the card unless the caller asks.
-            with pytest.raises(ValueError, match="use_pallas=False"):
-                tconfig.resolve_use_pallas(cfg, card, kernel)
+    for kernel in kernels:
+        # A CUDA kernel on the card, tuned or general; never the plain
+        # version unless the caller asks for it.
+        assert tconfig.resolve_use_pallas(cfg, card, kernel) is True
         assert tconfig.resolve_use_pallas(cfg, host, kernel) is False
-        # An explicit choice is kept: True reaches the kernel, which raises
-        # on a configuration it does not take (tests/test_torch_cuda.py).
         for forced in (True, False):
             explicit = dataclasses.replace(cfg, use_pallas=forced)
             assert tconfig.resolve_use_pallas(explicit, card, kernel) is forced
@@ -119,6 +114,10 @@ def test_kernel_takes_table_and_routing(kw, takes):
     ("void at::native::vectorized_gather_kernel<16, long>(char*, char*",
      None),
     ("pvraft.corr_lookup", None),
+    ("(anonymous namespace)::corr_lookup_general_kernel((anonymous "
+     "namespace)::Lookup)", "corr_lookup_general"),
+    ("(anonymous namespace)::gru_general_kernel((anonymous namespace)::Gru)",
+     "gru_iter_general"),
 ])
 def test_profiler_events_name_their_kernel(event, wrapper):
     """The measured launch counts on the card read the profiler's kernel
@@ -273,20 +272,22 @@ def test_graphed_train_step_equals_eager_and_jax(jax_train, resume):
     assert len(graphed.graphs.programs) == 1
 
 
-def _tiny_cfg(epochs=1, size=6, **train):
+def _tiny_cfg(epochs=1, size=6, exp_path="experiments/default", **train):
     return tconfig.Config(
         model=tconfig.ModelConfig(**TINY),
         data=tconfig.DataConfig(dataset="synthetic", max_points=N,
                                 synthetic_size=size),
         train=tconfig.TrainConfig(num_epochs=epochs, iters=ITERS,
-                                  eval_iters=ITERS, **train))
+                                  eval_iters=ITERS, **train),
+        exp_path=str(exp_path))
 
 
-def test_trainer_keeps_every_steps_loss():
+def test_trainer_keeps_every_steps_loss(tmp_path):
     weights = seeded_state_dict(tconfig.ModelConfig(**TINY), 3)
-    graphed = ttrainer.Trainer(_tiny_cfg(), device="cpu", weights=weights)
-    eager = ttrainer.Trainer(_tiny_cfg(), device="cpu", weights=weights,
-                             graphs=False, capturable=True)
+    graphed = ttrainer.Trainer(_tiny_cfg(exp_path=tmp_path / "g"),
+                               device="cpu", weights=weights)
+    eager = ttrainer.Trainer(_tiny_cfg(exp_path=tmp_path / "e"), device="cpu",
+                             weights=weights, graphs=False, capturable=True)
     assert isinstance(eager.optimizer.param_groups[0]["lr"], torch.Tensor)
     plain = ttrainer.Trainer(_tiny_cfg(), device="cpu", weights=weights,
                              graphs=False)
@@ -302,8 +303,8 @@ def test_trainer_keeps_every_steps_loss():
     assert graphed.val_test(0) == eager.val_test(0)
 
 
-def test_fit_tests_the_best_validation_epoch(monkeypatch):
-    cfg = _tiny_cfg(epochs=2, size=4)
+def test_fit_tests_the_best_validation_epoch(monkeypatch, tmp_path):
+    cfg = _tiny_cfg(epochs=2, size=4, exp_path=tmp_path / "fit")
     weights = seeded_state_dict(cfg.model, 4)
     trainer = ttrainer.Trainer(cfg, device="cpu", weights=weights)
     step = trainer.eval_step
@@ -326,13 +327,19 @@ def test_fit_tests_the_best_validation_epoch(monkeypatch):
 
     test = trainer.fit(report)
     assert trainer.best_epe < 100.0
-    probe = ttrainer.Trainer(cfg, device="cpu", weights=kept[0])
+    # The test pass read epoch 0's weights back from best_checkpoint; runs
+    # without a checkpoint of their own test the weights they hold.
+    for name, t in trainer.model.state_dict().items():
+        assert torch.equal(t, kept[0][name]), name
+    probe = ttrainer.Trainer(cfg.replace(exp_path=str(tmp_path / "probe")),
+                             device="cpu", weights=kept[0])
     assert test == probe.val_test(1, "test")
-    last = ttrainer.Trainer(cfg, device="cpu", weights=kept[1])
+    last = ttrainer.Trainer(cfg.replace(exp_path=str(tmp_path / "last")),
+                            device="cpu", weights=kept[1])
     assert test != last.val_test(1, "test")
 
 
-def test_strict_retrace_raises_on_a_new_shape():
+def test_strict_retrace_raises_on_a_new_shape(tmp_path):
     model = TRaft(tconfig.ModelConfig(**TINY))
     model.load_state_dict(seeded_state_dict(tconfig.ModelConfig(**TINY), 0))
     first, second = _batch(0), _batch(1, n=40)
@@ -351,7 +358,8 @@ def test_strict_retrace_raises_on_a_new_shape():
             assert len(step.graphs.report()) == 2
             assert step.graphs.retraces == ["float32[2,40,3], float32[2,40,3],"
                                             " float32[2,40], float32[2,40,3]"]
-    trainer = ttrainer.Trainer(_tiny_cfg(size=4, strict_retrace=True),
+    trainer = ttrainer.Trainer(_tiny_cfg(size=4, strict_retrace=True,
+                                         exp_path=tmp_path),
                                device="cpu")
     trainer.training(0)
     small = to_device(next(batches(trainer.train_ds, 1)), CPU)
@@ -439,8 +447,8 @@ def test_cli_accepts_the_graph_knobs(capsys):
         tcli.parse_args(["--dataset", "synthetic", "--scan_unroll", "4"])
     assert "captured graph holds the GRU iterations" in \
         capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        tconfig.TrainConfig(eval_scan=2)
+    # eval_scan arrived with the evaluator (ROADMAP queue 1 item 2).
+    assert tconfig.TrainConfig(eval_scan=2).eval_scan == 2
 
 
 @pytest.mark.parametrize("kw", [{"resolution": 2},

@@ -162,7 +162,8 @@ def test_gru_wrapper_takes_plain_path_on_cpu():
 
 
 def test_kernel_sources_and_lazy_build():
-    assert set(tcuda.sources()) == {"corr_lookup", "gru_iter", "voxel_corr"}
+    assert set(tcuda.sources()) == {"corr_lookup", "gru_iter", "voxel_corr",
+                                    "corr_lookup_general", "gru_iter_general"}
     for path in tcuda.sources().values():
         with open(path) as f:
             src = f.read()
@@ -190,7 +191,7 @@ def test_kernel_sources_and_lazy_build():
     assert proc.returncode == 0, proc.stderr
 
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pvraft_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "pvraft_tpu"}
 
 
 def _port_files():

@@ -161,11 +161,11 @@ def test_train_and_data_config_defaults_match_jax():
     (tconfig.TrainConfig, {"grad_dtype": "bfloat16"}),
     (tconfig.TrainConfig, {"telemetry": True}),
     (tconfig.TrainConfig, {"refine": True}),
-    (tconfig.TrainConfig, {"checkpoint_interval": 1}),
+    (tconfig.TrainConfig, {"ckpt_backend": "orbax"}),
     (tconfig.TrainConfig, {"eval_batch": 4}),
     (tconfig.DataConfig, {"num_workers": 2}),
     (tconfig.DataConfig, {"root": "/data"}),
-    (tconfig.Config, {"exp_path": "elsewhere"}),
+    (tconfig.TrainConfig, {"profile_dir": "profiles"}),
 ])
 def test_train_config_rejects_later_slices(cls, kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -282,17 +282,19 @@ def test_eval_step_matches_jax(jparams, per_scene):
                                    rtol=0, atol=1e-4, err_msg=k)
 
 
-def _tiny_cfg(**train):
+def _tiny_cfg(exp_path="experiments/default", **train):
     return tconfig.Config(
         model=tconfig.ModelConfig(**TINY),
         data=tconfig.DataConfig(dataset="synthetic", max_points=N,
                                 synthetic_size=4),
         train=tconfig.TrainConfig(num_epochs=1, iters=ITERS,
-                                  eval_iters=ITERS, **train))
+                                  eval_iters=ITERS, **train),
+        exp_path=str(exp_path))
 
 
-def test_trainer_runs_an_epoch_on_the_cpu(jparams):
-    trainer = ttrainer.Trainer(_tiny_cfg(), device="cpu", weights=jparams)
+def test_trainer_runs_an_epoch_on_the_cpu(jparams, tmp_path):
+    trainer = ttrainer.Trainer(_tiny_cfg(tmp_path), device="cpu",
+                               weights=jparams)
     before = {n: p.detach().clone()
               for n, p in trainer.model.named_parameters()}
     out = trainer.training(0)
@@ -318,10 +320,12 @@ def test_trainer_needs_cuda_unless_cpu_is_named(monkeypatch):
         ttrainer.Trainer(tconfig.Config(), device="cpu")
 
 
-def test_train_cli_runs_on_the_cpu_and_rejects_later_flags(capsys):
+def test_train_cli_runs_on_the_cpu_and_rejects_later_flags(capsys,
+                                                           tmp_path):
     from pvraft_tpu_torch import train
 
     train.main(["--dataset", "synthetic", "--device", "cpu",
+                "--exp_path", str(tmp_path),
                 "--max_points", str(N), "--synthetic_size", "2",
                 "--truncate_k", "16", "--corr_knn", "8", "--iters", "1",
                 "--eval_iters", "1", "--num_epochs", "1"])

@@ -1,0 +1,127 @@
+"""Which CUDA kernel variant each shape selects, and the general kernels'
+launch plans, on the CPU (the kernels themselves run on the card:
+``tests/test_torch_cuda.py``).
+
+The tuned kernels take what they are built on (K <= 512, knn <= 32,
+resolution 3; GRU widths 64); every other shape selects the general
+kernel, whose shared-memory plan must cover every configuration the
+repository uses (the JAX package's tests and
+``pvraft_tpu/programs/geometries.py``: K from 8 to 1024, knn up to 64,
+resolutions 1 to 5, GRU widths 32 to 128) and refuses, naming the limit,
+what no block can hold. The general wrappers launch their kernel or
+raise; on a CPU tensor the Functions that call them take the plain
+version and launch nothing.
+"""
+
+import pytest
+import torch
+
+from pvraft_tpu.programs import geometries
+from pvraft_tpu_torch.config import ModelConfig
+from pvraft_tpu_torch.ops import cuda as tcuda
+from pvraft_tpu_torch.ops.cuda import corr_lookup as lk
+from pvraft_tpu_torch.ops.cuda import gru_iter as gr
+
+
+@pytest.mark.parametrize("k,knn,res,want", [
+    (512, 32, 3, "tuned"), (16, 8, 3, "tuned"), (40, 0, 3, "tuned"),
+    (513, 32, 3, "general"), (1024, 64, 3, "general"), (510, 48, 2, "general"),
+    (512, 33, 3, "general"), (512, 32, 5, "general"), (8, 8, 1, "general"),
+])
+def test_lookup_variant_of_each_shape(k, knn, res, want):
+    assert tcuda.lookup_variant(k, knn, res) == want
+
+
+@pytest.mark.parametrize("widths,want", [
+    ((64, 64, 64), "tuned"), ((32, 32, 64), "general"),
+    ((96, 96, 64), "general"), ((128, 128, 64), "general"),
+    ((64, 128, 64), "general"), ((64, 64, 32), "general"),
+])
+def test_gru_variant_of_each_width(widths, want):
+    assert tcuda.gru_variant(*widths) == want
+
+
+def test_the_flagship_geometry_takes_the_tuned_kernels():
+    cfg = ModelConfig(truncate_k=geometries.FLAGSHIP_TRUNCATE_K)
+    assert tcuda.kernel_takes(cfg) == {"corr_lookup": "tuned",
+                                       "voxel_corr": "tuned",
+                                       "gru_iter": "tuned"}
+
+
+@pytest.mark.parametrize("k", [8, 16, 37, 64, 510, 512, 600, 1024, 4096])
+@pytest.mark.parametrize("knn,res", [(0, 3), (8, 2), (32, 3), (64, 4),
+                                     (64, 5), (8, 1)])
+def test_general_lookup_plan_covers_the_configurations_in_use(k, knn, res):
+    knn = min(knn, k)
+    warps, sort_len, smem = lk.general_lookup_plan(k, knn, res)
+    per_warp = 4 * (2 * (res**3 + 1) * 33 + 2 * sort_len)
+    assert smem == warps * per_warp <= tcuda.SMEM_MAX
+    assert 1 <= warps <= 4
+    assert (warps * per_warp <= tcuda.SMEM_DEFAULT) or warps == 1
+    assert sort_len == (0 if knn == 0 else 1 << (k - 1).bit_length())
+    assert sort_len == 0 or sort_len >= k > sort_len // 2
+
+
+def test_general_lookup_plan_names_its_limit():
+    with pytest.raises(ValueError, match="232448"):
+        lk.general_lookup_plan(512, 32, 10)
+    with pytest.raises(ValueError, match="232448"):
+        lk.general_lookup_plan(40000, 32, 3)
+    with pytest.raises(ValueError, match="0 <= knn <= K"):
+        lk.general_lookup_plan(16, 17, 3)
+
+
+@pytest.mark.parametrize("h,c,f", [(32, 32, 64), (64, 64, 64), (96, 96, 64),
+                                   (128, 128, 64), (48, 80, 40),
+                                   (33, 50, 37), (32, 96, 64)])
+def test_general_gru_plan(h, c, f):
+    groups, threads, smem = gr.general_gru_plan(h, c, f)
+
+    def pad4(x):
+        return -(-x // 4) * 4
+
+    group = gr.GENERAL_POINTS * 4 * (7 * pad4(h) + pad4(c) + pad4(f)
+                                     + gr.FLOW_PAD)
+    assert smem == groups * group <= tcuda.SMEM_DEFAULT
+    assert groups >= 1 and groups * h <= max(256, h)
+    assert threads % 32 == 0 and threads <= 256
+    assert threads >= min(256, groups * h)
+
+
+def test_general_gru_plan_names_its_limit():
+    with pytest.raises(ValueError, match=str(tcuda.SMEM_MAX)):
+        gr.general_gru_plan(2048, 64, 64)
+    # One group above 48 KB opts in, alone in its block.
+    groups, threads, smem = gr.general_gru_plan(256, 256, 64)
+    assert groups == 1 and threads == 256
+    assert tcuda.SMEM_DEFAULT < smem <= tcuda.SMEM_MAX
+
+
+def test_general_wrappers_refuse_cpu_tensors():
+    """The general wrappers launch their kernel or raise: a CPU tensor
+    raises, counts no launch, and the Functions that call them take the
+    plain version on it instead."""
+    gen = torch.Generator().manual_seed(0)
+    corr = torch.randn(1, 5, 40, generator=gen)
+    xyz = torch.randn(1, 5, 40, 3, generator=gen)
+    coords = torch.randn(1, 5, 3, generator=gen)
+    before = (lk.corr_lookup_general.launches, gr.gru_iter_general.launches)
+    with pytest.raises(ValueError, match="CUDA device"):
+        lk.corr_lookup_general(corr, xyz, coords, 2, 0.25, 2, 40)
+    h, c, f = 32, 48, 64
+    w = [torch.randn(s, generator=gen) for s in
+         [(f, h), (h,), (3, h), (h,), (2 * h, h - 3), (h - 3,)]
+         + [(2 * h + c, h), (h,)] * 3]
+    weights = gr.pack_gru_weights(w[:6], w[6:], h, c)
+    acts = [torch.randn(1, 5, n, generator=gen) for n in (h, c, f)]
+    flow8 = gr.pad_flow(torch.randn(1, 5, 3, generator=gen))
+    with pytest.raises(ValueError, match="CUDA device"):
+        gr.gru_iter_general(*acts, flow8, weights)
+    got = lk.fused_corr_lookup(corr, xyz, coords, 2, 0.25, 2, 40)
+    want = lk.corr_lookup_plain(corr, xyz, coords, 2, 0.25, 2, 40)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(gr.fused_gru_update(*acts, flow8, weights),
+                       gr.gru_math(*acts, flow8, weights))
+    assert (lk.corr_lookup_general.launches,
+            gr.gru_iter_general.launches) == before
+    assert set(tcuda.launch_counts()) == set(tcuda.KERNEL_SYMBOLS)
