@@ -81,6 +81,25 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            ``InferenceEngine.from_checkpoint`` answers a request bitwise
            like the eager forward; the checkpoint's bytes,
            save and load seconds, the evaluator's ms per scene;
+  phase 8  real data from disk (``real_data``, ``real_data_phase``; run
+           after phase 5, before the profiler phases): an FT3D tree (16
+           train scenes, two below 8,192 rows, 4 val), a KITTI tree of
+           all 200 scenes with ground and far rows, and a full-frame FT3D
+           tree (13 raw 540 x 960 frames through the port's preprocessor,
+           ~380-490k rows a scene), written from the seed
+           (``write_trees``); each loader path (native, 8 threads,
+           serial) alone on the host, ms per batch and scenes per second,
+           on both FT3D trees; the flagship model trained one epoch of
+           graphed steps fed by each path on both trees and by synthetic
+           scenes (ms per step beside phase 3's
+           synthetic graphed step, losses finite); the threaded and serial
+           epochs bitwise equal under ``deterministic()``; the Evaluator
+           (32 iterations) on FT3D's test split and the 142 KITTI scenes
+           from the trained checkpoint, and ``python -m
+           pvraft_tpu_torch.test --dataset KITTI`` in a subprocess giving
+           the Evaluator's means; one fed epoch and the FT3D evaluation
+           under the profiler, the card running what the captures
+           recorded;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -100,7 +119,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 ``kernels`` line lists the three tuned kernels (launches from phase 7 and
 the kernel bench) and the two general ones (launches from phase 6).
 
-Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -873,7 +892,7 @@ def train_phase(seed, dev):
     launches per train step, and that 20 Adam steps lower the loss;
     times train and eval steps."""
     from pvraft_tpu_torch.config import ModelConfig
-    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
     from pvraft_tpu_torch.engine.trainer import Trainer
     from pvraft_tpu_torch.profile_train import flagship_train_config
     from pvraft_tpu_torch.weights import seeded_state_dict
@@ -883,7 +902,8 @@ def train_phase(seed, dev):
     for name, kw in TRAIN_WAYS:
         memory = memory_state()
         trainer = Trainer(flagship_train_config(seed, **kw), device=dev, weights=state)
-        batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
         with deterministic():
             grads[name] = {it: loss_and_grads(trainer.model, batch, it)
                            for it in (1, 8)}
@@ -911,7 +931,8 @@ def train_phase(seed, dev):
         step_ms = cuda_ms(lambda: trainer.train_step(batch),
                           reps=TIMED_STEPS, warmup=0)
         peak = torch.cuda.max_memory_allocated()
-        scene = to_device(next(batches(trainer.val_ds, 1)), dev)
+        scene = to_device(first_batch(PrefetchLoader(
+            trainer.val_ds, 1, num_workers=0)), dev)
         eval_ms = cuda_ms(lambda: trainer.eval_step(scene), reps=3, warmup=1)
         results[name] = {"train_step_ms": step_ms, "eval_step_ms": eval_ms,
                          "eval_iters": trainer.cfg.train.eval_iters,
@@ -1075,7 +1096,7 @@ def graph_train(seed, dev):
     eval step on one scene (bitwise, else phase 2's bar), train and eval
     step times, peak memory and the programs' pools."""
     from pvraft_tpu_torch.config import ModelConfig
-    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
     from pvraft_tpu_torch.engine.trainer import Trainer
     from pvraft_tpu_torch.profile_train import flagship_train_config
     from pvraft_tpu_torch.weights import seeded_state_dict
@@ -1145,14 +1166,16 @@ def graph_train(seed, dev):
         trainer = Trainer(flagship_train_config(seed), device=dev,
                           weights=state, graphs=path == "graphed")
         setup_s = time.perf_counter() - t0
-        scene = to_device(next(batches(trainer.val_ds, 1)), dev)
+        scene = to_device(first_batch(PrefetchLoader(
+            trainer.val_ds, 1, num_workers=0)), dev)
         zero_counts()
         metrics, flow = trainer.eval_step(scene)
         eval_launches = read_counts()
         metrics = {k: v.clone() for k, v in metrics.items()}
         flow = flow.clone()
         eval_ms = cuda_ms(lambda: trainer.eval_step(scene), reps=3, warmup=1)
-        batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
         for _ in range(2):
             trainer.train_step(batch)
         zero_counts()
@@ -1355,6 +1378,388 @@ def checkpoint_phase(seed, dev):
     return out
 
 
+# --------------------------------------------------------------- phase 8 --
+
+# The phase's sizes: the flagship model at 8,192 points per cloud.
+REAL_POINTS = 8192
+REAL_MODEL = {}             # ModelConfig keywords (none: the flagship)
+REAL_CLI_FLAGS = ()         # the test CLI's flags for REAL_MODEL
+FT3D_SCENES = {"train": 16, "val": 4}
+FT3D_ROWS = (8192, 14000)
+FT3D_SHORT = (4, 11)        # train scenes below 8,192 rows: reject-and-advance
+KITTI_ROWS = (14000, 20000)
+# The full-frame FT3D tree: raw 540 x 960 frames through the port's own
+# preprocessor (``process_scene`` with ``save_near``, as PV-RAFT's data
+# are made), 13 train/ scenes (12 train, 1 val: 6 steps of B=2); each
+# frame's disparity and flow occlusion masks cover a share drawn from
+# FT3D_OCCLUDED.
+FT3D_FRAME = (540, 960)
+FT3D_FULL_SCENES = 13
+FT3D_OCCLUDED = (0.03, 0.15)
+KITTI_GROUND, KITTI_FAR = 0.15, 0.10   # shares of ground and far rows
+LOADER_WAYS = (("native", {"num_workers": 8, "native": True}),
+               ("threads", {"num_workers": 8, "native": False}),
+               ("serial", {"num_workers": 0, "native": False}))
+LOADER_EPOCHS = 3
+METRICS = ("epe3d", "acc3d_strict", "acc3d_relax", "outlier")
+
+
+def _rotation(rng, max_angle, axes="xyz"):
+    r = np.eye(3)
+    for axis in axes:
+        a = rng.uniform(-max_angle, max_angle)
+        c, s = np.cos(a), np.sin(a)
+        i, j = {"x": (1, 2), "y": (0, 2), "z": (0, 1)}[axis]
+        m = np.eye(3)
+        m[i, i] = m[j, j] = c
+        m[i, j], m[j, i] = -s, s
+        r = r @ m
+    return r
+
+
+def _write_pfm(path, img):
+    """A float32 PFM (one channel), rows bottom-up, little-endian."""
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{w} {h}\n-1.0\n".encode())
+        f.write(np.ascontiguousarray(img[::-1], "<f4").tobytes())
+
+
+def _write_flo(path, flow):
+    h, w, _ = flow.shape
+    with open(path, "wb") as f:
+        np.array([202021.25], "<f4").tofile(f)
+        np.array([w, h], "<i4").tofile(f)
+        np.ascontiguousarray(flow, "<f4").tofile(f)
+
+
+def _write_png16(path, img):
+    """A 16-bit gray PNG, filter type 0 on every row."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    h, w = img.shape
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)
+    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def _smooth_field(rng, shape, waves=6):
+    """A sum of ``waves`` random low-frequency plane waves."""
+    v, u = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float32)
+    out = np.zeros(shape, np.float32)
+    for _ in range(waves):
+        fu, fv = rng.uniform(-3, 3, 2) * 2 * np.pi / np.array(shape[::-1])
+        out += np.cos(fu * u + fv * v + rng.uniform(0, 2 * np.pi))
+    return out
+
+
+def write_full_frames(raw, out, seed):
+    """FT3D_FULL_SCENES raw FlyingThings3D frames of FT3D_FRAME pixels in
+    the raw layout (PFM disparity and disparity change, ``.flo`` flow,
+    16-bit PNG occlusions), each turned into ``out/train/<name>/pc{1,2}.npy``
+    by the port's ``process_scene`` with ``save_near``, then deleted. The
+    disparity is a smooth positive field (about 4 to 250 px); the
+    occlusion masks are random rectangles. A scene keeps its pixels that
+    neither mask occludes. Returns the scenes' row counts."""
+    import shutil
+
+    from pvraft_tpu_torch.data.preprocess.flyingthings3d import process_scene
+
+    rng = np.random.default_rng(seed + 1)
+    h, w = FT3D_FRAME
+    dirs = {"disp": ("disparity/left", ".pfm"),
+            "disp_occ": ("disparity_occlusions/left", ".png"),
+            "change": ("disparity_change/left/into_future", ".pfm"),
+            "flow": ("flow/left/into_future", ".flo"),
+            "flow_occ": ("flow_occlusions/left/into_future", ".png")}
+    for d, _ in dirs.values():
+        os.makedirs(os.path.join(raw, "train", d))
+
+    def occlusion():
+        occ = np.zeros((h, w), np.uint16)
+        share = rng.uniform(*FT3D_OCCLUDED)
+        while (occ > 0).mean() < share:
+            y, x = rng.integers(0, h - 8), rng.integers(0, w - 8)
+            occ[y:y + rng.integers(8, 60), x:x + rng.integers(8, 90)] = 65535
+        return occ
+
+    rows = []
+    for i in range(FT3D_FULL_SCENES):
+        name = f"{i:07d}"
+        f = {k: os.path.join(raw, "train", d, name + ext)
+             for k, (d, ext) in dirs.items()}
+        z = _smooth_field(rng, (h, w))
+        _write_pfm(f["disp"], (30.0 * np.exp(z / z.std())).astype(np.float32))
+        _write_pfm(f["change"], rng.normal(0, 0.3, (h, w)).astype(np.float32))
+        _write_flo(f["flow"], (rng.uniform(-8, 8, 2)
+                               + rng.normal(0, 1, (h, w, 2))).astype(np.float32))
+        _write_png16(f["disp_occ"], occlusion())
+        _write_png16(f["flow_occ"], occlusion())
+        rows.append(process_scene(raw, out, "train", name, save_near=True)[0])
+        for path in f.values():
+            os.remove(path)
+    shutil.rmtree(raw)
+    return rows
+
+
+def write_trees(root, seed):
+    """An FT3D tree (``train/``, ``val/``) and a KITTI tree of all 200
+    scenes in the preprocessed layout, from ``seed``: pc2 is pc1 moved by
+    a small rigid motion plus noise. Two FT3D train scenes hold fewer than
+    8,192 rows; KITTI scenes hold ground rows (y < -1.4 in both frames: the
+    motion is a yaw and a translation in the ground plane) and far rows
+    (z >= 35), which the filter removes, and keep >= 8,192 rows."""
+    rng = np.random.default_rng(seed)
+    rows = {"ft3d": [], "kitti": []}
+    for split, count in FT3D_SCENES.items():
+        for i in range(count):
+            n = int(rng.integers(*FT3D_ROWS, endpoint=True))
+            if split == "train" and i in FT3D_SHORT:
+                n = int(rng.integers(3 * FT3D_ROWS[0] // 4, FT3D_ROWS[0]))
+            pc1 = rng.uniform((-15, -8, 5), (15, 8, 35), (n, 3))
+            pc2 = (pc1 @ _rotation(rng, 0.05).T + rng.uniform(-0.5, 0.5, 3)
+                   + rng.normal(0, 0.01, (n, 3)))
+            scene = os.path.join(root, "ft3d", split, f"{i:07d}")
+            os.makedirs(scene)
+            np.save(os.path.join(scene, "pc1.npy"), pc1.astype(np.float32))
+            np.save(os.path.join(scene, "pc2.npy"), pc2.astype(np.float32))
+            rows["ft3d"].append(n)
+    for i in range(200):
+        n = int(rng.integers(*KITTI_ROWS, endpoint=True))
+        n_ground, n_far = int(KITTI_GROUND * n), int(KITTI_FAR * n)
+        pc1 = rng.uniform((-20, -1.2, 2), (20, 3, 33), (n, 3))
+        pc1[:n_ground, 1] = rng.uniform(-2.0, -1.5, n_ground)
+        pc1[n_ground:n_ground + n_far, 2] = rng.uniform(36, 60, n_far)
+        shift = (rng.uniform(-0.2, 0.2), 0.0, rng.uniform(-1.5, -0.5))
+        pc2 = (pc1 @ _rotation(rng, 0.03, "y").T + shift
+               + rng.normal(0, 0.01, (n, 3)) * (1, 0, 1))
+        scene = os.path.join(root, "kitti", f"{i:06d}")
+        os.makedirs(scene)
+        np.save(os.path.join(scene, "pc1.npy"), pc1.astype(np.float32))
+        np.save(os.path.join(scene, "pc2.npy"), pc2.astype(np.float32))
+        rows["kitti"].append(n)
+    rows["ft3d_full"] = write_full_frames(os.path.join(root, "ft3d_raw"),
+                                          os.path.join(root, "ft3d_full"),
+                                          seed)
+    return {k: {"scenes": len(v), "min_rows": min(v), "max_rows": max(v),
+                "mean_rows": float(np.mean(v))}
+            for k, v in rows.items()}
+
+
+def loader_rates(dataset, seed):
+    """Each loader path alone on the host: LOADER_EPOCHS epochs of B=2 x
+    REAL_POINTS batches, ms per batch and scenes per second (host
+    clock)."""
+    from pvraft_tpu_torch.data import PrefetchLoader
+
+    out = {}
+    for name, kw in LOADER_WAYS:
+        loader = PrefetchLoader(dataset, 2, shuffle=True, drop_last=True,
+                                seed=seed, **kw)
+        check(loader.native == kw["native"], f"loader {name}: native "
+                                             f"{loader.native}")
+        n = 0
+        t0 = time.perf_counter()
+        for epoch in range(LOADER_EPOCHS):
+            for b in loader.epoch(epoch):
+                check(b["pc1"].shape == (2, REAL_POINTS, 3)
+                      and b["flow"].shape == (2, REAL_POINTS, 3),
+                      f"loader {name}: batch {b['pc1'].shape}")
+                n += 1
+        sec = time.perf_counter() - t0
+        out[name] = {"batches": n, "ms_per_batch": 1e3 * sec / n,
+                     "scenes_per_s": 2 * n / sec}
+    return out
+
+
+def fed_epoch(trainer, loader, init):
+    """One epoch of ``trainer``'s graphed steps fed by ``loader``, from
+    the state saved in ``init``."""
+    trainer.load_weights(init, resume=True)
+    trainer.train_loader = loader
+    torch.cuda.synchronize()
+    out = trainer.training(0)
+    check(out["steps"] == len(loader) and all(np.isfinite(out["losses"])),
+          f"real data: {out['steps']} steps, losses {out['losses']}")
+    return {"steps": out["steps"], "step_ms": out["step_ms"],
+            "losses": out["losses"]}
+
+
+def real_data_phase(seed, dev, synthetic_step_ms):
+    """The port's data path on the card at full width, from trees on disk
+    (``write_trees``): each loader path alone on the host, on the FT3D
+    tree and on the full-frame one; the flagship model trained one epoch
+    of graphed steps (B=2 x 8,192, 8 iterations, ``strict_sizes=False``)
+    fed by each path on both trees and by synthetic scenes, on one
+    Trainer restored between epochs (``load_weights``); the threaded
+    and serial epochs bitwise equal on a Trainer captured under
+    ``deterministic()``; the Evaluator (32 iterations, one scene per step)
+    on FT3D's test split (``val/``) and the 142 KITTI scenes
+    (``strict_sizes=True``) from the trained checkpoint, and ``python -m
+    pvraft_tpu_torch.test --dataset KITTI`` on the same checkpoint; last,
+    one fed epoch and the FT3D evaluation under the profiler: the card
+    must run the kernels the captures recorded."""
+    import subprocess
+
+    from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from pvraft_tpu_torch.data import FT3D, PrefetchLoader, SyntheticDataset
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    t_phase = time.perf_counter()
+    out, split_s = {}, {}
+
+    def lap(name):
+        split_s[name] = time.perf_counter() - t_phase - sum(split_s.values())
+
+    with scratch_dir() as root:
+        out["trees"] = write_trees(root, seed)
+        lap("trees")
+        ft3d, kitti = os.path.join(root, "ft3d"), os.path.join(root, "kitti")
+        model = ModelConfig(**REAL_MODEL)
+        cfg = Config(model=model,
+                     data=DataConfig(dataset="FT3D", root=ft3d,
+                                     max_points=REAL_POINTS,
+                                     strict_sizes=False),
+                     train=TrainConfig(num_epochs=1, seed=seed),
+                     exp_path=os.path.join(root, "exp"))
+        state = seeded_state_dict(model, seed)
+        trainer = Trainer(cfg, device=dev, weights=state)
+        check(trainer.train_loader.native and len(trainer.train_ds) == 15,
+              f"real data: native {trainer.train_loader.native}, "
+              f"{len(trainer.train_ds)} train scenes")
+        lap("trainer")
+        full = FT3D(os.path.join(root, "ft3d_full"), REAL_POINTS, "train",
+                    strict_sizes=False, seed=seed)
+        check(len(full) == FT3D_FULL_SCENES - 1,
+              f"real data: {len(full)} full-frame train scenes")
+        out["loaders"] = loader_rates(trainer.train_ds, seed)
+        out["loaders_full_frames"] = loader_rates(full, seed)
+        lap("loaders")
+        init = trainer.save(0, 1)[1]                    # 000.msgpack
+        own = trainer.train_loader
+        synthetic = SyntheticDataset(size=len(trainer.train_ds),
+                                     nb_points=REAL_POINTS, noise=0.01,
+                                     seed=seed,
+                                     n_objects=4)
+        feeds = {
+            "native": own,
+            "threads": PrefetchLoader(trainer.train_ds, 2, shuffle=True,
+                                      num_workers=8, seed=seed),
+            "serial": PrefetchLoader(trainer.train_ds, 2, shuffle=True,
+                                     num_workers=0, seed=seed),
+            "synthetic": PrefetchLoader(synthetic, 2, shuffle=True,
+                                        num_workers=8, seed=seed)}
+        for name, kw in LOADER_WAYS:
+            feeds[f"{name}_full_frames"] = PrefetchLoader(
+                full, 2, shuffle=True, seed=seed, **kw)
+        train = {}
+        for name, loader in feeds.items():
+            train[name] = fed_epoch(trainer, loader, init)
+            if name == "native":
+                trained = trainer.save(1, 1)[1]         # 001.msgpack
+        trainer.train_loader = own
+        train["phase3_synthetic_graphed_step_ms"] = synthetic_step_ms
+        out["train"] = train
+        lap("fed_epochs")
+
+        with deterministic():
+            det = Trainer(cfg.replace(exp_path=os.path.join(root, "det")),
+                          device=dev, weights=state)
+            runs = {}
+            for name in ("threads", "serial"):
+                runs[name] = fed_epoch(det, feeds[name], init)
+                runs[name]["params"] = [p.detach().clone()
+                                        for p in det.model.parameters()]
+        bitwise = runs["threads"]["losses"] == runs["serial"]["losses"] and \
+            all(torch.equal(a, b) for a, b in zip(runs["threads"]["params"],
+                                                  runs["serial"]["params"]))
+        check(bitwise, f"real data: threaded and serial epochs differ: "
+                       f"{runs['threads']['losses']} / "
+                       f"{runs['serial']['losses']}")
+        out["threads_serial_bitwise"] = {
+            "bitwise": bitwise, "losses": runs["serial"]["losses"],
+            "deterministic_step_ms": {k: v["step_ms"]
+                                      for k, v in runs.items()}}
+        del det, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("deterministic")
+
+        evals, evaluators = {}, {}
+        for name, data in (("ft3d", cfg.data),
+                           ("kitti", DataConfig(dataset="KITTI", root=kitti,
+                                                max_points=REAL_POINTS))):
+            ev = Evaluator(cfg.replace(data=data), device=dev)
+            ev.load(trained)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means = ev.run()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            check(all(np.isfinite(means[k]) for k in METRICS),
+                  f"real data: {name} means {means}")
+            evals[name] = {"scenes": len(ev.dataset), "means": means,
+                           "ms_per_scene": 1e3 * sec / len(ev.dataset)}
+            evaluators[name] = ev
+        check(evals["kitti"]["scenes"] == 142 and evals["ft3d"]["scenes"] == 4,
+              f"real data: scenes {evals}")
+        out["eval"] = evals
+        del evaluators["kitti"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("evaluators")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pvraft_tpu_torch.test", "--dataset",
+             "KITTI", "--root", kitti, "--weights", trained,
+             "--max_points", str(REAL_POINTS), *REAL_CLI_FLAGS],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"test CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        cli = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = evals["kitti"]["means"]
+        diff = max(abs(cli[k] - want[k]) for k in want)
+        check(set(cli) == set(want) and diff <= 1e-5,
+              f"test CLI means {cli} against the Evaluator's {want}")
+        out["cli"] = {"means": cli, "wall_s": cli_s,
+                      "bitwise": cli == want, "max_abs_diff": diff}
+        lap("cli")
+
+        _, counts, wrapper = measured(lambda: trainer.training(0))
+        want_train = want_serve("unfused_gru", cfg.train.iters,
+                                trainer.steps_per_epoch)
+        check(counts == want_train and wrapper == NO_LAUNCHES,
+              f"real data: a fed epoch ran {counts} (wrappers {wrapper}), "
+              f"expected {want_train}")
+        _, eval_counts, eval_wrapper = measured(evaluators["ft3d"].run)
+        want_eval = want_serve("unfused_gru", cfg.train.eval_iters, 4)
+        check(eval_counts == want_eval and eval_wrapper == NO_LAUNCHES,
+              f"real data: the FT3D evaluation ran {eval_counts} (wrappers "
+              f"{eval_wrapper}), expected {want_eval}")
+        out["launches"] = {"train_epoch": counts, "ft3d_eval": eval_counts}
+        del trainer, evaluators, feeds, own, full
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("profiled")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["split_s"] = split_s
+    return out
+
+
 # --------------------------------------------------------------- phase 6 --
 
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
@@ -1433,7 +1838,7 @@ def launches_phase(seed, dev):
     would tilt every eager-against-graphed time; the eager train step is
     timed once more here to show it."""
     from pvraft_tpu_torch.config import ModelConfig
-    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
     from pvraft_tpu_torch.engine.trainer import Trainer
     from pvraft_tpu_torch.profile_train import flagship_train_config
     from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
@@ -1461,8 +1866,10 @@ def launches_phase(seed, dev):
     for name, kw in TRAIN_WAYS:
         trainer = Trainer(flagship_train_config(seed, **kw), device=dev,
                           weights=state)
-        batch = to_device(next(batches(trainer.train_ds, 2)), dev)
-        scene = to_device(next(batches(trainer.val_ds, 1)), dev)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
+        scene = to_device(first_batch(PrefetchLoader(
+            trainer.val_ds, 1, num_workers=0)), dev)
         t = trainer.cfg.train
         got = {}
         for step, run, iters in (
@@ -1481,7 +1888,8 @@ def launches_phase(seed, dev):
         torch.cuda.empty_cache()
     trainer = Trainer(flagship_train_config(seed), device=dev, weights=state,
                       graphs=False)
-    batch = to_device(next(batches(trainer.train_ds, 2)), dev)
+    batch = to_device(first_batch(PrefetchLoader(
+        trainer.train_ds, 2, num_workers=0)), dev)
     for _ in range(2):
         trainer.train_step(batch)
     after_ms = cuda_ms(lambda: trainer.train_step(batch),
@@ -1594,6 +2002,10 @@ def main() -> int:
 
     checkpoints = checkpoint_phase(args.seed, dev)
     emit({"phase": "checkpoints", **checkpoints})
+
+    real = real_data_phase(args.seed, dev,
+                           train["ways"]["unfused_gru"]["train_step_ms"])
+    emit({"phase": "real_data", **real})
 
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.

@@ -8,7 +8,10 @@ It covers the stage-1 model's serving path (``serve.engine.InferenceEngine``),
 training path (``engine.trainer.Trainer``, ``python -m
 pvraft_tpu_torch.train``, with the JAX package's checkpoints and resume)
 and standalone evaluation (``engine.evaluator.Evaluator``, ``python -m
-pvraft_tpu_torch.test``), with hand-written CUDA kernels (``csrc/``) for
+pvraft_tpu_torch.test``) on synthetic scenes and on preprocessed
+FlyingThings3D and KITTI trees (``data/``: readers, the serial, threaded
+and native loaders, the offline preprocessors), with hand-written CUDA
+kernels (``csrc/``) for
 the fused correlation lookup, the fused MotionEncoder+ConvGRU update and
 the voxel means, each behind an autograd Function (``ops/cuda/``): a
 tuned kernel at the flagship's shapes and a general one for every other

@@ -137,9 +137,12 @@ LR_SCHEDULES = ("parity", "cosine", "constant")
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Dataset selection and sampling (the JAX ``DataConfig``). This slice
-    trains on ``synthetic`` scenes only; FT3D and KITTI raise when the
-    trainer builds its datasets."""
+    """Dataset selection and sampling (the JAX ``DataConfig``): ``root``
+    of a preprocessed FT3D or KITTI tree, ``strict_sizes`` (the datasets'
+    full scene counts), the loader's ``num_workers`` threads and
+    ``native_loader`` (the C++ batch assembler for FT3D and KITTI, built
+    at first use; where it cannot be built the loader raises, and
+    ``native_loader=False`` takes the threaded numpy loader)."""
 
     dataset: str = "FT3D"
     root: str = ""
@@ -154,10 +157,6 @@ class DataConfig:
         if self.dataset not in DATASETS:
             raise ValueError(f"dataset must be one of {DATASETS}, "
                              f"got {self.dataset!r}")
-        reject_later(self, non_default(
-            self, ("root", "num_workers", "native_loader", "strict_sizes"),
-            "the data slice (FT3D, KITTI, PrefetchLoader, the native "
-            "assembler); this slice loads synthetic scenes serially"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,8 +17,12 @@ scenes per dispatch through a ``lax.scan`` to save the per-scene
 dispatches, and a replay of the port's captured step is already one
 launch per scene.
 
-Synthetic scenes use seed 2 (the JAX ``build_eval_dataset``); FT3D and
-KITTI arrive with the data slice (ROADMAP queue 1 item 3).
+The datasets are the JAX ``build_eval_dataset``'s: FT3D's test split
+(``val/``), KITTI's 142 scenes (zero-shot, the reference protocol), or
+synthetic scenes from seed 2. They come through a
+:class:`~pvraft_tpu_torch.data.PrefetchLoader` with ``min(2,
+num_workers)`` threads, each scene's copy to the device issued before the
+previous scene's step runs.
 """
 
 from __future__ import annotations
@@ -30,7 +34,15 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.config import Config
-from pvraft_tpu_torch.data import SyntheticDataset, batches, to_device
+from pvraft_tpu_torch.data import (
+    FT3D,
+    KITTI,
+    PrefetchLoader,
+    SyntheticDataset,
+    device_prefetch,
+    first_batch,
+    to_device,
+)
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.engine.checkpoint import (
     load_checkpoint,
@@ -46,16 +58,18 @@ from pvraft_tpu_torch.weights import params_from_jax, seeded_state_dict
 
 
 def build_eval_dataset(cfg: Config):
-    """The evaluation set: synthetic scenes from seed 2; FT3D and KITTI
-    raise."""
+    """The evaluation set: FT3D's test split, KITTI, or synthetic scenes
+    from seed 2."""
     d = cfg.data
+    if d.dataset == "FT3D":
+        return FT3D(d.root, d.max_points, "test", strict_sizes=d.strict_sizes)
+    if d.dataset == "KITTI":
+        return KITTI(d.root, d.max_points, strict_sizes=d.strict_sizes)
     if d.dataset == "synthetic":
         return SyntheticDataset(size=d.synthetic_size, nb_points=d.max_points,
                                 noise=0.01, seed=2,
                                 n_objects=d.synthetic_objects)
-    raise NotImplementedError(
-        f"dataset {d.dataset!r} is not ported yet: it arrives with the data "
-        f"slice (ROADMAP queue 1 item 3); the evaluator runs 'synthetic'")
+    raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
 class Evaluator:
@@ -70,6 +84,9 @@ class Evaluator:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dataset = build_eval_dataset(cfg)
+        self.loader = PrefetchLoader(
+            self.dataset, 1, drop_last=False,
+            num_workers=min(2, cfg.data.num_workers))
         self.model = PVRaft(cfg.model)
         self.model.load_state_dict(seeded_state_dict(
             cfg.model, torch_seed(cfg.train.seed, "model.init")), strict=True)
@@ -79,7 +96,7 @@ class Evaluator:
         self.eval_step = make_graphed_eval_step(
             self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
             strict_retrace=t.strict_retrace)
-        scene = to_device(next(batches(self.dataset, 1)), self.device)
+        scene = to_device(first_batch(self.loader), self.device)
         inputs = [scene[k] for k in BATCH_KEYS]
         self.eval_step.graphs.program_for(inputs)
 
@@ -106,8 +123,10 @@ class Evaluator:
         ``dump_dir`` writes each scene's clouds and flow."""
         sums: Dict[str, torch.Tensor] = {}
         count = 0
-        for batch in batches(self.dataset, 1, drop_last=False):
-            metrics, flow = self.eval_step(to_device(batch, self.device))
+        for batch, scene in device_prefetch(
+                self.loader.epoch(0),
+                lambda b: (b, to_device(b, self.device))):
+            metrics, flow = self.eval_step(scene)
             if dump_dir is not None:
                 flow = flow.cpu().numpy()
                 for row in range(flow.shape[0]):

@@ -1,11 +1,12 @@
 """Stage-1 trainer (port of ``pvraft_tpu/engine/trainer.py::Trainer``).
 
 One card: seeded (or JAX-imported) weights, Adam with the configured
-learning-rate schedule, the train step over the shuffled synthetic
-training set, and per-epoch validation at ``eval_iters`` with one scene
-per step. ``fit`` trains, saves and validates every epoch from
-``begin_epoch``, then tests once on the weights of the epoch with the
-lowest validation EPE (strict ``<``), read back from ``best_checkpoint``.
+learning-rate schedule, the train step over the shuffled training set
+(FT3D's train split, or synthetic scenes), and per-epoch validation at
+``eval_iters`` with one scene per step. ``fit`` trains, saves and
+validates every epoch from ``begin_epoch``, then tests once on the
+weights of the epoch with the lowest validation EPE (strict ``<``), read
+back from ``best_checkpoint``.
 
 Checkpoints (``engine/checkpoint.py``, the JAX package's files) go to
 ``exp_path/checkpoints``: ``last_checkpoint`` after every epoch of
@@ -26,9 +27,16 @@ a plain Adam (a float learning rate): the yardstick of the graphed
 steps. ``capturable=True`` gives the eager steps the graphed steps' Adam
 instead, for a bitwise comparison.
 
+The data come through :class:`~pvraft_tpu_torch.data.PrefetchLoader`s,
+as in the JAX Trainer: training with ``num_workers`` threads, or the
+native assembler (``native_loader``) where the dataset has it, seeded by
+``train.seed``; validation and test with ``min(2, num_workers)`` threads.
+Batch n+1's copy to the device is issued before step n runs
+(``device_prefetch``); the captured steps copy each batch into their
+static inputs.
+
 Not in this slice: TensorBoard and the event log, divergence snapshots
-(the observability slice), FT3D and KITTI (the data slice), data-parallel
-meshes (the parallel slice).
+(the observability slice), data-parallel meshes (the parallel slice).
 """
 
 from __future__ import annotations
@@ -41,7 +49,14 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.config import Config
-from pvraft_tpu_torch.data import SyntheticDataset, batches, to_device
+from pvraft_tpu_torch.data import (
+    FT3D,
+    PrefetchLoader,
+    SyntheticDataset,
+    device_prefetch,
+    first_batch,
+    to_device,
+)
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.engine.checkpoint import (
     find_checkpoint,
@@ -69,8 +84,8 @@ from pvraft_tpu_torch.weights import (
 
 
 def build_datasets(cfg: Config):
-    """(train, val, test) datasets; synthetic scenes are seeded 0/1/2 as
-    in the JAX package."""
+    """(train, val, test) datasets: FT3D's three splits, or synthetic
+    scenes seeded 0/1/2 as in the JAX package. KITTI is eval-only."""
     d = cfg.data
     if d.dataset == "synthetic":
         return tuple(
@@ -78,9 +93,15 @@ def build_datasets(cfg: Config):
                              noise=0.01, seed=seed,
                              n_objects=d.synthetic_objects)
             for seed in (0, 1, 2))
-    raise NotImplementedError(
-        f"dataset {d.dataset!r} is not ported yet: it arrives with the data "
-        f"slice; this slice trains on 'synthetic'")
+    if d.dataset == "FT3D":
+        return tuple(FT3D(d.root, d.max_points, mode,
+                          strict_sizes=d.strict_sizes)
+                     for mode in ("train", "val", "test"))
+    if d.dataset == "KITTI":
+        raise NotImplementedError(
+            "KITTI is eval-only; use the Evaluator or python -m "
+            "pvraft_tpu_torch.test")
+    raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
 class Trainer:
@@ -117,7 +138,16 @@ class Trainer:
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device)
 
-        self.steps_per_epoch = max(1, len(self.train_ds) // bs)
+        d = cfg.data
+        self.train_loader = PrefetchLoader(
+            self.train_ds, bs, shuffle=True, drop_last=True,
+            num_workers=d.num_workers, seed=cfg.train.seed,
+            native=d.native_loader)
+        self.val_loader, self.test_loader = (
+            PrefetchLoader(ds, 1, drop_last=False,
+                           num_workers=min(2, d.num_workers))
+            for ds in (self.val_ds, self.test_ds))
+        self.steps_per_epoch = max(1, len(self.train_loader))
         self.schedule = make_lr_schedule(
             cfg.train.lr_schedule, cfg.train.lr, cfg.train.num_epochs,
             self.steps_per_epoch, len(self.train_ds))
@@ -154,11 +184,18 @@ class Trainer:
             self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
             strict_retrace=t.strict_retrace)
         self._graphs = (self.train_step.graphs, self.eval_step.graphs)
-        # Capture both at the shapes training and evaluation feed them.
-        for cache, ds, n in zip(self._graphs, (self.train_ds, self.val_ds),
-                                (bs, 1)):
-            batch = to_device(next(batches(ds, n)), self.device)
+        # Capture both at the shapes training and evaluation feed them,
+        # from their loaders' first batches.
+        for cache, loader in zip(self._graphs,
+                                 (self.train_loader, self.val_loader)):
+            batch = to_device(first_batch(loader), self.device)
             cache.program_for([batch[k] for k in BATCH_KEYS])
+
+    def _on_device(self, host_batches):
+        """Host batches -> device batches, the next one's copy issued
+        before the current one is consumed."""
+        return device_prefetch(host_batches,
+                               lambda b: to_device(b, self.device))
 
     def compile_report(self) -> List[Dict[str, Any]]:
         """The captured train and eval programs' records (empty with
@@ -176,9 +213,8 @@ class Trainer:
         kept = torch.empty(self.steps_per_epoch, 2, device=self.device)
         n = 0
         t0 = time.perf_counter()
-        for batch in batches(self.train_ds, cfg.train.batch_size,
-                             shuffle=True, seed=cfg.train.seed, epoch=epoch):
-            m = self.train_step(to_device(batch, self.device))
+        for batch in self._on_device(self.train_loader.epoch(epoch)):
+            m = self.train_step(batch)
             kept[n, 0].copy_(m["loss"])
             kept[n, 1].copy_(m["epe"])
             n += 1
@@ -240,7 +276,7 @@ class Trainer:
         EPE is the lowest so far saves ``best_checkpoint``; the test pass
         loads ``best_checkpoint`` first where there is one (the JAX
         ``val_test``, ``engine.py:191``)."""
-        ds = self.val_ds if mode == "val" else self.test_ds
+        loader = self.val_loader if mode == "val" else self.test_loader
         if mode == "test":
             best = find_checkpoint(self.ckpt_dir, "best_checkpoint")
             if best is not None:
@@ -248,8 +284,8 @@ class Trainer:
         self.model.eval()
         sums: Dict[str, torch.Tensor] = {}
         count = 0
-        for batch in batches(ds, 1, drop_last=False):
-            out, _ = self.eval_step(to_device(batch, self.device))
+        for batch in self._on_device(loader.epoch(0)):
+            out, _ = self.eval_step(batch)
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + v.sum()
             count += batch["pc1"].shape[0]

@@ -32,7 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
-from pvraft_tpu_torch.data import batches, to_device
+from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
 from pvraft_tpu_torch.engine.steps import scheduled_step, sequence_loss_of
 from pvraft_tpu_torch.engine.trainer import Trainer
 from pvraft_tpu_torch.profile_serve import nvidia_smi, profile_call
@@ -83,7 +83,8 @@ def main(argv=None) -> int:
     gpu = nvidia_smi()
     for path in ("eager", "graphed"):
         trainer = Trainer(cfg, graphs=path == "graphed")
-        batch = to_device(next(batches(trainer.train_ds, 2)), trainer.device)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), trainer.device)
         for _ in range(2):
             trainer.train_step(batch)
         torch.cuda.synchronize()

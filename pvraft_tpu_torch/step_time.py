@@ -62,7 +62,7 @@ def main(argv=None) -> int:
     import torch
 
     from pvraft_tpu_torch.config import ModelConfig
-    from pvraft_tpu_torch.data import batches, to_device
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
     from pvraft_tpu_torch.engine.trainer import Trainer
     from pvraft_tpu_torch.profile_serve import nvidia_smi
     from pvraft_tpu_torch.profile_train import flagship_train_config
@@ -79,8 +79,10 @@ def main(argv=None) -> int:
     kw = {"graphs": not eager} if has_graphs else {}
 
     trainer = Trainer(flagship_train_config(args.seed), **kw)
-    batch = to_device(next(batches(trainer.train_ds, 2)), trainer.device)
-    scene = to_device(next(batches(trainer.val_ds, 1)), trainer.device)
+    batch = to_device(first_batch(PrefetchLoader(
+        trainer.train_ds, 2, num_workers=0)), trainer.device)
+    scene = to_device(first_batch(PrefetchLoader(
+        trainer.val_ds, 1, num_workers=0)), trainer.device)
     train = host_ms(lambda: trainer.train_step(batch), 6, 2)
     evals = host_ms(lambda: trainer.eval_step(scene), 3, 1)
     del trainer, batch, scene

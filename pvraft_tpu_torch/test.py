@@ -1,9 +1,14 @@
 """Evaluation entry point of the port (the counterpart of the root
 ``test.py``, as ``pvraft_tpu_torch/train.py`` is of ``train.py``).
 
-    python -m pvraft_tpu_torch.test --dataset synthetic --weights
-        EXP/checkpoints/best_checkpoint.msgpack [--eval_iters 32]
+    python -m pvraft_tpu_torch.test --dataset KITTI|FT3D --root ROOT
+        --weights EXP/checkpoints/best_checkpoint.msgpack
+        [--no_strict_sizes] [--num_workers 8] [--eval_iters 32]
         [--dump_dir result] [--device cpu] ...
+
+``--dataset KITTI`` evaluates zero-shot on the 142 KITTI scenes of a
+preprocessed tree (``python -m pvraft_tpu_torch.data.preprocess.kitti``),
+``FT3D`` on FlyingThings3D's test split, ``synthetic`` on seeded scenes.
 
 The reference protocol (``engine/evaluator.py``): one scene per step at
 ``eval_iters`` GRU iterations, running means. ``--weights`` takes a
@@ -26,9 +31,6 @@ from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 
 # test.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--root": "the data slice (FT3D, KITTI)",
-    "--num_workers": "the data slice (PrefetchLoader)",
-    "--no_strict_sizes": "the data slice (FT3D, KITTI)",
     "--refine": "the stage-2 slice",
     "--seq_parallel": "the parallel slice",
     "--corr_chunk": "the streaming correlation slice",
@@ -49,8 +51,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error(f"{flag} is not ported yet: it arrives with "
                     f"{LATER_FLAGS[flag]}")
     p.add_argument("--exp_path", default="experiments/default")
+    p.add_argument("--root", default="")
     p.add_argument("--dataset", default="FT3D",
                    choices=["FT3D", "KITTI", "synthetic"])
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--no_strict_sizes", action="store_true",
+                   help="allow dataset subsets (skip the full-size checks)")
     p.add_argument("--max_points", type=int, default=8192)
     p.add_argument("--synthetic_size", type=int, default=16)
     p.add_argument("--synthetic_objects", type=int, default=1,
@@ -92,7 +98,9 @@ def config_from_args(a: argparse.Namespace) -> Config:
         model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
                           corr_levels=a.corr_levels, base_scale=a.base_scales,
                           use_pallas=a.use_pallas, fused_gru=a.fused_gru),
-        data=DataConfig(dataset=a.dataset, max_points=a.max_points,
+        data=DataConfig(dataset=a.dataset, root=a.root,
+                        max_points=a.max_points, num_workers=a.num_workers,
+                        strict_sizes=not a.no_strict_sizes,
                         synthetic_size=a.synthetic_size,
                         synthetic_objects=a.synthetic_objects),
         train=TrainConfig(eval_iters=a.eval_iters, eval_batch=a.eval_batch,

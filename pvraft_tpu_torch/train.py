@@ -1,14 +1,20 @@
 """Training entry point of the port.
 
-    python -m pvraft_tpu_torch.train --dataset synthetic [--num_epochs 2]
-        [--batch_size 2] [--max_points 8192] [--iters 8] [--eval_iters 32]
+    python -m pvraft_tpu_torch.train [--dataset FT3D] --root FT3D_ROOT
+        [--no_strict_sizes] [--num_workers 8] [--no_native_loader]
+        [--num_epochs 2] [--batch_size 2] [--max_points 8192] [--iters 8]
+        [--eval_iters 32]
         [--fused_gru] [--no-use_pallas] [--device cpu]
         [--exp_path EXP] [--resume | --weights CKPT] ...
 
-The flags are ``train.py``'s for the fields this slice trains with, plus
+``--dataset FT3D`` (the default) trains on a preprocessed FlyingThings3D
+tree (``python -m pvraft_tpu_torch.data.preprocess.flyingthings3d``),
+``--dataset synthetic`` on seeded synthetic scenes. The flags are
+``train.py``'s for the fields this slice trains with, plus
 ``--synthetic_objects``, ``--use_pallas/--no-use_pallas``,
-``--fused_gru`` and ``--device``. Runs on the card unless ``--device``
-names another device. Every other flag of ``train.py`` is rejected with
+``--fused_gru``, ``--no_native_loader`` (the threaded numpy loader,
+where no ``g++`` builds the native one) and ``--device``. Runs on the
+card unless ``--device`` names another device. Every other flag of ``train.py`` is rejected with
 the slice that brings it. Prints each epoch's train and val means and
 the final test means as JSON lines. Checkpoints go to
 ``<exp_path>/checkpoints`` (``engine/checkpoint.py``); ``--weights``
@@ -34,9 +40,6 @@ from pvraft_tpu_torch.config import (
 
 # train.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--root": "the data slice (FT3D, KITTI)",
-    "--num_workers": "the data slice (PrefetchLoader)",
-    "--no_strict_sizes": "the data slice (FT3D, KITTI)",
     "--refine": "the stage-2 slice",
     "--stage1_weights": "the stage-2 slice",
     "--data_parallel": "the parallel slice",
@@ -53,7 +56,8 @@ LATER_FLAGS = {
     "--packed_state": "the K-step train graph (ROADMAP queue 1 item 1)",
     "--host_roundtrip": "the K-step train graph (ROADMAP queue 1 item 1)",
     "--steps_per_dispatch": "the K-step train graph (ROADMAP queue 1 item 1)",
-    "--device_prefetch": "the data slice (PrefetchLoader)",
+    "--device_prefetch": "the parallel slice (ParallelConfig; the port "
+                         "keeps 2 batches in flight, its default)",
     "--platform": "no slice: the port picks its device with --device",
     "--scan_unroll": "no slice: a captured graph holds the GRU iterations "
                      "unrolled, whatever the unroll (ModelConfig.scan_unroll "
@@ -76,7 +80,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error(f"{flag} is not ported yet: it arrives with "
                     f"{LATER_FLAGS[flag]}")
     p.add_argument("--exp_path", default="experiments/default")
+    p.add_argument("--root", default="", help="preprocessed dataset root")
     p.add_argument("--dataset", default="FT3D", choices=["FT3D", "synthetic"])
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--no_strict_sizes", action="store_true",
+                   help="allow dataset subsets (skip the full-size checks)")
+    p.add_argument("--no_native_loader", action="store_true",
+                   help="train from the threaded numpy loader, not the "
+                        "C++ one (which g++ builds at first use)")
     p.add_argument("--max_points", type=int, default=8192)
     p.add_argument("--synthetic_size", type=int, default=64)
     p.add_argument("--synthetic_objects", type=int, default=1,
@@ -123,7 +134,10 @@ def config_from_args(a: argparse.Namespace) -> Config:
         model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
                           corr_levels=a.corr_levels, base_scale=a.base_scales,
                           use_pallas=a.use_pallas, fused_gru=a.fused_gru),
-        data=DataConfig(dataset=a.dataset, max_points=a.max_points,
+        data=DataConfig(dataset=a.dataset, root=a.root,
+                        max_points=a.max_points, num_workers=a.num_workers,
+                        native_loader=not a.no_native_loader,
+                        strict_sizes=not a.no_strict_sizes,
                         synthetic_size=a.synthetic_size,
                         synthetic_objects=a.synthetic_objects),
         train=TrainConfig(batch_size=a.batch_size, num_epochs=a.num_epochs,

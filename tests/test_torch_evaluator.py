@@ -135,7 +135,8 @@ def test_eval_cli_prints_the_means(jax_checkpoint, capsys, monkeypatch):
     with pytest.raises(SystemExit):
         tcli.main(args + ["--refine"])
     assert "stage-2 slice" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # The default dataset is FT3D, which needs its tree at ``root``.
+    with pytest.raises(RuntimeError, match="expected 3824 test scenes"):
         Evaluator(tconfig.Config(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

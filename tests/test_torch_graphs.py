@@ -32,7 +32,13 @@ from pvraft_tpu.serve import InferenceEngine as JEngine
 from pvraft_tpu.serve import ServeConfig as JServeConfig
 from pvraft_tpu_torch import config as tconfig
 from pvraft_tpu_torch import train as tcli
-from pvraft_tpu_torch.data import SyntheticDataset, batches, collate, to_device
+from pvraft_tpu_torch.data import (
+    PrefetchLoader,
+    SyntheticDataset,
+    collate,
+    first_batch,
+    to_device,
+)
 from pvraft_tpu_torch.engine import trainer as ttrainer
 from pvraft_tpu_torch.engine.schedule import make_lr_schedule
 from pvraft_tpu_torch.engine.steps import (
@@ -362,7 +368,8 @@ def test_strict_retrace_raises_on_a_new_shape(tmp_path):
                                          exp_path=tmp_path),
                                device="cpu")
     trainer.training(0)
-    small = to_device(next(batches(trainer.train_ds, 1)), CPU)
+    small = to_device(first_batch(PrefetchLoader(
+        trainer.train_ds, 1, num_workers=0)), CPU)
     with pytest.raises(RetraceError):
         trainer.train_step(small)
 

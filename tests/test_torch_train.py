@@ -31,7 +31,12 @@ from pvraft_tpu.engine.steps import make_eval_step as jmake_eval_step
 from pvraft_tpu.models import PVRaft as JRaft
 from pvraft_tpu_torch import config as tconfig
 from pvraft_tpu_torch import rng as trng
-from pvraft_tpu_torch.data import SyntheticDataset, batches, to_device
+from pvraft_tpu_torch.data import (
+    PrefetchLoader,
+    SyntheticDataset,
+    first_batch,
+    to_device,
+)
 from pvraft_tpu_torch.engine import loss as tloss
 from pvraft_tpu_torch.engine import metrics as tmetrics
 from pvraft_tpu_torch.engine import trainer as ttrainer
@@ -134,13 +139,15 @@ def test_synthetic_scenes_and_batches_are_bitwise_jax(n_objects):
             np.testing.assert_array_equal(a, b)
     for epoch in (0, 1):
         jb = list(jbatches(jds, 2, shuffle=True, seed=9, epoch=epoch))
-        tb = list(batches(tds, 2, shuffle=True, seed=9, epoch=epoch))
+        tb = list(PrefetchLoader(tds, 2, shuffle=True, num_workers=0,
+                                 seed=9).epoch(epoch))
         assert len(jb) == len(tb) == 2
         for x, y in zip(jb, tb):
             assert set(x) == set(y) == {"pc1", "pc2", "mask", "flow"}
             for k in x:
                 np.testing.assert_array_equal(x[k], y[k])
-    tail = list(batches(tds, 2, drop_last=False))
+    tail = list(PrefetchLoader(tds, 2, drop_last=False,
+                               num_workers=0).epoch(0))
     assert [t["pc1"].shape[0] for t in tail] == [2, 2, 1]
     dev = to_device(tail[0], "cpu")
     assert dev["pc1"].dtype == torch.float32 and dev["pc1"].shape == (2, 40, 3)
@@ -163,8 +170,8 @@ def test_train_and_data_config_defaults_match_jax():
     (tconfig.TrainConfig, {"refine": True}),
     (tconfig.TrainConfig, {"ckpt_backend": "orbax"}),
     (tconfig.TrainConfig, {"eval_batch": 4}),
-    (tconfig.DataConfig, {"num_workers": 2}),
-    (tconfig.DataConfig, {"root": "/data"}),
+    (tconfig.TrainConfig, {"halt_on_divergence": True}),
+    (tconfig.TrainConfig, {"max_snapshots": 5}),
     (tconfig.TrainConfig, {"profile_dir": "profiles"}),
 ])
 def test_train_config_rejects_later_slices(cls, kw):
@@ -268,7 +275,7 @@ def test_opt_state_from_jax_rejects_a_foreign_state(jparams):
 @pytest.mark.parametrize("per_scene", [False, True])
 def test_eval_step_matches_jax(jparams, per_scene):
     ds = SyntheticDataset(size=B, nb_points=N, noise=0.01, seed=3)
-    batch = next(batches(ds, B))
+    batch = first_batch(PrefetchLoader(ds, B, num_workers=0))
     jm = JRaft(JConfig(use_pallas=False, **TINY))
     want, jflow = jmake_eval_step(jm, ITERS, GAMMA, per_scene=per_scene)(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -316,7 +323,8 @@ def test_trainer_needs_cuda_unless_cpu_is_named(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrainer.Trainer(_tiny_cfg())
-    with pytest.raises(NotImplementedError, match="data slice"):
+    # The default dataset is FT3D, which needs its tree at ``root``.
+    with pytest.raises(RuntimeError, match="expected 19640 train scenes"):
         ttrainer.Trainer(tconfig.Config(), device="cpu")
 
 
