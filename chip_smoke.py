@@ -100,13 +100,29 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            the Evaluator's means; one fed epoch and the FT3D evaluation
            under the profiler, the card running what the captures
            recorded;
+  phase 9  stage 2 (``refine``, ``refine_phase``; run after phase 8,
+           before the profiler phases): the canonical refine run's
+           configuration (B=2 x 8,192, 32 iterations, Adam over the head)
+           on seeded synthetic scenes; a stage-1 msgpack checkpoint
+           imported into the backbone (``load_stage1_weights``), ten
+           graphed refine steps that must lower the loss and leave the
+           backbone bitwise unchanged, step and eval times and peak
+           memory; head gradients and refined flows, kernels against
+           plain versions (1 iteration: ``GRAD_BOUNDS``, FLOW_BOUND_1; 32:
+           the median within FLOOR_FACTOR x the plain path's own
+           run-to-run median); one step graphed against eager, a 2-epoch
+           ``fit`` resumed from epoch 0 and the refine Evaluator against
+           ``fit``'s test means, all bitwise; ``ServeConfig(refine=True)``
+           from the checkpoint, replays against eager bitwise, request
+           times;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
            must see the general kernels launched, never the plain path;
   phase 7  the launches of the main paths (``launches_phase``): each
            serve group of phases 2 and 4, one train step and one eval step
-           of every way of phase 3, each pass alone under
+           of every way of phase 3, stage 2's train and eval steps and
+           requests (phase 9), each pass alone under
            ``torch.profiler`` with the counts zeroed just before it.
 
 Launch counts: a wrapper counts its eager launches where it launches
@@ -119,7 +135,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 ``kernels`` line lists the three tuned kernels (launches from phase 7 and
 the kernel bench) and the two general ones (launches from phase 6).
 
-Phases run in the order 0-5, 8, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 9, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -1760,6 +1776,351 @@ def real_data_phase(seed, dev, synthetic_step_ms):
     return out
 
 
+# --------------------------------------------------------------- phase 9 --
+
+REFINE_STEPS = 10            # graphed refine steps (4 scenes, bs 2)
+# Over 32 iterations with random weights the flow runs away (mean |flow|
+# ~15 at the last iteration on these scenes, the ground truth ~0.3), and
+# every kNN and voxel-cell flip spreads: the plain path against itself,
+# float atomics against deterministic sums, parts by a median of ~6e-2
+# (PERF.md section 6, PR 9), far above FLOW_BOUND. So at 32 iterations the
+# kernels are held to the plain path's own run-to-run spread, measured in
+# the same run, times FLOOR_FACTOR (or FLOW_BOUND where that is larger).
+FLOOR_FACTOR = 2.0
+REFINE_SERVE = {"buckets": (4096, 8192), "batch_sizes": (1, 4)}
+
+
+def refine_grads(model, batch, iters):
+    """The refine loss and its gradients: the head's, and None for every
+    backbone leaf (the backbone runs without autograd)."""
+    from pvraft_tpu_torch.engine.steps import refine_loss_of
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = refine_loss_of(model, batch, iters)
+    loss.backward()
+    return loss.item(), {n: None if p.grad is None else p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def _head(result):
+    loss, grads = result
+    return loss, {n: g for n, g in grads.items()
+                  if not n.startswith("backbone.")}
+
+
+def refine_phase(seed, dev):
+    """Stage 2 at the canonical refine configuration (the flagship model,
+    B=2 x 8,192, 32 iterations, Adam over the head, masked L1) on seeded
+    FT3D-like synthetic scenes. A stage-1 checkpoint (seeded weights of
+    another seed, the JAX package's msgpack file) is imported into a
+    graphed refine Trainer's backbone (``load_stage1_weights``); ten
+    graphed refine steps must lower the loss (mean of the last 3 below the
+    first) and leave the backbone bitwise unchanged; the refine step and
+    eval step are timed, with the step's peak memory. Kernels against
+    plain versions on the same weights and batch: head gradients at 1
+    iteration under GRAD_BOUNDS, every head leaf's gradient at 32
+    iterations finite and non-zero and every backbone leaf's None; the
+    refined flow max |dflow| <= FLOW_BOUND_1 at 1 iteration, and at 32 a
+    median within FLOOR_FACTOR x the plain path's own run-to-run median
+    (atomic against deterministic sums, same run), or FLOW_BOUND where
+    that is larger; the maxima are reported (selection flips). Under
+    ``deterministic()``: one refine step graphed against eager on the
+    same capturable Adam (loss and parameters bitwise), and a 2-epoch
+    refine ``fit`` resumed from its epoch-0 checkpoint (epoch 1 bitwise).
+    The refine Evaluator on ``best_checkpoint`` must give ``fit``'s test
+    means bitwise, and ``InferenceEngine.from_checkpoint`` with
+    ``ServeConfig(refine=True)`` must answer one 8,192-point request and a
+    batch of 4 bitwise like the eager forward. No wrapper launches eagerly
+    on a graphed path; the launches of its replays are phase 7's."""
+    import shutil
+
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+    from pvraft_tpu_torch.engine.checkpoint import (
+        find_checkpoint, latest_checkpoint, save_checkpoint)
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.models import PVRaft, PVRaftRefine
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.weights import (
+        opt_state_to_jax, params_to_jax, seeded_state_dict)
+
+    cfg = flagship_train_config(seed, epochs=REFINE_STEPS // 2, refine=True)
+    iters = cfg.train.iters
+    state = seeded_state_dict(cfg.model, seed, refine=True)
+    out = {"iters": iters, "batch": cfg.train.batch_size,
+           "points": cfg.data.max_points}
+    with scratch_dir() as root:
+        stage1 = seeded_state_dict(cfg.model, seed + 1)
+        s1_model = PVRaft(cfg.model)
+        s1_model.load_state_dict(stage1)
+        s1_path = save_checkpoint(
+            os.path.join(root, "stage1"), params_to_jax(stage1),
+            opt_state_to_jax(torch.optim.Adam(s1_model.parameters()),
+                             s1_model), 19, 0)[0]
+        del s1_model
+
+        # Import, ten graphed steps, times.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg.replace(exp_path=os.path.join(root, "train")),
+                          device=dev, weights=state)
+        setup_s = time.perf_counter() - t0
+        check(trainer.load_stage1_weights(s1_path) == 19
+              and all(torch.equal(p.cpu(), stage1[n]) for n, p in
+                      trainer.model.backbone.named_parameters()),
+              "refine: the stage-1 checkpoint did not reach the backbone")
+        backbone = {n: p.detach().clone()
+                    for n, p in trainer.model.backbone.named_parameters()}
+        zero_counts()
+        losses = []
+        for epoch in range(cfg.train.num_epochs):
+            losses += trainer.training(epoch)["losses"]
+        torch.cuda.synchronize()
+        wrapper = read_counts()
+        check(len(losses) == REFINE_STEPS and all(np.isfinite(losses)),
+              f"refine: losses {losses}")
+        last3 = float(np.mean(losses[-3:]))
+        check(last3 < losses[0], f"refine: mean loss of the last 3 steps "
+                                 f"{last3} is not below the first "
+                                 f"{losses[0]}")
+        check(all(torch.equal(p, backbone[n]) for n, p in
+                  trainer.model.backbone.named_parameters()),
+              "refine: a graphed refine step changed the backbone")
+        programs = trainer.compile_report()
+        check(wrapper == NO_LAUNCHES and len(programs) == 2
+              and all(p["graph"] for p in programs)
+              and captured_share(programs, want_serve("unfused_gru", iters)),
+              f"refine: wrapper launches {wrapper} in graphed steps, or "
+              f"captures {programs}")
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
+        scene1 = to_device(first_batch(PrefetchLoader(
+            trainer.val_ds, 1, num_workers=0)), dev)
+        for _ in range(2):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: trainer.train_step(batch),
+                          reps=TIMED_STEPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        eval_ms = cuda_ms(lambda: trainer.eval_step(scene1), reps=3,
+                          warmup=1)
+        out["training"] = {
+            "steps": REFINE_STEPS, "losses": losses, "first": losses[0],
+            "last3_mean": last3, "backbone_unchanged": True,
+            "stage1_import": s1_path.rsplit(os.sep, 1)[-1],
+            "setup_s": setup_s, "train_step_ms": step_ms,
+            "peak_mem_bytes": peak, "eval_step_ms": eval_ms,
+            "eval_iters": trainer.eval_iters, "programs": programs}
+        del trainer, scene1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Kernels against plain versions, eager, on the same weights.
+        models = {}
+        for name, kw in (("kernels", {}), ("plain", {"use_pallas": False})):
+            models[name] = PVRaftRefine(dataclasses.replace(
+                cfg.model, **kw)).to(dev)
+            models[name].load_state_dict(state)
+        with deterministic():
+            one = grad_agreement(*(_head(refine_grads(models[k], batch, 1))
+                                   for k in ("kernels", "plain")))
+        bar = GRAD_BOUNDS["iters1"]
+        check(one["loss_rel"] <= bar["loss_rel"]
+              and one["min_cos"] >= bar["min_cos"]
+              and one["max_rel"] <= bar["max_rel"],
+              f"refine: head gradients, kernels vs plain, 1 iteration: "
+              f"{one} (bars {bar})")
+        zero_counts()
+        _, g32 = refine_grads(models["kernels"], batch, iters)
+        eager_launches = read_counts()
+        bad = [n for n, g in g32.items() if not n.startswith("backbone.")
+               and (g is None or not bool(torch.isfinite(g).all())
+                    or float(g.abs().max()) == 0.0)]
+        check(not bad and all(g is None for n, g in g32.items()
+                              if n.startswith("backbone.")),
+              f"refine: head leaves without a finite non-zero gradient "
+              f"{bad[:5]}, or a backbone leaf with one")
+        check(eager_launches == want_serve("unfused_gru", iters),
+              f"refine: an eager step launched {eager_launches}")
+        with torch.no_grad():
+            flows = {k: {it: m(batch["pc1"], batch["pc2"], it)
+                         for it in (1, iters)} for k, m in models.items()}
+            with deterministic():
+                plain_det = models["plain"](batch["pc1"], batch["pc2"], iters)
+
+        def diffs(a, b):
+            return (a - b).abs().amax(-1).flatten().cpu().numpy()
+
+        d1 = diffs(flows["kernels"][1], flows["plain"][1])
+        dn = diffs(flows["kernels"][iters], flows["plain"][iters])
+        floor = diffs(flows["plain"][iters], plain_det)
+        bound_n = max(FLOW_BOUND, FLOOR_FACTOR * float(np.median(floor)))
+        check(float(d1.max()) <= FLOW_BOUND_1,
+              f"refine: refined flow, 1 iteration, max |dflow| "
+              f"{float(d1.max())}")
+        check(np.median(dn) <= bound_n,
+              f"refine: refined flow, {iters} iterations, median |dflow| "
+              f"{np.median(dn)} (the plain path against itself: "
+              f"{np.median(floor)})")
+        out["kernels_vs_plain"] = {
+            "grads_iters1": one, "head_leaves": len(g32) - len(backbone),
+            "flow_iters1_max": float(d1.max()),
+            f"flow_iters{iters}_median": float(np.median(dn)),
+            f"flow_iters{iters}_max": float(dn.max()),
+            f"plain_vs_plain_iters{iters}_median": float(np.median(floor)),
+            f"plain_vs_plain_iters{iters}_max": float(floor.max()),
+            f"mean_abs_flow_iters{iters}": float(
+                flows["plain"][iters].norm(dim=-1).mean()),
+            "bounds": {"grads": bar, "iters1_max": FLOW_BOUND_1,
+                       f"iters{iters}_median": bound_n}}
+        del models, flows, g32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # One step graphed against eager, on the same capturable Adam.
+        one_step = {}
+        with deterministic():
+            for path in ("graphed", "eager"):
+                trainer = Trainer(cfg, device=dev, weights=state,
+                                  graphs=path == "graphed", capturable=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                m = trainer.train_step(batch)
+                torch.cuda.synchronize()
+                one_step[path] = {
+                    "loss": m["loss"].item(),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "params": {n: p.detach().clone() for n, p in
+                               trainer.model.named_parameters()}}
+                del trainer, m
+                gc.collect()
+                torch.cuda.empty_cache()
+        g, e = one_step["graphed"], one_step["eager"]
+        step_bitwise = g["loss"] == e["loss"] and all(
+            torch.equal(g["params"][n], e["params"][n]) for n in g["params"])
+        check(step_bitwise, f"refine: one step graphed vs eager: loss "
+                            f"{g['loss']} / {e['loss']}")
+        out["graphed_vs_eager_step"] = {
+            "bitwise": True, "loss": g["loss"],
+            "eager_step_peak_mem_bytes": e["peak_mem_bytes"]}
+        del one_step, g, e, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # fit, resume, Evaluator, serving from the checkpoint.
+        fit_cfg = flagship_train_config(seed, epochs=2, refine=True)
+        fit_cfg = fit_cfg.replace(train=dataclasses.replace(
+            fit_cfg.train, checkpoint_interval=1))
+        runs = {}
+        with deterministic():
+            for name in ("whole", "resumed"):
+                trainer = Trainer(fit_cfg.replace(
+                    exp_path=os.path.join(root, name)), device=dev,
+                    weights=state if name == "whole" else None)
+                if name == "resumed":
+                    os.makedirs(trainer.ckpt_dir)
+                    shutil.copy(os.path.join(root, "whole", "checkpoints",
+                                             "000.msgpack"),
+                                os.path.join(trainer.ckpt_dir,
+                                             "last_checkpoint.msgpack"))
+                    epoch = trainer.load_weights(
+                        latest_checkpoint(trainer.ckpt_dir), resume=True)
+                    check(epoch == 0 and trainer.begin_epoch == 1,
+                          f"refine resume: epoch {epoch}, begin "
+                          f"{trainer.begin_epoch}")
+                kept = {}
+
+                def report(epoch, train, val, trainer=trainer, kept=kept):
+                    kept[epoch] = {
+                        "losses": train["losses"], "val": val,
+                        "params": {n: p.detach().clone() for n, p in
+                                   trainer.model.named_parameters()},
+                        "adam": opt_state_to_jax(
+                            trainer.optimizer, trainer.model,
+                            trainer.train_step.count[0])}
+
+                runs[name] = {"kept": kept, "test": trainer.fit(report)}
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            a, b = runs["whole"]["kept"][1], runs["resumed"]["kept"][1]
+            resume_bitwise = (
+                sorted(runs["resumed"]["kept"]) == [1]
+                and a["losses"] == b["losses"] and a["val"] == b["val"]
+                and all(torch.equal(a["params"][n], b["params"][n])
+                        for n in a["params"])
+                and _state_trees_equal(a["adam"], b["adam"]))
+            check(resume_bitwise,
+                  f"refine resume: epoch 1 differs from the uninterrupted "
+                  f"run (losses {a['losses']} / {b['losses']})")
+            best = find_checkpoint(os.path.join(root, "whole", "checkpoints"),
+                                   "best_checkpoint")
+            ev = Evaluator(fit_cfg, device=dev)
+            ev.load(best)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means = ev.run()
+            torch.cuda.synchronize()
+            ev_ms = 1e3 * (time.perf_counter() - t0) / len(ev.dataset)
+            del ev
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(means == runs["whole"]["test"],
+              f"refine Evaluator {means} against fit's test means "
+              f"{runs['whole']['test']}")
+        out["fit"] = {"epochs": 2, "resume_bitwise": True,
+                      "losses": {e: runs["whole"]["kept"][e]["losses"]
+                                 for e in (0, 1)},
+                      "test_means": runs["whole"]["test"],
+                      "evaluator_bitwise": True,
+                      "evaluator_ms_per_scene": ev_ms,
+                      "checkpoint_bytes": os.path.getsize(best)}
+        del runs, a, b
+
+        serve_cfg = ServeConfig(cfg.model, refine=True, **REFINE_SERVE)
+        engine = InferenceEngine.from_checkpoint(best, serve_cfg, device=dev)
+        groups = []
+        for kind, group, bucket in serve_requests(
+                np.random.default_rng(seed + 1))[:2]:
+            padded = engine.padded_batch(group, bucket)
+            program = engine.program(bucket, padded[0].shape[0])
+            zero_counts()
+            got = engine.predict_batch(group, bucket)
+            check(read_counts() == NO_LAUNCHES,
+                  f"refine serve {bucket}: a wrapper launched eagerly in a "
+                  f"replay: {read_counts()}")
+            replay = program.outputs[0].clone()
+            inputs = [torch.from_numpy(x).to(dev) for x in padded]
+            with torch.no_grad():
+                eager = engine.model(inputs[0], inputs[1],
+                                     serve_cfg.num_iters, *inputs[2:])
+            check(torch.equal(replay, eager)
+                  and all(np.array_equal(f, eager[i, :f.shape[0]].cpu()
+                                         .numpy()) for i, f in
+                          enumerate(got)),
+                  f"refine serve {kind} {bucket}: replay vs eager max "
+                  f"|dflow| {float((replay - eager).abs().max())}")
+            times = []
+            for _ in range(GRAPH_REPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                engine.predict_batch(group, bucket)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t1))
+            groups.append({"call": kind, "bucket": bucket,
+                           "requests": len(group), "bitwise": True,
+                           "request_ms": statistics.median(times)})
+        out["serve"] = {"num_iters": serve_cfg.num_iters, "groups": groups,
+                        "checkpoint_epoch": engine.checkpoint_epoch,
+                        "programs": engine.compile_report()}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------- phase 6 --
 
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
@@ -1830,7 +2191,10 @@ def launches_phase(seed, dev):
     each serve group of phase 2's requests through ``predict`` or
     ``predict_batch`` of a freshly captured engine, and one train step and
     one eval step of a freshly captured ``Trainer``, every way of phases 2
-    and 3. The kernels the card ran are counted by their device symbols
+    and 3, and of stage 2 (phase 9): one refine train step and one refine
+    eval step (32 iterations) with fused_gru off and on, and phase 2's
+    first two request groups through a refine engine. The kernels the
+    card ran are counted by their device symbols
     (``measured``): what the replays launched, which no wrapper sees.
     Each pass must launch what its capture recorded and no wrapper may
     launch eagerly. This phase runs last: after a profiler session the
@@ -1886,6 +2250,43 @@ def launches_phase(seed, dev):
         del trainer, batch, scene
         gc.collect()
         torch.cuda.empty_cache()
+    refine = {}
+    refine_state = seeded_state_dict(ModelConfig(), seed, refine=True)
+    for name, kw in TRAIN_WAYS[:2]:
+        trainer = Trainer(flagship_train_config(seed, refine=True, **kw),
+                          device=dev, weights=refine_state)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
+        scene = to_device(first_batch(PrefetchLoader(
+            trainer.val_ds, 1, num_workers=0)), dev)
+        got = {}
+        for step, run in (("train_step", lambda: trainer.train_step(batch)),
+                          ("eval_step", lambda: trainer.eval_step(scene))):
+            _, counts, wrapper = measured(run)
+            # Stage 2 evaluates at train.iters too.
+            want = want_serve(name, trainer.cfg.train.iters)
+            check(counts == want and wrapper == NO_LAUNCHES,
+                  f"launches: refine {step} {name}: the card ran {counts} "
+                  f"(wrappers {wrapper}), expected {want}")
+            got[step] = counts
+        refine[name] = got
+        del trainer, batch, scene
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = ServeConfig(refine=True, **REFINE_SERVE)
+    engine = InferenceEngine(refine_state, cfg, device=dev)
+    refine["serve"] = dict(NO_LAUNCHES)
+    for request in requests[:2]:
+        _, counts, wrapper = measured(lambda: drive(engine, [request]))
+        want = want_serve("unfused_gru", cfg.num_iters)
+        check(counts == want and wrapper == NO_LAUNCHES,
+              f"launches: refine serve {request[0]} {request[2]}: the card "
+              f"ran {counts} (wrappers {wrapper}), expected {want}")
+        refine["serve"] = {k: refine["serve"][k] + counts[k]
+                           for k in counts}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer = Trainer(flagship_train_config(seed), device=dev, weights=state,
                       graphs=False)
     batch = to_device(first_batch(PrefetchLoader(
@@ -1897,7 +2298,7 @@ def launches_phase(seed, dev):
     del trainer, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"serve": serve, "train": train,
+    return {"serve": serve, "train": train, "refine": refine,
             "eager_train_step_ms_after_profiler": after_ms}
 
 
@@ -2007,6 +2408,9 @@ def main() -> int:
                            train["ways"]["unfused_gru"]["train_step_ms"])
     emit({"phase": "real_data", **real})
 
+    refine = refine_phase(args.seed, dev)
+    emit({"phase": "refine", **refine})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -2051,6 +2455,11 @@ def main() -> int:
             "replaces": replaces, "launches": runs[name],
             "train_launches_per_step": steps["train_step"][name],
             "eval_launches_per_step": steps["eval_step"][name],
+            "refine_train_launches_per_step":
+                launches["refine"]["fused_gru"]["train_step"][name],
+            "refine_eval_launches_per_step":
+                launches["refine"]["fused_gru"]["eval_step"][name],
+            "refine_serve_launches": launches["refine"]["serve"][name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

@@ -4,7 +4,9 @@ The JAX package ``pvraft_tpu`` stays the reference; this package mirrors
 its layout module for module. It imports ``torch`` and numpy only: never
 JAX, flax, optax or anything of ``pvraft_tpu``.
 
-It covers the stage-1 model's serving path (``serve.engine.InferenceEngine``),
+It covers both stages of the model (stage 1, ``models.raft.PVRaft``, and
+the stage-2 refine model, ``models.raft.PVRaftRefine``) on the serving
+path (``serve.engine.InferenceEngine``),
 training path (``engine.trainer.Trainer``, ``python -m
 pvraft_tpu_torch.train``, with the JAX package's checkpoints and resume)
 and standalone evaluation (``engine.evaluator.Evaluator``, ``python -m

@@ -200,7 +200,6 @@ class TrainConfig:
             # data device) and 1 are the same here.
             ("eval_batch", self.eval_batch not in (0, 1),
              "the parallel slice"),
-            ("refine", self.refine, "the stage-2 slice"),
             ("grad_dtype", self.grad_dtype != "float32", "the bf16 slice"),
             ("ckpt_backend", self.ckpt_backend == "orbax",
              "its recorded disposition (ROADMAP queue 1 item 2): Orbax is "

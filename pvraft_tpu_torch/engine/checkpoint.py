@@ -19,7 +19,7 @@ installed where the port runs, and the port records that disposition
 file (a torch pickle of ``{'epoch', 'state_dict'}`` with the reference's
 key names) into the port's state_dict, through the port's own copy of the
 JAX package's reference-name mapping (``import_torch_state_dict``,
-``pvraft_tpu/engine/checkpoint.py:549-672``).
+``pvraft_tpu/engine/checkpoint.py:549-672``), stage 1 and stage 2.
 """
 
 from __future__ import annotations
@@ -140,11 +140,17 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 # ---------------------------------------------------------------------------
 
 
-def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+_REFINE_HEAD_KEYS = ("ref_conv1", "ref_conv2", "ref_conv3", "fc")
+
+
+def load_torch_checkpoint(path: str, refine: bool = False
+                          ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Read a reference ``.params`` file (a torch pickle of ``{'epoch',
     'state_dict'}``, ``tools/utils.py:14-17``) with
     ``torch.load(weights_only=True)``; DataParallel ``module.`` prefixes
-    are accepted. Returns (the port's state_dict, to load with
+    are accepted. ``refine`` reads an ``RSF_refine`` file into the
+    PVRaftRefine layout: the stage-1 modules under ``backbone``, the head
+    at the top. Returns (the port's state_dict, to load with
     ``strict=True``; epoch, -1 when absent)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state_dict = payload.get("state_dict", payload)
@@ -154,7 +160,12 @@ def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
             v.detach().numpy()
         for k, v in state_dict.items()
     }
-    return params_from_jax(import_torch_state_dict(as_numpy)), epoch
+    tree = import_torch_state_dict(as_numpy)
+    if refine:
+        head = {k: v for k, v in tree.items() if k in _REFINE_HEAD_KEYS}
+        tree = {"backbone": {k: v for k, v in tree.items()
+                             if k not in _REFINE_HEAD_KEYS}, **head}
+    return params_from_jax(tree), epoch
 
 
 _ENCODER_CONV = {"feat_conv1": "conv1", "feat_conv2": "conv2",
@@ -187,17 +198,17 @@ def _convert_tensor(parts, t: np.ndarray) -> Tuple[str, np.ndarray]:
 
 def import_torch_state_dict(state_dict: Mapping[str, np.ndarray]
                             ) -> Dict[str, Any]:
-    """A reference stage-1 ``RSF`` state_dict (numpy values) as the flax
-    params tree of the JAX package (then :func:`params_from_jax` names it
-    for the port). The reference's module tree maps as:
+    """A reference ``RSF`` or ``RSF_refine`` state_dict (numpy values) as
+    the flax params tree of the JAX package (then :func:`params_from_jax`
+    names it for the port). The reference's module tree maps as:
       feature_extractor.feat_convN.*   -> feature_extractor.convN.*
       context_extractor.feat_convN.*   -> context_extractor.convN.*
       corr_block.out_conv.{0,1,2,3}    -> update_iter.corr_lookup.{out_conv1,out_gn,out_prelu,out_conv2}
       corr_block.knn_conv.{0,1,2}      -> update_iter.corr_lookup.{knn_conv,knn_gn,knn_prelu}
       corr_block.knn_out               -> update_iter.corr_lookup.knn_out
       update_block.*                   -> update_iter.update_block.*
-    A PReLU weight becomes ``alpha``. Stage-2 (``refine_block``) keys
-    raise: refine checkpoints arrive with the stage-2 slice."""
+      refine_block.ref_convN.*, .fc.*  -> ref_convN.*, fc.* (stage 2)
+    A PReLU weight becomes ``alpha``."""
     out: Dict[str, Any] = {}
 
     def put(path, name, value):
@@ -249,9 +260,10 @@ def import_torch_state_dict(state_dict: Mapping[str, np.ndarray]
             else:
                 raise ValueError(f"unknown update_block child {key}")
         elif top == "refine_block":
-            raise NotImplementedError(
-                f"{key}: refine (stage-2) checkpoints are not ported yet: "
-                f"they arrive with the stage-2 slice")
+            if parts[1] not in _REFINE_HEAD_KEYS:
+                raise ValueError(f"unknown refine_block child {key}")
+            name, arr = _convert_tensor(parts, t)
+            put(parts[1:-1], name, arr)
         else:
             raise ValueError(f"unknown top-level module {key}")
     return out

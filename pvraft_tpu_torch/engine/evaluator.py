@@ -11,6 +11,11 @@ The running sums add the scenes one by one in dataset order, as
 ``Trainer.val_test`` does, so the means equal the trainer's test pass on
 the same weights to the bit.
 
+With ``TrainConfig.refine`` the model is a ``PVRaftRefine`` and the
+step the refine eval step (the masked L1 and the metrics of the refined
+flow), still at ``eval_iters``, as the JAX ``Evaluator`` runs it (the
+Trainer's own refine validation runs at ``train.iters``).
+
 ``TrainConfig.eval_scan`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX ``Evaluator`` runs S
 scenes per dispatch through a ``lax.scan`` to save the per-scene
@@ -52,7 +57,7 @@ from pvraft_tpu_torch.engine.steps import (
     BATCH_KEYS,
     make_graphed_eval_step,
 )
-from pvraft_tpu_torch.models.raft import PVRaft
+from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import params_from_jax, seeded_state_dict
 
@@ -73,8 +78,8 @@ def build_eval_dataset(cfg: Config):
 
 
 class Evaluator:
-    """``Evaluator(cfg, device=None)``: the eval dataset, a PVRaft with
-    seeded weights (``cfg.train.seed``'s ``model.init`` stream, as the
+    """``Evaluator(cfg, device=None)``: the eval dataset, a PVRaft (a
+    PVRaftRefine with ``train.refine``) with seeded weights (``cfg.train.seed``'s ``model.init`` stream, as the
     Trainer seeds it) until :meth:`load` or :meth:`load_torch`, and the
     captured eval program. Runs on ``cuda`` unless ``device`` names
     another device."""
@@ -87,15 +92,16 @@ class Evaluator:
         self.loader = PrefetchLoader(
             self.dataset, 1, drop_last=False,
             num_workers=min(2, cfg.data.num_workers))
-        self.model = PVRaft(cfg.model)
+        t = cfg.train
+        self.model = (PVRaftRefine if t.refine else PVRaft)(cfg.model)
         self.model.load_state_dict(seeded_state_dict(
-            cfg.model, torch_seed(cfg.train.seed, "model.init")), strict=True)
+            cfg.model, torch_seed(t.seed, "model.init"), t.refine),
+            strict=True)
         self.model.to(self.device).eval()
         self.epoch: Optional[int] = None
-        t = cfg.train
         self.eval_step = make_graphed_eval_step(
             self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
-            strict_retrace=t.strict_retrace)
+            strict_retrace=t.strict_retrace, refine=t.refine)
         scene = to_device(first_batch(self.loader), self.device)
         inputs = [scene[k] for k in BATCH_KEYS]
         self.eval_step.graphs.program_for(inputs)
@@ -114,7 +120,8 @@ class Evaluator:
     def load_torch(self, path: str) -> int:
         """Load a reference-published torch ``.params`` checkpoint
         (``test.py:101-106``), in place; returns its epoch."""
-        state, self.epoch = load_torch_checkpoint(path)
+        state, self.epoch = load_torch_checkpoint(
+            path, refine=self.cfg.train.refine)
         self.model.load_state_dict(state, strict=True)
         return self.epoch
 

@@ -1,14 +1,17 @@
 """Train and eval steps (port of ``pvraft_tpu/engine/steps.py``).
 
-The train step is the reference's zero_grad / forward / sequence loss /
-backward / Adam step, with the learning rate of the schedule at the
-optimizer's step count set before the step (optax's order).
-:func:`make_train_step` and :func:`make_eval_step` run eagerly: the CPU
-path, and the yardstick on the card. :func:`make_graphed_train_step` and
-:func:`make_graphed_eval_step` are the same steps captured as one CUDA
-graph per input signature (``serve/aot.py``, ``obs/retrace.py``), the
-counterpart of the JAX package's ``jax.jit`` steps: the train graph holds
-forward, sequence loss, backward and the Adam update
+The train step is the reference's zero_grad / forward / loss / backward /
+Adam step, with the learning rate of the schedule at the optimizer's step
+count set before the step (optax's order). Stage 1 trains on the sequence
+loss of every iteration's flow; stage 2 (:func:`make_refine_train_step`,
+a ``PVRaftRefine`` whose backbone runs without autograd and an Adam over
+its head) on the masked L1 of the one refined flow.
+:func:`make_train_step`, :func:`make_refine_train_step` and
+:func:`make_eval_step` run eagerly: the CPU path, and the yardstick on
+the card. The ``make_graphed_*`` steps are the same steps captured as
+one CUDA graph per input signature (``serve/aot.py``,
+``obs/retrace.py``), the counterpart of the JAX package's ``jax.jit``
+steps: a train graph holds forward, loss, backward and the Adam update
 (``torch.optim.Adam(capturable=True)`` with the learning rate in a device
 tensor, filled from the schedule before each replay at a step count kept
 on the host). The JAX package's K-step dispatch levers (packed state,
@@ -22,7 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from pvraft_tpu_torch.engine.loss import sequence_loss
+from pvraft_tpu_torch.engine.loss import compute_loss, sequence_loss
 from pvraft_tpu_torch.engine.metrics import epe_train, flow_metrics
 from pvraft_tpu_torch.obs.retrace import GraphCache
 from pvraft_tpu_torch.serve.aot import capture
@@ -37,6 +40,14 @@ def sequence_loss_of(model, batch: Batch, gamma: float, num_iters: int
     """The train step's loss: (sequence loss, flows (T, B, N, 3))."""
     flows, _ = model(batch["pc1"], batch["pc2"], num_iters)
     return sequence_loss(flows, batch["mask"], batch["flow"], gamma), flows
+
+
+def refine_loss_of(model, batch: Batch, num_iters: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The refine train step's loss: (masked L1 of the refined flow, the
+    refined flow (B, N, 3)) (``tools/engine_refine.py:142``)."""
+    flow = model(batch["pc1"], batch["pc2"], num_iters)
+    return compute_loss(flow, batch["mask"], batch["flow"]), flow
 
 
 def optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
@@ -97,22 +108,47 @@ def _check_levers(grad_dtype: Optional[str], telemetry: bool) -> None:
             "slice")
 
 
-def _train_body(model, optimizer, gamma: float, num_iters: int
+# loss_of(batch) -> (loss, the flow the EPE is read from)
+LossOf = Callable[[Batch], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _train_body(optimizer, loss_of: LossOf
                 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
-    """zero_grad / forward / loss / backward / step at the optimizer's
+    """zero_grad / ``loss_of`` / backward / step at the optimizer's
     current learning rate; returns (loss, epe) of the last flow."""
 
     def body(pc1, pc2, mask, flow):
         batch = {"pc1": pc1, "pc2": pc2, "mask": mask, "flow": flow}
         optimizer.zero_grad(set_to_none=True)
-        loss, flows = sequence_loss_of(model, batch, gamma, num_iters)
+        loss, last = loss_of(batch)
         loss.backward()
         optimizer.step()
         with torch.no_grad():
-            epe = epe_train(flows[-1], mask, flow)
+            epe = epe_train(last, mask, flow)
         return loss.detach(), epe
 
     return body
+
+
+def _stage1_loss(model, gamma: float, num_iters: int) -> LossOf:
+    def loss_of(batch: Batch):
+        loss, flows = sequence_loss_of(model, batch, gamma, num_iters)
+        return loss, flows[-1]
+
+    return loss_of
+
+
+def _eager_step(body, optimizer, schedule) -> Callable[[Batch], Batch]:
+    count = [optimizer_steps(optimizer)]
+
+    def train_step(batch: Batch) -> Batch:
+        set_lr(optimizer, schedule(count[0]))
+        loss, epe = body(*(batch[k] for k in BATCH_KEYS))
+        count[0] += 1
+        return {"loss": loss, "epe": epe}
+
+    train_step.count = count
+    return train_step
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,
@@ -126,34 +162,28 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     own count is a device tensor) in ``step.count[0]``, the schedule's
     position, which a resume sets."""
     _check_levers(grad_dtype, telemetry)
-    body = _train_body(model, optimizer, gamma, num_iters)
-    count = [optimizer_steps(optimizer)]
-
-    def train_step(batch: Batch) -> Batch:
-        set_lr(optimizer, schedule(count[0]))
-        loss, epe = body(*(batch[k] for k in BATCH_KEYS))
-        count[0] += 1
-        return {"loss": loss, "epe": epe}
-
-    train_step.count = count
-    return train_step
+    return _eager_step(_train_body(optimizer, _stage1_loss(
+        model, gamma, num_iters)), optimizer, schedule)
 
 
-def make_graphed_train_step(model, optimizer: torch.optim.Adam,
-                            schedule: Callable[[int], float], gamma: float,
-                            num_iters: int, device: torch.device,
-                            strict_retrace: bool = False,
-                            grad_dtype: Optional[str] = None,
-                            telemetry: bool = False
-                            ) -> Callable[[Batch], Batch]:
-    """:func:`make_train_step` as one captured program per input
-    signature. Every group's ``lr`` must be a tensor (on ``device``, with
-    ``capturable=True``, on the card). Returns ``step(batch) -> {"loss",
-    "epe"}``: static tensors that the next step overwrites. ``step.graphs``
-    is its :class:`GraphCache` (``step.graphs.program_for(inputs)``
-    captures without running a step; ``step.graphs.report()``). The step
-    count is read from the optimizer once, here, into ``step.count[0]``."""
+def make_refine_train_step(model, optimizer: torch.optim.Optimizer,
+                           schedule: Callable[[int], float], num_iters: int,
+                           grad_dtype: Optional[str] = None,
+                           telemetry: bool = False
+                           ) -> Callable[[Batch], Batch]:
+    """Stage-2 training step (``pvraft_tpu/engine/steps.py::
+    make_refine_train_step``): :func:`make_train_step` on a PVRaftRefine
+    and an optimizer over its head (``weights.trained_parameters``), with
+    :func:`refine_loss_of` for the loss. The backbone gets no gradient."""
     _check_levers(grad_dtype, telemetry)
+    return _eager_step(_train_body(
+        optimizer, lambda batch: refine_loss_of(model, batch, num_iters)),
+        optimizer, schedule)
+
+
+def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
+                  device: torch.device, strict_retrace: bool
+                  ) -> Callable[[Batch], Batch]:
     lrs = [g["lr"] for g in optimizer.param_groups]
     if not all(torch.is_tensor(lr) for lr in lrs):
         raise ValueError("a graphed train step needs every lr as a tensor")
@@ -161,14 +191,13 @@ def make_graphed_train_step(model, optimizer: torch.optim.Adam,
     params = [p for g in optimizer.param_groups for p in g["params"]]
     state = params + [t for s in optimizer.state.values()
                       for t in s.values() if torch.is_tensor(t)]
-    body = _train_body(model, optimizer, gamma, num_iters)
     count = [optimizer_steps(optimizer)]
 
     # The body sets every .grad to None before its backward, so the
     # captured backward writes fresh gradient buffers of the graph's own
     # pool at every replay (PyTorch's whole-network capture recipe).
     graphs = GraphCache(
-        "train_step",
+        name,
         lambda name, inputs: capture(name, body, inputs, device,
                                      preserve=state),
         strict_retrace)
@@ -188,27 +217,74 @@ def make_graphed_train_step(model, optimizer: torch.optim.Adam,
     return train_step
 
 
+def make_graphed_train_step(model, optimizer: torch.optim.Adam,
+                            schedule: Callable[[int], float], gamma: float,
+                            num_iters: int, device: torch.device,
+                            strict_retrace: bool = False,
+                            grad_dtype: Optional[str] = None,
+                            telemetry: bool = False
+                            ) -> Callable[[Batch], Batch]:
+    """:func:`make_train_step` as one captured program per input
+    signature. Every group's ``lr`` must be a tensor (on ``device``, with
+    ``capturable=True``, on the card). Returns ``step(batch) -> {"loss",
+    "epe"}``: static tensors that the next step overwrites. ``step.graphs``
+    is its :class:`GraphCache` (``step.graphs.program_for(inputs)``
+    captures without running a step; ``step.graphs.report()``). The step
+    count is read from the optimizer once, here, into ``step.count[0]``."""
+    _check_levers(grad_dtype, telemetry)
+    return _graphed_step("train_step", _train_body(
+        optimizer, _stage1_loss(model, gamma, num_iters)), optimizer,
+        schedule, device, strict_retrace)
+
+
+def make_graphed_refine_train_step(model, optimizer: torch.optim.Adam,
+                                   schedule: Callable[[int], float],
+                                   num_iters: int, device: torch.device,
+                                   strict_retrace: bool = False,
+                                   grad_dtype: Optional[str] = None,
+                                   telemetry: bool = False
+                                   ) -> Callable[[Batch], Batch]:
+    """:func:`make_refine_train_step` as one captured program per input
+    signature (``refine_train_step``), as :func:`make_graphed_train_step`
+    captures the stage-1 step: the backbone's iterations run in the graph
+    without autograd, the head's forward, backward and Adam with it."""
+    _check_levers(grad_dtype, telemetry)
+    return _graphed_step("refine_train_step", _train_body(
+        optimizer, lambda batch: refine_loss_of(model, batch, num_iters)),
+        optimizer, schedule, device, strict_retrace)
+
+
 def make_eval_step(model, num_iters: int, gamma: float,
-                   per_scene: bool = False
+                   per_scene: bool = False, refine: bool = False
                    ) -> Callable[[Batch], Tuple[Batch, torch.Tensor]]:
     """``step(batch) -> (metrics, flow)``: the sequence loss and
-    :func:`flow_metrics` of the last flow, as batch means or, with
+    :func:`flow_metrics` of the last flow (``refine``: the masked L1 and
+    the metrics of a PVRaftRefine's refined flow), as batch means or, with
     ``per_scene``, as (B,) tensors (one value per scene)."""
+
+    def loss_of(flows, mask, gt):
+        if refine:
+            return compute_loss(flows, mask, gt)
+        return sequence_loss(flows, mask, gt, gamma)
 
     def eval_step(batch: Batch) -> Tuple[Batch, torch.Tensor]:
         mask, gt = batch["mask"], batch["flow"]
         with torch.no_grad():
-            flows, _ = model(batch["pc1"], batch["pc2"], num_iters)
-            flow = flows[-1]
+            if refine:
+                flows = flow = model(batch["pc1"], batch["pc2"], num_iters)
+            else:
+                flows, _ = model(batch["pc1"], batch["pc2"], num_iters)
+                flow = flows[-1]
             if per_scene:
-                scenes = [slice(b, b + 1) for b in range(flow.shape[0])]
-                per = [{"loss": sequence_loss(flows[:, s], mask[s], gt[s],
-                                              gamma),
-                        **flow_metrics(flow[s], mask[s], gt[s])}
-                       for s in scenes]
+                # Scene b of the (T, B, N, 3) flows or the (B, N, 3) flow.
+                per = [{"loss": loss_of(flows[..., b:b + 1, :, :],
+                                        mask[b:b + 1], gt[b:b + 1]),
+                        **flow_metrics(flow[b:b + 1], mask[b:b + 1],
+                                       gt[b:b + 1])}
+                       for b in range(flow.shape[0])]
                 out = {k: torch.stack([p[k] for p in per]) for k in per[0]}
             else:
-                out = {"loss": sequence_loss(flows, mask, gt, gamma),
+                out = {"loss": loss_of(flows, mask, gt),
                        **flow_metrics(flow, mask, gt)}
         return out, flow
 
@@ -217,12 +293,12 @@ def make_eval_step(model, num_iters: int, gamma: float,
 
 def make_graphed_eval_step(model, num_iters: int, gamma: float,
                            device: torch.device, per_scene: bool = False,
-                           strict_retrace: bool = False
+                           strict_retrace: bool = False, refine: bool = False
                            ) -> Callable[[Batch], Tuple[Batch, torch.Tensor]]:
     """:func:`make_eval_step` as one captured program per input
     signature; returns static tensors that the next call overwrites.
     ``step.graphs`` is its :class:`GraphCache`."""
-    eager = make_eval_step(model, num_iters, gamma, per_scene)
+    eager = make_eval_step(model, num_iters, gamma, per_scene, refine)
 
     def body(*inputs):
         out, flow = eager(dict(zip(BATCH_KEYS, inputs)))

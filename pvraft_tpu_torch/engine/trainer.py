@@ -1,4 +1,5 @@
-"""Stage-1 trainer (port of ``pvraft_tpu/engine/trainer.py::Trainer``).
+"""Trainer of both stages (port of ``pvraft_tpu/engine/trainer.py::
+Trainer``).
 
 One card: seeded (or JAX-imported) weights, Adam with the configured
 learning-rate schedule, the train step over the shuffled training set
@@ -35,6 +36,15 @@ Batch n+1's copy to the device is issued before step n runs
 (``device_prefetch``); the captured steps copy each batch into their
 static inputs.
 
+Stage 2 (``train.refine``): the model is a ``PVRaftRefine``, Adam covers
+its head only (``weights.trained_parameters``, the JAX ``_refine_mask``:
+the backbone gets no Adam state, no gradient and no update), the step is
+the refine step (masked L1 of the refined flow), validation and test run
+at ``train.iters`` (the reference's ``engine_refine.py:199``), and
+:meth:`Trainer.load_stage1_weights` imports a stage-1 checkpoint into the
+backbone. Checkpoints hold ``optax.masked``'s state, as the JAX refine
+Trainer's do.
+
 Not in this slice: TensorBoard and the event log, divergence snapshots
 (the observability slice), data-parallel meshes (the parallel slice).
 """
@@ -61,6 +71,7 @@ from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.engine.checkpoint import (
     find_checkpoint,
     load_checkpoint,
+    load_params,
     save_checkpoint,
 )
 from pvraft_tpu_torch.engine.schedule import make_lr_schedule
@@ -69,17 +80,21 @@ from pvraft_tpu_torch.engine.steps import (
     init_adam_state,
     make_eval_step,
     make_graphed_eval_step,
+    make_graphed_refine_train_step,
     make_graphed_train_step,
+    make_refine_train_step,
     make_train_step,
 )
-from pvraft_tpu_torch.models.raft import PVRaft
+from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import (
     opt_state_from_jax,
     opt_state_to_jax,
     params_from_jax,
     params_to_jax,
+    schedule_count,
     seeded_state_dict,
+    trained_parameters,
 )
 
 
@@ -109,9 +124,10 @@ class Trainer:
     graphs=True, capturable=None)``.
 
     ``weights``: a port state_dict or a JAX flax params tree (mapped by
-    :func:`params_from_jax`); default: seeded from ``cfg.train.seed``'s
+    :func:`params_from_jax`) of the stage's model (a PVRaftRefine's with
+    ``train.refine``); default: seeded from ``cfg.train.seed``'s
     ``model.init`` stream. ``opt_state``: an optax Adam state to resume
-    (:func:`opt_state_from_jax`). Runs on ``cuda`` unless ``device``
+    (:func:`opt_state_from_jax`; masked with ``train.refine``). Runs on ``cuda`` unless ``device``
     names another device; raises when no card is present and none was
     named. ``graphs``: the graphed steps (default) or the eager ones.
     ``capturable``: the graphed steps' Adam, its learning rate a tensor
@@ -129,12 +145,13 @@ class Trainer:
         if bs > len(self.train_ds):
             raise ValueError(f"batch size {bs} exceeds the dataset size "
                              f"{len(self.train_ds)}")
+        refine = cfg.train.refine
         if weights is None:
             weights = seeded_state_dict(
-                cfg.model, torch_seed(cfg.train.seed, "model.init"))
+                cfg.model, torch_seed(cfg.train.seed, "model.init"), refine)
         elif any(isinstance(v, Mapping) for v in weights.values()):
             weights = params_from_jax(weights)
-        self.model = PVRaft(cfg.model)
+        self.model = (PVRaftRefine if refine else PVRaft)(cfg.model)
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device)
 
@@ -158,7 +175,8 @@ class Trainer:
             lr = torch.tensor(lr, device=self.device)
         # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8.
         self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            [p for _, p in trained_parameters(self.model)], lr=lr,
+            betas=(0.9, 0.999), eps=1e-8,
             capturable=capturable and self.device.type == "cuda")
         if opt_state is not None:
             self.optimizer.load_state_dict(
@@ -169,20 +187,33 @@ class Trainer:
         self.begin_epoch = 0
         self.save_s: List[float] = []     # seconds of each checkpoint save
         self._graphs = ()
+        # Refine trains and evaluates at train.iters (engine_refine.py:199).
+        self.eval_iters = t.iters if refine else t.eval_iters
+        levers = {"grad_dtype": t.grad_dtype, "telemetry": t.telemetry}
         if not graphs:
-            self.train_step = make_train_step(
-                self.model, self.optimizer, self.schedule, t.gamma, t.iters,
-                grad_dtype=t.grad_dtype, telemetry=t.telemetry)
-            self.eval_step = make_eval_step(self.model, t.eval_iters,
-                                            t.gamma, per_scene=True)
+            if refine:
+                self.train_step = make_refine_train_step(
+                    self.model, self.optimizer, self.schedule, t.iters,
+                    **levers)
+            else:
+                self.train_step = make_train_step(
+                    self.model, self.optimizer, self.schedule, t.gamma,
+                    t.iters, **levers)
+            self.eval_step = make_eval_step(self.model, self.eval_iters,
+                                            t.gamma, per_scene=True,
+                                            refine=refine)
             return
-        self.train_step = make_graphed_train_step(
-            self.model, self.optimizer, self.schedule, t.gamma, t.iters,
-            self.device, strict_retrace=t.strict_retrace,
-            grad_dtype=t.grad_dtype, telemetry=t.telemetry)
+        if refine:
+            self.train_step = make_graphed_refine_train_step(
+                self.model, self.optimizer, self.schedule, t.iters,
+                self.device, strict_retrace=t.strict_retrace, **levers)
+        else:
+            self.train_step = make_graphed_train_step(
+                self.model, self.optimizer, self.schedule, t.gamma, t.iters,
+                self.device, strict_retrace=t.strict_retrace, **levers)
         self.eval_step = make_graphed_eval_step(
-            self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
-            strict_retrace=t.strict_retrace)
+            self.model, self.eval_iters, t.gamma, self.device, per_scene=True,
+            strict_retrace=t.strict_retrace, refine=refine)
         self._graphs = (self.train_step.graphs, self.eval_step.graphs)
         # Capture both at the shapes training and evaluation feed them,
         # from their loaders' first batches.
@@ -260,20 +291,34 @@ class Trainer:
                                       self.optimizer)["state"]
             init_adam_state(self.optimizer)
             with torch.no_grad():
-                for i, p in enumerate(self.model.parameters()):
+                for i, (_, p) in enumerate(trained_parameters(self.model)):
                     state = self.optimizer.state[p]
                     for key in ("exp_avg", "exp_avg_sq", "step"):
                         state[key].copy_(want[i][key])
-            sched = opt_state.get("1", {}).get(
-                "count", int(float(want[0]["step"])))
-            self.train_step.count[0] = int(np.asarray(sched))
+            sched = schedule_count(opt_state)
+            self.train_step.count[0] = (int(float(want[0]["step"]))
+                                        if sched is None else sched)
             self.begin_epoch = epoch + 1
+        return epoch
+
+    def load_stage1_weights(self, path: str) -> int:
+        """Import a stage-1 checkpoint's parameters into the refine
+        model's ``backbone`` (``engine_refine.py:110``; the JAX
+        ``Trainer.load_stage1_weights``), strictly, copied into the
+        tensors the captured steps read. Returns the checkpoint's
+        epoch."""
+        if not self.cfg.train.refine:
+            raise ValueError("load_stage1_weights needs train.refine")
+        params, epoch = load_params(path)
+        self.model.backbone.load_state_dict(params_from_jax(params),
+                                            strict=True)
         return epoch
 
     def val_test(self, epoch: int, mode: str = "val") -> Dict[str, float]:
         """Means of the per-scene eval metrics over the val (or test) set,
-        one scene per step at ``eval_iters`` iterations. A val pass whose
-        EPE is the lowest so far saves ``best_checkpoint``; the test pass
+        one scene per step at ``self.eval_iters`` iterations. A val pass
+        whose EPE is the lowest so far saves ``best_checkpoint``; the test
+        pass
         loads ``best_checkpoint`` first where there is one (the JAX
         ``val_test``, ``engine.py:191``)."""
         loader = self.val_loader if mode == "val" else self.test_loader

@@ -1,5 +1,5 @@
-"""Stage-1 PV-RAFT modules of the port."""
+"""PV-RAFT modules of the port: stage 1 and the stage-2 refine model."""
 
-from pvraft_tpu_torch.models.raft import PVRaft
+from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 
-__all__ = ["PVRaft"]
+__all__ = ["PVRaft", "PVRaftRefine"]

@@ -1,4 +1,5 @@
-"""Stage-1 PV-RAFT (port of ``pvraft_tpu/models/raft.py::PVRaft``).
+"""PV-RAFT, stage 1 and stage 2 (port of ``pvraft_tpu/models/raft.py``:
+``PVRaft`` and ``PVRaftRefine``).
 
 The JAX ``nn.scan`` over a shared-parameter step becomes a Python loop
 over one :class:`UpdateIter` module. Submodule names follow the flax
@@ -18,6 +19,7 @@ from torch.profiler import record_function
 from pvraft_tpu_torch.config import ModelConfig
 from pvraft_tpu_torch.models.corr_block import CorrLookup
 from pvraft_tpu_torch.models.encoder import PointEncoder
+from pvraft_tpu_torch.models.layers import SetConv
 from pvraft_tpu_torch.models.update import UpdateBlock
 from pvraft_tpu_torch.ops.corr import CorrState, corr_init
 from pvraft_tpu_torch.ops.geometry import Graph
@@ -81,3 +83,36 @@ class PVRaft(nn.Module):
                                                 inp, graph1, valid1)
             flows.append(coords2 - coords1)
         return torch.stack(flows), graph1
+
+
+class PVRaftRefine(nn.Module):
+    """Stage 2 (the reference's ``RAFTSceneFlowRefine``): the stage-1
+    ``backbone`` under ``torch.no_grad()`` (JAX: ``stop_gradient`` on its
+    last flow and on pc1's graph), then a residual head on that flow over
+    pc1's feature graph: SetConvs 3 -> w -> 2w -> 4w (w =
+    ``encoder_width``) and a Linear to 3. ``forward(xyz1, xyz2,
+    num_iters, valid1, valid2)`` returns the refined flow (B, N, 3);
+    ``valid1`` masks the head's GroupNorms as the backbone's."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = PVRaft(cfg)
+        n = cfg.encoder_width
+        self.ref_conv1 = SetConv(3, n)
+        self.ref_conv2 = SetConv(n, 2 * n)
+        self.ref_conv3 = SetConv(2 * n, 4 * n)
+        self.fc = nn.Linear(4 * n, 3)
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                num_iters: int = 32, valid1: Optional[torch.Tensor] = None,
+                valid2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        with torch.no_grad():
+            flows, graph1 = self.backbone(xyz1, xyz2, num_iters, valid1,
+                                          valid2)
+        flow = flows[-1]
+        with record_function("pvraft.refine"):
+            x = self.ref_conv1(flow, graph1, valid1)
+            x = self.ref_conv2(x, graph1, valid1)
+            x = self.ref_conv3(x, graph1, valid1)
+            return flow + self.fc(x)

@@ -120,8 +120,8 @@ def eager_predict_batch(engine: InferenceEngine, requests, bucket: int):
     inputs = engine.padded_batch(requests, bucket)
     x1, x2, v1, v2 = (torch.from_numpy(a).to(engine.device) for a in inputs)
     with torch.no_grad():
-        flows, _ = engine.model(x1, x2, engine.cfg.num_iters, v1, v2)
-    flow = flows[-1].cpu().numpy()
+        out = engine.model(x1, x2, engine.cfg.num_iters, v1, v2)
+    flow = (out if engine.cfg.refine else out[0][-1]).cpu().numpy()
     return [flow[i, : requests[i][0].shape[0]] for i in range(len(requests))]
 
 

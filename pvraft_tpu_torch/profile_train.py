@@ -1,7 +1,7 @@
 """Where a train step's time goes on the card.
 
     python -m pvraft_tpu_torch.profile_train [--seed S] [--fused-gru]
-        [--no-use_pallas] [--top 12]
+        [--no-use_pallas] [--refine] [--top 12]
 
 Trains the flagship ``ModelConfig`` at the ``TrainConfig`` defaults
 (B=2 scenes of 8,192 points, 8 GRU iterations, fp32, Adam) on seeded
@@ -18,7 +18,10 @@ phase, the device-busy time of its forward, backward and optimizer
 phases (the autograd engine launches the backward from its own thread,
 which the device-side ranges of the unsynchronised step do not cover;
 inside one graph the phases cannot be told apart). The graphed line
-gives its programs' capture records. Needs a CUDA device.
+gives its programs' capture records. ``--refine`` profiles the stage-2
+step instead (``flagship_train_config(refine=True)``: a PVRaftRefine, 32
+backbone iterations without autograd, the head's forward, backward and
+Adam). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,20 +36,28 @@ from torch.profiler import record_function
 
 from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
-from pvraft_tpu_torch.engine.steps import scheduled_step, sequence_loss_of
+from pvraft_tpu_torch.engine.steps import (
+    refine_loss_of,
+    scheduled_step,
+    sequence_loss_of,
+)
 from pvraft_tpu_torch.engine.trainer import Trainer
 from pvraft_tpu_torch.profile_serve import nvidia_smi, profile_call
 
 
 def flagship_train_config(seed: int = 0, epochs: int = 1,
-                          **model_kw) -> Config:
+                          refine: bool = False, **model_kw) -> Config:
     """The flagship ModelConfig and the TrainConfig defaults (B=2,
     8 iterations, eval at 32) on 4 seeded FT3D-like synthetic scenes of
-    8,192 points (4 independently moving objects each)."""
+    8,192 points (4 independently moving objects each). ``refine``: the
+    canonical stage-2 run's (``--refine --iters 32``; it evaluates at 32
+    too)."""
     return Config(model=ModelConfig(**model_kw),
                   data=DataConfig(dataset="synthetic", synthetic_size=4,
                                   synthetic_objects=4),
-                  train=TrainConfig(num_epochs=epochs, seed=seed))
+                  train=TrainConfig(num_epochs=epochs, seed=seed,
+                                    refine=refine,
+                                    iters=32 if refine else 8))
 
 
 def phased_step(trainer: Trainer, batch) -> None:
@@ -55,7 +66,11 @@ def phased_step(trainer: Trainer, batch) -> None:
     cfg = trainer.cfg.train
     trainer.optimizer.zero_grad(set_to_none=True)
     with record_function("phase.forward"):
-        loss, _ = sequence_loss_of(trainer.model, batch, cfg.gamma, cfg.iters)
+        if cfg.refine:
+            loss, _ = refine_loss_of(trainer.model, batch, cfg.iters)
+        else:
+            loss, _ = sequence_loss_of(trainer.model, batch, cfg.gamma,
+                                       cfg.iters)
         torch.cuda.synchronize()
     with record_function("phase.backward"):
         loss.backward()
@@ -71,6 +86,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-gru", action="store_true")
     ap.add_argument("--use_pallas", action=argparse.BooleanOptionalAction,
                     default=None)
+    ap.add_argument("--refine", action="store_true",
+                    help="the stage-2 (refine) step")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -78,7 +95,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = flagship_train_config(args.seed, fused_gru=args.fused_gru,
+    cfg = flagship_train_config(args.seed, refine=args.refine,
+                                fused_gru=args.fused_gru,
                                 use_pallas=args.use_pallas)
     gpu = nvidia_smi()
     for path in ("eager", "graphed"):
@@ -99,7 +117,8 @@ def main(argv=None) -> int:
         else:
             row["programs"] = trainer.compile_report()
             row["reserved_bytes"] = torch.cuda.memory_reserved()
-        print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru,
+        print(json.dumps({"gpu": gpu, "refine": args.refine,
+                          "fused_gru": args.fused_gru,
                           "use_pallas": args.use_pallas, "path": path,
                           "batch": 2, "points": cfg.data.max_points,
                           "iters": cfg.train.iters, **row}), flush=True)

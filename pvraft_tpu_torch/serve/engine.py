@@ -6,7 +6,9 @@ padding points on a far diagonal ray beyond ``ServeConfig.coord_limit``
 so that a real point's kNN sets are the unpadded ones; boolean validity
 masks exclude the padding from every GroupNorm statistic and from the
 correlation truncation. Unused batch slots repeat request 0 (every model
-op is batch-parallel). The stage-1 forward runs fp32, without autograd.
+op is batch-parallel). The forward runs fp32, without autograd: stage 1's
+last flow, or with ``ServeConfig.refine`` a ``PVRaftRefine``'s refined
+flow, the validity mask reaching the head's GroupNorms too.
 
 The engine captures its whole (bucket, batch size) table at construction
 (the JAX ``_compile``): one :class:`~pvraft_tpu_torch.serve.aot.GraphProgram`
@@ -35,7 +37,7 @@ import torch
 from pvraft_tpu_torch.config import ModelConfig
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.engine.checkpoint import load_params
-from pvraft_tpu_torch.models.raft import PVRaft
+from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 from pvraft_tpu_torch.serve.aot import (
     GraphProgram,
     capture,
@@ -95,10 +97,6 @@ class ServeConfig:
             raise NotImplementedError(
                 "ServeConfig.dtype='bfloat16' is not ported yet: it arrives "
                 "with the bf16 slice; this slice serves float32")
-        if self.refine:
-            raise NotImplementedError(
-                "ServeConfig.refine is not ported yet: it arrives with the "
-                "stage-2 slice")
         if self.replicas != 1:
             raise NotImplementedError(
                 "ServeConfig.replicas != 1 is not ported yet: it arrives "
@@ -128,7 +126,8 @@ def pad_points(pc: np.ndarray, bucket: int, coord_limit: float) -> np.ndarray:
 
 
 class InferenceEngine:
-    """Weights -> a stage-1 PVRaft on ``device`` serving padded buckets.
+    """Weights -> a PVRaft (``cfg.refine``: a PVRaftRefine) on ``device``
+    serving padded buckets.
 
     ``weights`` is a port state_dict (flat mapping of tensors) or the JAX
     package's flax params tree (nested mapping, mapped by
@@ -144,7 +143,7 @@ class InferenceEngine:
         if any(isinstance(v, Mapping) for v in weights.values()):
             weights = params_from_jax(weights)
         model_cfg = dataclasses.replace(cfg.model, compute_dtype=cfg.dtype)
-        self.model = PVRaft(model_cfg)
+        self.model = (PVRaftRefine if cfg.refine else PVRaft)(model_cfg)
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device).eval()
         pool = (torch.cuda.graph_pool_handle()
@@ -171,14 +170,14 @@ class InferenceEngine:
 
     def _compile(self, bucket: int, bs: int, pool) -> GraphProgram:
         """Capture the forward at (bs, bucket): padded clouds and validity
-        masks in, the last flow out. Warmed up on seeded clouds inside
-        the coordinate limit, every point valid."""
-        model, iters = self.model, self.cfg.num_iters
+        masks in, the last (or refined) flow out. Warmed up on seeded
+        clouds inside the coordinate limit, every point valid."""
+        model, iters, refine = self.model, self.cfg.num_iters, self.cfg.refine
 
         def forward(xyz1, xyz2, valid1, valid2):
             with torch.no_grad():
-                flows, _ = model(xyz1, xyz2, iters, valid1, valid2)
-            return (flows[-1],)
+                out = model(xyz1, xyz2, iters, valid1, valid2)
+            return (out if refine else out[0][-1],)
 
         gen = torch.Generator().manual_seed(bucket * 16 + bs)
         cloud = torch.rand(bs, bucket, 3, generator=gen) * 2 - 1

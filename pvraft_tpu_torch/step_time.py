@@ -1,6 +1,7 @@
 """Step and request times of the flagship model in a process of their own.
 
     python -m pvraft_tpu_torch.step_time [--path eager|graphed] [--seed S]
+        [--refine]
 
 On one CUDA device: the train step (B=2 x 8,192 points, 8 GRU
 iterations, Adam; median of 6 after 2 warm-up steps), the eval step (one
@@ -10,7 +11,11 @@ of 2,048, 8 iterations; median of 5 after 2), each by the host clock
 around one synchronised call, with no profiler attached. ``eager`` runs
 ``Trainer(graphs=False)`` (plain Adam, a float learning rate) and
 ``profile_serve.eager_predict_batch``; ``graphed`` runs the captured
-steps and ``InferenceEngine.predict_batch``. One JSON line.
+steps and ``InferenceEngine.predict_batch``. ``--refine`` times stage 2
+instead: the refine train and eval steps
+(``flagship_train_config(refine=True)``: 32 backbone iterations without
+autograd, the head trained; eval at 32) and ``ServeConfig(refine=True)``
+(needs a checkout with stage 2). One JSON line.
 
 A fresh process is the yardstick for eager times: a long run such as
 ``chip_smoke.py`` reads its eager steps slower than this, by an amount
@@ -55,6 +60,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("eager", "graphed"), default="graphed")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--refine", action="store_true",
+                    help="the stage-2 (refine) steps and requests")
     args = ap.parse_args(argv)
     # Run by path from a checkout's root: import the package found there.
     sys.path.insert(0, os.getcwd())
@@ -78,7 +85,8 @@ def main(argv=None) -> int:
     eager = args.path == "eager" or not has_graphs
     kw = {"graphs": not eager} if has_graphs else {}
 
-    trainer = Trainer(flagship_train_config(args.seed), **kw)
+    stage = {"refine": True} if args.refine else {}
+    trainer = Trainer(flagship_train_config(args.seed, **stage), **kw)
     batch = to_device(first_batch(PrefetchLoader(
         trainer.train_ds, 2, num_workers=0)), trainer.device)
     scene = to_device(first_batch(PrefetchLoader(
@@ -88,8 +96,9 @@ def main(argv=None) -> int:
     del trainer, batch, scene
     torch.cuda.empty_cache()
 
-    cfg = ServeConfig(ModelConfig())
-    engine = InferenceEngine(seeded_state_dict(cfg.model, args.seed), cfg)
+    cfg = ServeConfig(ModelConfig(), **stage)
+    engine = InferenceEngine(seeded_state_dict(cfg.model, args.seed,
+                                               **stage), cfg)
     run = InferenceEngine.predict_batch
     if eager and has_graphs:
         from pvraft_tpu_torch.profile_serve import eager_predict_batch
@@ -106,6 +115,7 @@ def main(argv=None) -> int:
         serve[f"{b}x{n}"] = host_ms(lambda: run(engine, group, n), 5, 2)
     print(json.dumps({
         "gpu": nvidia_smi(), "path": "eager" if eager else "graphed",
+        "refine": args.refine,
         "checkout_has_graphs": has_graphs,
         "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "train_step_ms": statistics.median(train),

@@ -4,7 +4,7 @@
     python -m pvraft_tpu_torch.test --dataset KITTI|FT3D --root ROOT
         --weights EXP/checkpoints/best_checkpoint.msgpack
         [--no_strict_sizes] [--num_workers 8] [--eval_iters 32]
-        [--dump_dir result] [--device cpu] ...
+        [--refine] [--dump_dir result] [--device cpu] ...
 
 ``--dataset KITTI`` evaluates zero-shot on the 142 KITTI scenes of a
 preprocessed tree (``python -m pvraft_tpu_torch.data.preprocess.kitti``),
@@ -13,11 +13,13 @@ preprocessed tree (``python -m pvraft_tpu_torch.data.preprocess.kitti``),
 The reference protocol (``engine/evaluator.py``): one scene per step at
 ``eval_iters`` GRU iterations, running means. ``--weights`` takes a
 msgpack checkpoint of the port or of the JAX package, ``--torch_weights``
-a reference-published ``.params`` file. The flags are ``test.py``'s for
-the fields this slice evaluates with, plus ``--synthetic_objects``,
-``--fused_gru`` and ``--device``; every other flag of ``test.py`` is
-rejected with the slice that brings it. Runs on the card unless
-``--device`` names another device. Prints the means as one JSON line.
+a reference-published ``.params`` file; with ``--refine`` either holds a
+stage-2 (``PVRaftRefine``) model, evaluated at ``eval_iters``. The flags
+are ``test.py``'s for the fields this slice evaluates with, plus
+``--synthetic_objects``, ``--fused_gru`` and ``--device``; every other
+flag of ``test.py`` is rejected with the slice that brings it. Runs on
+the card unless ``--device`` names another device. Prints the means as
+one JSON line.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 
 # test.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--refine": "the stage-2 slice",
     "--seq_parallel": "the parallel slice",
     "--corr_chunk": "the streaming correlation slice",
     "--graph_chunk": "the streaming graph slice",
@@ -74,6 +75,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--eval_batch", type=int, default=0,
                    help="scenes per eval step; one card evaluates one "
                         "scene per step (0 and 1 are the same)")
+    p.add_argument("--refine", action="store_true",
+                   help="evaluate a stage-2 (refine) checkpoint")
     p.add_argument("--weights", default=None,
                    help="a msgpack checkpoint (the port's or the JAX "
                         "package's)")
@@ -103,8 +106,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                         strict_sizes=not a.no_strict_sizes,
                         synthetic_size=a.synthetic_size,
                         synthetic_objects=a.synthetic_objects),
-        train=TrainConfig(eval_iters=a.eval_iters, eval_batch=a.eval_batch,
-                          eval_scan=a.eval_scan),
+        train=TrainConfig(refine=a.refine, eval_iters=a.eval_iters,
+                          eval_batch=a.eval_batch, eval_scan=a.eval_scan),
         exp_path=a.exp_path,
     )
 

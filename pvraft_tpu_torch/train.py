@@ -5,7 +5,8 @@
         [--num_epochs 2] [--batch_size 2] [--max_points 8192] [--iters 8]
         [--eval_iters 32]
         [--fused_gru] [--no-use_pallas] [--device cpu]
-        [--exp_path EXP] [--resume | --weights CKPT] ...
+        [--exp_path EXP] [--resume | --weights CKPT]
+        [--refine [--stage1_weights CKPT]] ...
 
 ``--dataset FT3D`` (the default) trains on a preprocessed FlyingThings3D
 tree (``python -m pvraft_tpu_torch.data.preprocess.flyingthings3d``),
@@ -20,7 +21,11 @@ the final test means as JSON lines. Checkpoints go to
 ``<exp_path>/checkpoints`` (``engine/checkpoint.py``); ``--weights``
 resumes from a checkpoint (parameters, Adam state, schedule position,
 epoch), ``--resume`` from ``last_checkpoint`` where there is one: the
-root ``train.py``'s semantics.
+root ``train.py``'s semantics. ``--refine`` trains stage 2 (the
+``PVRaftRefine`` head on a frozen backbone; the canonical run is
+``--iters 32 --num_epochs 10``), and ``--stage1_weights`` imports a
+stage-1 checkpoint into its backbone first: stage-1 import, then
+``--weights``, then ``--resume``, in the root ``train.py``'s order.
 """
 
 from __future__ import annotations
@@ -40,8 +45,6 @@ from pvraft_tpu_torch.config import (
 
 # train.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--refine": "the stage-2 slice",
-    "--stage1_weights": "the stage-2 slice",
     "--data_parallel": "the parallel slice",
     "--seq_parallel": "the parallel slice",
     "--corr_chunk": "the streaming correlation slice",
@@ -111,6 +114,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="auto-resume from <exp_path>/checkpoints/"
                         "last_checkpoint")
     p.add_argument("--checkpoint_interval", type=int, default=5)
+    p.add_argument("--refine", action="store_true",
+                   help="train stage 2: the refine head on a frozen "
+                        "backbone")
+    p.add_argument("--stage1_weights", default=None,
+                   help="stage-1 checkpoint to import into the backbone "
+                        "(with --refine)")
     p.add_argument("--ckpt_backend", default="msgpack",
                    choices=["msgpack", "orbax"],
                    help="checkpoint format; orbax is refused (not installed "
@@ -126,7 +135,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "input signature it has not captured")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without one)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.stage1_weights and not args.refine:
+        p.error("--stage1_weights needs --refine")
+    return args
 
 
 def config_from_args(a: argparse.Namespace) -> Config:
@@ -146,7 +158,7 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           lr_schedule=a.lr_schedule,
                           strict_retrace=a.strict_retrace,
                           checkpoint_interval=a.checkpoint_interval,
-                          ckpt_backend=a.ckpt_backend),
+                          ckpt_backend=a.ckpt_backend, refine=a.refine),
         exp_path=a.exp_path,
     )
 
@@ -157,6 +169,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     from pvraft_tpu_torch.engine.trainer import Trainer
 
     trainer = Trainer(config_from_args(args), device=args.device)
+    if args.stage1_weights:
+        trainer.load_stage1_weights(args.stage1_weights)
     if args.weights:
         trainer.load_weights(args.weights, resume=True)
     elif args.resume:

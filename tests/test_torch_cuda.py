@@ -18,8 +18,8 @@ kernels do not take (K past 512, knn past 32 and up to K, resolutions
 The captured paths: a config the tuned kernels do not take runs the
 general kernel under ``use_pallas=None`` and ``True`` and the plain
 version under ``False``; the serve programs' replays (their kernel launches measured
-by the profiler) and three graphed train steps equal their eager runs
-bitwise.
+by the profiler) and three graphed train steps, stage 1's and stage 2's
+(refine), equal their eager runs bitwise.
 """
 
 import numpy as np
@@ -395,6 +395,54 @@ def test_graphed_train_step_equals_eager_on_the_card(dev, monkeypatch):
         torch.use_deterministic_algorithms(False)
     assert len(steps["graphed"].graphs.report()) == 2
     assert steps["graphed"].graphs.retraces
+
+
+def test_graphed_refine_step_equals_eager_on_the_card(dev, monkeypatch):
+    """Stage 2: three captured refine steps (the backbone's iterations
+    without autograd, the head's forward, backward and capturable Adam)
+    against the eager refine step under deterministic algorithms: losses
+    and parameters bitwise, the backbone unchanged."""
+    from pvraft_tpu_torch.engine.schedule import make_lr_schedule
+    from pvraft_tpu_torch.engine.steps import (
+        make_graphed_refine_train_step,
+        make_refine_train_step,
+    )
+    from pvraft_tpu_torch.models import PVRaftRefine
+    from pvraft_tpu_torch.weights import trained_parameters
+
+    tiny = ModelConfig(truncate_k=64, corr_knn=16, graph_k=8, fused_gru=True)
+    weights = seeded_state_dict(tiny, 0, refine=True)
+    schedule = make_lr_schedule("cosine", 1e-3, 1, 4, 4)
+    ds = SyntheticDataset(size=6, nb_points=256, noise=0.01, seed=1,
+                          n_objects=3)
+    steps, models = {}, {}
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("graphed", "eager"):
+            model = PVRaftRefine(tiny).to(dev)
+            model.load_state_dict(weights)
+            opt = torch.optim.Adam(
+                [p for _, p in trained_parameters(model)],
+                lr=torch.tensor(1e-3, device=dev), capturable=True)
+            steps[name] = (
+                make_graphed_refine_train_step(model, opt, schedule, 4, dev)
+                if name == "graphed" else
+                make_refine_train_step(model, opt, schedule, 4))
+            models[name] = model
+        for i in range(3):
+            batch = to_device(collate([ds[2 * i], ds[2 * i + 1]]), dev)
+            g, e = steps["graphed"](batch), steps["eager"](batch)
+            assert torch.equal(g["loss"], e["loss"]), i
+            assert torch.equal(g["epe"], e["epe"]), i
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (n, p), q in zip(models["graphed"].named_parameters(),
+                         models["eager"].parameters()):
+        assert torch.equal(p, q), n
+        if n.startswith("backbone."):
+            assert torch.equal(p.cpu(), weights[n]), n
+    assert [r["graph"] for r in steps["graphed"].graphs.report()] == [True]
 
 
 def _flax_tree(state):

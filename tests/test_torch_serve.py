@@ -115,8 +115,7 @@ def test_engine_needs_cuda_unless_cpu_is_named(monkeypatch):
     assert TEngine(weights, cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [{"dtype": "bfloat16"}, {"replicas": 2},
-                                {"refine": True}])
+@pytest.mark.parametrize("kw", [{"dtype": "bfloat16"}, {"replicas": 2}])
 def test_serve_config_rejects_later_slices(kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TServeConfig(model=TConfig(**TINY), buckets=(32, 64), **kw)

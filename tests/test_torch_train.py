@@ -167,7 +167,6 @@ def test_train_and_data_config_defaults_match_jax():
 @pytest.mark.parametrize("cls,kw", [
     (tconfig.TrainConfig, {"grad_dtype": "bfloat16"}),
     (tconfig.TrainConfig, {"telemetry": True}),
-    (tconfig.TrainConfig, {"refine": True}),
     (tconfig.TrainConfig, {"ckpt_backend": "orbax"}),
     (tconfig.TrainConfig, {"eval_batch": 4}),
     (tconfig.TrainConfig, {"halt_on_divergence": True}),
