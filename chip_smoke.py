@@ -115,6 +115,26 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            ``fit``'s test means, all bitwise; ``ServeConfig(refine=True)``
            from the checkpoint, replays against eager bitwise, request
            times;
+  phase 10 bfloat16 (``bf16``, ``bf16_phase``; run after phase 9, before
+           the profiler phases): the bf16 GRU kernel
+           (``csrc/gru_iter_bf16.cu``) against ``gru_math`` at bf16 at 1 x
+           8192 at the flagship's and phase 1's general widths, and at
+           width 64 at every shape of phase 1 (1 x 8192, 2 x 8192,
+           4 x 8192, 4 x 4096, 1 x 2048: those of the bf16 serve groups
+           and train steps) (BF16_OP_TOL, see there), with kernel, plain
+           and library (the unfused bf16 modules) device times and the
+           bound by bytes or bf16 tensor-core operations; the flagship
+           serve table at the
+           ``ServeConfig`` default dtype (bfloat16), graphed, fused_gru
+           off and on, phase 2's requests replayed against the eager
+           forward bitwise, and bf16 against float32 engines on the same
+           weights at 1 and 8 iterations (mean and relative EPE; the
+           relative bound 0.15 held at 1); a bf16 refine request and the
+           bf16 eval step graphed against eager bitwise; 10 graphed bf16
+           train steps (B=2 x 8,192, fused_gru, ``grad_dtype`` bfloat16)
+           that must lower the loss, one step graphed against eager
+           bitwise under ``deterministic()``, step and eval times, peak
+           memory;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -122,8 +142,11 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
   phase 7  the launches of the main paths (``launches_phase``): each
            serve group of phases 2 and 4, one train step and one eval step
            of every way of phase 3, stage 2's train and eval steps and
-           requests (phase 9), each pass alone under
-           ``torch.profiler`` with the counts zeroed just before it.
+           requests (phase 9), the bf16 serve groups (fused_gru off and
+           on) and a bf16 train and eval step (phase 10), each pass alone
+           under ``torch.profiler`` with the counts zeroed just before it.
+           Phases 2, 4-7 and 9 serve at ``dtype="float32"``, asked for
+           explicitly (the default is bfloat16).
 
 Launch counts: a wrapper counts its eager launches where it launches
 its kernel; a replayed graph runs no wrapper, so every count on a
@@ -133,9 +156,10 @@ each program's capture recorded are the cross-check. Phases 6 and 7 run
 last: a profiler session leaves the process's eager launches slower, so
 it would tilt the eager-against-graphed times of phases 2-4. The
 ``kernels`` line lists the three tuned kernels (launches from phase 7 and
-the kernel bench) and the two general ones (launches from phase 6).
+the kernel bench), the two general ones (launches from phase 6) and the
+bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 9, 10, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -160,12 +184,13 @@ from pvraft_tpu_torch.kernel_bench import device_ms
 from pvraft_tpu_torch.ops.cuda import KERNEL_SYMBOLS, gru_variant, lookup_variant
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
-# CUDA-core FLOP/s and dense TF32 tensor-core FLOP/s. The bound of a kernel
+# CUDA-core FLOP/s and dense TF32 and bf16 tensor-core FLOP/s. The bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
 # the compute rate of the units it runs on.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 LOOKUP_SHAPES = ((1, 8192), (2, 8192), (4, 8192), (4, 4096), (1, 2048))
 TRAIN_SHAPE = (2, 8192)      # B x N of the train step and the kernel bench
@@ -242,7 +267,8 @@ LOOKUP_KERNELS = {"tuned": "fused_corr_lookup",
                   "general": "corr_lookup_general"}
 VOXEL_KERNELS = {"tuned": "voxel_bin_means_pallas",
                  "general": "corr_lookup_general"}
-GRU_KERNELS = {"tuned": "fused_gru_update", "general": "gru_iter_general"}
+GRU_KERNELS = {"tuned": "fused_gru_update", "general": "gru_iter_general",
+               "bf16": "gru_iter_bf16"}
 
 
 def captured_share(report, want):
@@ -496,6 +522,116 @@ def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None):
     }
 
 
+# The bf16 kernel against gru_math at bf16: the JAX package's op-level bf16
+# bar (tests/test_fused_gru.py::test_op_forward_parity_bf16). Two
+# implementations that sum a product's float32 terms in different orders
+# round a few values to neighbouring bf16s; where such a value is a large
+# partial sum of a small result (px_q against the r-gate product, ~2 each,
+# one bf16 ulp 0.0156), the new state moves by up to ~0.016. So at 1 x 8192
+# a handful of outputs in a million pass 1e-2 in any two of them: measured
+# on the host, gru_math on bf16 products against gru_math on float32
+# products of the same bf16 values, 1 of 786,432 at width 96 (0.0116) and
+# 1 of 1,048,576 at width 128 (0.0130). The kernel is held to the bar at
+# all but BF16_STRAY of its outputs, and every output to BF16_OP_TOL with
+# atol widened to FLOOR_FACTOR x the plain version's own spread across
+# sum orders in this run (gru_math on the card against gru_math on the
+# host), where that is larger. The unfused bf16 modules (the library
+# yardstick) round at other places (one product per concatenated Dense),
+# so they are held to the model-level bar at one iteration
+# (test_model_forward_parity_bf16_one_iter).
+BF16_OP_TOL = {"rtol": 1e-2, "atol": 1e-2}
+BF16_STRAY = 1e-5            # share of outputs that may pass BF16_OP_TOL
+BF16_MODEL_TOL = {"rtol": 0.05, "atol": 0.03}
+
+
+def beyond(got, want, rtol, atol) -> int:
+    """How many elements of ``got`` lie beyond rtol/atol of ``want``."""
+    return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+
+def within(got, want, rtol, atol) -> bool:
+    return beyond(got, want, rtol, atol) == 0
+
+
+def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None):
+    """Holds the bf16 kernel (``csrc/gru_iter_bf16.cu``, through
+    ``fused_gru_update(..., torch.bfloat16)``) against ``gru_math`` at
+    bf16 on the operands the bf16 model hands it (cor bf16, the rest
+    float32): BF16_OP_TOL, two launches bitwise equal; the unfused bf16
+    MotionEncoder + ConvGRU modules (the library yardstick) against it at
+    BF16_MODEL_TOL; times all three. Bound: bytes, or the same operations
+    on the bf16 tensor cores."""
+    from pvraft_tpu_torch.models.update import ConvGRU, MotionEncoder
+    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update, gru_math
+
+    c = h if c is None else c
+    bf16 = torch.bfloat16
+    me, gru, args, flow = gru_inputs(rng, b, n, dev, 1.0, h, c)
+    net, inp, cor, flow8, weights = args
+    args = (net, inp, cor.to(bf16), flow8, weights, bf16)
+    before = read_counts()["gru_iter_bf16"]
+    got = fused_gru_update(*args)
+    again = fused_gru_update(*args)
+    want = gru_math(*args)
+    torch.cuda.synchronize()
+    check(read_counts()["gru_iter_bf16"] == before + 2,
+          f"gru bf16 {h}/{c}: gru_iter_bf16 did not run it")
+    check(got.dtype == torch.float32, f"gru bf16: output {got.dtype}")
+    err = float((got - want).abs().max())
+    host = gru_math(*(a.cpu() for a in args[:4]),
+                    tuple(w.cpu() for w in weights), bf16)
+    floor = float((want.cpu() - host).abs().max())
+    stray = beyond(got, want, **BF16_OP_TOL)
+    atol = max(BF16_OP_TOL["atol"], FLOOR_FACTOR * floor)
+    check(stray <= BF16_STRAY * got.numel()
+          and within(got, want, BF16_OP_TOL["rtol"], atol),
+          f"gru bf16 {b}x{n} {h}/{c}: max |err| {err}, {stray} outputs "
+          f"beyond {BF16_OP_TOL}; the plain version across sum orders "
+          f"{floor}")
+    check(torch.equal(got, again),
+          f"gru bf16 {b}x{n} {h}/{c}: launches not bitwise equal")
+    menc = MotionEncoder(h, WIDTH, bf16).to(dev)
+    cgru = ConvGRU(h, c + h, bf16).to(dev)
+    with torch.no_grad():
+        for layer, (w, bias) in zip(
+                (menc.conv_corr, menc.conv_flow, menc.conv,
+                 cgru.convz, cgru.convr, cgru.convq),
+                zip((*me, *gru)[0::2], (*me, *gru)[1::2])):
+            layer.weight.copy_(w.t())
+            layer.bias.copy_(bias)
+    cor = args[2]
+
+    def unfused():
+        with torch.no_grad():
+            motion = menc(flow, cor)
+            return cgru(net, torch.cat([inp.to(motion.dtype), motion], -1))
+
+    lib = unfused()
+    lib_err = float((lib - want).abs().max())
+    check(within(lib, want, **BF16_MODEL_TOL),
+          f"gru bf16 {b}x{n}: unfused bf16 modules differ by {lib_err}")
+    weight_bytes = sum(4 * w.numel() for w in weights)
+    # Per point: net, inp and flow8 (float32) and cor (bf16) read, the new
+    # net (float32) written.
+    bytes_ = b * n * (4 * (2 * h + c + 8) + 2 * WIDTH) + weight_bytes
+    flops = 2 * b * n * (WIDTH * h + 8 * h + 2 * h * h
+                         + (c + h + 8) * 3 * h + h * 3 * h)
+    return {
+        "kernel": "gru_iter_bf16", "shape": [b, n, h, c],
+        "max_abs_err": err, **BF16_OP_TOL, "beyond_op_tol": stray,
+        "plain_host_vs_card_max": floor, "atol_used": atol,
+        "bitwise_repeat": True,
+        "library_max_abs_err": lib_err,
+        "ms": device_ms(lambda: fused_gru_update(*args)),
+        "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
+        "plain_ms": device_ms(lambda: gru_math(*args)),
+        "library_ms": device_ms(unfused),
+        "bytes": bytes_, "ops": flops,
+        **bound(bytes_, flops, BF16_FLOPS_PER_S),
+        "fp32_bound_ms": bound(bytes_, flops)["bound_ms"],
+    }
+
+
 def voxel_case(name, corr, xyz, coords, scale, levels=LEVELS,
                res=RESOLUTION):
     """Holds the voxel Function's kernel (the tuned one where it takes the
@@ -611,6 +747,9 @@ GENERAL_GRU_WIDTHS = {"width32": (32, 32), "width96": (96, 96),
 # The kernels line's shapes: those of phase 6's requests, whose launches
 # the line reports.
 MAIN_GENERAL = ("k1024_knn64_r3", "hidden32_context96")
+# (hidden, context) widths of the bf16 kernel's checks at 1 x 8192: the
+# flagship's and phase 1's general ones.
+BF16_GRU_WIDTHS = {"width64": (WIDTH, WIDTH), **GENERAL_GRU_WIDTHS}
 
 
 def check_general(rng, dev):
@@ -761,10 +900,12 @@ def serve_phase(seed, dev):
     results, flows, flows1 = {}, {}, {}
     for name, kw in SERVE_WAYS:
         one = InferenceEngine(state, ServeConfig(ModelConfig(**kw),
-                                                 num_iters=1), device=dev)
+                                                 num_iters=1, dtype="float32"),
+                              device=dev)
         flows1[name], _ = drive(one, requests)
         del one
-        engine = InferenceEngine(state, ServeConfig(ModelConfig(**kw)),
+        engine = InferenceEngine(state, ServeConfig(ModelConfig(**kw),
+                                                    dtype="float32"),
                                  device=dev)
         drive(engine, requests)                       # warm-up
         torch.cuda.synchronize()
@@ -1022,7 +1163,7 @@ def graph_serve(seed, dev):
     from pvraft_tpu_torch.serve.aot import first_difference
     from pvraft_tpu_torch.weights import seeded_state_dict
 
-    cfg = ServeConfig()
+    cfg = ServeConfig(dtype="float32")
     state = seeded_state_dict(cfg.model, seed)
     requests = serve_requests(np.random.default_rng(seed + 1))
     torch.cuda.synchronize()
@@ -1361,7 +1502,8 @@ def checkpoint_phase(seed, dev):
         check(means == whole["test"],
               f"evaluator on best_checkpoint {means} against fit's test "
               f"means {whole['test']}")
-        serve_cfg = ServeConfig(buckets=(8192,), batch_sizes=(1,))
+        serve_cfg = ServeConfig(buckets=(8192,), batch_sizes=(1,),
+                                dtype="float32")
         engine = InferenceEngine.from_checkpoint(best, serve_cfg, device=dev)
         check(engine.checkpoint_path == best
               and engine.checkpoint_epoch in (0, 1),
@@ -2079,7 +2221,8 @@ def refine_phase(seed, dev):
                       "checkpoint_bytes": os.path.getsize(best)}
         del runs, a, b
 
-        serve_cfg = ServeConfig(cfg.model, refine=True, **REFINE_SERVE)
+        serve_cfg = ServeConfig(cfg.model, refine=True, dtype="float32",
+                                **REFINE_SERVE)
         engine = InferenceEngine.from_checkpoint(best, serve_cfg, device=dev)
         groups = []
         for kind, group, bucket in serve_requests(
@@ -2121,6 +2264,225 @@ def refine_phase(seed, dev):
     return out
 
 
+# -------------------------------------------------------------- phase 10 --
+
+BF16_SERVE_WAYS = SERVE_WAYS[:2]   # fused_gru off and on, the kernels
+BF16_TRAIN_STEPS = 10        # graphed bf16 train steps (4 scenes, bs 2)
+
+
+def want_bf16(name, iters, calls=1):
+    """The kernel launches of ``calls`` bf16 serve calls (or steps) of
+    ``iters`` GRU iterations each: the lookup stays the float32 tuned
+    kernel, the fused update is the bf16 kernel."""
+    n = iters * calls
+    return {**NO_LAUNCHES, "fused_corr_lookup": n,
+            "gru_iter_bf16": n if name == "fused_gru" else 0}
+
+
+def epe_against(a, b):
+    """Mean endpoint error of flows ``a`` against ``b`` over every real
+    point of every request, and that relative to ``b``'s mean norm."""
+    err = np.concatenate([np.linalg.norm(x - y, axis=-1)
+                          for ga, gb in zip(a, b) for x, y in zip(ga, gb)])
+    mag = np.concatenate([np.linalg.norm(y, axis=-1) for g in b for y in g])
+    return {"mean_epe": float(err.mean()),
+            "rel_epe": float(err.mean() / mag.mean())}
+
+
+def replay_vs_eager(engine, group, bucket, dev):
+    """A group's replay against ``engine.model`` run eagerly on the same
+    padded inputs: (bitwise, max |dflow|)."""
+    padded = engine.padded_batch(group, bucket)
+    program = engine.program(bucket, padded[0].shape[0])
+    zero_counts()
+    engine.predict_batch(group, bucket)
+    check(read_counts() == NO_LAUNCHES,
+          f"bf16 serve {bucket}: a wrapper launched eagerly in a replay: "
+          f"{read_counts()}")
+    replay = program.outputs[0].clone()
+    inputs = [torch.from_numpy(x).to(dev) for x in padded]
+    with torch.no_grad():
+        eager = engine.model(inputs[0], inputs[1], engine.cfg.num_iters,
+                             *inputs[2:])
+    eager = eager if engine.cfg.refine else eager[0][-1]
+    return torch.equal(replay, eager), float((replay - eager).abs().max())
+
+
+def bf16_phase(seed, dev):
+    """The bf16 slice (``bf16``; after phase 9, before the profiler
+    phases). (1) The bf16 GRU kernel against ``gru_math`` at bf16 at 1 x
+    8192 at every width of BF16_GRU_WIDTHS and at width 64 at every
+    (B, N) of LOOKUP_SHAPES, the shapes the bf16 serve groups and train
+    steps launch it at (``check_gru_bf16``), timed.
+    (2) The flagship serve table at the ``ServeConfig`` default dtype
+    (bfloat16), graphed, fused_gru off and on: phase 2's requests, each
+    group's replay against the eager forward bitwise, request times;
+    bf16 against float32 engines on the same seeded weights at 1 and 8
+    iterations (mean EPE and relative EPE; the relative bound
+    SERVE_BF16_REL_EPE_BOUND held at 1 iteration, the 8-iteration reading
+    printed). (3) A bf16 refine request and the bf16 eval step, each
+    graphed against eager bitwise. (4) BF16_TRAIN_STEPS graphed bf16
+    train steps (B=2 x 8,192, fused_gru, ``grad_dtype="bfloat16"``) that
+    must lower the loss, and one step graphed against eager under
+    ``deterministic()`` bitwise (loss and parameters); step and eval
+    times, the step's peak memory. No wrapper launches eagerly on a
+    graphed path; phase 7 counts what the replays launched."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+    from pvraft_tpu_torch.engine.steps import make_eval_step
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.serve.engine import SERVE_BF16_REL_EPE_BOUND
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    rng = np.random.default_rng(seed + 17)
+    kernel = {name: check_gru_bf16(rng, *MAIN_SHAPE, dev, h=h, c=c)
+              for name, (h, c) in BF16_GRU_WIDTHS.items()}
+    shapes = {f"{b}x{n}": check_gru_bf16(rng, b, n, dev)
+              for b, n in LOOKUP_SHAPES}
+    out = {"kernel": kernel, "shapes": shapes}
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    requests = serve_requests(np.random.default_rng(seed + 1))
+    serve = {}
+    for name, kw in BF16_SERVE_WAYS:
+        cfg = ServeConfig(ModelConfig(**kw))
+        check(cfg.dtype == "bfloat16", f"ServeConfig().dtype {cfg.dtype}")
+        engine = InferenceEngine(state, cfg, device=dev)
+        report = engine.compile_report()
+        check(all(r["graph"] and r["name"].startswith("predict_bf16_")
+                  for r in report)
+              and captured_share(report, want_bf16(name, cfg.num_iters)),
+              f"bf16 serve {name}: programs {report}")
+        drive(engine, requests)                       # warm-up
+        zero_counts()
+        flows8, times = drive(engine, requests)
+        check(read_counts() == NO_LAUNCHES,
+              f"bf16 serve {name}: a wrapper launched eagerly")
+        groups = []
+        for (kind, group, bucket), t in zip(requests, times):
+            bitwise, diff = replay_vs_eager(engine, group, bucket, dev)
+            check(bitwise, f"bf16 serve {name} {kind} {bucket}: replay vs "
+                           f"eager max |dflow| {diff}")
+            groups.append({**t, "bitwise": bitwise})
+        del engine
+        ref8 = InferenceEngine(state, dataclasses.replace(
+            cfg, dtype="float32"), device=dev)
+        f32_8, _ = drive(ref8, requests)
+        del ref8
+        one = {}
+        for dtype in ("bfloat16", "float32"):
+            engine = InferenceEngine(state, dataclasses.replace(
+                cfg, dtype=dtype, num_iters=1), device=dev)
+            one[dtype], _ = drive(engine, requests)
+            del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        vs1 = epe_against(one["bfloat16"], one["float32"])
+        vs8 = epe_against(flows8, f32_8)
+        check(vs1["rel_epe"] <= SERVE_BF16_REL_EPE_BOUND,
+              f"bf16 serve {name}: relative EPE against float32 at 1 "
+              f"iteration {vs1} > {SERVE_BF16_REL_EPE_BOUND}")
+        serve[name] = {"groups": groups, "programs": report,
+                       "vs_float32": {"iters1": vs1, "iters8": vs8}}
+    out["serve"] = {**serve, "rel_epe_bound_iters1": SERVE_BF16_REL_EPE_BOUND}
+
+    # A refine request at bf16, replay against eager.
+    refine_state = seeded_state_dict(ModelConfig(), seed, refine=True)
+    rcfg = ServeConfig(refine=True, buckets=(8192,), batch_sizes=(1,))
+    engine = InferenceEngine(refine_state, rcfg, device=dev)
+    kind, group, bucket = requests[0]
+    drive(engine, [requests[0]])
+    bitwise, diff = replay_vs_eager(engine, group, bucket, dev)
+    check(bitwise, f"bf16 refine serve: replay vs eager max |dflow| {diff}")
+    _, rtimes = drive(engine, [requests[0]])
+    out["refine_serve"] = {"bitwise": bitwise, "request": rtimes[0],
+                           "program": engine.compile_report()[0]["name"]}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Training and evaluation at bf16 with bf16 gradients, fused_gru.
+    tcfg = flagship_train_config(seed, epochs=BF16_TRAIN_STEPS // 2,
+                                 grad_dtype="bfloat16", fused_gru=True,
+                                 compute_dtype="bfloat16")
+    with deterministic():
+        one_step = {}
+        for path in ("graphed", "eager"):
+            trainer = Trainer(tcfg, device=dev, weights=state,
+                              graphs=path == "graphed", capturable=True)
+            batch = to_device(first_batch(PrefetchLoader(
+                trainer.train_ds, 2, num_workers=0)), dev)
+            loss = float(trainer.train_step(batch)["loss"])
+            one_step[path] = (loss, {n: p.detach().clone() for n, p in
+                                     trainer.model.named_parameters()})
+            del trainer, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    (lg, pg), (le, pe) = one_step["graphed"], one_step["eager"]
+    if not (lg == le and all(torch.equal(pg[n], pe[n]) for n in pg)):
+        start = {n: t.to(dev) for n, t in state.items()}
+        raise RuntimeError(f"bf16 train: one graphed step against eager: "
+                           f"loss {lg} / {le}, parameters "
+                           f"{param_agreement(pg, pe, start)}")
+    del one_step, pg, pe
+    torch.cuda.synchronize()
+    memory = memory_state()
+    trainer = Trainer(tcfg, device=dev, weights=state)
+    zero_counts()
+    losses = []
+    for epoch in range(tcfg.train.num_epochs):
+        losses += trainer.training(epoch)["losses"]
+    torch.cuda.synchronize()
+    wrapper = read_counts()
+    programs = trainer.compile_report()
+    check(wrapper == NO_LAUNCHES and all(p["graph"] for p in programs)
+          and captured_share(programs[:1],
+                             want_bf16("fused_gru", tcfg.train.iters))
+          and captured_share(programs[1:],
+                             want_bf16("fused_gru", tcfg.train.eval_iters)),
+          f"bf16 train: wrapper launches {wrapper} or captures {programs}")
+    check(len(losses) == BF16_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"bf16 train: losses {losses}")
+    first3, last3 = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(last3 < first3, f"bf16 train: mean loss of the last 3 steps "
+                          f"{last3} is not below the first 3 {first3}")
+    batch = to_device(first_batch(PrefetchLoader(
+        trainer.train_ds, 2, num_workers=0)), dev)
+    scene = to_device(first_batch(PrefetchLoader(
+        trainer.val_ds, 1, num_workers=0)), dev)
+    metrics, flow = trainer.eval_step(scene)
+    metrics = {k: v.clone() for k, v in metrics.items()}
+    flow = flow.clone()
+    eager_metrics, eager_flow = make_eval_step(
+        trainer.model, tcfg.train.eval_iters, tcfg.train.gamma,
+        per_scene=True)(scene)
+    eval_bitwise = torch.equal(flow, eager_flow) and all(
+        torch.equal(metrics[k], eager_metrics[k]) for k in metrics)
+    check(eval_bitwise, f"bf16 eval step: graphed vs eager max |dflow| "
+                        f"{float((flow - eager_flow).abs().max())}")
+    eval_ms = cuda_ms(lambda: trainer.eval_step(scene), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=TIMED_STEPS,
+                      warmup=2)
+    out["train"] = {
+        "steps": BF16_TRAIN_STEPS, "losses": losses, "first3_mean": first3,
+        "last3_mean": last3, "one_step_graphed_vs_eager_bitwise": True,
+        "grad_dtype": tcfg.train.grad_dtype, "fused_gru": True,
+        "train_step_ms": step_ms,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "memory_before": memory, "programs": programs,
+        "eval": {"iters": tcfg.train.eval_iters, "bitwise": eval_bitwise,
+                 "eval_step_ms": eval_ms,
+                 "metrics": {k: v.tolist() for k, v in metrics.items()}}}
+    del trainer, batch, scene
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------- phase 6 --
 
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
@@ -2148,7 +2510,8 @@ def off_flagship_phase(seed, dev):
     for name, kw in OFF_FLAGSHIP:
         model = ModelConfig(**kw)
         state = seeded_state_dict(model, seed)
-        cfg = ServeConfig(model, buckets=(8192,), batch_sizes=(1,))
+        cfg = ServeConfig(model, buckets=(8192,), batch_sizes=(1,),
+                          dtype="float32")
         engine = InferenceEngine(state, cfg, device=dev)
         (flows, times), counts, wrapper = measured(
             lambda: drive(engine, [request]))
@@ -2167,7 +2530,8 @@ def off_flagship_phase(seed, dev):
         for plain in (False, True):
             m = dataclasses.replace(model, use_pallas=False if plain else None)
             engine = InferenceEngine(state, ServeConfig(
-                m, buckets=(8192,), batch_sizes=(1,), num_iters=1), device=dev)
+                m, buckets=(8192,), batch_sizes=(1,), num_iters=1,
+                dtype="float32"), device=dev)
             one[plain], _ = drive(engine, [request])
             del engine
         d1 = point_diffs(one[False], one[True])
@@ -2193,7 +2557,10 @@ def launches_phase(seed, dev):
     one eval step of a freshly captured ``Trainer``, every way of phases 2
     and 3, and of stage 2 (phase 9): one refine train step and one refine
     eval step (32 iterations) with fused_gru off and on, and phase 2's
-    first two request groups through a refine engine. The kernels the
+    first two request groups through a refine engine, and of the bf16
+    slice (phase 10): every serve group through an engine at the default
+    dtype (bfloat16), fused_gru off and on, and one bf16 train step and
+    eval step with fused_gru. The kernels the
     card ran are counted by their device symbols
     (``measured``): what the replays launched, which no wrapper sees.
     Each pass must launch what its capture recorded and no wrapper may
@@ -2212,7 +2579,7 @@ def launches_phase(seed, dev):
     requests = serve_requests(np.random.default_rng(seed + 1))
     serve = {}
     for name, kw in SERVE_WAYS:
-        cfg = ServeConfig(ModelConfig(**kw))
+        cfg = ServeConfig(ModelConfig(**kw), dtype="float32")
         engine = InferenceEngine(state, cfg, device=dev)
         total = dict(NO_LAUNCHES)
         for request in requests:
@@ -2273,7 +2640,7 @@ def launches_phase(seed, dev):
         del trainer, batch, scene
         gc.collect()
         torch.cuda.empty_cache()
-    cfg = ServeConfig(refine=True, **REFINE_SERVE)
+    cfg = ServeConfig(refine=True, dtype="float32", **REFINE_SERVE)
     engine = InferenceEngine(refine_state, cfg, device=dev)
     refine["serve"] = dict(NO_LAUNCHES)
     for request in requests[:2]:
@@ -2287,6 +2654,44 @@ def launches_phase(seed, dev):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    bf16 = {}
+    for name, kw in BF16_SERVE_WAYS:
+        cfg = ServeConfig(ModelConfig(**kw))
+        engine = InferenceEngine(state, cfg, device=dev)
+        total = dict(NO_LAUNCHES)
+        for request in requests:
+            _, counts, wrapper = measured(lambda: drive(engine, [request]))
+            want = want_bf16(name, cfg.num_iters)
+            check(counts == want and wrapper == NO_LAUNCHES,
+                  f"launches: bf16 serve {name} {request[0]} {request[2]}: "
+                  f"the card ran {counts} (wrappers {wrapper}), expected "
+                  f"{want}")
+            total = {k: total[k] + counts[k] for k in total}
+        bf16[f"serve_{name}"] = total
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    trainer = Trainer(flagship_train_config(
+        seed, grad_dtype="bfloat16", fused_gru=True,
+        compute_dtype="bfloat16"), device=dev, weights=state)
+    batch = to_device(first_batch(PrefetchLoader(
+        trainer.train_ds, 2, num_workers=0)), dev)
+    scene = to_device(first_batch(PrefetchLoader(
+        trainer.val_ds, 1, num_workers=0)), dev)
+    t = trainer.cfg.train
+    bf16["fused_gru"] = {}
+    for step, run, iters in (
+            ("train_step", lambda: trainer.train_step(batch), t.iters),
+            ("eval_step", lambda: trainer.eval_step(scene), t.eval_iters)):
+        _, counts, wrapper = measured(run)
+        want = want_bf16("fused_gru", iters)
+        check(counts == want and wrapper == NO_LAUNCHES,
+              f"launches: bf16 {step}: the card ran {counts} (wrappers "
+              f"{wrapper}), expected {want}")
+        bf16["fused_gru"][step] = counts
+    del trainer, batch, scene
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer = Trainer(flagship_train_config(seed), device=dev, weights=state,
                       graphs=False)
     batch = to_device(first_batch(PrefetchLoader(
@@ -2298,7 +2703,7 @@ def launches_phase(seed, dev):
     del trainer, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"serve": serve, "train": train, "refine": refine,
+    return {"serve": serve, "train": train, "refine": refine, "bf16": bf16,
             "eager_train_step_ms_after_profiler": after_ms}
 
 
@@ -2411,6 +2816,9 @@ def main() -> int:
     refine = refine_phase(args.seed, dev)
     emit({"phase": "refine", **refine})
 
+    bf16 = bf16_phase(args.seed, dev)
+    emit({"phase": "bf16", **bf16})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -2427,34 +2835,42 @@ def main() -> int:
     extra = {"fused_corr_lookup": {"model_inputs_ms": lookup_model["ms"],
                                    "split_ms": split["synthetic"]},
              "fused_gru_update": {
-                 "fp32_bound_ms": gru[main_key]["fp32_bound_ms"]}}
-    for name, source, replaces, res, runs, key in (
+                 "fp32_bound_ms": gru[main_key]["fp32_bound_ms"]},
+             "gru_iter_bf16": {
+                 "fp32_bound_ms": bf16["kernel"]["width64"]["fp32_bound_ms"],
+                 "dtype": "bfloat16"}}
+    bf16_steps = launches["bf16"]["fused_gru"]
+    for name, source, replaces, res, runs, key, per_step in (
             ("fused_corr_lookup", "pvraft_tpu_torch/csrc/corr_lookup.cu",
              "pvraft_tpu/ops/pallas/corr_lookup.py:109",
              {**lookup, **lookup_edges, "model_inputs": lookup_model},
-             launches["serve"]["fused_gru"], main_key),
+             launches["serve"]["fused_gru"], main_key, steps),
             ("fused_gru_update", "pvraft_tpu_torch/csrc/gru_iter.cu",
              "pvraft_tpu/ops/pallas/gru_iter.py:129", {**gru, **gru_edges},
-             launches["serve"]["fused_gru"], main_key),
+             launches["serve"]["fused_gru"], main_key, steps),
             ("voxel_bin_means_pallas", "pvraft_tpu_torch/csrc/voxel_corr.cu",
              "pvraft_tpu/ops/pallas/voxel_corr.py:114",
-             {**voxel, **voxel_edges}, kbench["launches"], main_key),
+             {**voxel, **voxel_edges}, kbench["launches"], main_key, steps),
             ("corr_lookup_general",
              "pvraft_tpu_torch/csrc/corr_lookup_general.cu",
              "pvraft_tpu/ops/pallas/corr_lookup.py:109",
              {**general["lookup"],
               **{f"voxel_{k}": v for k, v in general["voxel"].items()}},
-             off_runs, MAIN_GENERAL[0]),
+             off_runs, MAIN_GENERAL[0], steps),
             ("gru_iter_general", "pvraft_tpu_torch/csrc/gru_iter_general.cu",
              "pvraft_tpu/ops/pallas/gru_iter.py:129", general["gru"],
-             off_runs, MAIN_GENERAL[1])):
+             off_runs, MAIN_GENERAL[1], steps),
+            ("gru_iter_bf16", "pvraft_tpu_torch/csrc/gru_iter_bf16.cu",
+             "pvraft_tpu/ops/pallas/gru_iter.py:129",
+             {**bf16["kernel"], **bf16["shapes"]},
+             launches["bf16"]["serve_fused_gru"], "width64", bf16_steps)):
         r = res[key]
         check(runs[name] > 0, f"{name}: no launch on its main path")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[name],
-            "train_launches_per_step": steps["train_step"][name],
-            "eval_launches_per_step": steps["eval_step"][name],
+            "train_launches_per_step": per_step["train_step"][name],
+            "eval_launches_per_step": per_step["eval_step"][name],
             "refine_train_launches_per_step":
                 launches["refine"]["fused_gru"]["train_step"][name],
             "refine_eval_launches_per_step":

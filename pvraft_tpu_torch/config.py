@@ -39,6 +39,10 @@ import torch
 from pvraft_tpu_torch.ops.cuda import kernel_takes
 
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch", "save_corr")
+# ModelConfig.compute_dtype -> the dtype of the model's Dense products and
+# of the fused GRU update's arithmetic (``compute_dtype``).
+COMPUTE_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+                  "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +86,10 @@ class ModelConfig:
                 f"({self.truncate_k}): the kNN branch selects among the "
                 f"truncated correlation candidates"
             )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{tuple(COMPUTE_DTYPES)}, got "
+                             f"{self.compute_dtype!r}")
         if self.approx_topk and self.seq_shard:
             raise ValueError("approx_topk is not supported with seq_shard")
         if self.corr_chunk is not None and self.seq_shard:
@@ -107,8 +115,6 @@ class ModelConfig:
             ("scatter_free_vjp", self.scatter_free_vjp,
              "its recorded disposition (ROADMAP queue 1 item 7): a "
              "TPU-motivated VJP whose forward equals the default path's"),
-            ("compute_dtype", self.compute_dtype not in ("float32", "f32"),
-             "the bf16 slice"),
         )
         reject_later(self, later)
 
@@ -200,7 +206,6 @@ class TrainConfig:
             # data device) and 1 are the same here.
             ("eval_batch", self.eval_batch not in (0, 1),
              "the parallel slice"),
-            ("grad_dtype", self.grad_dtype != "float32", "the bf16 slice"),
             ("ckpt_backend", self.ckpt_backend == "orbax",
              "its recorded disposition (ROADMAP queue 1 item 2): Orbax is "
              "not installed where the port runs, so the port writes and "
@@ -227,6 +232,14 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype`` (the JAX
+    ``config.compute_dtype``). Parameters stay float32 whatever it is:
+    each Dense casts its input, kernel and bias to it where it runs, as
+    flax's ``nn.Dense(dtype=...)`` does."""
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 def resolve_use_pallas(cfg: ModelConfig, like: torch.Tensor,

@@ -16,12 +16,14 @@ steps: a train graph holds forward, loss, backward and the Adam update
 tensor, filled from the schedule before each replay at a step count kept
 on the host). The JAX package's K-step dispatch levers (packed state,
 steps per dispatch, host round trip) are not ported yet (ROADMAP queue 1
-item 1).
+item 1). ``grad_dtype="bfloat16"`` rounds every gradient to bf16 and back
+right after the backward (:func:`maybe_cast_grads`), in the eager and the
+graphed train steps of both stages; Adam's state stays float32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,11 +99,36 @@ def init_adam_state(optimizer: torch.optim.Adam) -> None:
                 p, memory_format=torch.preserve_format)
 
 
+FLOAT32_NAMES = (None, "float32", "f32")
+
+
+def maybe_cast_grads(grads: Sequence[torch.Tensor],
+                     grad_dtype: Optional[str]) -> List[torch.Tensor]:
+    """The bf16-gradient lever (``TrainConfig.grad_dtype``, the JAX
+    ``maybe_cast_grads``): each gradient cast to ``grad_dtype`` and back
+    to its own dtype, so that the optimizer state stays float32. The
+    gradients as they are for float32."""
+    if grad_dtype in FLOAT32_NAMES:
+        return list(grads)
+    dt = getattr(torch, grad_dtype)
+    return [g.to(dt).to(g.dtype) for g in grads]
+
+
+def _cast_param_grads(optimizer: torch.optim.Optimizer,
+                      grad_dtype: Optional[str]) -> None:
+    """:func:`maybe_cast_grads` on the ``.grad`` of every parameter the
+    optimizer updates, in place of the gradient (before its step)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]
+              if p.grad is not None]
+    for p, g in zip(params, maybe_cast_grads([p.grad for p in params],
+                                             grad_dtype)):
+        p.grad = g
+
+
 def _check_levers(grad_dtype: Optional[str], telemetry: bool) -> None:
-    if grad_dtype not in (None, "float32", "f32"):
-        raise NotImplementedError(
-            f"grad_dtype={grad_dtype!r} is not ported yet: it arrives with "
-            f"the bf16 slice")
+    if grad_dtype not in (*FLOAT32_NAMES, "bfloat16"):
+        raise ValueError(f"grad_dtype must be 'float32' or 'bfloat16', "
+                         f"got {grad_dtype!r}")
     if telemetry:
         raise NotImplementedError(
             "telemetry is not ported yet: it arrives with the observability "
@@ -112,16 +139,18 @@ def _check_levers(grad_dtype: Optional[str], telemetry: bool) -> None:
 LossOf = Callable[[Batch], Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _train_body(optimizer, loss_of: LossOf
+def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None
                 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
-    """zero_grad / ``loss_of`` / backward / step at the optimizer's
-    current learning rate; returns (loss, epe) of the last flow."""
+    """zero_grad / ``loss_of`` / backward / the gradients through
+    :func:`maybe_cast_grads` / step at the optimizer's current learning
+    rate; returns (loss, epe) of the last flow."""
 
     def body(pc1, pc2, mask, flow):
         batch = {"pc1": pc1, "pc2": pc2, "mask": mask, "flow": flow}
         optimizer.zero_grad(set_to_none=True)
         loss, last = loss_of(batch)
         loss.backward()
+        _cast_param_grads(optimizer, grad_dtype)
         optimizer.step()
         with torch.no_grad():
             epe = epe_train(last, mask, flow)
@@ -163,7 +192,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     position, which a resume sets."""
     _check_levers(grad_dtype, telemetry)
     return _eager_step(_train_body(optimizer, _stage1_loss(
-        model, gamma, num_iters)), optimizer, schedule)
+        model, gamma, num_iters), grad_dtype), optimizer, schedule)
 
 
 def make_refine_train_step(model, optimizer: torch.optim.Optimizer,
@@ -177,8 +206,8 @@ def make_refine_train_step(model, optimizer: torch.optim.Optimizer,
     :func:`refine_loss_of` for the loss. The backbone gets no gradient."""
     _check_levers(grad_dtype, telemetry)
     return _eager_step(_train_body(
-        optimizer, lambda batch: refine_loss_of(model, batch, num_iters)),
-        optimizer, schedule)
+        optimizer, lambda batch: refine_loss_of(model, batch, num_iters),
+        grad_dtype), optimizer, schedule)
 
 
 def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
@@ -233,8 +262,8 @@ def make_graphed_train_step(model, optimizer: torch.optim.Adam,
     count is read from the optimizer once, here, into ``step.count[0]``."""
     _check_levers(grad_dtype, telemetry)
     return _graphed_step("train_step", _train_body(
-        optimizer, _stage1_loss(model, gamma, num_iters)), optimizer,
-        schedule, device, strict_retrace)
+        optimizer, _stage1_loss(model, gamma, num_iters), grad_dtype),
+        optimizer, schedule, device, strict_retrace)
 
 
 def make_graphed_refine_train_step(model, optimizer: torch.optim.Adam,
@@ -250,8 +279,8 @@ def make_graphed_refine_train_step(model, optimizer: torch.optim.Adam,
     without autograd, the head's forward, backward and Adam with it."""
     _check_levers(grad_dtype, telemetry)
     return _graphed_step("refine_train_step", _train_body(
-        optimizer, lambda batch: refine_loss_of(model, batch, num_iters)),
-        optimizer, schedule, device, strict_retrace)
+        optimizer, lambda batch: refine_loss_of(model, batch, num_iters),
+        grad_dtype), optimizer, schedule, device, strict_retrace)
 
 
 def make_eval_step(model, num_iters: int, gamma: float,

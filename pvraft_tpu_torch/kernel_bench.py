@@ -2,7 +2,7 @@
 ``scripts/kernel_bench.py``'s lookup, corr_init and graph rows).
 
     python -m pvraft_tpu_torch.kernel_bench [--points 8192] [--k 512]
-        [--batch 2] [--device cpu]
+        [--batch 2] [--dtype float32|bfloat16] [--device cpu]
 
 Times each row on the card with CUDA events (median of 20 calls after
 warm-up); with ``--device cpu`` on the host clock, and the lines say so.
@@ -14,7 +14,14 @@ Inputs are seeded. Rows:
     plus the plain kNN, the JAX bench's "pallas-vox" row;
   * ``lookup fused``: the fused lookup kernel (``csrc/corr_lookup.cu``);
   * ``corr_init dense``: the all-pairs product and top-k truncation;
-  * ``knn graph dense``: the 32-NN graph of a cloud.
+  * ``knn graph dense``: the 32-NN graph of a cloud;
+  * ``gru fused``: the fused GRU update at width 64 and ``--dtype``
+    (``csrc/gru_iter.cu`` at float32, ``csrc/gru_iter_bf16.cu`` at
+    bfloat16).
+
+The lookup and correlation rows are float32 at either dtype: a bfloat16
+model's encoders return float32 features (their GroupNorms promote), so
+its correlation cache and lookup are float32 too.
 
 The chunked and approximate rows of the JAX bench belong to slices not
 ported yet; their lines say so. Runs on the card unless ``--device``
@@ -34,6 +41,11 @@ import torch
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.ops.corr import CorrState, corr_init, knn_lookup
 from pvraft_tpu_torch.ops.cuda.corr_lookup import fused_corr_lookup
+from pvraft_tpu_torch.ops.cuda.gru_iter import (
+    FLOW_PAD,
+    WIDTH,
+    fused_gru_update,
+)
 from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
 from pvraft_tpu_torch.ops.geometry import knn_indices
 from pvraft_tpu_torch.ops.voxel import voxel_bin_means
@@ -120,8 +132,8 @@ def lookup_fused(st: CorrState, coords: torch.Tensor):
 
 
 def bench(points: int = 8192, k: int = 512, batch: int = 2,
-          device=None) -> List[Dict[str, object]]:
-    """One row per variant: ``{"name", "ms", "timer"}``."""
+          device=None, dtype: str = "float32") -> List[Dict[str, object]]:
+    """One row per variant: ``{"name", "ms", "timer", "dtype"}``."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
 
@@ -133,6 +145,13 @@ def bench(points: int = 8192, k: int = 512, batch: int = 2,
     b, n = batch, points
     f1, f2 = put(b, n, FEATURE_DIM), put(b, n, FEATURE_DIM)
     x2, coords = put(b, n, 3, uniform=True), put(b, n, 3, uniform=True)
+    gru_dtype = getattr(torch, dtype)
+    gru_weights = tuple(0.15 * put(*s) for s in
+                        [(WIDTH, WIDTH), (FLOW_PAD, WIDTH), (2 * WIDTH, WIDTH)]
+                        + [(WIDTH, 3 * WIDTH)] * 3 + [(FLOW_PAD, 3 * WIDTH)] * 2)
+    gru_args = (torch.tanh(put(b, n, WIDTH)), torch.relu(put(b, n, WIDTH)),
+                put(b, n, WIDTH).to(gru_dtype), 0.3 * put(b, n, FLOW_PAD),
+                gru_weights, gru_dtype)
     timer = "cuda events" if dev.type == "cuda" else "host clock"
     with torch.inference_mode():
         state = corr_init(f1, f2, x2, k)
@@ -141,8 +160,10 @@ def bench(points: int = 8192, k: int = 512, batch: int = 2,
                  lambda: lookup_voxel_kernel(state, coords)),
                 ("lookup fused", lambda: lookup_fused(state, coords)),
                 ("corr_init dense", lambda: corr_init(f1, f2, x2, k)),
-                ("knn graph dense", lambda: knn_indices(x2, x2, KNN))]
-        return [{"name": name, "ms": time_ms(fn, dev), "timer": timer}
+                ("knn graph dense", lambda: knn_indices(x2, x2, KNN)),
+                ("gru fused", lambda: fused_gru_update(*gru_args))]
+        return [{"name": name, "ms": time_ms(fn, dev), "timer": timer,
+                 "dtype": dtype if name == "gru fused" else "float32"}
                 for name, fn in rows]
 
 
@@ -151,15 +172,20 @@ def main(argv=None) -> None:
     p.add_argument("--points", type=int, default=8192)
     p.add_argument("--k", type=int, default=512)
     p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="compute dtype of the gru fused row")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without one)")
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"device={dev} ({name}) batch={a.batch} points={a.points} k={a.k}")
-    for row in bench(a.points, a.k, a.batch, dev):
-        print(f"{row['name']:<20}{row['ms']:10.4f} ms  ({row['timer']})")
+    print(f"device={dev} ({name}) batch={a.batch} points={a.points} k={a.k} "
+          f"dtype={a.dtype}")
+    for row in bench(a.points, a.k, a.batch, dev, a.dtype):
+        print(f"{row['name']:<20}{row['ms']:10.4f} ms  ({row['timer']})  "
+              f"{row['dtype']}")
     for row, where in NOT_PORTED.items():
         print(f"{row:<20}  not ported: arrives with {where}")
 

@@ -8,8 +8,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from pvraft_tpu_torch.config import ModelConfig, resolve_use_pallas
-from pvraft_tpu_torch.models.layers import GroupNorm, PReLU
+from pvraft_tpu_torch.config import (
+    ModelConfig,
+    compute_dtype,
+    resolve_use_pallas,
+)
+from pvraft_tpu_torch.models.layers import Dense, GroupNorm, PReLU
 from pvraft_tpu_torch.ops.corr import CorrState
 from pvraft_tpu_torch.ops.cuda.corr_lookup import (
     corr_lookup_plain,
@@ -22,20 +26,24 @@ class CorrLookup(nn.Module):
     the voxel and kNN branches, projects each to 64 channels and sums.
     The lookup is the CUDA kernel when ``use_pallas`` resolves True for
     it, else its plain PyTorch version. ``mask`` (B, N) excludes padding
-    rows from the head GroupNorms."""
+    rows from the head GroupNorms. The lookup runs in float32 at every
+    compute dtype (its operands, ``CorrState`` and the coordinates, are
+    float32); the heads' Denses run at ``cfg.compute_dtype``, so the
+    result is in it."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        d = compute_dtype(cfg)
         n_vox = cfg.corr_levels * cfg.resolution**3
-        self.out_conv1 = nn.Linear(n_vox, 128)
+        self.out_conv1 = Dense(n_vox, 128, compute_dtype=d)
         self.out_gn = GroupNorm(128)
         self.out_prelu = PReLU()
-        self.out_conv2 = nn.Linear(128, 64)
-        self.knn_conv = nn.Linear(4, 64)
+        self.out_conv2 = Dense(128, 64, compute_dtype=d)
+        self.knn_conv = Dense(4, 64, compute_dtype=d)
         self.knn_gn = GroupNorm(64)
         self.knn_prelu = PReLU()
-        self.knn_out = nn.Linear(64, 64)
+        self.knn_out = Dense(64, 64, compute_dtype=d)
 
     def forward(self, state: CorrState, coords: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Point-cloud feature encoder (port of ``pvraft_tpu/models/encoder.py``):
-one kNN graph per cloud and three SetConvs widening 3 -> w -> 2w -> 4w."""
+one kNN graph per cloud and three SetConvs widening 3 -> w -> 2w -> 4w,
+their products at ``compute_dtype``, their outputs float32."""
 
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ from pvraft_tpu_torch.ops.geometry import Graph, build_graph
 
 
 class PointEncoder(nn.Module):
-    def __init__(self, width: int = 32, graph_k: int = 32):
+    def __init__(self, width: int = 32, graph_k: int = 32,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.graph_k = graph_k
-        self.conv1 = SetConv(3, width)
-        self.conv2 = SetConv(width, 2 * width)
-        self.conv3 = SetConv(2 * width, 4 * width)
+        self.conv1 = SetConv(3, width, compute_dtype)
+        self.conv2 = SetConv(width, 2 * width, compute_dtype)
+        self.conv3 = SetConv(2 * width, 4 * width, compute_dtype)
 
     def forward(self, pc: torch.Tensor, graph: Optional[Graph] = None,
                 mask: Optional[torch.Tensor] = None

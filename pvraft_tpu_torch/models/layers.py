@@ -1,10 +1,17 @@
 """Shared neural building blocks (port of ``pvraft_tpu/models/layers.py``).
 
 Channel-last ``(B, N, ..., C)`` layout throughout: every 1x1 conv is a
-``Linear``, and GroupNorm reduces over all non-batch axes with the
+:class:`Dense`, and GroupNorm reduces over all non-batch axes with the
 channels grouped. The GroupNorm statistics follow flax's ``GroupNorm``:
 variance as ``E[x^2] - E[x]^2`` clipped at 0, and with a mask only the
 valid positions enter the mean and the variance.
+
+The compute dtype follows flax's rules, so that a bfloat16 model rounds
+where the JAX package's does: parameters stay float32; a :class:`Dense`
+casts its input, kernel and bias to its ``compute_dtype`` and returns
+that dtype; GroupNorm computes in float32 and returns float32 (flax's
+``GroupNorm`` with no dtype promotes to its float32 scale); PReLU casts
+its slope to the input's dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +25,27 @@ from torch import nn
 from pvraft_tpu_torch.ops.geometry import Graph, gather_neighbors
 
 
+class Dense(nn.Linear):
+    """flax's ``nn.Dense(dtype=compute_dtype)`` on a ``Linear``'s float32
+    parameters: input, kernel and bias cast to ``compute_dtype``, the
+    product (accumulated in float32 by the backend) rounded to it, then
+    the bias added in it. At float32 it is ``Linear`` on a float32
+    input."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        if d == torch.float32:
+            return super().forward(x.float())
+        y = F.linear(x.to(d), self.weight.to(d))
+        return y if self.bias is None else y + self.bias.to(d)
+
+
 class PReLU(nn.Module):
     """Parametric ReLU with one shared slope ``alpha`` (init 0.25)."""
 
@@ -26,20 +54,21 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full((1,), slope_init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.alpha * x)
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                groups: int = 8, eps: float = 1e-5,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """GroupNorm over a channel-last x (B, ..., C).
+    """GroupNorm over a channel-last x (B, ..., C), computed and returned
+    in float32 whatever x's dtype.
 
     ``mask`` (B, N) bool, True = valid, covers x's first non-batch axis;
     masked-out positions are excluded from the statistics (serve bucket
     padding), and are normalized with the valid positions' statistics.
     """
     b, c = x.shape[0], x.shape[-1]
-    xg = x.reshape(b, -1, groups, c // groups)
+    xg = x.float().reshape(b, -1, groups, c // groups)
     if mask is None:
         mean = xg.mean(dim=(1, 3), keepdim=True)
         mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
@@ -75,16 +104,19 @@ class GroupNorm(nn.Module):
 class SetConv(nn.Module):
     """DGCNN-style edge convolution: per-edge (neighbour - centre feature,
     relative xyz) -> fc1 -> GN -> LeakyReLU(0.1) -> max over k -> fc2 ->
-    GN -> LeakyReLU -> fc3 -> GN -> LeakyReLU. Bias-free projections."""
+    GN -> LeakyReLU -> fc3 -> GN -> LeakyReLU. Bias-free projections at
+    ``compute_dtype``; the GroupNorms return float32, and so does the
+    layer."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = (out_ch + in_ch) // 2 if in_ch % 2 == 0 else out_ch // 2
-        self.fc1 = nn.Linear(in_ch + 3, mid, bias=False)
+        self.fc1 = Dense(in_ch + 3, mid, False, compute_dtype)
         self.gn1 = GroupNorm(mid)
-        self.fc2 = nn.Linear(mid, out_ch, bias=False)
+        self.fc2 = Dense(mid, out_ch, False, compute_dtype)
         self.gn2 = GroupNorm(out_ch)
-        self.fc3 = nn.Linear(out_ch, out_ch, bias=False)
+        self.fc3 = Dense(out_ch, out_ch, False, compute_dtype)
         self.gn3 = GroupNorm(out_ch)
 
     def forward(self, x: torch.Tensor, graph: Graph,

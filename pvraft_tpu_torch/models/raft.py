@@ -16,10 +16,10 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from pvraft_tpu_torch.config import ModelConfig
+from pvraft_tpu_torch.config import ModelConfig, compute_dtype
 from pvraft_tpu_torch.models.corr_block import CorrLookup
 from pvraft_tpu_torch.models.encoder import PointEncoder
-from pvraft_tpu_torch.models.layers import SetConv
+from pvraft_tpu_torch.models.layers import Dense, SetConv
 from pvraft_tpu_torch.models.update import UpdateBlock
 from pvraft_tpu_torch.ops.corr import CorrState, corr_init
 from pvraft_tpu_torch.ops.geometry import Graph
@@ -47,13 +47,20 @@ class PVRaft(nn.Module):
     ``(flows, graph1)``: flows (num_iters, B, N, 3) and pc1's feature
     graph. ``valid1``/``valid2`` (B, N)/(B, M) bool, True = real point,
     exclude padding from every GroupNorm statistic and from the
-    correlation truncation (the serve path's padded buckets)."""
+    correlation truncation (the serve path's padded buckets).
+
+    ``cfg.compute_dtype`` sets the dtype of every Dense product and of the
+    fused GRU update; the encoders' outputs, the correlation cache, the
+    GRU carry and the flows stay float32, as in the JAX model."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.feature_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k)
-        self.context_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k)
+        d = compute_dtype(cfg)
+        self.feature_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k,
+                                              d)
+        self.context_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k,
+                                              d)
         self.update_iter = UpdateIter(cfg)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
@@ -90,19 +97,21 @@ class PVRaftRefine(nn.Module):
     ``backbone`` under ``torch.no_grad()`` (JAX: ``stop_gradient`` on its
     last flow and on pc1's graph), then a residual head on that flow over
     pc1's feature graph: SetConvs 3 -> w -> 2w -> 4w (w =
-    ``encoder_width``) and a Linear to 3. ``forward(xyz1, xyz2,
-    num_iters, valid1, valid2)`` returns the refined flow (B, N, 3);
-    ``valid1`` masks the head's GroupNorms as the backbone's."""
+    ``encoder_width``, at the compute dtype) and a float32 Dense to 3.
+    ``forward(xyz1, xyz2, num_iters, valid1, valid2)`` returns the
+    refined flow (B, N, 3); ``valid1`` masks the head's GroupNorms as the
+    backbone's."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         self.backbone = PVRaft(cfg)
         n = cfg.encoder_width
-        self.ref_conv1 = SetConv(3, n)
-        self.ref_conv2 = SetConv(n, 2 * n)
-        self.ref_conv3 = SetConv(2 * n, 4 * n)
-        self.fc = nn.Linear(4 * n, 3)
+        d = compute_dtype(cfg)
+        self.ref_conv1 = SetConv(3, n, d)
+        self.ref_conv2 = SetConv(n, 2 * n, d)
+        self.ref_conv3 = SetConv(2 * n, 4 * n, d)
+        self.fc = Dense(4 * n, 3)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 num_iters: int = 32, valid1: Optional[torch.Tensor] = None,

@@ -23,7 +23,11 @@ and :func:`reciprocal_is_exact` (multiply by ``1/r`` instead of dividing
 by ``r``, bitwise equal where it holds). Every other shape the Pallas
 kernels take runs a general kernel: ``csrc/corr_lookup_general.cu`` for
 the lookup and the voxel means, ``csrc/gru_iter_general.cu`` for the GRU
-update. :func:`kernel_takes` says which variant ("tuned" or "general")
+update. A bfloat16 model's GRU update runs ``csrc/gru_iter_bf16.cu`` at
+every width (the general GRU kernel's plan at bf16: both instantiate
+``csrc/gru_general.cuh``); its lookup stays float32 (the correlation cache is float32
+at every compute dtype) and runs the kernels above.
+:func:`kernel_takes` says which variant ("tuned", "general" or "bf16")
 each kernel runs for a model configuration; a CUDA tensor never takes
 the plain version unless the caller chose ``use_pallas=False``.
 
@@ -52,7 +56,7 @@ import re
 import shutil
 import struct
 import subprocess
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -146,15 +150,25 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def require_cuda(what: str, *tensors: torch.Tensor) -> None:
-    """Check device, dtype and contiguity of a kernel's float32 operands."""
+def require_cuda(what: str, *tensors: torch.Tensor,
+                 dtypes: Union[torch.dtype, Sequence[torch.dtype]]
+                 = torch.float32) -> None:
+    """Check device, dtype and contiguity of a kernel's operands:
+    ``dtypes`` is the dtype every operand must have, or one per operand.
+    Nothing is cast: an operand of another dtype raises."""
+    if isinstance(dtypes, torch.dtype):
+        dtypes = [dtypes] * len(tensors)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{what}: {len(tensors)} operands, "
+                         f"{len(dtypes)} dtypes")
     dev = tensors[0].device
-    for t in tensors:
+    for i, (t, dtype) in enumerate(zip(tensors, dtypes)):
         if t.device != dev or not t.is_cuda:
             raise ValueError(f"{what}: every operand must be on one CUDA "
                              f"device, got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: operand {i} must be {dtype}, got "
+                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
 
@@ -196,23 +210,28 @@ def lookup_variant(k: int, knn: int, resolution: int) -> str:
     return "tuned" if tuned else "general"
 
 
-def gru_variant(hidden: int, context: int, corr_ch: int) -> str:
-    """"tuned" where the tuned GRU kernel takes the widths (all
-    GRU_WIDTH), else "general"."""
+def gru_variant(hidden: int, context: int, corr_ch: int,
+                dtype: str = "float32") -> str:
+    """"bf16" at ``dtype="bfloat16"`` (the bf16 kernel takes every
+    width); at float32, "tuned" where the tuned GRU kernel takes the
+    widths (all GRU_WIDTH), else "general"."""
+    if dtype == "bfloat16":
+        return "bf16"
     tuned = hidden == context == corr_ch == GRU_WIDTH
     return "tuned" if tuned else "general"
 
 
 def kernel_takes(cfg) -> Dict[str, str]:
-    """Kernel name -> the variant ("tuned" or "general") that runs
-    ``cfg``'s shapes (a ``ModelConfig``) on a CUDA tensor. The
-    correlation features reach the GRU update at width 64 (the
-    ``CorrLookup`` head)."""
+    """Kernel name -> the variant ("tuned", "general" or "bf16") that
+    runs ``cfg``'s shapes and compute dtype (a ``ModelConfig``) on a
+    CUDA tensor. The correlation features reach the GRU update at width
+    64 (the ``CorrLookup`` head); the lookup's operands are float32 at
+    every compute dtype."""
     k, res = cfg.truncate_k, cfg.resolution
     return {"corr_lookup": lookup_variant(k, cfg.corr_knn, res),
             "voxel_corr": lookup_variant(k, 0, res),
             "gru_iter": gru_variant(cfg.hidden_dim, cfg.context_dim,
-                                    GRU_WIDTH)}
+                                    GRU_WIDTH, cfg.compute_dtype)}
 
 
 # Launches recorded into CUDA graphs while capturing, by wrapper name.
@@ -249,20 +268,21 @@ def _wrappers():
     )
     from pvraft_tpu_torch.ops.cuda.gru_iter import (
         fused_gru_update,
+        gru_iter_bf16,
         gru_iter_general,
     )
     from pvraft_tpu_torch.ops.cuda.voxel_corr import voxel_bin_means_pallas
 
     return (fused_corr_lookup, fused_gru_update, voxel_bin_means_pallas,
-            corr_lookup_general, gru_iter_general)
+            corr_lookup_general, gru_iter_general, gru_iter_bf16)
 
 
 def launch_counts() -> Dict[str, int]:
     """Wrapper name -> eager kernel launches since the last
     :func:`zero_launch_counts`: the three tuned kernels under their
-    Functions' names, the general kernels under their own
+    Functions' names, the general and bf16 kernels under their own
     (``corr_lookup_general``, which the lookup and the voxel Function
-    both launch, and ``gru_iter_general``)."""
+    both launch, ``gru_iter_general`` and ``gru_iter_bf16``)."""
     return {f.__name__: f.launches for f in _wrappers()}
 
 
@@ -278,7 +298,8 @@ KERNEL_SYMBOLS = {"fused_corr_lookup": "corr_lookup_kernel",
                   "fused_gru_update": "gru_kernel",
                   "voxel_bin_means_pallas": "voxel_corr_kernel",
                   "corr_lookup_general": "corr_lookup_general_kernel",
-                  "gru_iter_general": "gru_general_kernel"}
+                  "gru_iter_general": "gru_general_kernel",
+                  "gru_iter_bf16": "gru_bf16_kernel"}
 
 
 def kernel_of(event_name: str):

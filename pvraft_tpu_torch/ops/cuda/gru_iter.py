@@ -22,14 +22,21 @@ built on width 64 (its 222 KB of shared memory); every other width runs
 the general kernel ``csrc/gru_iter_general.cu`` (:func:`gru_iter_general`:
 one thread per output channel and group of 8 points, each weight read
 once through ``__ldg`` for the group's 8 fp32 FMA chains on the CUDA
-cores).
+cores). At ``compute_dtype="bfloat16"`` the update is the JAX kernel's
+bf16 ``_gru_math`` and runs ``csrc/gru_iter_bf16.cu``
+(:func:`gru_iter_bf16`, at every width): the general kernel's plan, one
+template in ``csrc/gru_general.cuh`` for both dtypes, with operands,
+weights and every product, sum, gate and ``r * net`` rounded to bf16
+where ``_gru_math`` rounds them, the float32 carry blended last.
 
 :func:`fused_gru_update` is a ``torch.autograd.Function``. Its forward
 launches the tuned kernel where it takes the widths, else the general
-one, for CUDA tensors, and runs :func:`gru_math` for CPU tensors; its backward recomputes :func:`gru_math` and differentiates it
-(the JAX ``_fused_gru_bwd``, ``gru_iter.py:256-262``). Its ``launches``
-attribute counts eager launches of the tuned kernel,
-``gru_iter_general.launches`` those of the general one. :func:`pack_gru_weights` and
+one (the bf16 kernel at bf16), for CUDA tensors, and runs
+:func:`gru_math` for CPU tensors; its backward recomputes :func:`gru_math`
+at the same dtype and differentiates it (the JAX ``_fused_gru_bwd``,
+``gru_iter.py:256-262``). Its ``launches`` attribute counts eager
+launches of the tuned kernel, ``gru_iter_general.launches`` and
+``gru_iter_bf16.launches`` those of the other two. :func:`pack_gru_weights` and
 :func:`pad_flow` build the kernel's operands exactly as the JAX package
 does, outside the Function, so gradients reach the raw ``Linear``
 parameters through their pads and concatenations.
@@ -38,7 +45,7 @@ parameters through their pads and concatenations.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,9 +96,20 @@ def pack_gru_weights(me_params: Sequence[torch.Tensor],
                  for t in (wc, wf8, whp, wn3, wi3, wh3, wf3, bias))
 
 
-def gru_math(net, inp, cor_in, flow8, weights: Weights) -> torch.Tensor:
+def gru_math(net, inp, cor_in, flow8, weights: Weights,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The fused update in plain PyTorch (``_gru_math`` of the JAX
-    package, fp32): the new (B, N, H) hidden state."""
+    package): the new (B, N, H) hidden state. With a ``dtype``, operands
+    and weights are cast to it, and so is every product, sum and
+    activation (each product accumulated in float32 by the backend and
+    rounded once), and the carry ``net`` is blended last in its own
+    dtype (float32 in the model); without, everything runs in the
+    operands' dtype."""
+    carry = net
+    if dtype is not None:
+        weights = tuple(w.to(dtype) for w in weights)
+        net, inp, cor_in, flow8 = (t.to(dtype)
+                                   for t in (net, inp, cor_in, flow8))
     wc, wf, wh, wn3, wi3, wh3, wf3, bias = weights
     h = net.shape[-1]
     b_me = bias[0]
@@ -104,7 +122,7 @@ def gru_math(net, inp, cor_in, flow8, weights: Weights) -> torch.Tensor:
     z = torch.sigmoid(zr[..., 0:h])
     r = torch.sigmoid(zr[..., h:2 * h])
     q = torch.tanh(px[..., 2 * h:3 * h] + (r * net) @ wn3[:, 2 * h:3 * h])
-    return (1.0 - z) * net + z * q
+    return (1.0 - z) * carry + z * q
 
 
 def _signature(fn) -> None:
@@ -118,7 +136,8 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     :data:`WIDTH`, every operand 16-byte aligned), else the general one."""
     what = "fused_gru_update"
     b, n, h = net.shape
-    _cuda.require_cuda(what, net, inp, cor, flow8, *weights)
+    _cuda.require_cuda(what, net, inp, cor, flow8, *weights,
+                       dtypes=torch.float32)
     shapes = [tuple(t.shape) for t in (net, inp, cor, flow8, *weights)]
     want = [(b, n, WIDTH)] * 3 + [(b, n, FLOW_PAD), (WIDTH, WIDTH),
                                   (FLOW_PAD, WIDTH), (2 * WIDTH, WIDTH)] \
@@ -174,18 +193,18 @@ def _general_signature(fn) -> None:
     fn.restype = ctypes.c_int
 
 
-def gru_iter_general(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
-                     flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
-    """The general GRU kernel (``csrc/gru_iter_general.cu``) at any hidden
-    width H, context width C and correlation width F, on the operands of
-    :func:`pack_gru_weights` and :func:`pad_flow`. Launches the kernel
-    or raises (CPU tensors take :func:`gru_math` in the Function that
-    calls this)."""
-    what = "gru_iter_general"
+def _launch_general(wrapper, library: str, entry: str, net: torch.Tensor,
+                    inp: torch.Tensor, cor: torch.Tensor, flow8: torch.Tensor,
+                    weights: Weights, cor_dtype: torch.dtype) -> torch.Tensor:
+    """Check the operands of a kernel on :func:`general_gru_plan`'s launch
+    shape (every operand float32 but ``cor``, of ``cor_dtype``), launch it
+    and count the launch on ``wrapper``."""
+    what = wrapper.__name__
     b, n, h = net.shape
     c, f = inp.shape[-1], cor.shape[-1]
     operands = (net, inp, cor, flow8, *weights)
-    _cuda.require_cuda(what, *operands)
+    _cuda.require_cuda(what, *operands, dtypes=[
+        torch.float32, torch.float32, cor_dtype] + [torch.float32] * 9)
     shapes = [tuple(t.shape) for t in operands]
     want = [(b, n, h), (b, n, c), (b, n, f), (b, n, FLOW_PAD), (f, h),
             (FLOW_PAD, h), (2 * h, h), (h, 3 * h), (c, 3 * h), (h, 3 * h),
@@ -195,48 +214,86 @@ def gru_iter_general(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     groups, threads, smem = general_gru_plan(h, c, f)
     _cuda.check_capturable(what, net.device)
     out = torch.empty_like(net)
-    fn = _cuda.library("gru_iter_general").pvraft_gru_update_general
+    fn = getattr(_cuda.library(library), entry)
     _general_signature(fn)
     with torch.cuda.device(net.device):
         code = fn(*(t.data_ptr() for t in (*operands, out)), b * n, h, c, f,
                   groups, threads, smem, _cuda.stream_ptr(net.device))
     _cuda.check(code, what)
-    _cuda.record_launch(gru_iter_general, net.device)
+    _cuda.record_launch(wrapper, net.device)
     return out
+
+
+def gru_iter_general(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
+                     flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """The general GRU kernel (``csrc/gru_iter_general.cu``) at any hidden
+    width H, context width C and correlation width F, on the float32
+    operands of :func:`pack_gru_weights` and :func:`pad_flow`. Launches
+    the kernel or raises (CPU tensors take :func:`gru_math` in the
+    Function that calls this)."""
+    return _launch_general(gru_iter_general, "gru_iter_general",
+                           "pvraft_gru_update_general", net, inp, cor, flow8,
+                           weights, torch.float32)
+
+
+def gru_iter_bf16(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
+                  flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """The bf16 GRU kernel (``csrc/gru_iter_bf16.cu``): ``gru_math(...,
+    dtype=torch.bfloat16)`` at any widths, on :func:`general_gru_plan`'s
+    launch shape. The operands come in the dtypes the bf16 model hands
+    over, ``cor`` (the correlation head's output) bfloat16 and the rest
+    float32 (the carry, the context, the flow, the float32 parameters);
+    the kernel rounds them to bf16 itself. Launches the kernel or raises:
+    no operand is cast here, and nothing falls back to the plain
+    version."""
+    return _launch_general(gru_iter_bf16, "gru_iter_bf16",
+                           "pvraft_gru_update_bf16", net, inp, cor, flow8,
+                           weights, torch.bfloat16)
 
 
 class _FusedGru(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, net, inp, cor, flow8, *weights):
+    def forward(ctx, dtype, net, inp, cor, flow8, *weights):
+        ctx.dtype = dtype
         ctx.save_for_backward(net, inp, cor, flow8, *weights)
         if not net.is_cuda:
-            return gru_math(net, inp, cor, flow8, weights)
+            return gru_math(net, inp, cor, flow8, weights, dtype)
+        if dtype == torch.bfloat16:
+            return gru_iter_bf16(net, inp, cor, flow8, weights)
+        if dtype != torch.float32:
+            raise ValueError(f"fused_gru_update: no kernel computes in "
+                             f"{dtype}; it takes float32 and bfloat16")
         return _launch(net, inp, cor, flow8, weights)
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad
+        need = ctx.needs_input_grad[1:]
         with torch.enable_grad():
             xs = [t.detach().requires_grad_(r)
                   for t, r in zip(ctx.saved_tensors, need)]
-            out = gru_math(*xs[:4], tuple(xs[4:]))
+            out = gru_math(*xs[:4], tuple(xs[4:]), ctx.dtype)
             wrt = [x for x in xs if x.requires_grad]
             got = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
-        return tuple(next(got) if r else None for r in need)
+        return (None, *(next(got) if r else None for r in need))
 
 
 def fused_gru_update(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
-                     flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
-    """Fused MotionEncoder + ConvGRU hidden-state update.
+                     flow8: torch.Tensor, weights: Weights,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused MotionEncoder + ConvGRU hidden-state update at compute dtype
+    ``dtype`` (the JAX ``dtype_name``).
 
-    net (B, N, H), inp (B, N, C), cor (B, N, F) f32; flow8: (B, N,
-    FLOW_PAD) f32, padded by :func:`pad_flow`; weights: the 8-tuple of
+    net (B, N, H), inp (B, N, C) f32; cor (B, N, F) in ``dtype`` (the
+    correlation head's output); flow8: (B, N, FLOW_PAD) f32, padded by
+    :func:`pad_flow`; weights: the float32 8-tuple of
     :func:`pack_gru_weights`. Returns the new (B, N, H) f32 hidden state.
-    CPU tensors take the plain version; CUDA tensors launch the tuned
-    kernel at width 64, else the general one, or raise.
+    CPU tensors take the plain version; CUDA tensors launch, at float32,
+    the tuned kernel at width 64, else the general one, and at bfloat16
+    the bf16 kernel, or raise.
     """
-    return _FusedGru.apply(net, inp, cor, flow8, *weights)
+    return _FusedGru.apply(dtype, net, inp, cor, flow8, *weights)
 
 
 fused_gru_update.launches = 0
 gru_iter_general.launches = 0
+gru_iter_bf16.launches = 0

@@ -1,6 +1,7 @@
 """Where the serve path's time goes on the card.
 
     python -m pvraft_tpu_torch.profile_serve [--seed S] [--fused-gru]
+        [--dtype float32|bfloat16]
 
 Serves the flagship ``ModelConfig`` (seeded random weights, 8 GRU
 iterations) on one CUDA device: one 8,192-point request, a batch of four
@@ -13,7 +14,9 @@ activity). One JSON line per group and path gives the wall time, the
 device-busy time (union of the kernel intervals), the idle share, the
 kernel count, the device-busy time within each model stage (the
 ``pvraft.*`` ranges of ``models/raft.py``; a replay has none) and the
-kernels with the most device time. Needs a CUDA device.
+kernels with the most device time, and names the serving dtype
+(``--dtype``, the ``ServeConfig`` default bfloat16 unless it says
+otherwise). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -129,6 +132,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fused-gru", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default=ServeConfig().dtype, help="serving dtype")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -136,7 +141,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ServeConfig(ModelConfig(fused_gru=args.fused_gru))
+    cfg = ServeConfig(ModelConfig(fused_gru=args.fused_gru),
+                      dtype=args.dtype)
     engine = InferenceEngine(seeded_state_dict(cfg.model, args.seed), cfg)
     rng = np.random.default_rng(args.seed + 1)
 
@@ -153,7 +159,8 @@ def main(argv=None) -> int:
             run(engine, group, bucket)                # warm-up
             torch.cuda.synchronize()
             row = profile_call(lambda: run(engine, group, bucket), args.top)
-            print(json.dumps({"gpu": gpu, "fused_gru": args.fused_gru,
+            print(json.dumps({"gpu": gpu, "dtype": args.dtype,
+                              "fused_gru": args.fused_gru,
                               "path": path, "bucket": bucket,
                               "requests": len(group), **row}), flush=True)
     print(json.dumps({"gpu": gpu, "programs": engine.compile_report()}),

@@ -1,7 +1,7 @@
 """Where a train step's time goes on the card.
 
     python -m pvraft_tpu_torch.profile_train [--seed S] [--fused-gru]
-        [--no-use_pallas] [--refine] [--top 12]
+        [--no-use_pallas] [--refine] [--dtype float32|bfloat16] [--top 12]
 
 Trains the flagship ``ModelConfig`` at the ``TrainConfig`` defaults
 (B=2 scenes of 8,192 points, 8 GRU iterations, fp32, Adam) on seeded
@@ -21,7 +21,9 @@ inside one graph the phases cannot be told apart). The graphed line
 gives its programs' capture records. ``--refine`` profiles the stage-2
 step instead (``flagship_train_config(refine=True)``: a PVRaftRefine, 32
 backbone iterations without autograd, the head's forward, backward and
-Adam). Needs a CUDA device.
+Adam). ``--dtype bfloat16`` trains the bf16 model with bf16 gradients
+(``compute_dtype`` and ``grad_dtype``; default float32), and every line
+names the dtype. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from pvraft_tpu_torch.profile_serve import nvidia_smi, profile_call
 
 
 def flagship_train_config(seed: int = 0, epochs: int = 1,
-                          refine: bool = False, **model_kw) -> Config:
+                          refine: bool = False, grad_dtype: str = "float32",
+                          **model_kw) -> Config:
     """The flagship ModelConfig and the TrainConfig defaults (B=2,
     8 iterations, eval at 32) on 4 seeded FT3D-like synthetic scenes of
     8,192 points (4 independently moving objects each). ``refine``: the
@@ -56,7 +59,7 @@ def flagship_train_config(seed: int = 0, epochs: int = 1,
                   data=DataConfig(dataset="synthetic", synthetic_size=4,
                                   synthetic_objects=4),
                   train=TrainConfig(num_epochs=epochs, seed=seed,
-                                    refine=refine,
+                                    refine=refine, grad_dtype=grad_dtype,
                                     iters=32 if refine else 8))
 
 
@@ -88,6 +91,9 @@ def main(argv=None) -> int:
                     default=None)
     ap.add_argument("--refine", action="store_true",
                     help="the stage-2 (refine) step")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="compute and gradient dtype")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -96,8 +102,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = flagship_train_config(args.seed, refine=args.refine,
+                                grad_dtype=args.dtype,
                                 fused_gru=args.fused_gru,
-                                use_pallas=args.use_pallas)
+                                use_pallas=args.use_pallas,
+                                compute_dtype=args.dtype)
     gpu = nvidia_smi()
     for path in ("eager", "graphed"):
         trainer = Trainer(cfg, graphs=path == "graphed")
@@ -118,7 +126,7 @@ def main(argv=None) -> int:
             row["programs"] = trainer.compile_report()
             row["reserved_bytes"] = torch.cuda.memory_reserved()
         print(json.dumps({"gpu": gpu, "refine": args.refine,
-                          "fused_gru": args.fused_gru,
+                          "dtype": args.dtype, "fused_gru": args.fused_gru,
                           "use_pallas": args.use_pallas, "path": path,
                           "batch": 2, "points": cfg.data.max_points,
                           "iters": cfg.train.iters, **row}), flush=True)

@@ -6,9 +6,13 @@ padding points on a far diagonal ray beyond ``ServeConfig.coord_limit``
 so that a real point's kNN sets are the unpadded ones; boolean validity
 masks exclude the padding from every GroupNorm statistic and from the
 correlation truncation. Unused batch slots repeat request 0 (every model
-op is batch-parallel). The forward runs fp32, without autograd: stage 1's
-last flow, or with ``ServeConfig.refine`` a ``PVRaftRefine``'s refined
-flow, the validity mask reaching the head's GroupNorms too.
+op is batch-parallel). The forward runs without autograd at the serving
+dtype ``ServeConfig.dtype``, which overrides the model's
+``compute_dtype`` as in the JAX engine: bfloat16 by default (the JAX
+package's ``SERVE_DEFAULT_DTYPE``), float32 one argument away; the flow
+is float32 either way. It returns stage 1's last flow, or with
+``ServeConfig.refine`` a ``PVRaftRefine``'s refined flow, the validity
+mask reaching the head's GroupNorms too.
 
 The engine captures its whole (bucket, batch size) table at construction
 (the JAX ``_compile``): one :class:`~pvraft_tpu_torch.serve.aot.GraphProgram`
@@ -48,6 +52,13 @@ from pvraft_tpu_torch.weights import params_from_jax
 SERVE_DEFAULT_BUCKETS = (2048, 4096, 8192)
 SERVE_DEFAULT_BATCH_SIZES = (1, 4)
 SERVE_DEFAULT_ITERS = 8
+# The JAX package's default serving dtype, and the bound its bf16 flows
+# keep against float32 on the same parameters (mean endpoint error, and
+# that relative to the mean float32 flow magnitude;
+# pvraft_tpu/programs/geometries.py, tests/test_serve_pool.py).
+SERVE_DEFAULT_DTYPE = "bfloat16"
+SERVE_BF16_EPE_BOUND = 0.13
+SERVE_BF16_REL_EPE_BOUND = 0.15
 
 
 class RequestError(ValueError):
@@ -69,7 +80,7 @@ class ServeConfig:
     num_iters: int = SERVE_DEFAULT_ITERS
     refine: bool = False
     coord_limit: float = 100.0
-    dtype: str = "float32"
+    dtype: str = SERVE_DEFAULT_DTYPE
     replicas: int = 1
 
     def __post_init__(self):
@@ -93,10 +104,6 @@ class ServeConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', "
                              f"got {self.dtype!r}")
-        if self.dtype != "float32":
-            raise NotImplementedError(
-                "ServeConfig.dtype='bfloat16' is not ported yet: it arrives "
-                "with the bf16 slice; this slice serves float32")
         if self.replicas != 1:
             raise NotImplementedError(
                 "ServeConfig.replicas != 1 is not ported yet: it arrives "

@@ -1,7 +1,7 @@
 """Step and request times of the flagship model in a process of their own.
 
     python -m pvraft_tpu_torch.step_time [--path eager|graphed] [--seed S]
-        [--refine]
+        [--refine] [--dtype float32|bfloat16] [--fused-gru]
 
 On one CUDA device: the train step (B=2 x 8,192 points, 8 GRU
 iterations, Adam; median of 6 after 2 warm-up steps), the eval step (one
@@ -15,7 +15,12 @@ steps and ``InferenceEngine.predict_batch``. ``--refine`` times stage 2
 instead: the refine train and eval steps
 (``flagship_train_config(refine=True)``: 32 backbone iterations without
 autograd, the head trained; eval at 32) and ``ServeConfig(refine=True)``
-(needs a checkout with stage 2). One JSON line.
+(needs a checkout with stage 2). ``--dtype`` (default float32) sets the
+model's compute dtype, the gradient dtype and the serving dtype
+(``bfloat16`` needs a checkout with the bf16 slice); ``--fused-gru`` the
+fused GRU update. One JSON line, with the peak device memory from the
+trainer's construction to the end of its timed train steps (a graphed
+step's captured pools included).
 
 A fresh process is the yardstick for eager times: a long run such as
 ``chip_smoke.py`` reads its eager steps slower than this, by an amount
@@ -62,6 +67,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--refine", action="store_true",
                     help="the stage-2 (refine) steps and requests")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="compute, gradient and serving dtype")
+    ap.add_argument("--fused-gru", action="store_true")
     args = ap.parse_args(argv)
     # Run by path from a checkout's root: import the package found there.
     sys.path.insert(0, os.getcwd())
@@ -86,17 +95,25 @@ def main(argv=None) -> int:
     kw = {"graphs": not eager} if has_graphs else {}
 
     stage = {"refine": True} if args.refine else {}
-    trainer = Trainer(flagship_train_config(args.seed, **stage), **kw)
+    model_kw = {"fused_gru": True} if args.fused_gru else {}
+    if args.dtype != "float32":
+        model_kw["compute_dtype"] = args.dtype
+        stage["grad_dtype"] = args.dtype
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(flagship_train_config(args.seed, **stage, **model_kw),
+                      **kw)
+    stage.pop("grad_dtype", None)
     batch = to_device(first_batch(PrefetchLoader(
         trainer.train_ds, 2, num_workers=0)), trainer.device)
     scene = to_device(first_batch(PrefetchLoader(
         trainer.val_ds, 1, num_workers=0)), trainer.device)
     train = host_ms(lambda: trainer.train_step(batch), 6, 2)
+    peak = torch.cuda.max_memory_allocated()
     evals = host_ms(lambda: trainer.eval_step(scene), 3, 1)
     del trainer, batch, scene
     torch.cuda.empty_cache()
 
-    cfg = ServeConfig(ModelConfig(), **stage)
+    cfg = ServeConfig(ModelConfig(**model_kw), dtype=args.dtype, **stage)
     engine = InferenceEngine(seeded_state_dict(cfg.model, args.seed,
                                                **stage), cfg)
     run = InferenceEngine.predict_batch
@@ -115,10 +132,12 @@ def main(argv=None) -> int:
         serve[f"{b}x{n}"] = host_ms(lambda: run(engine, group, n), 5, 2)
     print(json.dumps({
         "gpu": nvidia_smi(), "path": "eager" if eager else "graphed",
-        "refine": args.refine,
+        "refine": args.refine, "dtype": args.dtype,
+        "fused_gru": args.fused_gru,
         "checkout_has_graphs": has_graphs,
         "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "train_step_ms": statistics.median(train),
+        "train_peak_mem_bytes": peak,
         "eval_step_ms": statistics.median(evals),
         "serve_ms": {k: statistics.median(v) for k, v in serve.items()},
         "samples": {"train": train, "eval": evals, "serve": serve}}),

@@ -4,7 +4,7 @@
     python -m pvraft_tpu_torch.test --dataset KITTI|FT3D --root ROOT
         --weights EXP/checkpoints/best_checkpoint.msgpack
         [--no_strict_sizes] [--num_workers 8] [--eval_iters 32]
-        [--refine] [--dump_dir result] [--device cpu] ...
+        [--refine] [--bf16] [--dump_dir result] [--device cpu] ...
 
 ``--dataset KITTI`` evaluates zero-shot on the 142 KITTI scenes of a
 preprocessed tree (``python -m pvraft_tpu_torch.data.preprocess.kitti``),
@@ -36,7 +36,6 @@ LATER_FLAGS = {
     "--seq_parallel": "the parallel slice",
     "--corr_chunk": "the streaming correlation slice",
     "--graph_chunk": "the streaming graph slice",
-    "--bf16": "the bf16 slice",
     "--approx_topk": "the approximate top-k slice",
     "--approx_knn": "the approximate top-k slice",
     "--platform": "no slice: the port picks its device with --device",
@@ -88,6 +87,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "(default: the kernels on a CUDA device)")
     p.add_argument("--fused_gru", action="store_true",
                    help="fused MotionEncoder+ConvGRU update")
+    p.add_argument("--bf16", action="store_true",
+                   help="evaluate at compute_dtype bfloat16")
     p.add_argument("--dump_dir", default=None,
                    help="write <dump_dir>/<dataset>/<idx>/{pc1,pc2,flow}.npy "
                         "for visual.py")
@@ -100,7 +101,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
     return Config(
         model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
                           corr_levels=a.corr_levels, base_scale=a.base_scales,
-                          use_pallas=a.use_pallas, fused_gru=a.fused_gru),
+                          use_pallas=a.use_pallas, fused_gru=a.fused_gru,
+                          compute_dtype="bfloat16" if a.bf16 else "float32"),
         data=DataConfig(dataset=a.dataset, root=a.root,
                         max_points=a.max_points, num_workers=a.num_workers,
                         strict_sizes=not a.no_strict_sizes,

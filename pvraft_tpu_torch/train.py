@@ -4,7 +4,8 @@
         [--no_strict_sizes] [--num_workers 8] [--no_native_loader]
         [--num_epochs 2] [--batch_size 2] [--max_points 8192] [--iters 8]
         [--eval_iters 32]
-        [--fused_gru] [--no-use_pallas] [--device cpu]
+        [--fused_gru] [--no-use_pallas] [--bf16] [--grad_dtype bfloat16]
+        [--device cpu]
         [--exp_path EXP] [--resume | --weights CKPT]
         [--refine [--stage1_weights CKPT]] ...
 
@@ -49,8 +50,6 @@ LATER_FLAGS = {
     "--seq_parallel": "the parallel slice",
     "--corr_chunk": "the streaming correlation slice",
     "--graph_chunk": "the streaming graph slice",
-    "--bf16": "the bf16 slice",
-    "--grad_dtype": "the bf16 slice",
     "--approx_topk": "the approximate top-k slice",
     "--approx_knn": "the approximate top-k slice",
     "--remat": "the memory levers (ROADMAP queue 1 item 7)",
@@ -130,6 +129,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "(default: the kernels on a CUDA device)")
     p.add_argument("--fused_gru", action="store_true",
                    help="fused MotionEncoder+ConvGRU update")
+    p.add_argument("--bf16", action="store_true",
+                   help="train and evaluate at compute_dtype bfloat16")
+    p.add_argument("--grad_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="cast gradients once after the backward; the "
+                        "optimizer state stays float32")
     p.add_argument("--strict_retrace", action="store_true",
                    help="raise RetraceError when a graphed step meets an "
                         "input signature it has not captured")
@@ -145,7 +150,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
     return Config(
         model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
                           corr_levels=a.corr_levels, base_scale=a.base_scales,
-                          use_pallas=a.use_pallas, fused_gru=a.fused_gru),
+                          use_pallas=a.use_pallas, fused_gru=a.fused_gru,
+                          compute_dtype="bfloat16" if a.bf16 else "float32"),
         data=DataConfig(dataset=a.dataset, root=a.root,
                         max_points=a.max_points, num_workers=a.num_workers,
                         native_loader=not a.no_native_loader,
@@ -157,6 +163,7 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           eval_iters=a.eval_iters, seed=a.seed,
                           lr_schedule=a.lr_schedule,
                           strict_retrace=a.strict_retrace,
+                          grad_dtype=a.grad_dtype,
                           checkpoint_interval=a.checkpoint_interval,
                           ckpt_backend=a.ckpt_backend, refine=a.refine),
         exp_path=a.exp_path,

@@ -392,7 +392,7 @@ def test_serve_engine_from_a_checkpoint(tmp_path):
     path = tckpt.save_checkpoint(str(tmp_path), params_to_jax(state), opt, 4,
                                  0)[0]
     cfg = ServeConfig(model=model_cfg, buckets=(32,), batch_sizes=(1,),
-                      num_iters=2)
+                      num_iters=2, dtype="float32")
     engine = InferenceEngine.from_checkpoint(path, cfg, device="cpu")
     assert (engine.checkpoint_path, engine.checkpoint_epoch) == (path, 4)
     rng = np.random.default_rng(7)

@@ -15,6 +15,9 @@ with the kernels against the plain versions at the bars of
 ``gru_iter_general``) against the plain versions at shapes the tuned
 kernels do not take (K past 512, knn past 32 and up to K, resolutions
 1, 2, 4 and 5, GRU widths 32, 48, 96 and 128), forward and gradient.
+The bf16 GRU kernel against ``gru_math`` at bf16 (rtol/atol 1e-2, atol
+widened to twice the plain version's own spread across sum orders where
+that is larger), and its refusal to run anything else.
 The captured paths: a config the tuned kernels do not take runs the
 general kernel under ``use_pallas=None`` and ``True`` and the plain
 version under ``False``; the serve programs' replays (their kernel launches measured
@@ -113,7 +116,7 @@ def test_gru_kernel_matches_plain(dev, b, n, scale, tol):
 def test_engine_on_the_card_matches_the_cpu(dev):
     tiny = ModelConfig(truncate_k=16, corr_knn=8, graph_k=4, fused_gru=True)
     cfg = ServeConfig(model=tiny, buckets=(32, 64), batch_sizes=(2,),
-                      num_iters=1)
+                      num_iters=1, dtype="float32")
     weights = seeded_state_dict(tiny, 0)
     rng = np.random.default_rng(2)
     pc1 = rng.uniform(-1, 1, (40, 3)).astype(np.float32)
@@ -325,7 +328,7 @@ def test_engine_replays_equal_the_eager_forward(dev, fused_gru):
     tiny = ModelConfig(truncate_k=16, corr_knn=8, graph_k=4,
                        fused_gru=fused_gru)
     cfg = ServeConfig(model=tiny, buckets=(32, 64), batch_sizes=(1, 2),
-                      num_iters=2)
+                      num_iters=2, dtype="float32")
     engine = InferenceEngine(seeded_state_dict(tiny, 0), cfg)
     report = engine.compile_report()
     assert [r["name"] for r in report] == [
@@ -610,3 +613,60 @@ def test_general_kernels_backward_match_plain_autograd(dev):
                                  args, cots)
                            for fn in (gr.fused_gru_update, gr.gru_math))):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# The bf16 kernel (csrc/gru_iter_bf16.cu) against gru_math at bf16 on the
+# operands the bf16 model hands it (cor bf16, the rest float32): the JAX
+# package's op-level bf16 bar, rtol/atol 1e-2, with atol widened to twice
+# the plain version's own spread across sum orders (gru_math on the card
+# against gru_math on the host) where that is larger: a sum order rounds a
+# few values to neighbouring bf16s (chip_smoke.py, BF16_OP_TOL).
+@pytest.mark.parametrize("b,n,h,c,f", [(2, 37, 64, 64, 64),
+                                       (1, 8192, 64, 64, 64),
+                                       (2, 129, 32, 96, 64),
+                                       (2, 65, 128, 128, 64),
+                                       (2, 129, 33, 50, 37)])
+def test_bf16_gru_kernel_matches_plain(dev, b, n, h, c, f):
+    acts, me, gru = _gru_operands(dev, b, n, h, c, f, seed=3)
+    bf16 = torch.bfloat16
+    args = (acts[0], acts[1], acts[2].to(bf16), acts[3],
+            gr.pack_gru_weights(me, gru, h, c), bf16)
+    before = {w.__name__: w.launches for w in (
+        gr.gru_iter_bf16, gr.fused_gru_update, gr.gru_iter_general)}
+    got = gr.fused_gru_update(*args)
+    assert {w.__name__: w.launches for w in (
+        gr.gru_iter_bf16, gr.fused_gru_update, gr.gru_iter_general)} == {
+        **before, "gru_iter_bf16": before["gru_iter_bf16"] + 1}
+    want = gr.gru_math(*args)
+    host = gr.gru_math(*(a.cpu() for a in args[:4]),
+                       tuple(w.cpu() for w in args[4]), bf16)
+    floor = float((want.cpu() - host).abs().max())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-2,
+                               atol=max(1e-2, 2 * floor))
+    assert torch.equal(got, gr.fused_gru_update(*args))
+
+
+def test_bf16_gru_launches_its_kernel_or_raises(dev, monkeypatch):
+    """A bf16 fused update on CUDA tensors runs the bf16 kernel and
+    nothing else: a float32 ``cor`` raises (no operand is cast), and where
+    the kernel cannot be built the call raises instead of falling back to
+    ``gru_math`` or to a float32 kernel."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    acts, me, gru = _gru_operands(dev, 1, 64, 64, 64, 64, seed=4)
+    w = gr.pack_gru_weights(me, gru, 64, 64)
+    counts = (gr.gru_iter_bf16.launches, gr.fused_gru_update.launches,
+              gr.gru_iter_general.launches)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gr.fused_gru_update(*acts, w, torch.bfloat16)
+
+    def refuse(name):
+        raise RuntimeError(f"CUDA kernel build failed: {name}")
+
+    monkeypatch.setattr(kernels, "library", refuse)
+    with pytest.raises(RuntimeError, match="gru_iter_bf16"):
+        gr.fused_gru_update(acts[0], acts[1], acts[2].to(torch.bfloat16),
+                            acts[3], w, torch.bfloat16)
+    assert (gr.gru_iter_bf16.launches, gr.fused_gru_update.launches,
+            gr.gru_iter_general.launches) == counts

@@ -163,7 +163,8 @@ def test_gru_wrapper_takes_plain_path_on_cpu():
 
 def test_kernel_sources_and_lazy_build():
     assert set(tcuda.sources()) == {"corr_lookup", "gru_iter", "voxel_corr",
-                                    "corr_lookup_general", "gru_iter_general"}
+                                    "corr_lookup_general", "gru_iter_general",
+                                    "gru_iter_bf16"}
     for path in tcuda.sources().values():
         with open(path) as f:
             src = f.read()
@@ -172,6 +173,10 @@ def test_kernel_sources_and_lazy_build():
     for name in ("corr_lookup", "voxel_corr"):
         with open(tcuda.sources()[name]) as f:
             assert '#include "voxel_bins.cuh"' in f.read()
+    # One kernel plan for the general float32 and the bf16 GRU update.
+    for name in ("gru_iter_general", "gru_iter_bf16"):
+        with open(tcuda.sources()[name]) as f:
+            assert '#include "gru_general.cuh"' in f.read()
     assert "arch=compute_90a,code=sm_90a" in tcuda.NVCC_FLAGS
     # Importing every module of the port and running its CPU path builds
     # and loads nothing (a fresh interpreter: this one may hold a build).

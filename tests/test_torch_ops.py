@@ -247,7 +247,6 @@ def test_model_config_defaults_match_jax():
     {"corr_chunk": 256}, {"graph_chunk": 256}, {"approx_topk": True},
     {"approx_knn": True}, {"seq_shard": True}, {"remat": True},
     {"remat_policy": "dots"}, {"scatter_free_vjp": True},
-    {"compute_dtype": "bfloat16"},
 ])
 def test_model_config_rejects_later_slices(kw):
     jconfig.ModelConfig(**kw)            # the JAX package honors it
@@ -260,6 +259,7 @@ def test_model_config_rejects_later_slices(kw):
     {"approx_topk": True, "seq_shard": True},
     {"corr_chunk": 64, "seq_shard": True},
     {"approx_knn": True, "graph_chunk": 64},
+    {"approx_knn": True, "seq_shard": True},
 ])
 def test_model_config_rejects_like_jax(kw):
     with pytest.raises(ValueError):

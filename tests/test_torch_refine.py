@@ -713,7 +713,7 @@ def test_train_and_test_clis_run_stage_2(tmp_path, capsys):
     assert "needs --refine" in capsys.readouterr().err
     for cli in (ttrain_cli, ttest_cli):
         with pytest.raises(SystemExit):
-            cli.main(base + ["--bf16"])
+            cli.main(base + ["--seq_parallel"])
         assert "not ported yet" in capsys.readouterr().err
 
 

@@ -165,7 +165,7 @@ def test_train_and_data_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("cls,kw", [
-    (tconfig.TrainConfig, {"grad_dtype": "bfloat16"}),
+    (tconfig.TrainConfig, {"divergence_zscore": 3.0}),
     (tconfig.TrainConfig, {"telemetry": True}),
     (tconfig.TrainConfig, {"ckpt_backend": "orbax"}),
     (tconfig.TrainConfig, {"eval_batch": 4}),
@@ -181,8 +181,8 @@ def test_train_config_rejects_later_slices(cls, kw):
 def test_make_train_step_rejects_later_levers():
     from pvraft_tpu_torch.engine.steps import make_train_step
 
-    with pytest.raises(NotImplementedError, match="bf16 slice"):
-        make_train_step(None, None, None, GAMMA, 1, grad_dtype="bfloat16")
+    with pytest.raises(ValueError, match="grad_dtype"):
+        make_train_step(None, None, None, GAMMA, 1, grad_dtype="float16")
     with pytest.raises(NotImplementedError, match="observability"):
         make_train_step(None, None, None, GAMMA, 1, telemetry=True)
 
@@ -353,7 +353,8 @@ def test_kernel_bench_runs_on_the_cpu_and_needs_cuda_otherwise(
     rows = [ln[:20].strip() for ln in out if "ms  (host clock)" in ln]
     assert rows == [
         "lookup plain", "lookup voxel-kernel", "lookup fused",
-        "corr_init dense", "knn graph dense"]
+        "corr_init dense", "knn graph dense", "gru fused"]
+    assert "dtype=float32" in out[0] and out[6].endswith("float32")
     assert sum("not ported" in ln for ln in out) == 3
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -36,6 +36,8 @@ def test_lookup_variant_of_each_shape(k, knn, res, want):
     ((64, 64, 64), "tuned"), ((32, 32, 64), "general"),
     ((96, 96, 64), "general"), ((128, 128, 64), "general"),
     ((64, 128, 64), "general"), ((64, 64, 32), "general"),
+    ((64, 64, 64, "f32"), "tuned"), ((64, 64, 64, "bfloat16"), "bf16"),
+    ((32, 96, 64, "bfloat16"), "bf16"), ((33, 50, 37, "bfloat16"), "bf16"),
 ])
 def test_gru_variant_of_each_width(widths, want):
     assert tcuda.gru_variant(*widths) == want
@@ -46,6 +48,17 @@ def test_the_flagship_geometry_takes_the_tuned_kernels():
     assert tcuda.kernel_takes(cfg) == {"corr_lookup": "tuned",
                                        "voxel_corr": "tuned",
                                        "gru_iter": "tuned"}
+
+
+@pytest.mark.parametrize("kw", [{}, {"hidden_dim": 32, "context_dim": 96},
+                                {"truncate_k": 1024, "corr_knn": 64}])
+def test_a_bf16_model_routes_the_gru_to_the_bf16_kernel(kw):
+    """At compute_dtype bfloat16 the GRU update runs the bf16 kernel at
+    every width; the lookup and the voxel means keep their float32
+    variant (their operands are float32 at both dtypes)."""
+    f32 = tcuda.kernel_takes(ModelConfig(**kw))
+    bf16 = tcuda.kernel_takes(ModelConfig(compute_dtype="bfloat16", **kw))
+    assert bf16 == {**f32, "gru_iter": "bf16"}
 
 
 @pytest.mark.parametrize("k", [8, 16, 37, 64, 510, 512, 600, 1024, 4096])
@@ -106,6 +119,7 @@ def test_general_wrappers_refuse_cpu_tensors():
     xyz = torch.randn(1, 5, 40, 3, generator=gen)
     coords = torch.randn(1, 5, 3, generator=gen)
     before = (lk.corr_lookup_general.launches, gr.gru_iter_general.launches)
+    bf16_before = gr.gru_iter_bf16.launches
     with pytest.raises(ValueError, match="CUDA device"):
         lk.corr_lookup_general(corr, xyz, coords, 2, 0.25, 2, 40)
     h, c, f = 32, 48, 64
@@ -117,6 +131,9 @@ def test_general_wrappers_refuse_cpu_tensors():
     flow8 = gr.pad_flow(torch.randn(1, 5, 3, generator=gen))
     with pytest.raises(ValueError, match="CUDA device"):
         gr.gru_iter_general(*acts, flow8, weights)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gr.gru_iter_bf16(acts[0], acts[1], acts[2].bfloat16(), flow8,
+                         weights)
     got = lk.fused_corr_lookup(corr, xyz, coords, 2, 0.25, 2, 40)
     want = lk.corr_lookup_plain(corr, xyz, coords, 2, 0.25, 2, 40)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -124,4 +141,5 @@ def test_general_wrappers_refuse_cpu_tensors():
                        gr.gru_math(*acts, flow8, weights))
     assert (lk.corr_lookup_general.launches,
             gr.gru_iter_general.launches) == before
+    assert gr.gru_iter_bf16.launches == bf16_before
     assert set(tcuda.launch_counts()) == set(tcuda.KERNEL_SYMBOLS)
