@@ -118,7 +118,8 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
   phase 10 bfloat16 (``bf16``, ``bf16_phase``; run after phase 9, before
            the profiler phases): the bf16 GRU kernel
            (``csrc/gru_iter_bf16.cu``) against ``gru_math`` at bf16 at 1 x
-           8192 at the flagship's and phase 1's general widths, and at
+           8192 at the flagship's and phase 1's general widths and at
+           hidden 33 / context 50 / correlation 37, and at
            width 64 at every shape of phase 1 (1 x 8192, 2 x 8192,
            4 x 8192, 4 x 4096, 1 x 2048: those of the bf16 serve groups
            and train steps) (BF16_OP_TOL, see there), with kernel, plain
@@ -421,14 +422,13 @@ def bound(bytes_: float, ops: float, flops_per_s: float = FP32_FLOPS_PER_S):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def gru_inputs(rng, b, n, dev, scale=1.0, h=WIDTH, c=None):
+def gru_inputs(rng, b, n, dev, scale=1.0, h=WIDTH, c=None, f=WIDTH):
     """Seeded GRU operands at hidden width ``h``, context width ``c``
-    (default ``h``) and correlation features of WIDTH (the lookup
-    head's): weights 0.15 N(0,1); net = tanh, inp = relu and cor of
-    ``scale`` N(0,1); flow 0.3 ``scale`` N(0,1)."""
+    (default ``h``) and correlation features of ``f`` (default WIDTH, the
+    lookup head's): weights 0.15 N(0,1); net = tanh, inp = relu and cor
+    of ``scale`` N(0,1); flow 0.3 ``scale`` N(0,1)."""
     from pvraft_tpu_torch.ops.cuda.gru_iter import pack_gru_weights, pad_flow
 
-    f = WIDTH
     c = h if c is None else c
 
     def a(*s, scale=0.15):
@@ -553,20 +553,21 @@ def within(got, want, rtol, atol) -> bool:
     return beyond(got, want, rtol, atol) == 0
 
 
-def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None):
+def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None, f=WIDTH):
     """Holds the bf16 kernel (``csrc/gru_iter_bf16.cu``, through
     ``fused_gru_update(..., torch.bfloat16)``) against ``gru_math`` at
     bf16 on the operands the bf16 model hands it (cor bf16, the rest
     float32): BF16_OP_TOL, two launches bitwise equal; the unfused bf16
     MotionEncoder + ConvGRU modules (the library yardstick) against it at
-    BF16_MODEL_TOL; times all three. Bound: bytes, or the same operations
-    on the bf16 tensor cores."""
+    BF16_MODEL_TOL; times all three. Hidden width ``h``, context ``c``
+    (default ``h``), correlation features ``f``. Bound: bytes, or the same
+    operations on the bf16 tensor cores."""
     from pvraft_tpu_torch.models.update import ConvGRU, MotionEncoder
     from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update, gru_math
 
     c = h if c is None else c
     bf16 = torch.bfloat16
-    me, gru, args, flow = gru_inputs(rng, b, n, dev, 1.0, h, c)
+    me, gru, args, flow = gru_inputs(rng, b, n, dev, 1.0, h, c, f)
     net, inp, cor, flow8, weights = args
     args = (net, inp, cor.to(bf16), flow8, weights, bf16)
     before = read_counts()["gru_iter_bf16"]
@@ -590,7 +591,7 @@ def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None):
           f"{floor}")
     check(torch.equal(got, again),
           f"gru bf16 {b}x{n} {h}/{c}: launches not bitwise equal")
-    menc = MotionEncoder(h, WIDTH, bf16).to(dev)
+    menc = MotionEncoder(h, f, bf16).to(dev)
     cgru = ConvGRU(h, c + h, bf16).to(dev)
     with torch.no_grad():
         for layer, (w, bias) in zip(
@@ -613,11 +614,11 @@ def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None):
     weight_bytes = sum(4 * w.numel() for w in weights)
     # Per point: net, inp and flow8 (float32) and cor (bf16) read, the new
     # net (float32) written.
-    bytes_ = b * n * (4 * (2 * h + c + 8) + 2 * WIDTH) + weight_bytes
-    flops = 2 * b * n * (WIDTH * h + 8 * h + 2 * h * h
+    bytes_ = b * n * (4 * (2 * h + c + 8) + 2 * f) + weight_bytes
+    flops = 2 * b * n * (f * h + 8 * h + 2 * h * h
                          + (c + h + 8) * 3 * h + h * 3 * h)
     return {
-        "kernel": "gru_iter_bf16", "shape": [b, n, h, c],
+        "kernel": "gru_iter_bf16", "shape": [b, n, h, c, f],
         "max_abs_err": err, **BF16_OP_TOL, "beyond_op_tol": stray,
         "plain_host_vs_card_max": floor, "atol_used": atol,
         "bitwise_repeat": True,
@@ -747,9 +748,13 @@ GENERAL_GRU_WIDTHS = {"width32": (32, 32), "width96": (96, 96),
 # The kernels line's shapes: those of phase 6's requests, whose launches
 # the line reports.
 MAIN_GENERAL = ("k1024_knn64_r3", "hidden32_context96")
-# (hidden, context) widths of the bf16 kernel's checks at 1 x 8192: the
-# flagship's and phase 1's general ones.
-BF16_GRU_WIDTHS = {"width64": (WIDTH, WIDTH), **GENERAL_GRU_WIDTHS}
+# (hidden, context, correlation) widths of the bf16 kernel's checks at
+# 1 x 8192: the flagship's, phase 1's general ones, and widths that are
+# not multiples of 16 (the kernel pads K to 16 and channels to 32).
+BF16_GRU_WIDTHS = {"width64": (WIDTH, WIDTH, WIDTH),
+                   **{k: (h, c, WIDTH)
+                      for k, (h, c) in GENERAL_GRU_WIDTHS.items()},
+                   "h33_c50_f37": (33, 50, 37)}
 
 
 def check_general(rng, dev):
@@ -2337,8 +2342,8 @@ def bf16_phase(seed, dev):
     from pvraft_tpu_torch.weights import seeded_state_dict
 
     rng = np.random.default_rng(seed + 17)
-    kernel = {name: check_gru_bf16(rng, *MAIN_SHAPE, dev, h=h, c=c)
-              for name, (h, c) in BF16_GRU_WIDTHS.items()}
+    kernel = {name: check_gru_bf16(rng, *MAIN_SHAPE, dev, h=h, c=c, f=f)
+              for name, (h, c, f) in BF16_GRU_WIDTHS.items()}
     shapes = {f"{b}x{n}": check_gru_bf16(rng, b, n, dev)
               for b, n in LOOKUP_SHAPES}
     out = {"kernel": kernel, "shapes": shapes}
@@ -2881,7 +2886,8 @@ def main() -> int:
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "ptxas": ptxas[os.path.basename(source)[:-3]]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,21 +1,47 @@
 """Time GRU-update kernel sources against each other on the card.
 
-    python -m pvraft_tpu_torch.gru_ab [--source NAME=PATH ...] [--seed S]
+    python -m pvraft_tpu_torch.gru_ab [--entry fp32|bf16]
+        [--source NAME=PATH[@PLAN] ...] [--seed S]
 
-Builds each ``.cu`` source that exports ``pvraft_gru_update`` (the C entry
-point of ``csrc/gru_iter.cu``, same arguments) with the port's nvcc flags
-into its own directory under ``pvraft_tpu_torch/_build/ab/``, one ``nvcc``
-each, all started together. The checkout's own ``csrc/gru_iter.cu`` is
-always one of them, named ``this``. Then, at each B x N of ``SHAPES``, on
-the inputs ``chip_smoke.py`` gives the GRU kernel, it calls every source
-once, reports its max |err| against ``gru_math`` (fp32) and against
-``gru_math`` in fp64 (beside fp32 ``gru_math``'s own) and whether two
-launches are bitwise equal, and times each by device time
+Builds each ``.cu`` source that exports the entry point with the port's
+nvcc flags into its own directory under ``pvraft_tpu_torch/_build/ab/``,
+one ``nvcc`` each, all started together, and times them against each
+other on the same inputs.
+
+``--entry fp32`` (the default): sources of ``pvraft_gru_update`` (the C
+entry point of ``csrc/gru_iter.cu``, same arguments); the checkout's own
+``csrc/gru_iter.cu`` is always one of them, named ``this``. At each B x N
+of ``SHAPES``, on the inputs ``chip_smoke.py`` gives the GRU kernel, it
+calls every source once, reports its max |err| against ``gru_math``
+(fp32) and against ``gru_math`` in fp64 (beside fp32 ``gru_math``'s own)
+and whether two launches are bitwise equal.
+
+``--entry bf16``: sources of ``pvraft_gru_update_bf16`` (the 21-argument
+C entry point of ``csrc/gru_iter_bf16.cu``: 13 pointers, rows, hidden,
+context and correlation widths, three launch ints, the stream); the
+checkout's own ``csrc/gru_iter_bf16.cu`` is ``this``. ``@PLAN`` names the
+host plan that gives a source its three launch ints: ``bf16`` (the
+default, ``ops/cuda/gru_iter.py::bf16_gru_plan``: blocks, threads, shared
+memory) or ``general`` (``general_gru_plan``: groups of 8 points,
+threads, shared memory; the plan of the bf16 kernel before it moved to
+the tensor cores). At width 64 at each B x N of ``SHAPES`` and at 1 x
+8192 at each width of ``BF16_WIDTHS`` (correlation features 64, the
+lookup head's), on the operands the bf16 model hands over (cor bf16, the
+rest float32), it holds every source against ``gru_math`` at bf16 by
+``chip_smoke.py``'s rule (``BF16_OP_TOL`` at all but ``BF16_STRAY`` of
+the outputs, every output within ``FLOOR_FACTOR`` x the plain version's
+own host-vs-card spread where that is wider), reports whether two
+launches are bitwise equal, and times ``gru_math`` at bf16 (``plain``)
+beside the sources.
+
+Every source, and ``plain``, is timed by device time
 (``kernel_bench.device_ms``) in turns: every source in the order given,
-then again in the reverse order, so each has two readings. A source that computes something else on purpose (a
-variant that isolates one cost) reports its error and is timed all the
-same. Prints one JSON line per shape and one with each source's ptxas
-report (registers, shared memory, spills). Needs a CUDA device.
+then again in the reverse order, so each has two readings. A source that
+computes something else on purpose (a variant that isolates one cost)
+reports its error and is timed all the same. Prints one JSON line with
+the card and each source's ptxas report (registers, shared memory,
+spills), then one per shape. Needs a CUDA device: without one it exits
+with code 2.
 """
 
 from __future__ import annotations
@@ -34,14 +60,48 @@ import torch
 from pvraft_tpu_torch.kernel_bench import device_ms
 from pvraft_tpu_torch.ops import cuda as _cuda
 from pvraft_tpu_torch.ops.cuda.gru_iter import (
-    WIDTH, gru_math, pack_gru_weights, pad_flow)
+    WIDTH, bf16_gru_plan, general_gru_plan, gru_math, pack_gru_weights,
+    pad_flow)
 
 SHAPES = ((1, 8192), (2, 8192), (4, 8192), (4, 4096), (1, 2048))
+# (hidden, context) widths of the bf16 entry's 1 x 8192 rows beyond 64.
+BF16_WIDTHS = ((32, 32), (96, 96), (128, 128))
+# entry -> (C symbol, the checkout's source, ints after the pointers)
+ENTRIES = {"fp32": ("pvraft_gru_update", "gru_iter", 1),
+           "bf16": ("pvraft_gru_update_bf16", "gru_iter_bf16", 7)}
+PLANS = ("bf16", "general")
 
 
-def build(sources: dict) -> dict:
-    """name -> (loaded library, ptxas lines); one nvcc per source, all
-    started together; raises if one fails."""
+def parse_sources(specs, entry: str) -> dict:
+    """``NAME=PATH[@PLAN]`` specs -> {name: (path, plan)}, with the
+    checkout's own source of ``entry`` as ``this``. The fp32 entry takes
+    no plan (its kernel is built on one launch shape)."""
+    out = {}
+    for spec in specs:
+        name, sep, rest = spec.partition("=")
+        if not sep or not name or not rest:
+            raise ValueError(f"--source {spec!r}: expected NAME=PATH[@PLAN]")
+        path, _, plan = rest.partition("@")
+        if entry == "fp32" and plan:
+            raise ValueError(f"--source {spec!r}: the fp32 entry takes no "
+                             f"plan")
+        plan = plan or ("bf16" if entry == "bf16" else "")
+        if entry == "bf16" and plan not in PLANS:
+            raise ValueError(f"--source {spec!r}: plan {plan!r} is not one "
+                             f"of {PLANS}")
+        if name == "this" or name in out:
+            raise ValueError(f"--source {spec!r}: the name {name!r} is taken")
+        out[name] = (path, plan)
+    out["this"] = (_cuda.sources()[ENTRIES[entry][1]],
+                   "bf16" if entry == "bf16" else "")
+    return out
+
+
+def build(sources: dict, entry: str = "fp32") -> dict:
+    """name -> (the loaded entry point, ptxas lines); ``sources`` maps a
+    name to a path; one nvcc per source, all started together; raises if
+    one fails."""
+    symbol, _, n_ints = ENTRIES[entry]
     root = os.path.join(_cuda.BUILD_ROOT, "ab")
     procs = {}
     for name, src in sources.items():
@@ -60,50 +120,50 @@ def build(sources: dict) -> dict:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(out).pvraft_gru_update
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(out), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         libs[name] = (fn, [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln])
     return libs
 
 
-def inputs(rng, b, n, dev):
-    """Seeded operands at chip_smoke.py's GRU distributions."""
-    h = WIDTH
+def inputs(rng, b, n, dev, h=WIDTH, c=None, f=None):
+    """Seeded operands at chip_smoke.py's GRU distributions: hidden width
+    ``h``, context ``c`` and correlation features ``f`` (both default
+    ``h``)."""
+    c = h if c is None else c
+    f = h if f is None else f
 
     def a(*s, scale=0.15):
         return torch.from_numpy(
             (scale * rng.normal(size=s)).astype(np.float32)).to(dev)
 
-    me = (a(h, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
-    gru = (a(3 * h, h), a(h), a(3 * h, h), a(h), a(3 * h, h), a(h))
-    weights = pack_gru_weights(me, gru, h, h)
+    me = (a(f, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
+    gru = (a(2 * h + c, h), a(h), a(2 * h + c, h), a(h), a(2 * h + c, h),
+           a(h))
+    weights = pack_gru_weights(me, gru, h, c)
     net = torch.tanh(a(b, n, h, scale=1.0))
-    inp = torch.relu(a(b, n, h, scale=1.0))
-    cor = a(b, n, h, scale=1.0)
+    inp = torch.relu(a(b, n, c, scale=1.0))
+    cor = a(b, n, f, scale=1.0)
     flow8 = pad_flow(a(b, n, 3, scale=0.3)).contiguous()
     return (net, inp, cor, flow8, *weights)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", action="append", default=[],
-                    metavar="NAME=PATH", help="another GRU kernel source")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("gru_ab: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    sources = dict(s.split("=", 1) for s in args.source)
-    sources["this"] = _cuda.sources()["gru_iter"]
-    libs = build(sources)
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
-    order = list(sources)
-    print(json.dumps({"gpu": torch.cuda.get_device_name(0),
-                      "ptxas": {k: v[1] for k, v in libs.items()}}), flush=True)
+def _launch_ints(plan: str, h: int, c: int, f: int, rows: int) -> tuple:
+    if plan == "general":
+        return general_gru_plan(h, c, f)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return bf16_gru_plan(h, c, f, rows, sms)[:3]
+
+
+def _time(row, calls, order):
+    for name in order + order[::-1]:
+        row[name]["ms"].append(device_ms(calls[name]))
+
+
+def run_fp32(libs, order, rng, dev):
     for b, n in SHAPES:
         ops = inputs(rng, b, n, dev)
         want = gru_math(ops[0], ops[1], ops[2], ops[3], ops[4:])
@@ -123,15 +183,89 @@ def main(argv=None) -> int:
             for out in outs:
                 call(out)
             torch.cuda.synchronize()
-            calls[name] = (call, outs[0])
+            calls[name] = lambda call=call, out=outs[0]: call(out)
             row[name] = {"max_abs_err": float((outs[0] - want).abs().max()),
                          "vs_fp64": float((outs[0] - exact).abs().max()),
                          "bitwise_repeat": bool(torch.equal(*outs)),
                          "ms": []}
-        for name in order + order[::-1]:
-            call, out = calls[name]
-            row[name]["ms"].append(device_ms(lambda: call(out)))
+        _time(row, calls, order)
         print(json.dumps(row), flush=True)
+
+
+def run_bf16(libs, plans, order, rng, dev):
+    sys.path.insert(0, os.path.dirname(_cuda.PKG_DIR))
+    from chip_smoke import BF16_OP_TOL, BF16_STRAY, FLOOR_FACTOR, beyond
+
+    bf16 = torch.bfloat16
+    cases = [(b, n, WIDTH, WIDTH) for b, n in SHAPES]
+    cases += [(1, 8192, h, c) for h, c in BF16_WIDTHS]
+    for b, n, h, c in cases:
+        ops = list(inputs(rng, b, n, dev, h, c, WIDTH))
+        ops[2] = ops[2].to(bf16)
+        want = gru_math(*ops[:4], tuple(ops[4:]), bf16)
+        host = gru_math(*(t.cpu() for t in ops[:4]),
+                        tuple(t.cpu() for t in ops[4:]), bf16)
+        floor = float((want.cpu() - host).abs().max())
+        atol = max(BF16_OP_TOL["atol"], FLOOR_FACTOR * floor)
+        row = {"shape": [b, n, h, c, WIDTH], "plain_host_vs_card": floor,
+               "atol_used": atol, "plain": {"ms": []}}
+        calls = {"plain": lambda: gru_math(*ops[:4], tuple(ops[4:]), bf16)}
+        for name in order:
+            fn = libs[name][0]
+            ints = _launch_ints(plans[name], h, c, WIDTH, b * n)
+            outs = [torch.empty_like(ops[0]) for _ in range(2)]
+
+            def call(out, fn=fn, ints=ints):
+                _cuda.check(fn(*(t.data_ptr() for t in (*ops, out)),
+                               b * n, h, c, WIDTH, *ints,
+                               _cuda.stream_ptr(dev)), "gru_ab")
+
+            for out in outs:
+                call(out)
+            torch.cuda.synchronize()
+            calls[name] = lambda call=call, out=outs[0]: call(out)
+            got = outs[0]
+            stray = beyond(got, want, **BF16_OP_TOL)
+            row[name] = {
+                "launch": list(ints),
+                "max_abs_err": float((got - want).abs().max()),
+                "beyond_op_tol": stray,
+                "ok": bool(stray <= BF16_STRAY * got.numel()
+                           and beyond(got, want, BF16_OP_TOL["rtol"],
+                                      atol) == 0),
+                "bitwise_repeat": bool(torch.equal(*outs)), "ms": []}
+        _time(row, calls, ["plain"] + order)
+        print(json.dumps(row), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--entry", choices=sorted(ENTRIES), default="fp32",
+                    help="the C entry point the sources export")
+    ap.add_argument("--source", action="append", default=[],
+                    metavar="NAME=PATH[@PLAN]",
+                    help="another source of the entry point")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    sources = parse_sources(args.source, args.entry)
+    if not torch.cuda.is_available():
+        print("gru_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build({k: v[0] for k, v in sources.items()}, args.entry)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    order = list(sources)
+    print(json.dumps({"gpu": torch.cuda.get_device_name(0),
+                      "entry": args.entry,
+                      "plans": {k: v[1] for k, v in sources.items()},
+                      "ptxas": {k: v[1] for k, v in libs.items()}}),
+          flush=True)
+    if args.entry == "fp32":
+        run_fp32(libs, order, rng, dev)
+    else:
+        run_bf16(libs, {k: v[1] for k, v in sources.items()}, order, rng,
+                 dev)
     return 0
 
 

@@ -24,9 +24,9 @@ by ``r``, bitwise equal where it holds). Every other shape the Pallas
 kernels take runs a general kernel: ``csrc/corr_lookup_general.cu`` for
 the lookup and the voxel means, ``csrc/gru_iter_general.cu`` for the GRU
 update. A bfloat16 model's GRU update runs ``csrc/gru_iter_bf16.cu`` at
-every width (the general GRU kernel's plan at bf16: both instantiate
-``csrc/gru_general.cuh``); its lookup stays float32 (the correlation cache is float32
-at every compute dtype) and runs the kernels above.
+every width (on the bf16 tensor cores); its lookup stays float32 (the
+correlation cache is float32 at every compute dtype) and runs the kernels
+above.
 :func:`kernel_takes` says which variant ("tuned", "general" or "bf16")
 each kernel runs for a model configuration; a CUDA tensor never takes
 the plain version unless the caller chose ``use_pallas=False``.

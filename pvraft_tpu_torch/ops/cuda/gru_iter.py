@@ -24,9 +24,13 @@ one thread per output channel and group of 8 points, each weight read
 once through ``__ldg`` for the group's 8 fp32 FMA chains on the CUDA
 cores). At ``compute_dtype="bfloat16"`` the update is the JAX kernel's
 bf16 ``_gru_math`` and runs ``csrc/gru_iter_bf16.cu``
-(:func:`gru_iter_bf16`, at every width): the general kernel's plan, one
-template in ``csrc/gru_general.cuh`` for both dtypes, with operands,
-weights and every product, sum, gate and ``r * net`` rounded to bf16
+(:func:`gru_iter_bf16`, at every width), on the bf16 tensor cores
+(``mma.sync`` m16n8k16, float32 accumulators, one per product): 16 points
+go through the chain together on one or two warps, their inputs and bf16
+intermediates in rows of shared memory; the weights, rounded to bf16, are
+staged once per block of a persistent grid where they fit (widths up to
+~80), else a stage's columns at a time (:func:`bf16_gru_plan`). Operands,
+weights and every product, sum, gate and ``r * net`` are rounded to bf16
 where ``_gru_math`` rounds them, the float32 carry blended last.
 
 :func:`fused_gru_update` is a ``torch.autograd.Function``. Its forward
@@ -45,6 +49,7 @@ parameters through their pads and concatenations.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -187,22 +192,107 @@ def general_gru_plan(hidden: int, context: int, corr_ch: int
     return groups, threads, groups * group
 
 
+BF16_ROWS = 16         # points per warp tile of the bf16 kernel (mma m16)
+BF16_BLOCK = 32        # channels per block of its products (kBlock)
+BF16_MAX_WARPS = 8
+
+
+def _bf16_mats(h: int, c: int, f: int) -> Tuple[Tuple[int, int], ...]:
+    """(input rows, gates) of the bf16 kernel's weight arrays: wc, wf,
+    wh[:H], wh[H:], wi3, wh3, wf3, wn3."""
+    return ((f, 1), (FLOW_PAD, 1), (h, 1), (h, 1), (c, 3), (h, 3),
+            (FLOW_PAD, 3), (h, 3))
+
+
+def _pad(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bf16_gru_plan(hidden: int, context: int, corr_ch: int, rows: int,
+                  sms: int) -> Tuple[int, int, int, str]:
+    """The bf16 kernel's launch shape for ``rows`` points on a card of
+    ``sms`` SMs: (blocks, threads per block, dynamic shared memory bytes,
+    mode). A block holds the rounded biases (24 pad32(H) bytes) and each
+    warp 32 bytes a column of its 16 points' rows: the four bf16
+    intermediate regions (4 pad32(H)) and, staged, its inputs (netd to
+    pad32(H), inp to pad16(C), flow8 to 16, cor to pad16(F) over hid and
+    r * netd where it fits there), each row padded by 8. Mode "resident":
+    every weight array, rounded to bf16 (rows padded to 16, each gate's
+    columns to pad32(H), rows by 8), fits beside four warps' staged rows,
+    and a persistent grid of at most one block per SM stages it once per
+    block. "streamed": a slab, the weight columns of one stage for one
+    block of 32 channels (the largest: wi3, wh3, wf3 over 3 gates and
+    wn3's z | r), fits beside one tile's staged rows; the block stages
+    each slab in turn for all its warps. "bare": neither (widths whose
+    staged rows do not fit); inputs and weights are read from global
+    memory. A tile runs on a team of two warps above hidden width 32
+    where the weights are resident, else on one. Warps per block spread
+    the tiles of 16 points over the SMs (4 to 8 where resident, up to 8
+    else). The same formulas as
+    ``csrc/gru_iter_bf16.cu`` (``bias_bytes``, ``warp_bytes``,
+    ``weight_elems``, ``slab_elems``), which checks them. Raises where one
+    warp's bare rows do not fit in the SMEM_MAX a block can have, naming
+    the limit."""
+    h, c, f = hidden, context, corr_ch
+    hp = _pad(h, 32)
+    bias = 24 * hp
+    bare = 2 * BF16_ROWS * (4 * hp + 8)
+    if min(h, c, f) < 1 or bias + bare > _cuda.SMEM_MAX:
+        raise ValueError(
+            f"gru_iter_bf16: widths hidden={h}, context={c}, corr={f} need "
+            f"{bias + bare} bytes of shared memory for {BF16_ROWS} points; "
+            f"the kernel takes widths >= 1 within the {_cuda.SMEM_MAX} a "
+            f"block can have")
+    cor = _pad(f, 16) if _pad(f, 16) > 2 * hp else 0
+    staged = 2 * BF16_ROWS * (5 * hp + _pad(c, 16) + 16 + cor + 8)
+    mats = _bf16_mats(h, c, f)
+    weights = sum(2 * _pad(k, 16) * (ng * hp + 8) for k, ng in mats)
+
+    def part(m, ng):
+        return 2 * _pad(mats[m][0], 16) * (ng * BF16_BLOCK + 8)
+
+    slab = max(part(0, 1) + part(1, 1), part(2, 1) + part(3, 1),
+               part(4, 3) + part(5, 3) + part(6, 3) + part(7, 2), part(7, 1))
+    tiles = -(-rows // BF16_ROWS)
+    team = 1                                  # warps a tile
+    if bias + weights + 4 * staged <= _cuda.SMEM_MAX:
+        mode, base, per = "resident", bias + weights, staged
+        team = 2 if hp >= 2 * BF16_BLOCK else 1
+    elif bias + slab + staged <= _cuda.SMEM_MAX:
+        mode, base, per = "streamed", bias + slab, staged
+    else:
+        mode, base, per = "bare", bias, bare
+    fit = min(BF16_MAX_WARPS, team * ((_cuda.SMEM_MAX - base) // per))
+    warps = min(fit, max(team, team * -(-tiles // sms)))
+    if mode == "resident":
+        warps = max(4, warps)   # the 8 weight arrays staged 4 at a time
+    blocks = max(1, -(-tiles // (warps // team)))
+    if mode == "resident":
+        blocks = min(blocks, sms)
+    return blocks, 32 * warps, base + warps * per // team, mode
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _general_signature(fn) -> None:
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
-def _launch_general(wrapper, library: str, entry: str, net: torch.Tensor,
-                    inp: torch.Tensor, cor: torch.Tensor, flow8: torch.Tensor,
-                    weights: Weights, cor_dtype: torch.dtype) -> torch.Tensor:
-    """Check the operands of a kernel on :func:`general_gru_plan`'s launch
-    shape (every operand float32 but ``cor``, of ``cor_dtype``), launch it
-    and count the launch on ``wrapper``."""
+def _launch_general(wrapper, entry: str, operands: Sequence[torch.Tensor],
+                    cor_dtype: torch.dtype, plan) -> torch.Tensor:
+    """Check the operands ``(net, inp, cor, flow8, *weights)`` of a
+    general-width kernel (every operand float32 but ``cor``, of
+    ``cor_dtype``), launch its C ``entry`` on ``plan(h, c, f, rows,
+    device)``'s last three ints and count the launch on ``wrapper``."""
     what = wrapper.__name__
+    net, inp, cor = operands[:3]
     b, n, h = net.shape
     c, f = inp.shape[-1], cor.shape[-1]
-    operands = (net, inp, cor, flow8, *weights)
     _cuda.require_cuda(what, *operands, dtypes=[
         torch.float32, torch.float32, cor_dtype] + [torch.float32] * 9)
     shapes = [tuple(t.shape) for t in operands]
@@ -211,14 +301,14 @@ def _launch_general(wrapper, library: str, entry: str, net: torch.Tensor,
             (FLOW_PAD, 3 * h), (FLOW_PAD, 3 * h)]
     if shapes != want:
         raise ValueError(f"{what}: operand shapes {shapes}, expected {want}")
-    groups, threads, smem = general_gru_plan(h, c, f)
+    launch = plan(h, c, f, b * n, net.device)
     _cuda.check_capturable(what, net.device)
     out = torch.empty_like(net)
-    fn = getattr(_cuda.library(library), entry)
+    fn = getattr(_cuda.library(what), entry)
     _general_signature(fn)
     with torch.cuda.device(net.device):
         code = fn(*(t.data_ptr() for t in (*operands, out)), b * n, h, c, f,
-                  groups, threads, smem, _cuda.stream_ptr(net.device))
+                  *launch, _cuda.stream_ptr(net.device))
     _cuda.check(code, what)
     _cuda.record_launch(wrapper, net.device)
     return out
@@ -231,24 +321,27 @@ def gru_iter_general(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     operands of :func:`pack_gru_weights` and :func:`pad_flow`. Launches
     the kernel or raises (CPU tensors take :func:`gru_math` in the
     Function that calls this)."""
-    return _launch_general(gru_iter_general, "gru_iter_general",
-                           "pvraft_gru_update_general", net, inp, cor, flow8,
-                           weights, torch.float32)
+    return _launch_general(
+        gru_iter_general, "pvraft_gru_update_general",
+        (net, inp, cor, flow8, *weights), torch.float32,
+        lambda h, c, f, rows, dev: general_gru_plan(h, c, f))
 
 
 def gru_iter_bf16(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
                   flow8: torch.Tensor, weights: Weights) -> torch.Tensor:
     """The bf16 GRU kernel (``csrc/gru_iter_bf16.cu``): ``gru_math(...,
-    dtype=torch.bfloat16)`` at any widths, on :func:`general_gru_plan`'s
+    dtype=torch.bfloat16)`` at any widths, on :func:`bf16_gru_plan`'s
     launch shape. The operands come in the dtypes the bf16 model hands
     over, ``cor`` (the correlation head's output) bfloat16 and the rest
     float32 (the carry, the context, the flow, the float32 parameters);
     the kernel rounds them to bf16 itself. Launches the kernel or raises:
     no operand is cast here, and nothing falls back to the plain
     version."""
-    return _launch_general(gru_iter_bf16, "gru_iter_bf16",
-                           "pvraft_gru_update_bf16", net, inp, cor, flow8,
-                           weights, torch.bfloat16)
+    return _launch_general(
+        gru_iter_bf16, "pvraft_gru_update_bf16",
+        (net, inp, cor, flow8, *weights), torch.bfloat16,
+        lambda h, c, f, rows, dev: bf16_gru_plan(
+            h, c, f, rows, _sm_count(dev.index))[:3])
 
 
 class _FusedGru(torch.autograd.Function):

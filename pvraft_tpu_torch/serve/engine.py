@@ -17,11 +17,19 @@ mask reaching the head's GroupNorms too.
 The engine captures its whole (bucket, batch size) table at construction
 (the JAX ``_compile``): one :class:`~pvraft_tpu_torch.serve.aot.GraphProgram`
 per entry, named by :func:`~pvraft_tpu_torch.serve.aot.predict_program_name`,
-all in one shared memory pool (they never run at once);
-:meth:`InferenceEngine.compile_report` lists them. A request copies its
-padded clouds and masks into the program's static inputs, every slot
-included, replays the graph, and copies the flow out. On the CPU the
-programs run the forward on the same static buffers without a graph.
+all in one shared memory pool; :meth:`InferenceEngine.compile_report`
+lists them. A request copies its padded clouds and masks into the
+program's static inputs, every slot included, replays the graph, and
+copies the flow out. On the CPU the programs run the forward on the same
+static buffers without a graph.
+
+The engine may be called from several threads. Static inputs, outputs
+and the shared pool admit one program run at a time, so one lock per
+engine covers copy-in, replay and copy-out (a lock per program would
+not: two programs replaying at once write the same pool). Host-side
+padding runs outside it. The JAX engine needs no such lock, since each
+call there runs its own invocation; once the port serves several
+replicas (ROADMAP queue 1 item 6a), each replica takes a lock of its own.
 
 :meth:`InferenceEngine.from_checkpoint` builds an engine from a msgpack
 checkpoint (the port's or the JAX package's) and keeps its path and
@@ -32,6 +40,7 @@ hot-swap and checkpoint reload (ROADMAP queue 1 item 6).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
                     Union)
 
@@ -140,7 +149,8 @@ class InferenceEngine:
     package's flax params tree (nested mapping, mapped by
     :func:`params_from_jax`); either loads with ``strict=True``. The
     constructor captures every (bucket, batch size) program; a failed
-    capture raises.
+    capture raises. Thread-safe: one lock admits one program run at a
+    time (module docstring).
     """
 
     def __init__(self, weights: Mapping, cfg: ServeConfig,
@@ -153,6 +163,7 @@ class InferenceEngine:
         self.model = (PVRaftRefine if cfg.refine else PVRaft)(model_cfg)
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device).eval()
+        self._lock = threading.Lock()
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == "cuda" else None)
         self._programs: Dict[Tuple[int, int], GraphProgram] = {}
@@ -281,10 +292,11 @@ class InferenceEngine:
             return []
         inputs = self.padded_batch(requests, bucket)
         program = self._programs[(bucket, inputs[0].shape[0])]
-        # Every slot of every static input is overwritten; the flow is
-        # copied to the host before the next request can overwrite it.
-        flow, = program(*(torch.from_numpy(a) for a in inputs))
-        flow = flow.to("cpu", copy=True).numpy()
+        # Every slot of every static input is overwritten, and the flow
+        # is copied to the host before the lock lets the next call in.
+        with self._lock:
+            flow, = program(*(torch.from_numpy(a) for a in inputs))
+            flow = flow.to("cpu", copy=True).numpy()
         return [flow[i, : requests[i][0].shape[0]]
                 for i in range(len(requests))]
 

@@ -17,7 +17,11 @@ kernels do not take (K past 512, knn past 32 and up to K, resolutions
 1, 2, 4 and 5, GRU widths 32, 48, 96 and 128), forward and gradient.
 The bf16 GRU kernel against ``gru_math`` at bf16 (rtol/atol 1e-2, atol
 widened to twice the plain version's own spread across sum orders where
-that is larger), and its refusal to run anything else.
+that is larger), with its weights resident in shared memory (widths 64,
+32/96, 33/50/37), read from global memory (96, 128) and with its inputs
+read from global memory too (context 7100), up to 4 x 8192 points, and
+its refusal to run anything else. Concurrent requests to
+one engine get their own flows bitwise.
 The captured paths: a config the tuned kernels do not take runs the
 general kernel under ``use_pallas=None`` and ``True`` and the plain
 version under ``False``; the serve programs' replays (their kernel launches measured
@@ -124,6 +128,45 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     gpu = InferenceEngine(weights, cfg).predict(pc1, pc2)
     cpu = InferenceEngine(weights, cfg, device="cpu").predict(pc1, pc2)
     np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-4)
+
+
+def test_concurrent_requests_get_their_own_flows_on_the_card(dev):
+    """The load of ``tests/test_torch_serve.py::
+    test_concurrent_requests_get_their_own_flows`` on captured programs:
+    eight threads call ``predict`` three times each on their own request
+    of 400-470 points (random weights, truncate_k 32, graph_k 8, corr_knn
+    8, one bucket of 512 at batch size 1, 2 iterations), started
+    together; every flow equals the serial flow of the same request
+    bitwise."""
+    import threading
+
+    model = ModelConfig(truncate_k=32, graph_k=8, corr_knn=8)
+    cfg = ServeConfig(model=model, buckets=(512,), batch_sizes=(1,),
+                      num_iters=2, dtype="float32")
+    engine = InferenceEngine(seeded_state_dict(model, 0), cfg)
+    rng = np.random.default_rng(5)
+    requests = [tuple(rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+                      for n in rng.integers(400, 471, size=2))
+                for _ in range(8)]
+    serial = [engine.predict(*r) for r in requests]
+    got = [[] for _ in requests]
+    start = threading.Barrier(len(requests))
+
+    def serve(i):
+        start.wait()
+        for _ in range(3):
+            got[i].append(engine.predict(*requests[i]))
+
+    threads = [threading.Thread(target=serve, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, want in enumerate(serial):
+        assert len(got[i]) == 3
+        for flow in got[i]:
+            np.testing.assert_array_equal(flow, want, err_msg=f"thread {i}")
 
 
 def _candidates(dev, b, n, k, seed=0):
@@ -623,9 +666,12 @@ def test_general_kernels_backward_match_plain_autograd(dev):
 # few values to neighbouring bf16s (chip_smoke.py, BF16_OP_TOL).
 @pytest.mark.parametrize("b,n,h,c,f", [(2, 37, 64, 64, 64),
                                        (1, 8192, 64, 64, 64),
+                                       (4, 8192, 64, 64, 64),
+                                       (4, 4096, 64, 64, 64),
                                        (2, 129, 32, 96, 64),
                                        (2, 65, 128, 128, 64),
-                                       (2, 129, 33, 50, 37)])
+                                       (2, 129, 33, 50, 37),
+                                       (1, 45, 8, 7100, 16)])
 def test_bf16_gru_kernel_matches_plain(dev, b, n, h, c, f):
     acts, me, gru = _gru_operands(dev, b, n, h, c, f, seed=3)
     bf16 = torch.bfloat16

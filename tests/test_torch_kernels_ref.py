@@ -173,10 +173,16 @@ def test_kernel_sources_and_lazy_build():
     for name in ("corr_lookup", "voxel_corr"):
         with open(tcuda.sources()[name]) as f:
             assert '#include "voxel_bins.cuh"' in f.read()
-    # One kernel plan for the general float32 and the bf16 GRU update.
+    # The bf16 GRU update runs its products on the bf16 tensor cores with
+    # float32 accumulators; the general float32 one stands alone (no
+    # source includes another's plan).
+    with open(tcuda.sources()["gru_iter_bf16"]) as f:
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in f.read()
+    assert sorted(f for f in os.listdir(tcuda.CSRC_DIR)
+                  if f.endswith(".cuh")) == ["voxel_bins.cuh"]
     for name in ("gru_iter_general", "gru_iter_bf16"):
         with open(tcuda.sources()[name]) as f:
-            assert '#include "gru_general.cuh"' in f.read()
+            assert "#include \"" not in f.read()
     assert "arch=compute_90a,code=sm_90a" in tcuda.NVCC_FLAGS
     # Importing every module of the port and running its CPU path builds
     # and loads nothing (a fresh interpreter: this one may hold a build).

@@ -6,7 +6,10 @@ JAX-vs-torch model bar; 2 iterations). At the default serving dtype,
 bfloat16: the JAX package's accuracy gate of bf16 against fp32 serving
 on its own geometry (``tests/test_serve_pool.py``), and the port's bf16
 flows against the JAX engine's at 1 iteration at the JAX model-level
-bf16 bar (rtol 0.05 / atol 0.03)."""
+bf16 bar (rtol 0.05 / atol 0.03). Concurrent callers: eight threads'
+flows equal the serial flows of the same requests bitwise."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -208,3 +211,44 @@ def test_bf16_serving_matches_jax_at_one_iteration(variables):
     pc1, pc2 = _cloud(rng, 20), _cloud(rng, 24)
     np.testing.assert_allclose(teng.predict(pc1, pc2), jeng.predict(pc1, pc2),
                                rtol=0.05, atol=0.03)
+
+
+# The engine under concurrent load: random weights at truncate_k 32,
+# graph_k 8, corr_knn 8, one bucket of 512 at batch size 1, 2 iterations.
+LOAD = {"threads": 8, "calls": 3}
+LOAD_MODEL = {"truncate_k": 32, "graph_k": 8, "corr_knn": 8}
+LOAD_SERVE = {"buckets": (512,), "batch_sizes": (1,), "num_iters": 2,
+              "dtype": "float32"}
+
+
+def test_concurrent_requests_get_their_own_flows():
+    """Eight threads call ``predict`` three times each, each on its own
+    request of 400-470 points, started together: every flow equals the
+    serial flow of the same request bitwise. (Without the engine's lock
+    the threads overwrite each other's static inputs and outputs.)"""
+    cfg = TServeConfig(model=TConfig(**LOAD_MODEL), **LOAD_SERVE)
+    engine = TEngine(seeded_state_dict(cfg.model, 0), cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    requests = []
+    for _ in range(LOAD["threads"]):
+        n1, n2 = rng.integers(400, 471, size=2)
+        requests.append((_cloud(rng, n1), _cloud(rng, n2)))
+    serial = [engine.predict(*r) for r in requests]
+    got = [[] for _ in requests]
+    start = threading.Barrier(len(requests))
+
+    def serve(i):
+        start.wait()
+        for _ in range(LOAD["calls"]):
+            got[i].append(engine.predict(*requests[i]))
+
+    threads = [threading.Thread(target=serve, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, want in enumerate(serial):
+        assert len(got[i]) == LOAD["calls"]
+        for flow in got[i]:
+            np.testing.assert_array_equal(flow, want, err_msg=f"thread {i}")
