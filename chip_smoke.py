@@ -136,6 +136,21 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            that must lower the loss, one step graphed against eager
            bitwise under ``deterministic()``, step and eval times, peak
            memory;
+  phase 11 the serving tier (``serving_tier``, ``serving_tier_phase``;
+           after phase 10, before the profiler phases): the flagship
+           ``ServeConfig()`` (bfloat16, one replica per card) from a
+           msgpack checkpoint behind ``build_service``: phase 2's requests
+           over HTTP in JSON and msgpack, bitwise against the engine's
+           direct calls, HTTP latency per group against the direct call,
+           the queue wait and batch fill of four concurrent clients; a
+           ``POST /admin/reload`` while a client sends requests (every
+           answer the old or the new weights' flow bitwise, the program
+           table unchanged, the next answer the new checkpoint's eager
+           forward bitwise, 409 for another structure); a FaultPlan that
+           quarantines replica 0 (503 with Retry-After) and the probe's
+           revival once it clears; ``/metrics`` JSON against Prometheus;
+           ``python -m pvraft_tpu_torch.serve serve`` in a subprocess,
+           drained by SIGINT;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -144,7 +159,9 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            serve group of phases 2 and 4, one train step and one eval step
            of every way of phase 3, stage 2's train and eval steps and
            requests (phase 9), the bf16 serve groups (fused_gru off and
-           on) and a bf16 train and eval step (phase 10), each pass alone
+           on) and a bf16 train and eval step (phase 10), and one HTTP
+           request per serve group through ``build_service`` at the
+           default dtype (phase 11), each pass alone
            under ``torch.profiler`` with the counts zeroed just before it.
            Phases 2, 4-7 and 9 serve at ``dtype="float32"``, asked for
            explicitly (the default is bfloat16).
@@ -160,7 +177,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 9, 10, 11, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -2488,6 +2505,421 @@ def bf16_phase(seed, dev):
     return out
 
 
+# -------------------------------------------------------------- phase 11 --
+
+HTTP_REPS = 5                # timed HTTP calls per group, format and path
+REVIVAL_WAIT_S = 30.0        # bound on the wait for the probe's revival
+CLI_START_S = 300.0          # bound on the CLI's start (its capture)
+TIER_CLI_FLAGS = ()          # more flags of the CLI (none: the flagship)
+JSON_CT, MSGPACK_CT = "application/json", "application/msgpack"
+
+
+def http_call(port, method, path, body=None, ctype=JSON_CT, timeout=120):
+    """(status, body bytes, headers) of one request to localhost."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": ctype} if body is not None
+                     else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def http_predict(port, pc1, pc2, use_msgpack=False):
+    """POST /predict in JSON or msgpack; (status, flow or None, headers)."""
+    from pvraft_tpu_torch.engine import msgpack
+
+    if use_msgpack:
+        body = msgpack.packb({"pc1": pc1.tobytes(), "pc2": pc2.tobytes()})
+        status, out, headers = http_call(port, "POST", "/predict", body,
+                                         MSGPACK_CT)
+        flow = (np.frombuffer(msgpack.unpackb(out)["flow"],
+                              np.float32).reshape(-1, 3)
+                if status == 200 else None)
+    else:
+        body = json.dumps({"pc1": pc1.tolist(), "pc2": pc2.tolist()})
+        status, out, headers = http_call(port, "POST", "/predict", body)
+        flow = (np.asarray(json.loads(out)["flow"], np.float32)
+                if status == 200 else None)
+    return status, flow, headers
+
+
+def http_json(port, path):
+    status, out, _ = http_call(port, "GET", path)
+    check(status == 200, f"GET {path}: {status}")
+    return json.loads(out)
+
+
+def concurrently(fns):
+    """Run each of ``fns`` on its own thread, started together; their
+    results in order."""
+    import threading
+
+    if len(fns) == 1:
+        return [fns[0]()]
+    out = [None] * len(fns)
+    start = threading.Barrier(len(fns))
+
+    def run(i):
+        start.wait()
+        out[i] = fns[i]()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serving_tier_phase(seed, dev, smi):
+    """The serving tier (``serving_tier``; after phase 10, before the
+    profiler phases): the flagship ``ServeConfig()`` (bfloat16, buckets
+    2048/4096/8192, batch sizes 1/4, ``replicas=0``: every card) from a
+    msgpack checkpoint of seeded weights, behind ``build_service`` on an
+    ephemeral port. (1) Phase 2's requests over HTTP, JSON and msgpack:
+    a lone request equals ``engine.predict`` bitwise, the four concurrent
+    clients' flows equal their bs-1 or bs-4 run bitwise (else phase 2's
+    median bar), JSON and msgpack agree bitwise; HTTP latency per group
+    against the direct call, and the queue wait and batch fill of the
+    four concurrent requests. (2) ``POST /admin/reload`` of a second
+    checkpoint while a client sends requests: every answer is the old
+    weights' flow or the new weights' flow, bitwise; ``/healthz``
+    reports the new digest and one swap; ``compile_report()`` is
+    unchanged (no program captured again, the same pool bytes); the next
+    answer equals the eager forward of a model loaded from the new
+    checkpoint bitwise; a checkpoint of another structure gets 409.
+    (3) A FaultPlan of ``replica_predict_error`` on replica 0 for
+    ``quarantine_after`` requests: the replica is quarantined and
+    ``/predict`` answers 503 with Retry-After; cleared, the probe revives
+    it and ``/predict`` answers 200 within REVIVAL_WAIT_S. (4) ``/metrics``
+    JSON and Prometheus reconcile. (5) ``python -m pvraft_tpu_torch.serve
+    serve`` in a subprocess answers ``/healthz`` and one ``/predict`` and
+    exits 0 after draining on SIGINT."""
+    import re
+    import signal
+    import subprocess
+
+    from pvraft_tpu_torch.engine.checkpoint import load_params, save_checkpoint
+    from pvraft_tpu_torch.models.raft import PVRaft
+    from pvraft_tpu_torch.serve import (FaultPlan, FaultRule, InferenceEngine,
+                                        ServeConfig, build_service,
+                                        params_digest)
+    from pvraft_tpu_torch.serve import faults
+    from pvraft_tpu_torch.weights import (params_from_jax, params_to_jax,
+                                          seeded_state_dict)
+
+    cfg = ServeConfig()
+    check(cfg.dtype == "bfloat16" and cfg.replicas == 0,
+          f"serving tier: ServeConfig() is not the flagship default: {cfg}")
+    requests = serve_requests(np.random.default_rng(seed + 1))
+    lone8192, group, lone2048 = (requests[0][1][0], requests[1][1],
+                                 requests[2][1][0])
+    out = {"gpu": smi}
+    with scratch_dir() as root:
+        paths = {}
+        for name, state, epoch in (
+                ("old", seeded_state_dict(cfg.model, seed), 0),
+                ("new", seeded_state_dict(cfg.model, seed + 100), 1),
+                ("refine", seeded_state_dict(cfg.model, seed, refine=True),
+                 0)):
+            paths[name], = save_checkpoint(
+                os.path.join(root, name), params_to_jax(state), {}, epoch,
+                checkpoint_interval=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = InferenceEngine.from_checkpoint(paths["old"], cfg,
+                                                 device=dev)
+        out["engine_s"] = time.perf_counter() - t0
+        check(len(engine.replicas) == torch.cuda.device_count(),
+              f"serving tier: {len(engine.replicas)} replicas on "
+              f"{torch.cuda.device_count()} cards")
+        table = engine.compile_report()
+        out["capture_s"] = sum(r["warmup_s"] + r["capture_s"] for r in table)
+        out["pool_bytes"] = sum(r["pool_bytes"] for r in table)
+        server = build_service(engine)
+        server.start()
+        port = server.port
+        try:
+            # (1) Flows and latency.
+            for name, (pc1, pc2) in (("lone8192", lone8192),
+                                     ("lone2048", lone2048)):
+                want = engine.predict(pc1, pc2)
+                got = {fmt: http_predict(port, pc1, pc2, fmt == "msgpack")
+                       for fmt in ("json", "msgpack")}
+                check(all(s == 200 and np.array_equal(f, want)
+                          for s, f, _ in got.values()),
+                      f"serving tier {name}: HTTP flows differ from "
+                      f"engine.predict (statuses "
+                      f"{[s for s, _, _ in got.values()]})")
+            alone = [engine.predict(*r) for r in group]
+            grouped = engine.predict_batch(group,
+                                           engine.validate_request(*group[0]))
+            before = http_json(port, "/metrics")
+            flows = concurrently([
+                (lambda r=r: http_predict(port, *r)) for r in group])
+            after = http_json(port, "/metrics")
+            matched = []
+            for i, (status, flow, _) in enumerate(flows):
+                check(status == 200, f"serving tier concurrent {i}: {status}")
+                if np.array_equal(flow, alone[i]):
+                    matched.append("bs1")
+                elif np.array_equal(flow, grouped[i]):
+                    matched.append("bs4")
+                else:
+                    d = point_diffs([[flow]], [[alone[i]]])
+                    check(np.median(d) <= FLOW_BOUND,
+                          f"serving tier concurrent {i}: median |dflow| "
+                          f"{np.median(d)} against its bs-1 flow")
+                    matched.append(f"within_bound:{float(np.median(d))}")
+            batches = after["batches_total"] - before["batches_total"]
+            fill_sum = (after["batch_fill_mean"] * after["batches_total"]
+                        - (before["batch_fill_mean"] or 0.0)
+                        * before["batches_total"])
+            # The same four requests straight into the service's batcher:
+            # each handle's queue wait (enqueue to a collector's take) and
+            # its time from submit to its flow.
+            def submitted(r):
+                t1 = time.perf_counter()
+                h = server.batcher.submit(*r)
+                h.wait(120)
+                return h, 1e3 * (time.perf_counter() - t1)
+
+            handles = concurrently([(lambda r=r: submitted(r))
+                                    for r in group])
+            out["concurrent"] = {
+                "matched": matched, "http_batches": batches,
+                "http_batch_fill_mean": fill_sum / batches,
+                "queue_wait_ms": [1e3 * (h.t_dequeue - h.t_enqueue)
+                                  for h, _ in handles],
+                "submit_to_flow_ms": [ms for _, ms in handles]}
+            latency = []
+            for kind, reqs, bucket in requests:
+                entry = {"call": kind, "bucket": bucket,
+                         "requests": len(reqs)}
+                direct = ((lambda: engine.predict(*reqs[0]))
+                          if kind == "predict"
+                          else (lambda: engine.predict_batch(reqs, bucket)))
+                for path, run in (
+                        ("direct_ms", direct),
+                        ("json_ms", lambda: concurrently([
+                            (lambda r=r: http_predict(port, *r))
+                            for r in reqs])),
+                        ("msgpack_ms", lambda: concurrently([
+                            (lambda r=r: http_predict(port, *r, True))
+                            for r in reqs]))):
+                    times = []
+                    for _ in range(HTTP_REPS):
+                        t1 = time.perf_counter()
+                        run()
+                        times.append(1e3 * (time.perf_counter() - t1))
+                    entry[path] = statistics.median(times)
+                latency.append(entry)
+            out["latency"] = latency
+
+            # (2) Hot swap while a client sends requests.
+            import threading
+
+            pc1, pc2 = lone2048
+            old_flow = engine.predict(pc1, pc2)
+            answers, stop = [], threading.Event()
+
+            def client():
+                while not stop.is_set():
+                    answers.append(http_predict(port, pc1, pc2)[:2])
+
+            t = threading.Thread(target=client)
+            t.start()
+            check(wait_for(lambda: len(answers) >= 2, 60),
+                  "serving tier: the swap's client got no answers")
+            status, body, _ = http_call(
+                port, "POST", "/admin/reload",
+                json.dumps({"ckpt": paths["new"]}))
+            swap = json.loads(body)
+            n_at_swap = len(answers)
+            check(status == 200, f"serving tier reload: {status} {swap}")
+            check(wait_for(lambda: len(answers) >= n_at_swap + 2, 60),
+                  "serving tier: no answers after the swap")
+            stop.set()
+            t.join(120)
+            new_flow = engine.predict(pc1, pc2)
+            kinds = []
+            for status, flow in answers:
+                check(status == 200, f"serving tier swap answer: {status}")
+                kinds.append("old" if np.array_equal(flow, old_flow) else
+                             "new" if np.array_equal(flow, new_flow) else
+                             "neither")
+            check("neither" not in kinds and kinds[0] == "old"
+                  and kinds[-1] == "new",
+                  f"serving tier swap: answers {kinds}")
+            health = http_json(port, "/healthz")
+            new_state = params_from_jax(load_params(paths["new"])[0])
+            check(health["weights"]["digest"] == params_digest(new_state)
+                  == swap["digest"] and health["weights"]["swaps"] == 1,
+                  f"serving tier swap: /healthz weights {health['weights']}")
+            check(engine.compile_report() == table,
+                  "serving tier swap: the program table changed")
+            model = PVRaft(dataclasses.replace(cfg.model,
+                                               compute_dtype=cfg.dtype))
+            model.load_state_dict(new_state, strict=True)
+            model.to(dev).eval()
+            status, got, _ = http_predict(port, pc1, pc2)
+            padded = [torch.from_numpy(a).to(dev)
+                      for a in engine.padded_batch([lone2048], 2048)]
+            with torch.no_grad():
+                eager = model(padded[0], padded[1], cfg.num_iters,
+                              *padded[2:])[0][-1][0, :pc1.shape[0]]
+            check(status == 200
+                  and np.array_equal(got, eager.float().cpu().numpy()),
+                  "serving tier swap: the next answer differs from the "
+                  "eager forward of the new checkpoint")
+            del model, padded, eager
+            status, body, _ = http_call(
+                port, "POST", "/admin/reload",
+                json.dumps({"ckpt": paths["refine"]}))
+            check(status == 409 and http_json(port, "/healthz")["weights"]
+                  == health["weights"],
+                  f"serving tier: a refine checkpoint got {status}")
+            out["swap"] = {**swap, "answers": {k: kinds.count(k)
+                                               for k in ("old", "new")}}
+
+            # (3) Quarantine and revival.
+            sup = server.supervisor
+            n_fail = sup.cfg.quarantine_after
+            faults.install_plan(FaultPlan([FaultRule(
+                "replica_predict_error", nth=1, every=1, replica=0)]))
+            try:
+                statuses = [http_predict(port, pc1, pc2)[0]
+                            for _ in range(n_fail)]
+                check(statuses == [500] * n_fail
+                      and sup.state_of(0) in ("quarantined", "probing"),
+                      f"serving tier: {n_fail} injected failures gave "
+                      f"{statuses}, replica 0 {sup.state_of(0)}")
+                status, _, headers = http_predict(port, pc1, pc2)
+                check(status == 503 and "Retry-After" in headers,
+                      f"serving tier: quarantined pool answered {status}")
+            finally:
+                faults.clear_plan()
+            t_clear = time.perf_counter()
+            check(wait_for(lambda: sup.state_of(0) == "healthy",
+                           REVIVAL_WAIT_S),
+                  "serving tier: the probe did not revive replica 0")
+            revived_s = time.perf_counter() - t_clear
+            status, flow, _ = http_predict(port, pc1, pc2)
+            check(status == 200 and np.array_equal(flow, new_flow),
+                  f"serving tier: after revival /predict gave {status}")
+            out["supervisor"] = {
+                "quarantine_after": n_fail, "revival_s": revived_s,
+                "first_200_s": time.perf_counter() - t_clear,
+                "retry_after": headers["Retry-After"], **sup.counts}
+
+            # (4) Metrics reconcile.
+            snap = http_json(port, "/metrics")
+            _, text, _ = http_call(port, "GET", "/metrics?format=prometheus")
+            text = text.decode()
+
+            def prom(name):
+                return sum(float(v) for v in re.findall(
+                    rf"^{name}(?:{{[^}}]*}})? (\S+)$", text, re.M))
+
+            rejected = sum(snap["rejected"].values())
+            check(snap["requests_total"] == snap["responses_total"] + rejected
+                  and prom("pvraft_serve_requests_total")
+                  == snap["requests_total"]
+                  and prom("pvraft_serve_responses_total")
+                  == snap["responses_total"]
+                  and prom("pvraft_serve_rejected_total") == rejected
+                  and prom("pvraft_serve_in_flight") == 0,
+                  f"serving tier: /metrics does not reconcile: {snap}")
+            out["metrics"] = {k: snap[k] for k in (
+                "requests_total", "responses_total", "rejected",
+                "batches_total", "batch_fill_mean")}
+            out["metrics"]["latency"] = {
+                k: snap["latency"][k] for k in ("count", "mean_ms", "p50_ms",
+                                                "p99_ms")}
+            # A swap with no request in flight (back to the old weights):
+            # the swap's own cost, against the one under load above.
+            idle = engine.reload_checkpoint(paths["old"])
+            check(np.array_equal(engine.predict(pc1, pc2), old_flow),
+                  "serving tier: the idle swap back did not restore the "
+                  "old flows")
+            out["swap"]["idle_swap_ms"] = idle["swap_ms"]
+        finally:
+            server.shutdown(drain=True)
+
+        # (5) The CLI in a subprocess, on the new checkpoint.
+        cli_port = free_port()
+        log_path = os.path.join(root, "cli.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pvraft_tpu_torch.serve", "serve",
+                 "--ckpt", paths["new"], "--port", str(cli_port),
+                 *TIER_CLI_FLAGS],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=log, stderr=subprocess.STDOUT)
+        try:
+            def healthy():
+                check(proc.poll() is None, "serving tier: the CLI exited: "
+                      + open(log_path).read()[-2000:])
+                try:
+                    return http_call(cli_port, "GET", "/healthz",
+                                     timeout=5)[0] == 200
+                except OSError:
+                    return False
+
+            check(wait_for(healthy, CLI_START_S),
+                  "serving tier: the CLI did not answer /healthz")
+            start_s = time.perf_counter() - t0
+            health = http_json(cli_port, "/healthz")
+            status, flow, _ = http_predict(cli_port, pc1, pc2)
+            check(health["weights"]["digest"] == params_digest(new_state)
+                  and status == 200 and flow.shape == (pc1.shape[0], 3)
+                  and bool(np.isfinite(flow).all()),
+                  f"serving tier CLI: /predict {status}, weights "
+                  f"{health['weights']}")
+            proc.send_signal(signal.SIGINT)
+            code = proc.wait(120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        log = open(log_path).read()
+        check(code == 0 and "draining" in log,
+              f"serving tier CLI: exit {code}: {log[-2000:]}")
+        out["cli"] = {"start_s": start_s, "exit": code,
+                      "bitwise_vs_in_process": bool(np.array_equal(
+                          flow, new_flow)),
+                      "replicas": len(health["replicas"])}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def wait_for(predicate, timeout):
+    """Poll ``predicate`` every 10 ms until it holds or ``timeout`` s."""
+    deadline = time.perf_counter() + timeout
+    while not predicate():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
 # --------------------------------------------------------------- phase 6 --
 
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
@@ -2577,7 +3009,8 @@ def launches_phase(seed, dev):
     from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
     from pvraft_tpu_torch.engine.trainer import Trainer
     from pvraft_tpu_torch.profile_train import flagship_train_config
-    from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.serve import (InferenceEngine, ServeConfig,
+                                        build_service)
     from pvraft_tpu_torch.weights import seeded_state_dict
 
     state = seeded_state_dict(ModelConfig(), seed)
@@ -2676,6 +3109,25 @@ def launches_phase(seed, dev):
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    http = dict(NO_LAUNCHES)
+    engine = InferenceEngine(state, ServeConfig(), device=dev)
+    server = build_service(engine)
+    server.start()
+    try:
+        for kind, group, bucket in requests:
+            (status, _, _), counts, wrapper = measured(
+                lambda: http_predict(server.port, *group[0]))
+            want = want_bf16("unfused_gru", engine.cfg.num_iters)
+            check(status == 200 and counts == want
+                  and wrapper == NO_LAUNCHES,
+                  f"launches: HTTP {kind} {bucket}: status {status}, the "
+                  f"card ran {counts} (wrappers {wrapper}), expected {want}")
+            http = {k: http[k] + counts[k] for k in http}
+    finally:
+        server.shutdown(drain=True)
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer = Trainer(flagship_train_config(
         seed, grad_dtype="bfloat16", fused_gru=True,
         compute_dtype="bfloat16"), device=dev, weights=state)
@@ -2709,7 +3161,7 @@ def launches_phase(seed, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return {"serve": serve, "train": train, "refine": refine, "bf16": bf16,
-            "eager_train_step_ms_after_profiler": after_ms}
+            "http": http, "eager_train_step_ms_after_profiler": after_ms}
 
 
 def bench_phase(dev):
@@ -2824,6 +3276,9 @@ def main() -> int:
     bf16 = bf16_phase(args.seed, dev)
     emit({"phase": "bf16", **bf16})
 
+    tier = serving_tier_phase(args.seed, dev, smi)
+    emit({"phase": "serving_tier", **tier})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -2881,6 +3336,7 @@ def main() -> int:
             "refine_eval_launches_per_step":
                 launches["refine"]["fused_gru"]["eval_step"][name],
             "refine_serve_launches": launches["refine"]["serve"][name],
+            "http_serve_launches": launches["http"][name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

@@ -15,6 +15,10 @@ from typing import Tuple, Union
 
 import numpy as np
 
+# The seed where no config seed exists (the serve probe payload), as in
+# the JAX package.
+DEFAULT_SEED = 0
+
 # The streams the port uses, with what each seeds (names and meanings of
 # pvraft_tpu/rng.py::STREAMS).
 STREAMS: Tuple[Tuple[str, str], ...] = (
@@ -22,6 +26,7 @@ STREAMS: Tuple[Tuple[str, str], ...] = (
     ("data.shuffle", "epoch-level sample order"),
     ("data.subsample", "per-scene subsample permutations"),
     ("data.synthetic", "synthetic scene-flow scene generation"),
+    ("serve.probe", "supervisor health-probe payload cloud"),
 )
 
 STREAM_NAMES: Tuple[str, ...] = tuple(name for name, _ in STREAMS)

@@ -110,6 +110,21 @@ class GraphProgram:
                 "launches": dict(self.launches)}
 
 
+# One capture stream per device. torch.cuda.graph's default is made once,
+# on whichever device was current then, so a capture on another device
+# needs its own; and every capture in a shared pool must use the same
+# stream, or the pool's blocks cannot pass from one program to the next.
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
 def capture(name: str, fn: Callable[..., Tensors],
             example: Sequence[torch.Tensor], device: torch.device,
             pool: Any = None,
@@ -146,7 +161,7 @@ def capture(name: str, fn: Callable[..., Tensors],
     reserved = torch.cuda.memory_reserved(device)
     before = dict(_cuda.captured)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool, stream=_capture_stream(device)):
         outputs = tuple(fn(*inputs))
     torch.cuda.synchronize(device)
     launches = {k: n - before.get(k, 0) for k, n in _cuda.captured.items()

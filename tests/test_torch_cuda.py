@@ -26,7 +26,10 @@ The captured paths: a config the tuned kernels do not take runs the
 general kernel under ``use_pallas=None`` and ``True`` and the plain
 version under ``False``; the serve programs' replays (their kernel launches measured
 by the profiler) and three graphed train steps, stage 1's and stage 2's
-(refine), equal their eager runs bitwise.
+(refine), equal their eager runs bitwise; a weight hot-swap keeps the
+captured graphs and serves a fresh engine's flows bitwise. On a host
+with several cards, the replica pool: a replica per card, bitwise alike,
+all serving a burst, swapped together, one quarantined and revived.
 """
 
 import numpy as np
@@ -397,6 +400,137 @@ def test_engine_replays_equal_the_eager_forward(dev, fused_gru):
         with torch.no_grad():
             flows, _ = engine.model(x1, x2, cfg.num_iters, v1, v2)
         np.testing.assert_array_equal(got, flows[-1][0, :n].cpu().numpy())
+
+
+@pytest.mark.parametrize("fused_gru", [False, True])
+def test_hot_swap_keeps_the_captured_graphs(dev, fused_gru):
+    """``swap_params`` copies new weights into the tensors the captured
+    graphs read: the replays then equal a fresh engine's on the new
+    weights bitwise, with the same graphs and the same report (capture
+    seconds, pool bytes, launches)."""
+    tiny = ModelConfig(truncate_k=16, corr_knn=8, graph_k=4,
+                       fused_gru=fused_gru)
+    cfg = ServeConfig(model=tiny, buckets=(32, 64), batch_sizes=(1, 2),
+                      num_iters=2)
+    engine = InferenceEngine(seeded_state_dict(tiny, 0), cfg)
+    assert len(engine.replicas) == torch.cuda.device_count()
+    graphs = [p.graph for p in engine.replicas[0].programs.values()]
+    report = engine.compile_report()
+    new = seeded_state_dict(tiny, 1)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+             rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+            for n in (20, 64, 41)]
+    before = [engine.predict(*r) for r in reqs]
+    swap = engine.swap_params(new)
+    assert swap["drained_in_time"] and swap["replicas"] == len(
+        engine.replicas)
+    fresh = InferenceEngine(new, cfg)
+    for r, old in zip(reqs, before):
+        got = engine.predict(*r)
+        np.testing.assert_array_equal(got, fresh.predict(*r))
+        assert not np.array_equal(got, old)
+    assert [p.graph for p in engine.replicas[0].programs.values()] == graphs
+    assert engine.compile_report() == report
+
+
+def test_replica_pool_across_cards(dev):
+    """On a host with two or more cards: one replica per card (replica i
+    on cuda:i, its parameters and graphs there) answering bitwise alike;
+    the service spreads a burst over every replica; a swap reaches every
+    card; a replica quarantined by a fault plan leaves the others serving
+    (each failed batch retried once on another card) until the probe
+    revives it."""
+    import threading
+
+    from pvraft_tpu_torch.serve import (FaultPlan, FaultRule,
+                                        SupervisorConfig, build_service)
+    from pvraft_tpu_torch.serve import faults
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    tiny = ModelConfig(truncate_k=16, corr_knn=8, graph_k=4)
+    cfg = ServeConfig(model=tiny, buckets=(32, 64), batch_sizes=(1,),
+                      num_iters=2)
+    engine = InferenceEngine(seeded_state_dict(tiny, 0), cfg)
+    assert [r.device for r in engine.replicas] == \
+        [torch.device("cuda", i) for i in range(n)]
+    assert all(p.device == r.device for r in engine.replicas
+               for p in r.model.parameters())
+    rng = np.random.default_rng(5)
+    reqs = [(rng.uniform(-1, 1, (m, 3)).astype(np.float32),
+             rng.uniform(-1, 1, (m, 3)).astype(np.float32))
+            for m in (20, 64, 41, 30)]
+    want = [engine.predict(*r) for r in reqs]
+    for replica in engine.replicas[1:]:
+        for r, w in zip(reqs, want):
+            bucket = engine.validate_request(*r)
+            np.testing.assert_array_equal(
+                replica.predict_batch([r], bucket)[0], w)
+    server = build_service(engine, supervisor_cfg=SupervisorConfig(
+        probe_interval_s=0.1, quarantine_after=2))
+    server.start()
+    try:
+        got = [None] * (4 * n)
+
+        def client(i):
+            got[i] = server.batcher.submit(*reqs[i % len(reqs)]).wait(60)
+
+        # Each dispatch held 100 ms: a burst of 4n keeps every executor
+        # busy, so every replica serves.
+        with faults.injected(FaultPlan([FaultRule(
+                "replica_latency_ms", nth=1, every=1, value=100.0)])):
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(got))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+        for i, g in enumerate(got):
+            np.testing.assert_array_equal(g, want[i % len(reqs)])
+        stats = server.batcher.replica_stats()
+        assert all(s["batches_total"] > 0 for s in stats), stats
+        assert [s["device_id"] for s in stats] == list(range(n))
+
+        new = seeded_state_dict(tiny, 1)
+        report = engine.swap_params(new)
+        assert report["replicas"] == n and report["drained_in_time"]
+        fresh = InferenceEngine(new, ServeConfig(
+            model=tiny, buckets=(32, 64), batch_sizes=(1,), num_iters=2,
+            replicas=1))
+        after = [fresh.predict(*r) for r in reqs]
+        for replica in engine.replicas:
+            for r, w in zip(reqs, after):
+                np.testing.assert_array_equal(
+                    replica.predict_batch([r], engine.validate_request(*r))[0],
+                    w)
+
+        sup = server.supervisor
+        got = [None] * (4 * n)
+        with faults.injected(FaultPlan([
+                FaultRule("replica_latency_ms", nth=1, every=1, value=100.0),
+                FaultRule("replica_predict_error", nth=1, every=1,
+                          replica=1)])):
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(got))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            for i, g in enumerate(got):
+                np.testing.assert_array_equal(g, after[i % len(reqs)])
+            assert sup.state_of(1) in ("quarantined", "probing")
+            assert server.batcher.counts["retries"] >= 2
+            assert sup.pool_health()["state"] == "degraded"
+        deadline = threading.Event()
+        for _ in range(300):
+            if sup.state_of(1) == "healthy":
+                break
+            deadline.wait(0.1)
+        assert sup.state_of(1) == "healthy"
+    finally:
+        server.shutdown()
 
 
 def test_graphed_train_step_equals_eager_on_the_card(dev, monkeypatch):

@@ -127,16 +127,10 @@ def test_engine_needs_cuda_unless_cpu_is_named(monkeypatch):
     assert TEngine(weights, cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [{"replicas": 2}])
-def test_serve_config_rejects_later_slices(kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TServeConfig(model=TConfig(**TINY), buckets=(32, 64), **kw)
-
-
 @pytest.mark.parametrize("kw", [
     {"dtype": "float16"}, {"buckets": ()}, {"buckets": (64, 32)},
     {"batch_sizes": ()}, {"batch_sizes": (2, 2)}, {"coord_limit": 0.0},
-    {"buckets": (2, 64)},
+    {"buckets": (2, 64)}, {"replicas": -1},
 ])
 def test_serve_config_rejects_like_jax(kw):
     base = {"buckets": (32, 64), **kw}
@@ -155,11 +149,9 @@ def test_serve_config_defaults_are_the_flagship_table():
     jcfg = JServeConfig()
     assert (jcfg.buckets, jcfg.batch_sizes, jcfg.num_iters) == \
         (cfg.buckets, cfg.batch_sizes, cfg.num_iters)
-    # Both serve bf16 by default. The gap left, pinned: JAX serves one
-    # replica per device by default, the port one replica; ROADMAP queue
-    # 1 item 6 (the serving tier) closes it.
+    # Both serve bf16 by default, one replica per device.
     assert cfg.dtype == jcfg.dtype == "bfloat16"
-    assert (jcfg.replicas, cfg.replicas) == (0, 1)
+    assert (jcfg.replicas, cfg.replicas) == (0, 0)
 
 
 def test_bf16_default_within_the_jax_serve_bound(variables):

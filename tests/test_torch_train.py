@@ -126,7 +126,7 @@ def test_rng_streams_match_jax():
         assert trng.stream_tag(name) == jrng.stream_tag(name)
         assert trng.host_entropy(3, name, 7) == jrng.host_entropy(3, name, 7)
     with pytest.raises(ValueError):
-        trng.stream_tag("serve.probe")
+        trng.stream_tag("serve.loadgen")
 
 
 @pytest.mark.parametrize("n_objects", [1, 3])
