@@ -26,7 +26,8 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            ``device_ms``), and the kernel also around one call with the
            wrapper's host work (``call_ms``); times the lookup without
            its kNN branch, without its voxel branch and with neither
-           (``lookup_split``);
+           (``lookup_split``), and the general lookup the same way at
+           phase 6's shape (``general_lookup_split``);
            holds each autograd Function's gradient (kernel
            forward, hand-written backward) against autograd through the
            plain version, atol 1e-5, at B=2 x 8192 and B=4 x 4096; holds
@@ -36,7 +37,9 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            K 1024 / knn 64 / r 3, K 510 / knn 48 / r 2, K 512 / knn 32 /
            r 5 with 4 levels; GRU widths 32, 96, 128, and hidden 32 /
            context 96 as phase 6 runs it) at the same bars,
-           timing them the same way, and the Functions' gradients there
+           timing them the same way (the general lookup's rows also give
+           its launch plan and the warps per SM the occupancy calculator
+           gives it), and the Functions' gradients there
            at atol 1e-4 (``check_general_backward``); then
            runs the kernel bench (``python -m
            pvraft_tpu_torch.kernel_bench``), the path through which the
@@ -336,6 +339,7 @@ def lookup_case(name, args):
           f"lookup {name}: two launches are not bitwise equal")
     filled = float((got[0] != 0).float().mean()) if got[0].numel() else 0.0
     vox_n = levels * res**3
+    plan = general_plan(kernel, k, knn, res, levels)
     bytes_ = 4 * b * n * (k + 3 * k + 3) + 4 * b * n * (vox_n + 5 * knn)
     # Per candidate: 3 offsets, 5 for the distance, per level 3 divisions,
     # 3 roundings and 3 range tests; knn comparisons.
@@ -350,8 +354,20 @@ def lookup_case(name, args):
         "plain_ms": device_ms(lambda: corr_lookup_plain(*args)),
         "library_ms": None,
         "bytes": bytes_, "ops": ops,
-        **bound(bytes_, ops),
+        **bound(bytes_, ops), **plan,
     }
+
+
+def general_plan(kernel, k, knn, res, levels):
+    """For the general kernel, its launch plan and the warps per SM the
+    occupancy calculator gives it on this card; else nothing."""
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import (
+        general_lookup_plan, general_resident_warps)
+
+    if kernel != "corr_lookup_general":
+        return {}
+    return {"plan": general_lookup_plan(k, knn, res, levels)._asdict(),
+            "resident_warps": general_resident_warps(k, knn, res, levels)}
 
 
 def check_lookup(rng, b, n, dev):
@@ -427,6 +443,23 @@ def lookup_split(inputs):
                               ("no_voxel", 0, KNN), ("loads_only", 0, 0)):
         args = (*inputs, levels, BASE_SCALE, RESOLUTION, knn)
         out[name] = device_ms(lambda: fused_corr_lookup(*args))
+    return out
+
+
+def general_lookup_split(rng, dev):
+    """The general lookup kernel's time at phase 6's shape (MAIN_GENERAL's
+    lookup) as it is, without its kNN branch, without its voxel branch
+    and with neither (the loads alone), through ``corr_lookup_general``
+    with knn = 0 and levels = 0."""
+    from pvraft_tpu_torch.ops.cuda.corr_lookup import corr_lookup_general
+
+    k, knn, res, levels = GENERAL_LOOKUPS[MAIN_GENERAL[0]]
+    inputs = lookup_inputs(rng, *MAIN_SHAPE, dev, k)
+    out = {}
+    for name, lv, kn in (("full", levels, knn), ("no_knn", levels, 0),
+                         ("no_voxel", 0, knn), ("loads_only", 0, 0)):
+        args = (*inputs, lv, BASE_SCALE, res, kn)
+        out[name] = device_ms(lambda: corr_lookup_general(*args))
     return out
 
 
@@ -675,6 +708,7 @@ def voxel_case(name, corr, xyz, coords, scale, levels=LEVELS,
     filled = float((got != 0).float().mean())
     b, n, k = corr.shape
     vox_n = levels * res**3
+    plan = general_plan(kernel, k, 0, res, levels)
     bytes_ = 4 * b * n * (k + 3 * k) + 4 * b * n * vox_n
     # Per candidate and level: 3 divisions, 3 roundings, 3 range tests.
     ops = b * n * k * 9 * levels
@@ -687,7 +721,7 @@ def voxel_case(name, corr, xyz, coords, scale, levels=LEVELS,
         "plain_ms": device_ms(lambda: voxel_bin_means(*args)),
         "library_ms": None,
         "bytes": bytes_, "ops": ops,
-        **bound(bytes_, ops),
+        **bound(bytes_, ops), **plan,
     }
 
 
@@ -3209,7 +3243,8 @@ def main() -> int:
     for name, path in libs.items():
         with open(f"{path}.log", encoding="utf-8", errors="replace") as fh:
             ptxas[name] = [ln.strip() for ln in fh
-                           if "registers" in ln or "spill" in ln]
+                           if "registers" in ln or "spill" in ln
+                           or "Compiling entry" in ln]
     emit({"phase": "setup", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "kernel_build_s": build_s, "ptxas": ptxas,
@@ -3241,6 +3276,7 @@ def main() -> int:
     general_rng = np.random.default_rng(args.seed + 13)
     general = check_general(general_rng, dev)
     backward["general_1x8192"] = check_general_backward(general_rng, dev)
+    split["general"] = general_lookup_split(general_rng, dev)
     emit({"phase": "kernels", "general": general,
           "fused_corr_lookup": lookup,
           "fused_corr_lookup_cases": {**lookup_edges,
@@ -3294,6 +3330,7 @@ def main() -> int:
     rows = []
     extra = {"fused_corr_lookup": {"model_inputs_ms": lookup_model["ms"],
                                    "split_ms": split["synthetic"]},
+             "corr_lookup_general": {"split_ms": split["general"]},
              "fused_gru_update": {
                  "fp32_bound_ms": gru[main_key]["fp32_bound_ms"]},
              "gru_iter_bf16": {

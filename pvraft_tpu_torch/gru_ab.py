@@ -97,17 +97,17 @@ def parse_sources(specs, entry: str) -> dict:
     return out
 
 
-def build(sources: dict, entry: str = "fp32") -> dict:
-    """name -> (the loaded entry point, ptxas lines); ``sources`` maps a
-    name to a path; one nvcc per source, all started together; raises if
-    one fails."""
-    symbol, _, n_ints = ENTRIES[entry]
+def build_sources(sources: dict, lib: str) -> dict:
+    """name -> (the loaded library, ptxas lines); ``sources`` maps a name
+    to a ``.cu`` path, built with the port's nvcc flags into
+    ``_build/ab/<name>-<digest>/lib<lib>.so``; one nvcc per source, all
+    started together; raises if one fails."""
     root = os.path.join(_cuda.BUILD_ROOT, "ab")
     procs = {}
     for name, src in sources.items():
         with open(src, "rb") as fh:
             digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-        out = os.path.join(root, f"{name}-{digest}", "libgru.so")
+        out = os.path.join(root, f"{name}-{digest}", f"lib{lib}.so")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         # The source's own directory first on the include path, as when it
         # is built in place.
@@ -120,12 +120,24 @@ def build(sources: dict, entry: str = "fp32") -> dict:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = getattr(ctypes.CDLL(out), symbol)
+        libs[name] = (ctypes.CDLL(out),
+                      [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln
+                       or "Compiling entry" in ln])
+    return libs
+
+
+def build(sources: dict, entry: str = "fp32") -> dict:
+    """name -> (the loaded entry point, ptxas lines) of each GRU source
+    (``build_sources``)."""
+    symbol, _, n_ints = ENTRIES[entry]
+    libs = {}
+    for name, (lib, ptxas) in build_sources(sources, "gru").items():
+        fn = getattr(lib, symbol)
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        libs[name] = (fn, [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln])
+        libs[name] = (fn, ptxas)
     return libs
 
 

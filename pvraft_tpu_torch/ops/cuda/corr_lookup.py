@@ -12,9 +12,12 @@ the knn-th distance, a compaction in candidate order and a warp bitonic
 sort, which gives a stable sort's order. That kernel is built on its
 limits (K <= 512, knn <= 32, resolution 3); every other shape the Pallas
 kernel takes runs the general kernel ``csrc/corr_lookup_general.cu``
-(:func:`corr_lookup_general`; one warp per point, a shared table of R^3 +
-1 rows, a bitonic sort of every candidate's distance in shared memory),
-which the voxel Function (``voxel_corr.py``) launches too, with knn = 0.
+(:func:`corr_lookup_general`; one warp per point, each candidate read
+once in chunks of 512, every level of a pass binned from the same
+registers into per-level tables of R^3 rows, the kNN by the same radix
+select and a sort of the knn selected only; :func:`general_lookup_plan`
+sets the levels per pass and the points per block), which the voxel
+Function (``voxel_corr.py``) launches too, with knn = 0.
 
 :func:`fused_corr_lookup` is a ``torch.autograd.Function``. Its forward
 launches the tuned kernel where it takes the shapes, else the general
@@ -32,7 +35,7 @@ tuned kernel, ``corr_lookup_general.launches`` those of the general one.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -95,35 +98,115 @@ def _launch(corr: torch.Tensor, xyz: torch.Tensor, coords: torch.Tensor,
     return vox, kcorr, krel, kidx
 
 
-def general_lookup_plan(k: int, knn: int, resolution: int
-                        ) -> Tuple[int, int, int]:
-    """The general kernel's launch shape for K candidates, a kNN of
-    ``knn`` and ``resolution``: (query points per block, the sort length:
-    the power of two >= K when knn > 0, else 0, dynamic shared memory
-    bytes). One point's warp needs 4 * (2 * (R^3 + 1) * 33 + 2 * sort
-    length) bytes: the sum and count tables and the staged distances.
-    Up to 4 points share a block within 48 KB; a warp above 48 KB runs
-    alone, with an opt-in, up to the SMEM_MAX a block can have. Raises
-    beyond that, naming the limit."""
-    if k < 1 or not 0 <= knn <= k or resolution < 1:
+CHUNK = 512            # candidates per chunk: 16 per lane of the warp
+SMEM_SM = 233472       # shared memory of one H100 SM (228 KB)
+BLOCK_RESERVED = 1024  # of it, reserved by the runtime for each block
+REG_WARPS = 16         # warps per SM at the kernel's 128-register cap
+
+
+class GeneralPlan(NamedTuple):
+    """The general kernel's launch: ``warps`` query points per block,
+    ``levels_per_pass`` voxel levels binned per pass over the candidates,
+    ``smem`` dynamic shared memory bytes per block and the ``resident``
+    warps per SM that the shared memory and the register cap allow."""
+
+    warps: int
+    levels_per_pass: int
+    smem: int
+    resident: int
+
+
+def general_layout_words(k: int, knn: int, resolution: int, num_levels: int,
+                         levels_per_pass: int) -> int:
+    """One query point's shared words (``layout()`` of
+    ``csrc/corr_lookup_general.cu``): the pass's sum tables and a dump row,
+    the count table (R^3 + 1 rows of 32 each), or the kNN list (keys and
+    indices over the power of two >= knn) where that is larger, rounded up
+    to 32 words; then, past two chunks of 512 candidates with a kNN, every
+    candidate's distance key."""
+    chunks = -(-k // CHUNK)
+    r3 = resolution**3
+    sort_len = 1 << (knn - 1).bit_length() if knn > 0 else 0
+    tables = ((levels_per_pass * r3 + 1 + r3 + 1) * 32
+              if num_levels > 0 else 0)
+    front = -(-max(tables, 2 * sort_len) // 32) * 32
+    return front + (chunks * CHUNK if knn > 0 and chunks > 2 else 0)
+
+
+def _resident(words: int) -> Tuple[int, int]:
+    """(resident warps per SM, warps per block) for a point's ``words``:
+    the block size (1 to 4 points) that keeps the most warps resident, the
+    larger on a tie; (0, 0) if one point does not fit a block."""
+    best = (0, 0)
+    for w in range(1, 5):
+        block = 4 * w * words
+        if block > _cuda.SMEM_MAX:
+            break
+        blocks = min(32, SMEM_SM // (block + BLOCK_RESERVED))
+        best = max(best, (min(REG_WARPS, w * blocks), w))
+    return best
+
+
+def general_lookup_plan(k: int, knn: int, resolution: int,
+                        num_levels: int) -> GeneralPlan:
+    """The general kernel's launch for K candidates, a kNN of ``knn``,
+    ``resolution`` and ``num_levels``. The levels per pass: as many as
+    keep the resident warps at the most that one level per pass allows
+    (capped at REG_WARPS) and the packed counts allow (fields of
+    bit_length(16 * chunks) bits in 32), spread evenly over the passes:
+    every level in one pass at R 3 (one read of each candidate), one a
+    pass at R 5, whose 125-row table is 16 KB. Raises, naming the limit,
+    where one point needs more shared memory than a block can have."""
+    if k < 1 or not 0 <= knn <= k or resolution < 1 or num_levels < 0:
         raise ValueError(f"corr_lookup_general: needs K >= 1, 0 <= knn <= "
-                         f"K and resolution >= 1; got K={k}, knn={knn}, "
-                         f"resolution={resolution}")
-    sort_len = 1 << (k - 1).bit_length() if knn > 0 else 0
-    per_warp = 4 * (2 * (resolution**3 + 1) * 33 + 2 * sort_len)
-    if per_warp > _cuda.SMEM_MAX:
+                         f"K, resolution >= 1 and levels >= 0; got K={k}, "
+                         f"knn={knn}, resolution={resolution}, "
+                         f"levels={num_levels}")
+    bits = (16 * -(-k // CHUNK)).bit_length()
+    most = min(num_levels, 32 // bits)
+
+    def plan(per_pass):
+        words = general_layout_words(k, knn, resolution, num_levels,
+                                     per_pass)
+        return words, _resident(words)
+
+    per_pass = min(num_levels, 1)
+    words, (resident, warps) = plan(per_pass)
+    if not warps:
         raise ValueError(
-            f"corr_lookup_general: K={k} (kNN sort of {sort_len}) at "
-            f"resolution {resolution} needs {per_warp} bytes of shared "
-            f"memory per query point, above the {_cuda.SMEM_MAX} a block "
-            f"can have on the H100")
-    warps = max(1, min(4, _cuda.SMEM_DEFAULT // per_warp))
-    return warps, sort_len, warps * per_warp
+            f"corr_lookup_general: K={k}, knn={knn} at resolution "
+            f"{resolution} needs {4 * words} bytes of shared memory per "
+            f"query point, above the {_cuda.SMEM_MAX} a block can have on "
+            f"the H100")
+    for p in range(2, most + 1):
+        passes = -(-num_levels // p)
+        balanced = -(-num_levels // passes)
+        w_p, (r_p, b_p) = plan(balanced)
+        if b_p and r_p >= resident:
+            per_pass, words, warps = balanced, w_p, b_p
+    return GeneralPlan(warps, per_pass, 4 * warps * words,
+                       _resident(words)[0])
+
+
+def general_resident_warps(k: int, knn: int, resolution: int,
+                           num_levels: int) -> int:
+    """The warps per SM that the general kernel's launch at these shapes
+    keeps resident on the current card, as the CUDA occupancy calculator
+    gives it (registers and shared memory): the measured counterpart of
+    ``general_lookup_plan(...).resident``. Needs a CUDA device."""
+    plan = general_lookup_plan(k, knn, resolution, num_levels)
+    fn = _cuda.library("corr_lookup_general").pvraft_corr_lookup_general_resident
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    warps = fn(k, knn, plan.warps, plan.smem)
+    if warps < 0:
+        raise RuntimeError("corr_lookup_general: occupancy query failed")
+    return warps
 
 
 def _general_signature(fn) -> None:
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -148,7 +231,7 @@ def corr_lookup_general(corr: torch.Tensor, pts: torch.Tensor,
                          f"{[tuple(t.shape) for t in operands]}")
     if coords is None and knn:
         raise ValueError(f"{what}: a kNN needs coords")
-    warps, sort_len, smem = general_lookup_plan(k, knn, resolution)
+    plan = general_lookup_plan(k, knn, resolution, num_levels)
     _cuda.check_capturable(what, corr.device)
     dev = corr.device
     vox = torch.empty(b, n, num_levels * resolution**3, device=dev)
@@ -162,7 +245,9 @@ def corr_lookup_general(corr: torch.Tensor, pts: torch.Tensor,
                   None if coords is None else coords.data_ptr(),
                   vox.data_ptr(), kcorr.data_ptr(), krel.data_ptr(),
                   kidx.data_ptr(), b * n, n, k, num_levels, base_scale,
-                  resolution, knn, sort_len, warps, smem,
+                  resolution, knn, plan.levels_per_pass, plan.warps,
+                  plan.smem, int(_cuda.vector_loads(k, corr, pts)),
+                  int(_cuda.reciprocal_is_exact(base_scale, num_levels)),
                   _cuda.stream_ptr(dev))
     _cuda.check(code, what)
     _cuda.record_launch(corr_lookup_general, dev)

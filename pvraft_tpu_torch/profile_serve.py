@@ -1,10 +1,12 @@
 """Where the serve path's time goes on the card.
 
     python -m pvraft_tpu_torch.profile_serve [--seed S] [--fused-gru]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--truncate_k K] [--corr_knn KNN]
 
 Serves the flagship ``ModelConfig`` (seeded random weights, 8 GRU
-iterations) on one CUDA device: one 8,192-point request, a batch of four
+iterations; ``--truncate_k`` and ``--corr_knn``, the serve CLIs' flags,
+default to its 512 and 32, and every row names them: 1024 / 64 runs the
+general lookup kernel) on one CUDA device: one 8,192-point request, a batch of four
 4,096-point requests, one 2,048-point request, each two ways: ``eager``,
 the forward run op by op on the padded inputs (:func:`eager_predict_batch`,
 the engine's path before it captured its programs), and ``graphed``,
@@ -134,6 +136,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-gru", action="store_true")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default=ServeConfig().dtype, help="serving dtype")
+    ap.add_argument("--truncate_k", type=int,
+                    default=ModelConfig.truncate_k)
+    ap.add_argument("--corr_knn", type=int, default=ModelConfig.corr_knn)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -141,7 +146,9 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ServeConfig(ModelConfig(fused_gru=args.fused_gru),
+    cfg = ServeConfig(ModelConfig(fused_gru=args.fused_gru,
+                                  truncate_k=args.truncate_k,
+                                  corr_knn=args.corr_knn),
                       dtype=args.dtype)
     engine = InferenceEngine(seeded_state_dict(cfg.model, args.seed), cfg)
     rng = np.random.default_rng(args.seed + 1)
@@ -161,6 +168,8 @@ def main(argv=None) -> int:
             row = profile_call(lambda: run(engine, group, bucket), args.top)
             print(json.dumps({"gpu": gpu, "dtype": args.dtype,
                               "fused_gru": args.fused_gru,
+                              "truncate_k": args.truncate_k,
+                              "corr_knn": args.corr_knn,
                               "path": path, "bucket": bucket,
                               "requests": len(group), **row}), flush=True)
     print(json.dumps({"gpu": gpu, "programs": engine.compile_report()}),

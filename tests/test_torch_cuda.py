@@ -14,7 +14,11 @@ with the kernels against the plain versions at the bars of
 ``tests/test_torch_grad.py``. The general kernels (``corr_lookup_general``,
 ``gru_iter_general``) against the plain versions at shapes the tuned
 kernels do not take (K past 512, knn past 32 and up to K, resolutions
-1, 2, 4 and 5, GRU widths 32, 48, 96 and 128), forward and gradient.
+1, 2, 4 and 5, GRU widths 32, 48, 96 and 128), forward and gradient;
+the general lookup also on every distance equal (the lowest index wins),
+K = 1, K not a multiple of 4, rows off 16-byte alignment, keys past
+1,024 candidates, no levels, NaN and infinite offsets, and its
+voxel-only pass.
 The bf16 GRU kernel against ``gru_math`` at bf16 (rtol/atol 1e-2, atol
 widened to twice the plain version's own spread across sum orders where
 that is larger), with its weights resident in shared memory (widths 64,
@@ -696,7 +700,7 @@ GENERAL_LOOKUPS = [(1, 70, 1024, 64, 3, 3), (2, 33, 510, 48, 2, 3),
 @pytest.mark.parametrize("b,n,k,knn,res,levels", GENERAL_LOOKUPS)
 def test_general_lookup_matches_plain(dev, b, n, k, knn, res, levels):
     args = (*_candidates(dev, b, n, k, seed=k), levels, 0.25, res, knn)
-    assert lk.general_lookup_plan(k, knn, res)[0] >= 1
+    assert lk.general_lookup_plan(k, knn, res, levels).warps >= 1
     before = (lk.corr_lookup_general.launches, lk.fused_corr_lookup.launches)
     got = lk.fused_corr_lookup(*args)
     again = lk.fused_corr_lookup(*args)
@@ -724,6 +728,112 @@ def test_general_lookup_edge_cases(dev, kind):
     assert torch.equal(got[3], want[3])
     for g, w in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def _general_case(args):
+    """corr_lookup_general on ``args`` (corr, pts, coords, levels, scale,
+    R, knn) against corr_lookup_plain (or voxel_bin_means with coords =
+    None): the kNN indices equal, values within 1e-5 (NaN where the plain
+    version has NaN), two launches bitwise equal. Returns the output."""
+    corr, pts, coords, levels, scale, res, knn = args
+    before = lk.corr_lookup_general.launches
+    got = lk.corr_lookup_general(*args)
+    again = lk.corr_lookup_general(*args)
+    assert lk.corr_lookup_general.launches == before + 2
+    if coords is None:
+        want = (voxel_bin_means(corr, pts, levels, scale, res),)
+    else:
+        # The plain version takes at least one level; the kNN is the same.
+        want = lk.corr_lookup_plain(corr, pts, coords, max(levels, 1),
+                                    scale, res, knn)
+        if not levels:
+            assert got[0].shape == (*corr.shape[:2], 0)
+            want = (got[0], *want[1:])
+        assert torch.equal(got[3], want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5, equal_nan=True)
+    for x, y in zip(got, again):
+        assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+        assert torch.equal(x.isnan(), y.isnan())
+    return got
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernel takes its scalar loads."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def test_general_lookup_ties_take_the_lowest_index(dev):
+    """Every candidate at one offset (all distances equal): the kNN is
+    candidates 0..knn-1 in order; the four-fold ties of ``_edge`` straddle
+    the cut at K = 1024, knn 64 and match the stable sort. 1,030 points, so
+    that the count clamp (N) leaves a cell of every candidate its mean."""
+    for k, knn in ((1024, 64), (600, 48), (37, 37), (1600, 100)):
+        corr, xyz, coords = _candidates(dev, 1, 1030, k, seed=k)
+        xyz = coords[:, :, None].expand(-1, -1, k, -1) + 0.125
+        got = _general_case((corr, xyz.contiguous(), coords, 3, 0.25, 3, knn))
+        assert torch.equal(got[3][0, 0].long().cpu(), torch.arange(knn))
+    _general_case((*_edge(dev, "ties", 2, 45, 1024), 3, 0.25, 3, 64))
+
+
+# (K, knn, resolution, levels, unaligned rows): knn = K, K = 1, K not a
+# multiple of 4 (scalar loads), rows off 16-byte alignment, two chunks
+# not full, keys in shared memory past 1,024 candidates, R 1, R 4, levels
+# taken one a pass (R 5) and no levels at all.
+ODD_GENERAL = [(1024, 1024, 3, 3, False), (1, 1, 3, 3, False),
+               (1, 1, 2, 1, True), (37, 20, 3, 2, False),
+               (1024, 64, 3, 3, True), (1026, 70, 3, 3, False),
+               (1600, 64, 3, 3, False), (2053, 100, 2, 2, True),
+               (100, 32, 1, 2, False), (300, 40, 4, 3, False),
+               (520, 33, 5, 4, True), (700, 50, 3, 0, False)]
+
+
+@pytest.mark.parametrize("k,knn,res,levels,unaligned", ODD_GENERAL)
+def test_general_lookup_odd_shapes(dev, k, knn, res, levels, unaligned):
+    corr, xyz, coords = _candidates(dev, 2, 23, k, seed=k + knn)
+    if unaligned:
+        corr, xyz = _unaligned(corr), _unaligned(xyz)
+    _general_case((corr, xyz, coords, levels, 0.25, res, knn))
+    _general_case((corr, xyz, coords, levels, 0.3, res, knn))
+
+
+@pytest.mark.parametrize("res", [1, 3, 4])
+def test_general_lookup_nan_and_inf_offsets(dev, res):
+    """NaN and +-inf candidates are in no cell and sort after every finite
+    distance, a NaN after +inf, the lowest index first among them."""
+    corr, xyz, coords = _candidates(dev, 1, 31, 1024, seed=res)
+    bad = torch.rand(xyz.shape[:3], device=dev, generator=torch.Generator(
+        device=dev).manual_seed(res))
+    xyz = xyz.clone()
+    xyz[..., 0][bad < 0.02] = float("nan")
+    xyz[..., 1][(bad >= 0.02) & (bad < 0.04)] = float("inf")
+    xyz[..., 2][(bad >= 0.04) & (bad < 0.06)] = -float("inf")
+    # Take every candidate so that the infinities and NaNs are selected.
+    for knn in (64, 1024):
+        got = _general_case((corr, xyz, coords, 3, 0.25, res, knn))
+    d = (got[2] * got[2]).sum(-1)
+    assert bool(d[..., -1].isnan().all())
+
+
+@pytest.mark.parametrize("k,res,levels", [(1024, 3, 3), (510, 2, 3),
+                                          (512, 5, 4), (1600, 3, 3),
+                                          (37, 1, 2), (7, 4, 1)])
+def test_general_voxel_only_pass(dev, k, res, levels):
+    """The voxel Function's general pass (knn = 0, coords = None: the
+    offsets read as given) against voxel_bin_means, at power-of-two edges
+    (reciprocal multiply) and at 0.3 (division)."""
+    corr, xyz, coords = _candidates(dev, 2, 40, k, seed=k)
+    rel = (xyz - coords[:, :, None]).contiguous()
+    for scale in (0.25, 0.3):
+        _general_case((corr, rel, None, levels, scale, res, 0))
+    got = vx.voxel_bin_means_pallas(corr, rel, levels, 0.25, res)
+    torch.testing.assert_close(got, voxel_bin_means(corr, rel, levels, 0.25,
+                                                    res), rtol=0, atol=1e-5)
 
 
 def _gru_operands(dev, b, n, h, c, f, seed=0):

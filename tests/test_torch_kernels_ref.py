@@ -57,21 +57,26 @@ def _lookup_inputs(seed, b=1, n=32, k=16):
 # --- kernel 1: the fused correlation lookup ---------------------------------
 
 
-def test_plain_lookup_matches_interpreted_pallas_and_xla():
-    corr, xyz, coords = _lookup_inputs(0)
-    knn = 8
+# (K, knn, resolution, levels): the tuned kernel's R 3 / knn 8, and shapes
+# the general kernel serves: K not a multiple of 4 with knn past 32 at an
+# even resolution, knn = K at R 5 with 4 levels, knn 48 at R 3.
+@pytest.mark.parametrize("k,knn,res,levels", [(16, 8, 3, 3), (37, 33, 2, 3),
+                                              (40, 40, 5, 4), (64, 48, 3, 3)])
+def test_plain_lookup_matches_interpreted_pallas_and_xla(k, knn, res, levels):
+    corr, xyz, coords = _lookup_inputs(0, k=k)
     jv, jk, jr = jlookup.fused_corr_lookup(
         jnp.asarray(corr), jnp.asarray(xyz), jnp.asarray(coords),
-        3, 0.25, 3, knn)
+        levels, 0.25, res, knn)
     tv, tk, tr, ti = tlookup.corr_lookup_plain(
         torch.from_numpy(corr), torch.from_numpy(xyz),
-        torch.from_numpy(coords), 3, 0.25, 3, knn)
+        torch.from_numpy(coords), levels, 0.25, res, knn)
     for want, got in ((jv, tv), (jk, tk), (jr, tr)):
         np.testing.assert_allclose(np.asarray(want), got.numpy(),
                                    rtol=0, atol=1e-5)
     # The XLA path of the JAX package: voxel_bin_means + knn_lookup.
     rel = xyz - coords[:, :, None, :]
-    xv = jvoxel_bin_means(jnp.asarray(corr), jnp.asarray(rel), 3, 0.25, 3)
+    xv = jvoxel_bin_means(jnp.asarray(corr), jnp.asarray(rel), levels, 0.25,
+                          res)
     xk, xr = jknn_lookup(JCorrState(jnp.asarray(corr), jnp.asarray(xyz)),
                          jnp.asarray(rel), knn)
     for want, got in ((xv, tv), (xk, tk), (xr, tr)):

@@ -62,26 +62,58 @@ def test_a_bf16_model_routes_the_gru_to_the_bf16_kernel(kw):
 
 
 @pytest.mark.parametrize("k", [8, 16, 37, 64, 510, 512, 600, 1024, 4096])
-@pytest.mark.parametrize("knn,res", [(0, 3), (8, 2), (32, 3), (64, 4),
-                                     (64, 5), (8, 1)])
-def test_general_lookup_plan_covers_the_configurations_in_use(k, knn, res):
+@pytest.mark.parametrize("knn,res,levels", [(0, 3, 3), (8, 2, 3), (32, 3, 3),
+                                            (64, 4, 3), (64, 5, 4),
+                                            (8, 1, 2)])
+def test_general_lookup_plan_covers_the_configurations_in_use(k, knn, res,
+                                                              levels):
+    """Every configuration in use gets a launch that fits a block: the
+    points per block, the levels per pass (packed counts of
+    bit_length(16 * chunks) bits fit a word; the passes even; never fewer
+    resident warps than one level per pass gives, up to the register cap)
+    and the shared memory of the kernel's layout."""
     knn = min(knn, k)
-    warps, sort_len, smem = lk.general_lookup_plan(k, knn, res)
-    per_warp = 4 * (2 * (res**3 + 1) * 33 + 2 * sort_len)
-    assert smem == warps * per_warp <= tcuda.SMEM_MAX
-    assert 1 <= warps <= 4
-    assert (warps * per_warp <= tcuda.SMEM_DEFAULT) or warps == 1
-    assert sort_len == (0 if knn == 0 else 1 << (k - 1).bit_length())
-    assert sort_len == 0 or sort_len >= k > sort_len // 2
+    plan = lk.general_lookup_plan(k, knn, res, levels)
+    words = lk.general_layout_words(k, knn, res, levels, plan.levels_per_pass)
+    assert plan.smem == 4 * plan.warps * words <= tcuda.SMEM_MAX
+    assert 1 <= plan.warps <= 4
+    assert 1 <= plan.levels_per_pass <= levels
+    assert plan.levels_per_pass * (16 * -(-k // lk.CHUNK)).bit_length() <= 32
+    passes = -(-levels // plan.levels_per_pass)
+    assert -(-levels // passes) == plan.levels_per_pass
+    one = lk.general_layout_words(k, knn, res, levels, 1)
+    assert plan.resident >= min(lk.REG_WARPS,
+                                lk.SMEM_SM // (4 * one + lk.BLOCK_RESERVED))
+    sort_len = 1 << (knn - 1).bit_length() if knn else 0
+    tables = (plan.levels_per_pass * res**3 + res**3 + 2) * 32
+    keys = -(-k // lk.CHUNK) * lk.CHUNK if knn and k > 2 * lk.CHUNK else 0
+    assert words == -(-max(tables, 2 * sort_len) // 32) * 32 + keys
+
+
+# The shapes phase 1 of chip_smoke.py runs the general kernel at: (K, knn,
+# resolution, levels) -> (points per block, levels per pass, resident warps
+# per SM). At R 3 every level goes in one pass with 16 warps resident; R 5's
+# 125-row tables take one level a pass, one point a block.
+@pytest.mark.parametrize("shape,want", [
+    ((1024, 64, 3, 3), (4, 3, 16)), ((1024, 0, 3, 3), (4, 3, 16)),
+    ((510, 48, 2, 3), (4, 3, 16)), ((510, 0, 2, 3), (4, 3, 16)),
+    ((512, 32, 5, 4), (1, 1, 7)), ((512, 0, 5, 4), (1, 1, 7)),
+])
+def test_general_lookup_plan_of_the_main_shapes(shape, want):
+    plan = lk.general_lookup_plan(*shape)
+    assert (plan.warps, plan.levels_per_pass, plan.resident) == want
 
 
 def test_general_lookup_plan_names_its_limit():
     with pytest.raises(ValueError, match="232448"):
-        lk.general_lookup_plan(512, 32, 10)
+        lk.general_lookup_plan(512, 32, 10, 3)
+    # Past 1,024 candidates the kNN keeps every distance key in shared
+    # memory: 60,000 of them do not fit a block.
+    lk.general_lookup_plan(40000, 32, 3, 3)
     with pytest.raises(ValueError, match="232448"):
-        lk.general_lookup_plan(40000, 32, 3)
+        lk.general_lookup_plan(60000, 32, 3, 3)
     with pytest.raises(ValueError, match="0 <= knn <= K"):
-        lk.general_lookup_plan(16, 17, 3)
+        lk.general_lookup_plan(16, 17, 3, 3)
 
 
 @pytest.mark.parametrize("h,c,f", [(32, 32, 64), (64, 64, 64), (96, 96, 64),
