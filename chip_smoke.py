@@ -35,11 +35,15 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            ``gru_iter_general``) against the plain versions at 1 x 8192
            at shapes the tuned kernels do not take (``GENERAL_LOOKUPS``:
            K 1024 / knn 64 / r 3, K 510 / knn 48 / r 2, K 512 / knn 32 /
-           r 5 with 4 levels; GRU widths 32, 96, 128, and hidden 32 /
-           context 96 as phase 6 runs it) at the same bars,
+           r 5 with 4 levels; GRU widths (hidden / context /
+           correlation) 32, 96, 128, hidden 32 / context 96 as phase 6
+           runs it, 96 / 32, 48 / 80 and 33 / 50 / 37:
+           ``GENERAL_GRU_WIDTHS``) at the same bars,
            timing them the same way (the general lookup's rows also give
            its launch plan and the warps per SM the occupancy calculator
-           gives it), and the Functions' gradients there
+           gives it; the general GRU's rows its plan's mode and, on the
+           tensor cores, the 3xTF32 bound beside the fp32 CUDA-core one),
+           and the Functions' gradients there
            at atol 1e-4 (``check_general_backward``); then
            runs the kernel bench (``python -m
            pvraft_tpu_torch.kernel_bench``), the path through which the
@@ -503,37 +507,41 @@ GRU_CASES = {"ragged_2x2056": (2, 2056, 1.0, 1e-5),
              "saturating_1x8192": (1, 8192, 10.0, 1e-4)}
 
 
-def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None):
-    """Holds the GRU kernel that the wrapper picks for hidden width ``h``
-    and context width ``c`` (default ``h``; the tuned kernel at WIDTH,
-    else the general one) against ``gru_math``: max
-    |err| <= ``tol``, two launches bitwise equal; the unfused modules (the
-    library yardstick) against it too; times all three. The tuned
-    kernel's bound is the 3xTF32 one (three tensor-core products per fp32
-    product), beside the fp32 CUDA-core bound of the same work
-    (``fp32_bound_ms``); the general kernel's is the fp32 CUDA-core one."""
+def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None,
+              f=WIDTH):
+    """Holds the GRU kernel that the wrapper picks for hidden width ``h``,
+    context width ``c`` (default ``h``) and correlation width ``f`` (the
+    tuned kernel where all three are WIDTH, else the general one) against
+    ``gru_math``: max |err| <= ``tol``, two launches bitwise equal; the
+    unfused modules (the library yardstick) against it too; times all
+    three. A kernel on the tensor cores (the tuned one; the general one in
+    its "resident" and "ring" modes) is bound by the 3xTF32 operations
+    (three tensor-core products per fp32 product) or its bytes, with the
+    fp32 CUDA-core bound of the same work beside it (``fp32_bound_ms``);
+    the general kernel's "fma" mode by the fp32 CUDA-core one."""
     from pvraft_tpu_torch.models.update import ConvGRU, MotionEncoder
-    from pvraft_tpu_torch.ops.cuda.gru_iter import fused_gru_update, gru_math
+    from pvraft_tpu_torch.ops.cuda.gru_iter import (
+        fused_gru_update, general_gru_plan, gru_math)
 
     c = h if c is None else c
-    variant = gru_variant(h, c, WIDTH)
+    variant = gru_variant(h, c, f)
     kernel = GRU_KERNELS[variant]
-    me, gru, args, flow = gru_inputs(rng, b, n, dev, scale, h, c)
+    me, gru, args, flow = gru_inputs(rng, b, n, dev, scale, h, c, f)
     before = read_counts()[kernel]
     got = fused_gru_update(*args)
     again = fused_gru_update(*args)
     want = gru_math(*args)
     torch.cuda.synchronize()
     check(read_counts()[kernel] == before + 2,
-          f"gru {h}/{c}: {kernel} did not run it")
+          f"gru {h}/{c}/{f}: {kernel} did not run it")
     err = float((got - want).abs().max())
-    check(err <= tol, f"gru {b}x{n} {h}/{c} scale {scale}: max |err| {err} "
-                      f"> {tol}")
+    check(err <= tol, f"gru {b}x{n} {h}/{c}/{f} scale {scale}: max |err| "
+                      f"{err} > {tol}")
     check(torch.equal(got, again),
-          f"gru {b}x{n} {h}/{c}: launches not bitwise equal")
+          f"gru {b}x{n} {h}/{c}/{f}: launches not bitwise equal")
     # The library yardstick: the unfused MotionEncoder + ConvGRU modules on
     # the same weights (the port never calls them on the kernel path).
-    menc = MotionEncoder(h, WIDTH).to(dev)
+    menc = MotionEncoder(h, f).to(dev)
     cgru = ConvGRU(h, c + h).to(dev)
     with torch.no_grad():
         for layer, (w, bias) in zip(
@@ -552,22 +560,24 @@ def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None):
     check(lib_err <= tol, f"gru {b}x{n}: unfused modules differ by {lib_err}")
     weight_bytes = sum(4 * w.numel() for w in args[4])
     # Per point: net, inp, cor and flow8 read, the new net written.
-    bytes_ = 4 * b * n * (2 * h + c + WIDTH + 8) + weight_bytes
+    bytes_ = 4 * b * n * (2 * h + c + f + 8) + weight_bytes
     # Per point: conv_corr, conv_flow (8 padded rows), conv, the three
     # gates over concat(inp, hid, flow8), and net into the gates.
-    flops = 2 * b * n * (WIDTH * h + 8 * h + 2 * h * h
+    flops = 2 * b * n * (f * h + 8 * h + 2 * h * h
                          + (c + h + 8) * 3 * h + h * 3 * h)
-    tuned = variant == "tuned"
+    mode = ("tuned" if variant == "tuned"
+            else general_gru_plan(h, c, f).mode)
     return {
-        "kernel": kernel, "shape": [b, n, h, c], "activation_scale": scale,
+        "kernel": kernel, "shape": [b, n, h, c, f], "mode": mode,
+        "activation_scale": scale,
         "max_abs_err": err, "atol": tol, "bitwise_repeat": True,
         "ms": device_ms(lambda: fused_gru_update(*args)),
         "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
         "plain_ms": device_ms(lambda: gru_math(*args)),
         "library_ms": device_ms(unfused),
         "bytes": bytes_, "ops": flops,
-        **(bound(bytes_, 3 * flops, TF32_FLOPS_PER_S) if tuned
-           else bound(bytes_, flops)),
+        **(bound(bytes_, flops) if mode == "fma"
+           else bound(bytes_, 3 * flops, TF32_FLOPS_PER_S)),
         "fp32_bound_ms": bound(bytes_, flops)["bound_ms"],
     }
 
@@ -787,25 +797,31 @@ def check_backward(rng, b, n, dev):
 
 
 # name: (K, knn, resolution, levels), at 1 x 8192: shapes the tuned kernels
-# do not take, which the general kernels run. GRU (hidden, context) widths
-# likewise (the correlation features stay at WIDTH), among them phase 6's
-# hidden 32 / context 96.
+# do not take, which the general kernels run. GRU (hidden, context,
+# correlation) widths likewise: widths 32, 96 and 128, phase 6's hidden 32
+# / context 96 and two more that keep the context encoder's hidden +
+# context = 128 (correlation features at WIDTH, the lookup head's), and
+# widths that are not multiples of 8 (the tensor-core layout pads them).
 GENERAL_LOOKUPS = {"k1024_knn64_r3": (1024, 64, 3, 3),
                    "k510_knn48_r2": (510, 48, 2, 3),
                    "k512_knn32_r5_l4": (512, 32, 5, 4)}
-GENERAL_GRU_WIDTHS = {"width32": (32, 32), "width96": (96, 96),
-                      "width128": (128, 128),
-                      "hidden32_context96": (32, 96)}
+GENERAL_GRU_WIDTHS = {"width32": (32, 32, WIDTH), "width96": (96, 96, WIDTH),
+                      "width128": (128, 128, WIDTH),
+                      "hidden32_context96": (32, 96, WIDTH),
+                      "hidden96_context32": (96, 32, WIDTH),
+                      "hidden48_context80": (48, 80, WIDTH),
+                      "h33_c50_f37": (33, 50, 37)}
 # The kernels line's shapes: those of phase 6's requests, whose launches
 # the line reports.
 MAIN_GENERAL = ("k1024_knn64_r3", "hidden32_context96")
 # (hidden, context, correlation) widths of the bf16 kernel's checks at
-# 1 x 8192: the flagship's, phase 1's general ones, and widths that are
-# not multiples of 16 (the kernel pads K to 16 and channels to 32).
+# 1 x 8192: the flagship's, widths 32, 96, 128 and hidden 32 / context 96,
+# and widths that are not multiples of 16 (the kernel pads K to 16 and
+# channels to 32).
 BF16_GRU_WIDTHS = {"width64": (WIDTH, WIDTH, WIDTH),
-                   **{k: (h, c, WIDTH)
-                      for k, (h, c) in GENERAL_GRU_WIDTHS.items()},
-                   "h33_c50_f37": (33, 50, 37)}
+                   **{k: GENERAL_GRU_WIDTHS[k]
+                      for k in ("width32", "width96", "width128",
+                                "hidden32_context96", "h33_c50_f37")}}
 
 
 def check_general(rng, dev):
@@ -822,8 +838,8 @@ def check_general(rng, dev):
         voxel[name] = voxel_case(name, corr, xyz, coords, BASE_SCALE,
                                  levels, res)
         del corr, xyz, coords
-    gru = {name: check_gru(rng, *MAIN_SHAPE, dev, h=h, c=c)
-           for name, (h, c) in GENERAL_GRU_WIDTHS.items()}
+    gru = {name: check_gru(rng, *MAIN_SHAPE, dev, h=h, c=c, f=f)
+           for name, (h, c, f) in GENERAL_GRU_WIDTHS.items()}
     for group in (lookup, voxel, gru):
         check(all(v["kernel"] in ("corr_lookup_general", "gru_iter_general")
                   for v in group.values()),
@@ -3333,6 +3349,11 @@ def main() -> int:
              "corr_lookup_general": {"split_ms": split["general"]},
              "fused_gru_update": {
                  "fp32_bound_ms": gru[main_key]["fp32_bound_ms"]},
+             "gru_iter_general": {
+                 "fp32_bound_ms":
+                     general["gru"][MAIN_GENERAL[1]]["fp32_bound_ms"],
+                 "mode": general["gru"][MAIN_GENERAL[1]]["mode"],
+                 "modes": {k: v["mode"] for k, v in general["gru"].items()}},
              "gru_iter_bf16": {
                  "fp32_bound_ms": bf16["kernel"]["width64"]["fp32_bound_ms"],
                  "dtype": "bfloat16"}}

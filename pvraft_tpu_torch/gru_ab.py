@@ -1,6 +1,6 @@
 """Time GRU-update kernel sources against each other on the card.
 
-    python -m pvraft_tpu_torch.gru_ab [--entry fp32|bf16]
+    python -m pvraft_tpu_torch.gru_ab [--entry fp32|bf16|general]
         [--source NAME=PATH[@PLAN] ...] [--seed S]
 
 Builds each ``.cu`` source that exports the entry point with the port's
@@ -22,9 +22,9 @@ context and correlation widths, three launch ints, the stream); the
 checkout's own ``csrc/gru_iter_bf16.cu`` is ``this``. ``@PLAN`` names the
 host plan that gives a source its three launch ints: ``bf16`` (the
 default, ``ops/cuda/gru_iter.py::bf16_gru_plan``: blocks, threads, shared
-memory) or ``general`` (``general_gru_plan``: groups of 8 points,
-threads, shared memory; the plan of the bf16 kernel before it moved to
-the tensor cores). At width 64 at each B x N of ``SHAPES`` and at 1 x
+memory) or ``general`` (:func:`v7_plan`: groups of 8 points, threads,
+shared memory; the plan of the bf16 kernel before it moved to the tensor
+cores). At width 64 at each B x N of ``SHAPES`` and at 1 x
 8192 at each width of ``BF16_WIDTHS`` (correlation features 64, the
 lookup head's), on the operands the bf16 model hands over (cor bf16, the
 rest float32), it holds every source against ``gru_math`` at bf16 by
@@ -33,6 +33,23 @@ the outputs, every output within ``FLOOR_FACTOR`` x the plain version's
 own host-vs-card spread where that is wider), reports whether two
 launches are bitwise equal, and times ``gru_math`` at bf16 (``plain``)
 beside the sources.
+
+``--entry general``: sources of ``pvraft_gru_update_general`` (the
+20-argument C entry point of ``csrc/gru_iter_general.cu``, laid out as
+the bf16 one); the checkout's own ``csrc/gru_iter_general.cu`` is
+``this``. ``@PLAN``: ``general`` (the default, ``general_gru_plan``:
+mode, points per block, shared memory), ``resident``, ``ring`` or
+``fma`` (the same plan held to that mode; a width where that mode has
+no layout reports the refusal and is not timed), or
+``v7`` (:func:`v7_plan`, the plan of the kernel before it moved to the
+tensor cores, for a parent checkout's source). At 1 x 8192 at each
+(hidden, context, correlation) width of ``chip_smoke.py::
+GENERAL_GRU_WIDTHS``, and at hidden 32 / context 96 at each other B x N
+of ``SHAPES``, on ``chip_smoke.py``'s GRU inputs, it reports each
+source's max |err| against fp32 ``gru_math`` and against ``gru_math`` in
+fp64 (beside fp32 ``gru_math``'s own) and whether two launches are
+bitwise equal, and times fp32 ``gru_math`` (``plain``) and the unfused
+MotionEncoder + ConvGRU modules (``library``) beside the sources.
 
 Every source, and ``plain``, is timed by device time
 (``kernel_bench.device_ms``) in turns: every source in the order given,
@@ -68,8 +85,29 @@ SHAPES = ((1, 8192), (2, 8192), (4, 8192), (4, 4096), (1, 2048))
 BF16_WIDTHS = ((32, 32), (96, 96), (128, 128))
 # entry -> (C symbol, the checkout's source, ints after the pointers)
 ENTRIES = {"fp32": ("pvraft_gru_update", "gru_iter", 1),
-           "bf16": ("pvraft_gru_update_bf16", "gru_iter_bf16", 7)}
-PLANS = ("bf16", "general")
+           "bf16": ("pvraft_gru_update_bf16", "gru_iter_bf16", 7),
+           "general": ("pvraft_gru_update_general", "gru_iter_general", 7)}
+# entry -> the plans its sources take, the default first
+PLANS = {"fp32": ("",), "bf16": ("bf16", "general"),
+         "general": ("general", "resident", "ring", "fma", "v7")}
+
+
+def v7_plan(hidden: int, context: int, corr_ch: int) -> tuple:
+    """The general GRU kernel's launch shape before it moved to the tensor
+    cores (its FMA body, one thread per channel of a group of 8 points):
+    (groups per block, threads, dynamic shared memory bytes). One point
+    holds 4 (7 pad4(H) + pad4(C) + pad4(F) + 8) bytes; a block takes as
+    many groups as keep about 256 threads busy within 48 KB."""
+    def pad4(x):
+        return (x + 3) // 4 * 4
+
+    group = 8 * 4 * (7 * pad4(hidden) + pad4(context) + pad4(corr_ch) + 8)
+    if min(hidden, context, corr_ch) < 1 or group > _cuda.SMEM_MAX:
+        raise ValueError(f"v7 plan: widths {hidden}/{context}/{corr_ch} "
+                         f"do not fit {_cuda.SMEM_MAX} bytes")
+    groups = max(1, min(256 // hidden, _cuda.SMEM_DEFAULT // group))
+    threads = min(256, -(-groups * hidden // 32) * 32)
+    return groups, threads, groups * group
 
 
 def parse_sources(specs, entry: str) -> dict:
@@ -85,15 +123,14 @@ def parse_sources(specs, entry: str) -> dict:
         if entry == "fp32" and plan:
             raise ValueError(f"--source {spec!r}: the fp32 entry takes no "
                              f"plan")
-        plan = plan or ("bf16" if entry == "bf16" else "")
-        if entry == "bf16" and plan not in PLANS:
+        plan = plan or PLANS[entry][0]
+        if plan not in PLANS[entry]:
             raise ValueError(f"--source {spec!r}: plan {plan!r} is not one "
-                             f"of {PLANS}")
+                             f"of {PLANS[entry]}")
         if name == "this" or name in out:
             raise ValueError(f"--source {spec!r}: the name {name!r} is taken")
         out[name] = (path, plan)
-    out["this"] = (_cuda.sources()[ENTRIES[entry][1]],
-                   "bf16" if entry == "bf16" else "")
+    out["this"] = (_cuda.sources()[ENTRIES[entry][1]], PLANS[entry][0])
     return out
 
 
@@ -145,6 +182,12 @@ def inputs(rng, b, n, dev, h=WIDTH, c=None, f=None):
     """Seeded operands at chip_smoke.py's GRU distributions: hidden width
     ``h``, context ``c`` and correlation features ``f`` (both default
     ``h``)."""
+    return raw_inputs(rng, b, n, dev, h, c, f)[2]
+
+
+def raw_inputs(rng, b, n, dev, h=WIDTH, c=None, f=None):
+    """``inputs``'s operands with the raw parameters they were packed
+    from: (MotionEncoder's, ConvGRU's, operands)."""
     c = h if c is None else c
     f = h if f is None else f
 
@@ -160,14 +203,43 @@ def inputs(rng, b, n, dev, h=WIDTH, c=None, f=None):
     inp = torch.relu(a(b, n, c, scale=1.0))
     cor = a(b, n, f, scale=1.0)
     flow8 = pad_flow(a(b, n, 3, scale=0.3)).contiguous()
-    return (net, inp, cor, flow8, *weights)
+    return me, gru, (net, inp, cor, flow8, *weights)
 
 
-def _launch_ints(plan: str, h: int, c: int, f: int, rows: int) -> tuple:
-    if plan == "general":
-        return general_gru_plan(h, c, f)
+def _launch_ints(entry: str, plan: str, h: int, c: int, f: int,
+                 rows: int) -> tuple:
+    if plan == "v7" or (entry == "bf16" and plan == "general"):
+        return v7_plan(h, c, f)
+    if entry == "general":
+        return general_gru_plan(h, c, f,
+                                None if plan == "general" else plan).launch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return bf16_gru_plan(h, c, f, rows, sms)[:3]
+
+
+def unfused(me, gru, ops, h, c, f, dev):
+    """The library yardstick: the unfused MotionEncoder + ConvGRU modules
+    on the raw parameters of ``ops`` (the port never calls them on the
+    kernel path); returns a no-grad callable."""
+    from pvraft_tpu_torch.models.update import ConvGRU, MotionEncoder
+
+    menc = MotionEncoder(h, f).to(dev)
+    cgru = ConvGRU(h, c + h).to(dev)
+    with torch.no_grad():
+        for layer, (w, bias) in zip(
+                (menc.conv_corr, menc.conv_flow, menc.conv,
+                 cgru.convz, cgru.convr, cgru.convq),
+                zip((*me, *gru)[0::2], (*me, *gru)[1::2])):
+            layer.weight.copy_(w.t())
+            layer.bias.copy_(bias)
+    net, inp, cor, flow8 = ops[:4]
+    flow = flow8[..., :3]
+
+    def call():
+        with torch.no_grad():
+            return cgru(net, torch.cat([inp, menc(flow, cor)], dim=-1))
+
+    return call
 
 
 def _time(row, calls, order):
@@ -224,7 +296,7 @@ def run_bf16(libs, plans, order, rng, dev):
         calls = {"plain": lambda: gru_math(*ops[:4], tuple(ops[4:]), bf16)}
         for name in order:
             fn = libs[name][0]
-            ints = _launch_ints(plans[name], h, c, WIDTH, b * n)
+            ints = _launch_ints("bf16", plans[name], h, c, WIDTH, b * n)
             outs = [torch.empty_like(ops[0]) for _ in range(2)]
 
             def call(out, fn=fn, ints=ints):
@@ -250,6 +322,54 @@ def run_bf16(libs, plans, order, rng, dev):
         print(json.dumps(row), flush=True)
 
 
+def run_general(libs, plans, order, rng, dev):
+    sys.path.insert(0, os.path.dirname(_cuda.PKG_DIR))
+    from chip_smoke import GENERAL_GRU_WIDTHS, MAIN_GENERAL
+
+    main = GENERAL_GRU_WIDTHS[MAIN_GENERAL[1]]
+    cases = [(1, 8192, *w) for w in GENERAL_GRU_WIDTHS.values()]
+    cases += [(b, n, *main) for b, n in SHAPES if (b, n) != (1, 8192)]
+    for b, n, h, c, f in cases:
+        me, gru, ops = raw_inputs(rng, b, n, dev, h, c, f)
+        want = gru_math(*ops[:4], ops[4:])
+        d = [t.double() for t in ops]
+        exact = gru_math(*d[:4], tuple(d[4:]))
+        library = unfused(me, gru, ops, h, c, f, dev)
+        row = {"shape": [b, n, h, c, f],
+               "gru_math_vs_fp64": float((want - exact).abs().max()),
+               "library_vs_plain": float((library() - want).abs().max()),
+               "plain": {"ms": []}, "library": {"ms": []}}
+        calls = {"plain": lambda: gru_math(*ops[:4], ops[4:]),
+                 "library": library}
+        timed = ["plain", "library"]
+        for name in order:
+            fn = libs[name][0]
+            try:
+                ints = _launch_ints("general", plans[name], h, c, f, b * n)
+            except ValueError as e:   # a mode with no layout at the widths
+                row[name] = {"refused": str(e)}
+                continue
+            timed.append(name)
+            outs = [torch.empty_like(ops[0]) for _ in range(2)]
+
+            def call(out, fn=fn, ints=ints):
+                _cuda.check(fn(*(t.data_ptr() for t in (*ops, out)),
+                               b * n, h, c, f, *ints,
+                               _cuda.stream_ptr(dev)), "gru_ab")
+
+            for out in outs:
+                call(out)
+            torch.cuda.synchronize()
+            calls[name] = lambda call=call, out=outs[0]: call(out)
+            row[name] = {"launch": list(ints),
+                         "max_abs_err": float((outs[0] - want).abs().max()),
+                         "vs_fp64": float((outs[0] - exact).abs().max()),
+                         "bitwise_repeat": bool(torch.equal(*outs)),
+                         "ms": []}
+        _time(row, calls, timed)
+        print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--entry", choices=sorted(ENTRIES), default="fp32",
@@ -263,21 +383,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("gru_ab: no CUDA device", file=sys.stderr)
         return 2
+    from pvraft_tpu_torch.profile_serve import nvidia_smi
+
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = build({k: v[0] for k, v in sources.items()}, args.entry)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     order = list(sources)
+    plans = {k: v[1] for k, v in sources.items()}
     print(json.dumps({"gpu": torch.cuda.get_device_name(0),
-                      "entry": args.entry,
-                      "plans": {k: v[1] for k, v in sources.items()},
+                      "nvidia_smi": nvidia_smi(), "entry": args.entry,
+                      "plans": plans,
                       "ptxas": {k: v[1] for k, v in libs.items()}}),
           flush=True)
     if args.entry == "fp32":
         run_fp32(libs, order, rng, dev)
+    elif args.entry == "bf16":
+        run_bf16(libs, plans, order, rng, dev)
     else:
-        run_bf16(libs, {k: v[1] for k, v in sources.items()}, order, rng,
-                 dev)
+        run_general(libs, plans, order, rng, dev)
     return 0
 
 

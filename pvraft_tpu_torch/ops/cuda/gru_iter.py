@@ -18,11 +18,16 @@ L2 through a three-slot shared-memory ring by ``cp.async``; bias,
 activations, ``r * net`` and the blend on the accumulator fragments; the
 new state leaves by 16-byte stores. ``python -m pvraft_tpu_torch.gru_ab``
 times it against other sources of the same entry point. That kernel is
-built on width 64 (its 222 KB of shared memory); every other width runs
-the general kernel ``csrc/gru_iter_general.cu`` (:func:`gru_iter_general`:
-one thread per output channel and group of 8 points, each weight read
-once through ``__ldg`` for the group's 8 fp32 FMA chains on the CUDA
-cores). At ``compute_dtype="bfloat16"`` the update is the JAX kernel's
+built on width 64 (its 222 KB of shared memory); every other width, and
+operands not 16-byte aligned, run the general kernel
+``csrc/gru_iter_general.cu`` (:func:`gru_iter_general`), on the same
+3xTF32 tensor-core products at any widths: 32 points and one n8 channel
+tile of every stage a warp, the tile's rows in shared memory as fp32
+(split as fragments are read), its weights resident in shared memory
+where they fit ("resident") or streamed from L2 through a three-slot
+ring ("ring"), both moved by bulk (TMA) copies where the widths allow
+it; widths no such layout holds (hidden above 128) run its earlier FMA
+body ("fma"): :func:`general_gru_plan`. At ``compute_dtype="bfloat16"`` the update is the JAX kernel's
 bf16 ``_gru_math`` and runs ``csrc/gru_iter_bf16.cu``
 (:func:`gru_iter_bf16`, at every width), on the bf16 tensor cores
 (``mma.sync`` m16n8k16, float32 accumulators, one per product): 16 points
@@ -50,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,33 +168,116 @@ def _launch(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     return out
 
 
-GENERAL_POINTS = 8     # points per thread in the general kernel
+GENERAL_POINTS = 8     # points per group of the general kernel's "fma" mode
+# The general kernel's modes, in the order of the C entry's mode codes.
+GENERAL_MODES = ("fma", "resident", "ring")
+GENERAL_MAX_TILES = 16   # n8 channel tiles a tensor-core layout takes
+GENERAL_SLOTS = 3        # weight chunks a "ring" holds
+GENERAL_BARRIERS = 64    # bytes of the tensor-core modes' mbarriers
 
 
-def general_gru_plan(hidden: int, context: int, corr_ch: int
-                     ) -> Tuple[int, int, int]:
-    """The general kernel's launch shape: (groups of GENERAL_POINTS points
-    per block, threads per block, dynamic shared memory bytes). One point
-    holds 4 * (7 pad4(H) + pad4(C) + pad4(F) + FLOW_PAD) bytes (its inputs
-    and every intermediate, each padded to 4 floats); a thread computes one
-    channel of one group's points, and a block takes as many groups as
-    keep about 256 threads busy within 48 KB. Raises where one group does
-    not fit in the SMEM_MAX a block can have, naming the limit."""
-    def pad4(x):
-        return (x + 3) // 4 * 4
+class GeneralGruPlan(NamedTuple):
+    """The general kernel's launch shape: its mode, points per block,
+    threads per block, dynamic shared memory bytes and, in "ring", the
+    weight rows a ring slot holds."""
+    mode: str
+    rows: int
+    threads: int
+    smem: int
+    chunk: int
 
-    per_point = 4 * (7 * pad4(hidden) + pad4(context) + pad4(corr_ch)
-                     + FLOW_PAD)
-    group = GENERAL_POINTS * per_point
-    if min(hidden, context, corr_ch) < 1 or group > _cuda.SMEM_MAX:
-        raise ValueError(
-            f"gru_iter_general: widths hidden={hidden}, context={context}, "
-            f"corr={corr_ch} need {group} bytes of shared memory for "
-            f"{GENERAL_POINTS} points; the kernel takes widths >= 1 within "
-            f"the {_cuda.SMEM_MAX} a block can have")
-    groups = max(1, min(256 // hidden, _cuda.SMEM_DEFAULT // group))
-    threads = min(256, -(-groups * hidden // 32) * 32)
-    return groups, threads, groups * group
+    @property
+    def launch(self) -> Tuple[int, int, int]:
+        """The C entry's three launch ints: mode code, points per block,
+        shared memory bytes."""
+        return GENERAL_MODES.index(self.mode), self.rows, self.smem
+
+
+def _ld(n: int) -> int:
+    """A row of n floats (a multiple of 8) padded to 8 or 24 mod 32."""
+    return n + 8 if n % 16 == 0 else n
+
+
+def general_gru_need(mode: str, rows: int, hidden: int, context: int,
+                     corr_ch: int) -> Optional[Tuple[int, int, int]]:
+    """(shared memory bytes, threads, ring chunk rows) of the general
+    kernel in ``mode`` at ``rows`` points a block, or None where that
+    layout does not exist: ``plan::need`` of ``csrc/gru_iter_general.cu``,
+    which the C entry checks a launch against.
+
+    "resident" and "ring" (the tensor cores): 32 points and one n8
+    channel tile a warp (16 tiles at most), 16 warps at most; a point's
+    row holds net, flow8, max(cor_in, hid), cor, flo and
+    inp, each padded to 8 floats, the row to 4 mod 8, and 64 bytes of
+    mbarriers. "resident" adds the eight
+    weight arrays (rows padded to 8, each gate's columns to the n8 tiles,
+    rows of 8 or 24 mod 32 floats); "ring" GENERAL_SLOTS slots of 8 to 64
+    rows (a multiple of 8, the most that fit) of three gates. "fma": 8-point groups of
+    4 (7 pad4(H) + pad4(C) + pad4(F) + 8) bytes a point, a thread per
+    channel of a group, 256 at most."""
+    h, c, f = hidden, context, corr_ch
+    if min(h, c, f, rows) < 1:
+        return None
+    if mode == "fma":
+        if rows % GENERAL_POINTS:
+            return None
+        threads = min(256, -(-(rows // GENERAL_POINTS) * h // 32) * 32)
+        return rows * 4 * (7 * _pad(h, 4) + _pad(c, 4) + _pad(f, 4)
+                           + FLOW_PAD), threads, 0
+    hp, tiles = _pad(h, 8), -(-h // 8)
+    if mode not in ("resident", "ring") or rows not in (32, 64) \
+            or tiles > GENERAL_MAX_TILES:
+        return None
+    warps = rows // 32 * tiles
+    if warps > 16:
+        return None
+    row = 3 * hp + FLOW_PAD + max(_pad(f, 8), hp) + _pad(c, 8) + 4
+    act = rows * row
+    if mode == "resident":
+        weights = ((_pad(f, 8) + FLOW_PAD + 2 * hp) * _ld(hp)
+                   + (_pad(c, 8) + 2 * hp + FLOW_PAD) * _ld(3 * hp))
+        return 4 * (act + weights) + GENERAL_BARRIERS, 32 * warps, 0
+    slot_row = GENERAL_SLOTS * _ld(3 * hp)
+    room = (_cuda.SMEM_MAX - GENERAL_BARRIERS) // 4 - act
+    chunk = min(64, max(8, room // slot_row // 8 * 8))
+    return 4 * (act + chunk * slot_row) + GENERAL_BARRIERS, 32 * warps, chunk
+
+
+@functools.lru_cache(maxsize=None)
+def general_gru_plan(hidden: int, context: int, corr_ch: int,
+                     mode: Optional[str] = None) -> GeneralGruPlan:
+    """The general kernel's launch shape for widths (H, C, F): on the
+    tensor cores where a layout fits in the SMEM_MAX a block can have,
+    64 points a block before 32, weights "resident" before "ring";
+    else mode "fma" (as many 8-point groups as keep about 256 threads
+    busy within 48 KB). ``mode`` holds the plan to one mode (an A/B
+    between modes). Raises where no layout of the mode fits, naming the
+    limit."""
+    h, c, f = hidden, context, corr_ch
+    if mode is not None and mode not in GENERAL_MODES:
+        raise ValueError(f"gru_iter_general: mode {mode!r} is not one of "
+                         f"{GENERAL_MODES}")
+    if min(h, c, f) >= 1:
+        for rows in (64, 32):
+            for m in ("resident", "ring"):
+                if mode not in (None, m):
+                    continue
+                got = general_gru_need(m, rows, h, c, f)
+                if got is not None and got[0] <= _cuda.SMEM_MAX:
+                    return GeneralGruPlan(m, rows, got[1], got[0], got[2])
+        group = GENERAL_POINTS * 4 * (7 * _pad(h, 4) + _pad(c, 4)
+                                      + _pad(f, 4) + FLOW_PAD)
+        if mode in (None, "fma") and group <= _cuda.SMEM_MAX:
+            groups = max(1, min(256 // h, _cuda.SMEM_DEFAULT // group))
+            smem, threads, _ = general_gru_need(
+                "fma", GENERAL_POINTS * groups, h, c, f)
+            return GeneralGruPlan("fma", GENERAL_POINTS * groups, threads,
+                                  smem, 0)
+    raise ValueError(
+        f"gru_iter_general: widths hidden={h}, context={c}, corr={f} fit "
+        f"no layout{'' if mode is None else ' of mode ' + repr(mode)}; "
+        f"the kernel takes widths >= 1 within the {_cuda.SMEM_MAX} bytes "
+        f"of shared memory a block can have")
 
 
 BF16_ROWS = 16         # points per warp tile of the bf16 kernel (mma m16)
@@ -324,7 +412,7 @@ def gru_iter_general(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
     return _launch_general(
         gru_iter_general, "pvraft_gru_update_general",
         (net, inp, cor, flow8, *weights), torch.float32,
-        lambda h, c, f, rows, dev: general_gru_plan(h, c, f))
+        lambda h, c, f, rows, dev: general_gru_plan(h, c, f).launch)
 
 
 def gru_iter_bf16(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,

@@ -2,11 +2,14 @@
 
     python -m pvraft_tpu_torch.profile_serve [--seed S] [--fused-gru]
         [--dtype float32|bfloat16] [--truncate_k K] [--corr_knn KNN]
+        [--hidden_dim H --context_dim C]
 
 Serves the flagship ``ModelConfig`` (seeded random weights, 8 GRU
 iterations; ``--truncate_k`` and ``--corr_knn``, the serve CLIs' flags,
-default to its 512 and 32, and every row names them: 1024 / 64 runs the
-general lookup kernel) on one CUDA device: one 8,192-point request, a batch of four
+and ``--hidden_dim`` and ``--context_dim``, ``ModelConfig``'s widths,
+default to its 512, 32, 64 and 64, and every row names them: 1024 / 64 runs the general lookup kernel,
+hidden 32 / context 96 with ``--fused-gru`` the general GRU kernel; the
+two widths sum to the context encoder's 128) on one CUDA device: one 8,192-point request, a batch of four
 4,096-point requests, one 2,048-point request, each two ways: ``eager``,
 the forward run op by op on the padded inputs (:func:`eager_predict_batch`,
 the engine's path before it captured its programs), and ``graphed``,
@@ -139,6 +142,10 @@ def main(argv=None) -> int:
     ap.add_argument("--truncate_k", type=int,
                     default=ModelConfig.truncate_k)
     ap.add_argument("--corr_knn", type=int, default=ModelConfig.corr_knn)
+    ap.add_argument("--hidden_dim", type=int,
+                    default=ModelConfig.hidden_dim)
+    ap.add_argument("--context_dim", type=int,
+                    default=ModelConfig.context_dim)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -148,7 +155,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = ServeConfig(ModelConfig(fused_gru=args.fused_gru,
                                   truncate_k=args.truncate_k,
-                                  corr_knn=args.corr_knn),
+                                  corr_knn=args.corr_knn,
+                                  hidden_dim=args.hidden_dim,
+                                  context_dim=args.context_dim),
                       dtype=args.dtype)
     engine = InferenceEngine(seeded_state_dict(cfg.model, args.seed), cfg)
     rng = np.random.default_rng(args.seed + 1)
@@ -170,6 +179,8 @@ def main(argv=None) -> int:
                               "fused_gru": args.fused_gru,
                               "truncate_k": args.truncate_k,
                               "corr_knn": args.corr_knn,
+                              "hidden_dim": args.hidden_dim,
+                              "context_dim": args.context_dim,
                               "path": path, "bucket": bucket,
                               "requests": len(group), **row}), flush=True)
     print(json.dumps({"gpu": gpu, "programs": engine.compile_report()}),

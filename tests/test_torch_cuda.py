@@ -836,7 +836,7 @@ def test_general_voxel_only_pass(dev, k, res, levels):
                                                     res), rtol=0, atol=1e-5)
 
 
-def _gru_operands(dev, b, n, h, c, f, seed=0):
+def _gru_operands(dev, b, n, h, c, f, seed=0, scale=1.0):
     rng = np.random.default_rng(seed)
 
     def a(*s, scale=0.15):
@@ -845,18 +845,53 @@ def _gru_operands(dev, b, n, h, c, f, seed=0):
 
     me = (a(f, h), a(h), a(3, h), a(h), a(2 * h, h - 3), a(h - 3))
     gru = tuple(t for _ in range(3) for t in (a(h + c + h, h), a(h)))
-    acts = (torch.tanh(a(b, n, h, scale=1.0)), torch.relu(a(b, n, c, scale=1.0)),
-            a(b, n, f, scale=1.0),
-            gr.pad_flow(a(b, n, 3, scale=0.3)).contiguous())
+    acts = (torch.tanh(a(b, n, h, scale=scale)),
+            torch.relu(a(b, n, c, scale=scale)), a(b, n, f, scale=scale),
+            gr.pad_flow(a(b, n, 3, scale=0.3 * scale)).contiguous())
     return acts, me, gru
 
 
-@pytest.mark.parametrize("h,c,f", [(32, 32, 64), (96, 96, 64),
-                                   (128, 128, 64), (48, 80, 40),
-                                   (32, 96, 64), (33, 50, 37)])
-def test_general_gru_matches_plain(dev, h, c, f):
-    acts, me, gru = _gru_operands(dev, 2, 129, h, c, f)
+# (B, N, hidden, context, correlation, activation scale, atol): the
+# tensor-core layouts ("resident" at 32/32, 32/96, 33/50/37; "ring" at 96,
+# 128, 96/32, 48/80, 48/80/40) at 129 points a batch, point counts off
+# their 64- and 32-point blocks, activations x10 that saturate sigmoid and
+# tanh (there fp32 gru_math itself is ~1e-5 from fp64, so atol 1e-4), and
+# a width no tensor-core layout takes (hidden 200: mode "fma").
+GENERAL_GRU = [(2, 129, 32, 32, 64, 1.0, 1e-5), (2, 129, 96, 96, 64, 1.0, 1e-5),
+               (2, 129, 128, 128, 64, 1.0, 1e-5),
+               (2, 129, 48, 80, 40, 1.0, 1e-5), (2, 129, 32, 96, 64, 1.0, 1e-5),
+               (2, 129, 33, 50, 37, 1.0, 1e-5), (2, 129, 96, 32, 64, 1.0, 1e-5),
+               (2, 129, 48, 80, 64, 1.0, 1e-5),
+               (1, 8191, 32, 96, 64, 1.0, 1e-5),
+               (2, 2056, 32, 96, 64, 1.0, 1e-5),
+               (2, 2056, 96, 96, 64, 1.0, 1e-5),
+               (1, 8192, 32, 96, 64, 10.0, 1e-4),
+               (1, 8192, 128, 128, 64, 10.0, 1e-4),
+               (2, 129, 200, 64, 64, 1.0, 1e-5)]
+
+
+@pytest.mark.parametrize("b,n,h,c,f,scale,tol", GENERAL_GRU)
+def test_general_gru_matches_plain(dev, b, n, h, c, f, scale, tol):
+    acts, me, gru = _gru_operands(dev, b, n, h, c, f, scale=scale)
     args = (*acts, gr.pack_gru_weights(me, gru, h, c))
+    assert (gr.general_gru_plan(h, c, f).mode == "fma") == (h > 128)
+    before = (gr.gru_iter_general.launches, gr.fused_gru_update.launches)
+    got = gr.fused_gru_update(*args)
+    assert (gr.gru_iter_general.launches,
+            gr.fused_gru_update.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(got, gr.gru_math(*args), rtol=0, atol=tol)
+    assert torch.equal(got, gr.fused_gru_update(*args))
+
+
+@pytest.mark.parametrize("which", [0, 2, 3])
+def test_unaligned_operands_at_width_64_run_the_general_kernel(dev, which):
+    """An operand (net, cor or flow8) whose rows start off a 16-byte
+    boundary: the tuned kernel does not take it, the general one does (its
+    scalar loads), and computes the same update."""
+    acts, me, gru = _gru_operands(dev, 2, 2056, 64, 64, 64, seed=3)
+    acts = list(acts)
+    acts[which] = _unaligned(acts[which])
+    args = (*acts, gr.pack_gru_weights(me, gru, 64, 64))
     before = (gr.gru_iter_general.launches, gr.fused_gru_update.launches)
     got = gr.fused_gru_update(*args)
     assert (gr.gru_iter_general.launches,

@@ -124,6 +124,8 @@ def test_kernel_takes_table_and_routing(kw, takes):
      "namespace)::Lookup)", "corr_lookup_general"),
     ("(anonymous namespace)::gru_general_kernel((anonymous namespace)::Gru)",
      "gru_iter_general"),
+    ("void (anonymous namespace)::gru_general_kernel<false, 256>((anonymous "
+     "namespace)::Args, int)", "gru_iter_general"),
 ])
 def test_profiler_events_name_their_kernel(event, wrapper):
     """The measured launch counts on the card read the profiler's kernel

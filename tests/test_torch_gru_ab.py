@@ -9,6 +9,7 @@ import pytest
 
 from pvraft_tpu_torch import gru_ab
 from pvraft_tpu_torch.ops import cuda as tcuda
+from pvraft_tpu_torch.ops.cuda import gru_iter as gr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -51,3 +52,38 @@ def test_without_a_card_it_exits_2_and_builds_nothing():
     assert os.path.exists(os.path.join(tcuda.BUILD_ROOT, "ab")) == before
     with pytest.raises(SystemExit):
         gru_ab.main(["--entry", "int8"])
+
+
+def test_the_general_entry_takes_the_modes_and_the_v7_plan():
+    got = gru_ab.parse_sources(["parent=old/gru_iter_general.cu@v7",
+                                "ring=v.cu@ring", "x=y.cu"], "general")
+    assert got == {"parent": ("old/gru_iter_general.cu", "v7"),
+                   "ring": ("v.cu", "ring"), "x": ("y.cu", "general"),
+                   "this": (tcuda.sources()["gru_iter_general"], "general")}
+    assert gru_ab.ENTRIES["general"] == ("pvraft_gru_update_general",
+                                         "gru_iter_general", 7)
+    with pytest.raises(ValueError, match="is not one of"):
+        gru_ab.parse_sources(["old=x.cu@bf16"], "general")
+
+
+def test_the_launch_ints_of_each_plan():
+    """``@v7`` is the FMA kernel's formula (groups of 8 points, threads, shared
+    memory; at hidden 32 / context 96: 3 groups, 96 threads, 37,632
+    bytes), which the bf16 entry's ``@general`` names too; the general
+    entry's own plans are ``general_gru_plan``'s launch ints, held to a
+    mode where one is named."""
+    assert gru_ab.v7_plan(32, 96, 64) == (3, 96, 37632)
+    assert gru_ab._launch_ints("bf16", "general", 32, 96, 64, 8192) == (
+        3, 96, 37632)
+    assert gru_ab._launch_ints("general", "v7", 33, 50, 37, 8192) == (
+        gru_ab.v7_plan(33, 50, 37))
+    plan = gr.general_gru_plan(32, 96, 64)
+    assert gru_ab._launch_ints("general", "general", 32, 96, 64, 8192) == (
+        plan.launch)
+    ring = gru_ab._launch_ints("general", "ring", 32, 96, 64, 8192)
+    assert ring == gr.general_gru_plan(32, 96, 64, "ring").launch
+    assert ring[0] == gr.GENERAL_MODES.index("ring") != plan.launch[0]
+    with pytest.raises(ValueError, match=str(tcuda.SMEM_MAX)):
+        gru_ab._launch_ints("general", "resident", 128, 128, 64, 8192)
+    with pytest.raises(ValueError, match=str(tcuda.SMEM_MAX)):
+        gru_ab.v7_plan(2048, 64, 64)

@@ -105,9 +105,8 @@ def test_lookup_wrapper_takes_plain_path_on_cpu():
 # --- kernel 2: the fused GRU update -----------------------------------------
 
 
-def _gru_inputs(seed, n=37):
+def _gru_inputs(seed, n=37, h=64, c=64, d=64):
     rng = np.random.default_rng(seed)
-    h = c = d = 64
 
     def a(*s):
         return (0.3 * rng.normal(size=s)).astype(np.float32)
@@ -121,12 +120,20 @@ def _gru_inputs(seed, n=37):
     return me, gru, net, inp, cor, flow
 
 
-def test_pack_and_pad_match_jax_exactly():
-    me, gru, _, _, _, flow = _gru_inputs(2)
+# (hidden, context, correlation) widths: the tuned kernel's 64, and the
+# general kernel's: hidden + context = 128 both ways, widths off every
+# tile (33 / 50 / 37) and width 128.
+GRU_WIDTHS = [(64, 64, 64), (32, 96, 64), (96, 32, 64), (33, 50, 37),
+              (128, 128, 64)]
+
+
+@pytest.mark.parametrize("h,c,f", GRU_WIDTHS)
+def test_pack_and_pad_match_jax_exactly(h, c, f):
+    me, gru, _, _, _, flow = _gru_inputs(2, h=h, c=c, d=f)
     jw = jgru.pack_gru_weights(tuple(map(jnp.asarray, me)),
-                               tuple(map(jnp.asarray, gru)), 64, 64)
+                               tuple(map(jnp.asarray, gru)), h, c)
     tw = tgru.pack_gru_weights(tuple(map(torch.from_numpy, me)),
-                               tuple(map(torch.from_numpy, gru)), 64, 64)
+                               tuple(map(torch.from_numpy, gru)), h, c)
     assert len(jw) == len(tw) == 8
     for j, t in zip(jw, tw):
         np.testing.assert_array_equal(np.asarray(j), t.numpy())
@@ -134,16 +141,17 @@ def test_pack_and_pad_match_jax_exactly():
                                   tgru.pad_flow(torch.from_numpy(flow)).numpy())
 
 
-def test_plain_gru_matches_jax_reference_and_interpreted_pallas():
-    me, gru, net, inp, cor, flow = _gru_inputs(3)
+@pytest.mark.parametrize("h,c,f", GRU_WIDTHS)
+def test_plain_gru_matches_jax_reference_and_interpreted_pallas(h, c, f):
+    me, gru, net, inp, cor, flow = _gru_inputs(3, h=h, c=c, d=f)
     jw = jgru.pack_gru_weights(tuple(map(jnp.asarray, me)),
-                               tuple(map(jnp.asarray, gru)), 64, 64)
+                               tuple(map(jnp.asarray, gru)), h, c)
     jargs = (jnp.asarray(net), jnp.asarray(inp), jnp.asarray(cor),
              jgru.pad_flow(jnp.asarray(flow)), jw)
     ref = jgru._gru_reference(*jargs, "float32")
     pallas = jgru.fused_gru_update(*jargs, "float32", 512)
     tw = tgru.pack_gru_weights(tuple(map(torch.from_numpy, me)),
-                               tuple(map(torch.from_numpy, gru)), 64, 64)
+                               tuple(map(torch.from_numpy, gru)), h, c)
     got = tgru.gru_math(torch.from_numpy(net), torch.from_numpy(inp),
                         torch.from_numpy(cor),
                         tgru.pad_flow(torch.from_numpy(flow)), tw)
@@ -183,6 +191,10 @@ def test_kernel_sources_and_lazy_build():
     # source includes another's plan).
     with open(tcuda.sources()["gru_iter_bf16"]) as f:
         assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in f.read()
+    # The general float32 one runs its products on the TF32 tensor cores
+    # (3xTF32, as the tuned kernel does).
+    with open(tcuda.sources()["gru_iter_general"]) as f:
+        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in f.read()
     assert sorted(f for f in os.listdir(tcuda.CSRC_DIR)
                   if f.endswith(".cuh")) == ["voxel_bins.cuh"]
     for name in ("gru_iter_general", "gru_iter_bf16"):

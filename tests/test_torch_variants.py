@@ -116,30 +116,40 @@ def test_general_lookup_plan_names_its_limit():
         lk.general_lookup_plan(16, 17, 3, 3)
 
 
-@pytest.mark.parametrize("h,c,f", [(32, 32, 64), (64, 64, 64), (96, 96, 64),
-                                   (128, 128, 64), (48, 80, 40),
-                                   (33, 50, 37), (32, 96, 64)])
-def test_general_gru_plan(h, c, f):
-    groups, threads, smem = gr.general_gru_plan(h, c, f)
-
-    def pad4(x):
-        return -(-x // 4) * 4
-
-    group = gr.GENERAL_POINTS * 4 * (7 * pad4(h) + pad4(c) + pad4(f)
-                                     + gr.FLOW_PAD)
-    assert smem == groups * group <= tcuda.SMEM_DEFAULT
-    assert groups >= 1 and groups * h <= max(256, h)
-    assert threads % 32 == 0 and threads <= 256
-    assert threads >= min(256, groups * h)
+@pytest.mark.parametrize("h,c,f,mode", [
+    (32, 32, 64, "resident"), (64, 64, 64, "ring"), (96, 96, 64, "ring"),
+    (128, 128, 64, "ring"), (48, 80, 40, "resident"),
+    (33, 50, 37, "resident"), (32, 96, 64, "resident")])
+def test_general_gru_plan(h, c, f, mode):
+    """The repository's widths run on the tensor cores: 64 points a block
+    where a layout fits, else 32; a warp owns 32 points and one n8 channel
+    tile, 16 warps at most; weights resident where they fit beside the
+    tile, else streamed through a ring of 8 to 64 rows a slot."""
+    plan = gr.general_gru_plan(h, c, f)
+    assert plan.mode == mode
+    warps = plan.rows // 32 * -(-h // 8)
+    assert plan.threads == 32 * warps <= 512
+    at64 = gr.general_gru_need(mode, 64, h, c, f)
+    assert plan.rows == (64 if at64 and at64[0] <= tcuda.SMEM_MAX else 32)
+    assert plan.smem == gr.general_gru_need(mode, plan.rows, h, c, f)[0]
+    assert plan.smem <= tcuda.SMEM_MAX
+    assert (plan.chunk in range(8, 65, 8)) == (mode == "ring")
+    # The model's widths: every split of the context encoder's 128
+    # channels at correlation width 64, and widths 32, 96 and 128.
+    for w in [(k, 128 - k, 64) for k in range(4, 125, 15)] + [
+            (32, 32, 64), (96, 96, 64), (128, 128, 64)]:
+        assert gr.general_gru_plan(*w).mode in ("resident", "ring")
 
 
 def test_general_gru_plan_names_its_limit():
     with pytest.raises(ValueError, match=str(tcuda.SMEM_MAX)):
         gr.general_gru_plan(2048, 64, 64)
-    # One group above 48 KB opts in, alone in its block.
-    groups, threads, smem = gr.general_gru_plan(256, 256, 64)
-    assert groups == 1 and threads == 256
-    assert tcuda.SMEM_DEFAULT < smem <= tcuda.SMEM_MAX
+    # Above hidden 128 no tensor-core layout exists: the FMA body, one
+    # 8-point group above 48 KB opts in, alone in its block.
+    plan = gr.general_gru_plan(256, 256, 64)
+    assert (plan.mode, plan.rows, plan.threads) == ("fma", 8, 256)
+    assert tcuda.SMEM_DEFAULT < plan.smem <= tcuda.SMEM_MAX
+    assert plan.launch == (0, 8, plan.smem)
 
 
 def test_general_wrappers_refuse_cpu_tensors():
