@@ -158,6 +158,30 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            revival once it clears; ``/metrics`` JSON against Prometheus;
            ``python -m pvraft_tpu_torch.serve serve`` in a subprocess,
            drained by SIGINT;
+  phase 12 the K-step train graph and the model levers
+           (``train_levers``, ``train_levers_phase``; after phase 11,
+           before the profiler phases): the flagship model at B=2 x 8,192
+           packed (``ParallelConfig(packed_state=True)``), one epoch of 18
+           synthetic scenes (9 steps: two calls of the 4-step graph and
+           one tail step) against 9 replays of the packed single step,
+           per-step losses and EPEs and the flat state bitwise under
+           ``deterministic()``; the programs' capture seconds and pools
+           (K = 1 and K = 4), the launches the K-step capture recorded;
+           ``host_roundtrip`` bitwise against the packed step over 4
+           steps, both timed in turns; one eager train step per remat
+           policy (none, full, dots, dots_no_batch, save_corr): gradients
+           against "none" (bitwise, else ``GRAD_BOUNDS``), peak memory,
+           ms, the lookup's launches (16 where the backward recomputes
+           it); "full" graphed against eager, bitwise; one eager train
+           step at 2 x 16,384 dense and with corr_chunk / graph_chunk
+           4096 and remat "full" (peak memory, ms, losses within 1e-4
+           relative; a dense step that does not fit is recorded); a
+           1-iteration forward at 1 x 8,192 with chunks of 2048 against
+           the dense one (max |dflow| <= 1e-4); ``python -m
+           pvraft_tpu_torch.step_time --no-serve`` at K = 1 (packed) and
+           K = 4, a fresh process a reading, in turns; last, one 4-step
+           call under the profiler with fused_gru off and on: kernel 1
+           (and 2) 32 times;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -168,7 +192,8 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            requests (phase 9), the bf16 serve groups (fused_gru off and
            on) and a bf16 train and eval step (phase 10), and one HTTP
            request per serve group through ``build_service`` at the
-           default dtype (phase 11), each pass alone
+           default dtype (phase 11), and one call of phase 12's 4-step
+           train graph, each pass alone
            under ``torch.profiler`` with the counts zeroed just before it.
            Phases 2, 4-7 and 9 serve at ``dtype="float32"``, asked for
            explicitly (the default is bfloat16).
@@ -184,7 +209,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -2970,6 +2995,367 @@ def wait_for(predicate, timeout):
     return True
 
 
+# -------------------------------------------------------------- phase 12 --
+
+KSTEP = 4                    # steps per dispatch of phase 12's K-step graph
+KSTEP_SCENES = 18            # 9 steps an epoch at B=2: 2 K-step calls, 1 tail
+REMAT_WAYS = ("none", "full", "dots", "dots_no_batch", "save_corr")
+LONG_POINTS = 16384          # the chunks' clouds (2 x 16,384)
+LONG_CHUNK = 4096            # corr_chunk and graph_chunk there
+FLAGSHIP_CHUNK = 2048        # corr_chunk and graph_chunk at 1 x 8,192
+CHUNK_LOSS_REL = 1e-4        # dense against chunked loss at 16,384 points
+# step_time readings, a fresh process each, in turns: ms per step of the
+# packed single step (K = 1) and of the K-step graph.
+STEP_TIME_TURNS = (("k1", ("--packed_state",)),
+                   ("k4", ("--steps_per_dispatch", str(KSTEP))),
+                   ("k4", ("--steps_per_dispatch", str(KSTEP))),
+                   ("k1", ("--packed_state",)))
+
+
+def packed_config(seed, scenes=4, **par):
+    from pvraft_tpu_torch.config import ParallelConfig
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+
+    return flagship_train_config(seed, scenes=scenes,
+                                 parallel=ParallelConfig(packed_state=True,
+                                                         **par))
+
+
+def kstep_runs(seed, dev, state):
+    """An epoch of KSTEP_SCENES scenes (9 steps: two K-step calls and one
+    tail step) through the K = 4 trainer and through the packed single
+    step, under ``deterministic()`` from the same weights and batches:
+    per-step losses and EPEs and the whole flat state (parameters, Adam's
+    moments and steps) bitwise. Then the packed step with
+    ``host_roundtrip`` against it, bitwise over two epochs, both timed."""
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+    from pvraft_tpu_torch.engine.trainer import Trainer
+
+    runs = {}
+    with deterministic():
+        for name, par in (("k4", {"steps_per_dispatch": KSTEP}), ("k1", {})):
+            trainer = Trainer(packed_config(seed, KSTEP_SCENES, **par),
+                              device=dev, weights=state)
+            out = trainer.training(0)
+            runs[name] = {"losses": out["losses"], "epes": out["epes"],
+                          "flat": trainer.flat.clone(),
+                          "programs": trainer.compile_report()}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    k4, k1 = runs["k4"], runs["k1"]
+    steps = KSTEP_SCENES // 2
+    check(len(k4["losses"]) == len(k1["losses"]) == steps
+          and all(np.isfinite(k4["losses"])),
+          f"train levers: K-step epoch losses {k4['losses']} / "
+          f"{k1['losses']}")
+    first = next((i for i, (a, b) in enumerate(zip(
+        k4["losses"] + k4["epes"], k1["losses"] + k1["epes"])) if a != b),
+        None)
+    flat_equal = torch.equal(k4.pop("flat"), k1.pop("flat"))
+    check(first is None and flat_equal,
+          f"train levers: {KSTEP}-step calls against single replays are "
+          f"not bitwise: first differing loss/EPE entry {first} (steps "
+          f"then EPEs), flat state equal {flat_equal}; losses "
+          f"{k4['losses']} / {k1['losses']}")
+    multi = [r for r in k4["programs"]
+             if r["name"].startswith("multistep_train_step")]
+    single = [r for r in k1["programs"]
+              if r["name"].startswith("packed_train_step")]
+    want = want_serve("unfused_gru", 8 * KSTEP)
+    check(len(multi) == 1 and multi[0]["graph"]
+          and captured_share(multi, want),
+          f"train levers: K-step program {multi}, expected launches {want}")
+    result = {"k": KSTEP, "epoch_steps": steps,
+              "k_step_calls": steps // KSTEP, "tail_steps": steps % KSTEP,
+              "bitwise": True, "losses": k4["losses"], "epes": k4["epes"],
+              "programs": {"k4": k4["programs"], "k1": k1["programs"]},
+              "pool_bytes": {"k1": single[0]["pool_bytes"],
+                             "k4": multi[0]["pool_bytes"]},
+              "capture_s": {"k1": single[0]["capture_s"],
+                            "k4": multi[0]["capture_s"]}}
+
+    ways = (("packed", {}), ("host_roundtrip", {"host_roundtrip": True}))
+    flats = {}
+    with deterministic():
+        for name, par in ways:
+            trainer = Trainer(packed_config(seed, **par), device=dev,
+                              weights=state)
+            for epoch in range(2):
+                trainer.training(epoch)
+            flats[name] = trainer.flat.clone()
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    rt_bitwise = torch.equal(flats["packed"], flats["host_roundtrip"])
+    check(rt_bitwise, "train levers: host_roundtrip is not bitwise equal "
+                      "to the packed step")
+    # Timed on trainers captured outside deterministic(): a capture keeps
+    # the kernels of the mode it was made in.
+    trainers = {name: Trainer(packed_config(seed, **par), device=dev,
+                              weights=state) for name, par in ways}
+    batch = to_device(first_batch(PrefetchLoader(
+        trainers["packed"].train_ds, 2, num_workers=0)), dev)
+    ms = {name: [] for name in trainers}
+    for _ in range(2):
+        for name, trainer in trainers.items():
+            ms[name].append(cuda_ms(lambda: trainer.train_step(batch),
+                                    reps=4, warmup=1))
+    del trainers, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["host_roundtrip"] = {"bitwise": rt_bitwise, "steps": 4,
+                                "step_ms_in_turns": ms,
+                                "flat_bytes": 4 * flats["packed"].numel()}
+    return result
+
+
+def remat_runs(seed, dev, state, batch):
+    """One eager train step at 2 x 8,192 per remat policy (Adam at lr 0,
+    so every step starts from the same weights): under
+    ``deterministic()`` each policy's gradients against "none" (bitwise,
+    else GRAD_BOUNDS), the lookup's eager launches (8 forward, 8 more
+    where the backward recomputes it); in the default mode peak memory
+    and ms. Then "full" graphed against its eager step on the same
+    capturable Adam: it captures, and two steps' losses and parameters
+    are bitwise equal."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.engine.steps import make_train_step
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.models import PVRaft
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+
+    ways, grads = {}, {}
+    for policy in REMAT_WAYS:
+        model = PVRaft(ModelConfig(remat_policy=policy))
+        model.load_state_dict(state)
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=0.0)
+        step = make_train_step(model, opt, lambda _: 0.0, 0.8, 8)
+        with deterministic():
+            zero_counts()
+            loss = float(step(batch)["loss"])
+            counts = read_counts()
+        grads[policy] = (loss, {n: p.grad.detach().clone()
+                                for n, p in model.named_parameters()})
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: step(batch), reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        lookups = 16 if policy in ("full", "dots", "dots_no_batch") else 8
+        check(counts == {**NO_LAUNCHES, "fused_corr_lookup": lookups},
+              f"remat {policy}: eager launches {counts}, expected "
+              f"{lookups} lookups")
+        ways[policy] = {"loss": loss, "step_ms": step_ms,
+                        "peak_gb": peak / 1e9,
+                        "peak_above_start_gb": (peak - before) / 1e9,
+                        "eager_launches": counts}
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    for policy in REMAT_WAYS[1:]:
+        got = grad_agreement(grads[policy], grads["none"])
+        bitwise = grads[policy][0] == grads["none"][0] and all(
+            torch.equal(grads[policy][1][n], g)
+            for n, g in grads["none"][1].items())
+        ways[policy]["grads_bitwise_to_none"] = bitwise
+        if not bitwise:
+            ways[policy]["grad_agreement"] = got
+            bar = GRAD_BOUNDS["iters8"]
+            check(got["loss_rel"] <= bar["loss_rel"]
+                  and got["min_cos"] >= bar["min_cos"],
+                  f"remat {policy} against none: {got} (bars {bar})")
+    del grads
+
+    cfg = flagship_train_config(seed, remat_policy="full")
+    graphed = {}
+    with deterministic():
+        for path in ("graphed", "eager"):
+            trainer = Trainer(cfg, device=dev, weights=state,
+                              graphs=path == "graphed", capturable=True)
+            out = trainer.training(0)
+            graphed[path] = {
+                "losses": out["losses"],
+                "params": [p.detach().clone()
+                           for p in trainer.model.parameters()],
+                "programs": trainer.compile_report()}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    g, e = graphed["graphed"], graphed["eager"]
+    bitwise = g["losses"] == e["losses"] and all(
+        torch.equal(a, b) for a, b in zip(g.pop("params"), e.pop("params")))
+    want = {**NO_LAUNCHES, "fused_corr_lookup": 16}
+    check(bitwise and g["programs"][0]["graph"]
+          and captured_share(g["programs"][:1], want),
+          f"remat full graphed against eager: bitwise {bitwise}, losses "
+          f"{g['losses']} / {e['losses']}, programs {g['programs']}")
+    return {"policies": ways, "full_graphed": {
+        "bitwise": bitwise, "losses": g["losses"],
+        "program": g["programs"][0]}}
+
+
+def chunk_runs(seed, dev, state):
+    """The streaming levers. One eager train step at 2 x 16,384, dense
+    against corr_chunk / graph_chunk LONG_CHUNK with remat "full": peak
+    memory and ms of each, the losses within CHUNK_LOSS_REL (a dense step
+    that does not fit is recorded, and the chunked step runs alone). A
+    1-iteration forward at 1 x 8,192 with chunks of FLAGSHIP_CHUNK
+    against the dense one, at phase 2's bar (FLOW_BOUND_1)."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import (PrefetchLoader, SyntheticDataset,
+                                       first_batch, to_device)
+    from pvraft_tpu_torch.engine.steps import make_train_step
+    from pvraft_tpu_torch.models import PVRaft
+
+    ds = SyntheticDataset(size=2, nb_points=LONG_POINTS, noise=0.01,
+                          seed=seed, n_objects=4)
+    batch = to_device(first_batch(PrefetchLoader(ds, 2, num_workers=0)), dev)
+    ways = {}
+    for name, kw in (("dense", {}),
+                     ("chunked", {"corr_chunk": LONG_CHUNK,
+                                  "graph_chunk": LONG_CHUNK,
+                                  "remat_policy": "full"})):
+        model = PVRaft(ModelConfig(**kw))
+        model.load_state_dict(state)
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=0.0)
+        step = make_train_step(model, opt, lambda _: 0.0, 0.8, 8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            loss = float(step(batch)["loss"])
+            step_ms = cuda_ms(lambda: step(batch), reps=2, warmup=0)
+            ways[name] = {"loss": loss, "step_ms": step_ms,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        except torch.cuda.OutOfMemoryError as err:
+            if name != "dense":
+                raise
+            ways[name] = {"out_of_memory": str(err).splitlines()[0]}
+        ways[name]["config"] = kw
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    result = {"points": LONG_POINTS, "batch": 2, "steps": ways}
+    if "loss" in ways["dense"]:
+        rel = abs(ways["chunked"]["loss"] - ways["dense"]["loss"]) / abs(
+            ways["dense"]["loss"])
+        result["loss_rel"] = rel
+        check(rel <= CHUNK_LOSS_REL,
+              f"chunks at {LONG_POINTS}: loss rel {rel} > {CHUNK_LOSS_REL}")
+    del batch
+
+    n = MAIN_SHAPE[1]
+    x1, x2 = (torch.from_numpy(c[None]).to(dev)
+              for c in scene(np.random.default_rng(seed + 3), n, n))
+    flows = {}
+    for name, kw in (("dense", {}), ("chunked", {
+            "corr_chunk": FLAGSHIP_CHUNK, "graph_chunk": FLAGSHIP_CHUNK})):
+        model = PVRaft(ModelConfig(**kw)).eval()
+        model.load_state_dict(state)
+        model.to(dev)
+        with torch.no_grad():
+            flows[name] = model(x1, x2, 1)[0][-1]
+        del model
+    diff = float((flows["chunked"] - flows["dense"]).abs().max())
+    check(diff <= FLOW_BOUND_1, f"chunked forward at 1 x 8192: max |dflow| "
+                                f"{diff} > {FLOW_BOUND_1}")
+    result["flagship_forward"] = {"chunk": FLAGSHIP_CHUNK, "iters": 1,
+                                  "max_abs_flow_diff": diff,
+                                  "bitwise": diff == 0.0}
+    return result
+
+
+def step_time_turns(dev):
+    """``python -m pvraft_tpu_torch.step_time --no-serve`` for the packed
+    single step and the K-step graph, a fresh process per reading, in
+    turns (STEP_TIME_TURNS); returns each reading's line."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for name, flags in STEP_TIME_TURNS:
+        proc = subprocess.run(
+            [sys.executable, "-m", "pvraft_tpu_torch.step_time",
+             "--no-serve", *flags], cwd=root, capture_output=True,
+            text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"step_time {flags}: rc {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        out.append({"way": name, "flags": list(flags),
+                    "train_step_ms": line["train_step_ms"],
+                    "eval_step_ms": line["eval_step_ms"],
+                    "train_peak_mem_bytes": line["train_peak_mem_bytes"],
+                    "trainer_build_s": line["trainer_build_s"],
+                    "steps_per_call": line["steps_per_call"],
+                    "programs": line["programs"],
+                    "samples": line["samples"]["train"]})
+    return out
+
+
+def kstep_launches(seed, dev, state, ways=TRAIN_WAYS[:2]):
+    """One K-step call of the flagship trainer (8 scenes: no tail, so no
+    single step is captured) under the profiler, each of ``ways``
+    (fused_gru off and on): the card must run kernel 1 (and with
+    fused_gru kernel 2) 8 K times, and no wrapper may launch eagerly."""
+    from pvraft_tpu_torch.config import ParallelConfig
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+    from pvraft_tpu_torch.engine.steps import stack_batches
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+
+    got = {}
+    for name, kw in ways:
+        trainer = Trainer(flagship_train_config(
+            seed, scenes=2 * KSTEP, parallel=ParallelConfig(
+                packed_state=True, steps_per_dispatch=KSTEP), **kw),
+            device=dev, weights=state)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
+        stacked = stack_batches([batch] * KSTEP)
+        _, counts, wrapper = measured(lambda: trainer.multi_step(stacked))
+        want = want_serve(name, trainer.cfg.train.iters * KSTEP)
+        check(counts == want and wrapper == NO_LAUNCHES,
+              f"launches: {KSTEP}-step call {name}: the card ran {counts} "
+              f"(wrappers {wrapper}), expected {want}")
+        got[name] = counts
+        del trainer, batch, stacked
+        gc.collect()
+        torch.cuda.empty_cache()
+    return got
+
+
+def train_levers_phase(seed, dev):
+    """Phase 12: the K-step train graph and the model levers at full
+    width (see the module docstring). Eager times are taken before the
+    profiler runs (the launches come last)."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+    from pvraft_tpu_torch.engine.trainer import build_datasets
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    t0 = time.perf_counter()
+    out = {"kstep": kstep_runs(seed, dev, state)}
+    train_ds = build_datasets(flagship_train_config(seed))[0]
+    batch = to_device(first_batch(PrefetchLoader(train_ds, 2,
+                                                 num_workers=0)), dev)
+    out["remat"] = remat_runs(seed, dev, state, batch)
+    del batch
+    out["chunks"] = chunk_runs(seed, dev, state)
+    out["step_time"] = step_time_turns(dev)
+    per = {}
+    for r in out["step_time"]:
+        per.setdefault(r["way"], []).append(r["train_step_ms"])
+    out["kstep"]["step_ms"] = per
+    out["kstep"]["launches"] = kstep_launches(seed, dev, state)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 # --------------------------------------------------------------- phase 6 --
 
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
@@ -3042,9 +3428,10 @@ def launches_phase(seed, dev):
     each serve group of phase 2's requests through ``predict`` or
     ``predict_batch`` of a freshly captured engine, and one train step and
     one eval step of a freshly captured ``Trainer``, every way of phases 2
-    and 3, and of stage 2 (phase 9): one refine train step and one refine
-    eval step (32 iterations) with fused_gru off and on, and phase 2's
-    first two request groups through a refine engine, and of the bf16
+    and 3, one call of phase 12's K-step train graph, and of stage 2
+    (phase 9): one refine train step and one refine eval step (32
+    iterations) with fused_gru off and on, and phase 2's first two
+    request groups through a refine engine, and of the bf16
     slice (phase 10): every serve group through an engine at the default
     dtype (bfloat16), fused_gru off and on, and one bf16 train step and
     eval step with fused_gru. The kernels the
@@ -3105,6 +3492,7 @@ def launches_phase(seed, dev):
         del trainer, batch, scene
         gc.collect()
         torch.cuda.empty_cache()
+    train["kstep"] = kstep_launches(seed, dev, state, TRAIN_WAYS[:1])
     refine = {}
     refine_state = seeded_state_dict(ModelConfig(), seed, refine=True)
     for name, kw in TRAIN_WAYS[:2]:
@@ -3330,6 +3718,9 @@ def main() -> int:
 
     tier = serving_tier_phase(args.seed, dev, smi)
     emit({"phase": "serving_tier", **tier})
+
+    levers = train_levers_phase(args.seed, dev)
+    emit({"phase": "train_levers", **levers})
 
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.

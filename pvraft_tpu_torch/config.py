@@ -15,6 +15,26 @@ the configuration, else the general one
 (``ops/cuda/__init__.py::kernel_takes``). The plain version runs on the
 card only where the caller chose it (``use_pallas=False``).
 
+``ModelConfig``'s memory levers run as in the JAX package:
+``corr_chunk`` and ``graph_chunk`` stream the correlation truncation and
+the kNN graph over chunks of the second cloud with a running top-k
+(``ops/corr.py``, ``ops/geometry.py``), and ``remat``/``remat_policy``
+checkpoint each GRU iteration (``models/raft.py``). ``approx_topk`` and
+``approx_knn`` are accepted and compute the exact top-k: approx = exact
+off the TPU. ``lax.approx_max_k`` has no PyTorch twin, and XLA computes
+it exactly on a CPU or a GPU, so the exact ``torch.topk`` is what the
+JAX package computes there; every error the knobs raise in JAX, they
+raise here.
+
+``ParallelConfig`` keeps the JAX fields. ``packed_state``,
+``steps_per_dispatch`` and ``host_roundtrip`` drive the packed train
+state and the K-step train graph (``engine/steps.py``);
+``device_prefetch`` is the depth of the batches' copies in flight to the
+device. ``donate`` is accepted and changes nothing: a captured graph
+writes into its own buffers, so there is no input buffer to give away.
+One card: ``data_axis`` -1 or 1 and ``seq_axis`` 1; other layouts
+arrive with the parallel slice.
+
 ``ModelConfig.scan_unroll`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX package unrolls its
 ``nn.scan`` over the GRU iterations by it, and the result is the same for
@@ -38,6 +58,8 @@ import torch
 
 from pvraft_tpu_torch.ops.cuda import kernel_takes
 
+# The JAX package's remat policies (its config.py's REMAT_POLICIES),
+# checkpointed in models/raft.py.
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch", "save_corr")
 # ModelConfig.compute_dtype -> the dtype of the model's Dense products and
 # of the fused GRU update's arithmetic (``compute_dtype``).
@@ -100,18 +122,7 @@ class ModelConfig:
             raise ValueError("approx_knn is not supported with seq_shard")
         # Knobs of features a later slice of the port brings.
         later = (
-            ("corr_chunk", self.corr_chunk is not None,
-             "the streaming correlation slice"),
-            ("graph_chunk", self.graph_chunk is not None,
-             "the streaming graph slice"),
-            ("approx_topk", self.approx_topk, "the approximate top-k slice"),
-            ("approx_knn", self.approx_knn, "the approximate top-k slice"),
             ("seq_shard", self.seq_shard, "the parallel slice"),
-            ("remat", self.remat, "the memory levers (torch.utils."
-             "checkpoint), ROADMAP queue 1 item 7"),
-            ("remat_policy", self.remat_policy != "none",
-             "the memory levers (torch.utils.checkpoint), ROADMAP queue 1 "
-             "item 7"),
             ("scatter_free_vjp", self.scatter_free_vjp,
              "its recorded disposition (ROADMAP queue 1 item 7): a "
              "TPU-motivated VJP whose forward equals the default path's"),
@@ -220,18 +231,76 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX ``ParallelConfig`` on one card.
+
+    ``packed_state``: the trained parameters and Adam's state live in one
+    flat float32 buffer (``engine/steps.py::make_packed_train_step``).
+    ``host_roundtrip`` (with ``packed_state``): that buffer goes to pinned
+    host memory and back before each step, bitwise. ``steps_per_dispatch``
+    K > 1 (with ``packed_state``): K train steps in one captured graph,
+    the epoch's tail through the single packed step. ``device_prefetch``:
+    batches whose copies to the device are in flight (1: none ahead).
+    ``donate`` is accepted and changes nothing: a captured graph writes
+    into its own buffers. ``data_axis`` -1 (every device, here one) or 1
+    and ``seq_axis`` 1 are one card; any other layout raises
+    ``NotImplementedError``."""
+
+    data_axis: int = -1
+    seq_axis: int = 1
+    donate: bool = True
+    packed_state: bool = False
+    host_roundtrip: bool = False
+    steps_per_dispatch: int = 1
+    device_prefetch: int = 2
+
+    def __post_init__(self):
+        if self.host_roundtrip and not self.packed_state:
+            raise ValueError("host_roundtrip requires packed_state (the "
+                             "round trip moves the single flat state "
+                             "buffer)")
+        if self.steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        if self.steps_per_dispatch > 1 and not self.packed_state:
+            raise ValueError("steps_per_dispatch > 1 requires packed_state "
+                             "(the fused steps carry the single flat state "
+                             "buffer)")
+        if self.steps_per_dispatch > 1 and self.host_roundtrip:
+            raise ValueError("steps_per_dispatch > 1 already removes the "
+                             "per-step dispatches; host_roundtrip (a "
+                             "per-step host sync) would put them back")
+        reject_later(self, (
+            ("data_axis", self.data_axis not in (-1, 1),
+             "the parallel slice (ROADMAP queue 1 item 8)"),
+            ("seq_axis", self.seq_axis != 1,
+             "the parallel slice (ROADMAP queue 1 item 8)"),
+        ))
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
-    """Model, data and training configuration (the JAX ``Config`` without
-    its ``parallel`` part, which arrives with the parallel slice).
-    ``exp_path`` holds the run's checkpoints (``exp_path/checkpoints``)."""
+    """Model, data, training and (one-card) parallel configuration: the
+    JAX ``Config``. ``exp_path`` holds the run's checkpoints
+    (``exp_path/checkpoints``)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
     exp_path: str = "experiments/default"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def resolve_remat_policy(cfg: ModelConfig) -> Optional[str]:
+    """The remat policy in force, or None for none: ``remat_policy`` where
+    it is set, else "full" for the ``remat`` bool (the JAX
+    ``resolve_remat_policy``)."""
+    if cfg.remat_policy != "none":
+        return cfg.remat_policy
+    return "full" if cfg.remat else None
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

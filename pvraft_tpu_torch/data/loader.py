@@ -46,8 +46,6 @@ NATIVE_MAX_ROWS = 540 * 960
 # Batches the threaded path may hold ahead of the consumer, beyond one per
 # worker.
 PREFETCH = 4
-# Batches whose host-to-device copies are in flight in device_prefetch.
-DEVICE_PREFETCH_DEPTH = 2
 
 
 class PrefetchLoader:
@@ -264,16 +262,18 @@ def to_device(batch: Item, device: Union[str, torch.device]
     return out
 
 
-def device_prefetch(host_batches: Iterable[Item], put: Callable[[Item], Any]
-                    ) -> Iterator[Any]:
-    """Keep ``DEVICE_PREFETCH_DEPTH`` batches' copies in flight: batch
-    n+1's copy (``put``, :func:`to_device`'s non-blocking one) is issued
-    before batch n is yielded, so before the step that consumes batch n
-    runs and its outputs are read."""
+def device_prefetch(host_batches: Iterable[Item], put: Callable[[Item], Any],
+                    depth: int = 2) -> Iterator[Any]:
+    """Keep ``depth`` batches' copies in flight (``ParallelConfig.
+    device_prefetch``): with the default 2, batch n+1's copy (``put``,
+    :func:`to_device`'s non-blocking one) is issued before batch n is
+    yielded, so before the step that consumes batch n runs and its
+    outputs are read; ``depth <= 1`` copies each batch as it is
+    consumed."""
     buf: "collections.deque" = collections.deque()
     for b in host_batches:
         buf.append(put(b))
-        if len(buf) >= DEVICE_PREFETCH_DEPTH:
+        if len(buf) >= max(1, depth):
             yield buf.popleft()
     while buf:
         yield buf.popleft()

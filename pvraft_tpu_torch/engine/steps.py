@@ -14,11 +14,20 @@ one CUDA graph per input signature (``serve/aot.py``,
 steps: a train graph holds forward, loss, backward and the Adam update
 (``torch.optim.Adam(capturable=True)`` with the learning rate in a device
 tensor, filled from the schedule before each replay at a step count kept
-on the host). The JAX package's K-step dispatch levers (packed state,
-steps per dispatch, host round trip) are not ported yet (ROADMAP queue 1
-item 1). ``grad_dtype="bfloat16"`` rounds every gradient to bf16 and back
-right after the backward (:func:`maybe_cast_grads`), in the eager and the
-graphed train steps of both stages; Adam's state stays float32.
+on the host). ``grad_dtype="bfloat16"`` rounds every gradient to bf16 and
+back right after the backward (:func:`maybe_cast_grads`), in the eager
+and the graphed train steps of both stages; Adam's state stays float32.
+
+The K-step levers (the JAX ``ParallelConfig``): :class:`PackedState`
+makes every trained parameter and Adam's ``step``, ``exp_avg`` and
+``exp_avg_sq`` views of one flat float32 buffer, which
+:func:`make_packed_train_step` (and its graphed twin) run on, optionally
+sending the buffer to pinned host memory and back before each step
+(``host_roundtrip``); :func:`make_multistep_train_step` and its graphed
+twin run K whole train steps on K stacked batches, the graphed one as one
+CUDA graph whose learning rates come from one device tensor of K
+entries, filled once before each replay. Both stages, as the JAX
+``refine=True``. All of them are bitwise equal to as many single steps.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from pvraft_tpu_torch.engine.loss import compute_loss, sequence_loss
 from pvraft_tpu_torch.engine.metrics import epe_train, flow_metrics
 from pvraft_tpu_torch.obs.retrace import GraphCache
 from pvraft_tpu_torch.serve.aot import capture
+from pvraft_tpu_torch.weights import trained_parameters
 
 Batch = Dict[str, torch.Tensor]
 BATCH_KEYS = ("pc1", "pc2", "mask", "flow")
@@ -167,10 +177,14 @@ def _stage1_loss(model, gamma: float, num_iters: int) -> LossOf:
     return loss_of
 
 
-def _eager_step(body, optimizer, schedule) -> Callable[[Batch], Batch]:
-    count = [optimizer_steps(optimizer)]
+def _eager_step(body, optimizer, schedule, count: Optional[List[int]] = None,
+                before: Optional[Callable[[], None]] = None
+                ) -> Callable[[Batch], Batch]:
+    count = [optimizer_steps(optimizer)] if count is None else count
 
     def train_step(batch: Batch) -> Batch:
+        if before is not None:
+            before()
         set_lr(optimizer, schedule(count[0]))
         loss, epe = body(*(batch[k] for k in BATCH_KEYS))
         count[0] += 1
@@ -210,30 +224,51 @@ def make_refine_train_step(model, optimizer: torch.optim.Optimizer,
         grad_dtype), optimizer, schedule)
 
 
-def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
-                  device: torch.device, strict_retrace: bool
-                  ) -> Callable[[Batch], Batch]:
+def _tensor_lrs(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     lrs = [g["lr"] for g in optimizer.param_groups]
     if not all(torch.is_tensor(lr) for lr in lrs):
         raise ValueError("a graphed train step needs every lr as a tensor")
-    init_adam_state(optimizer)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    state = params + [t for s in optimizer.state.values()
-                      for t in s.values() if torch.is_tensor(t)]
-    count = [optimizer_steps(optimizer)]
+    return lrs
 
-    # The body sets every .grad to None before its backward, so the
-    # captured backward writes fresh gradient buffers of the graph's own
-    # pool at every replay (PyTorch's whole-network capture recipe).
-    graphs = GraphCache(
+
+def _graph_cache(name: str, body, optimizer: torch.optim.Adam,
+                 device: torch.device, strict_retrace: bool,
+                 packed: Optional["PackedState"]) -> GraphCache:
+    """The step's programs. Each capture's eager warm-up is undone on
+    the parameters and Adam's state (``preserve``): the one flat buffer
+    when they are packed. The body sets every .grad to None before its
+    backward, so the captured backward writes fresh gradient buffers of
+    the graph's own pool at every replay (PyTorch's whole-network capture
+    recipe)."""
+    if packed is not None:
+        state = [packed.flat]
+    else:
+        init_adam_state(optimizer)
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        state = params + [t for s in optimizer.state.values()
+                          for t in s.values() if torch.is_tensor(t)]
+    return GraphCache(
         name,
         lambda name, inputs: capture(name, body, inputs, device,
                                      preserve=state),
         strict_retrace)
 
+
+def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
+                  device: torch.device, strict_retrace: bool,
+                  packed: Optional["PackedState"] = None,
+                  before: Optional[Callable[[], None]] = None
+                  ) -> Callable[[Batch], Batch]:
+    lrs = _tensor_lrs(optimizer)
+    graphs = _graph_cache(name, body, optimizer, device, strict_retrace,
+                          packed)
+    count = [optimizer_steps(optimizer)] if packed is None else packed.count
+
     def train_step(batch: Batch) -> Batch:
         inputs = [batch[k] for k in BATCH_KEYS]
         program = graphs.program_for(inputs)
+        if before is not None:
+            before()
         lr = schedule(count[0])
         for t in lrs:
             t.fill_(lr)
@@ -281,6 +316,252 @@ def make_graphed_refine_train_step(model, optimizer: torch.optim.Adam,
     return _graphed_step("refine_train_step", _train_body(
         optimizer, lambda batch: refine_loss_of(model, batch, num_iters),
         grad_dtype), optimizer, schedule, device, strict_retrace)
+
+
+# --- the K-step levers: packed state, host round trip, K steps a graph ----
+
+ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
+
+
+# Each tensor of the packed state starts on a multiple of this many
+# floats (512 bytes, the caching allocator's alignment), so that a view
+# is as aligned as a tensor of its own and every kernel (cuBLAS among
+# them) takes the path it takes on one: packed steps stay bitwise equal
+# to unpacked ones.
+SLOT_ALIGN = 128
+
+
+class PackedState:
+    """The optimizer's parameters and Adam's ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` as views of one flat float32 buffer on the
+    parameters' device (the JAX ``ravel_pytree`` of ``(params,
+    opt_state)``): the parameters first, then each parameter's three
+    state tensors, each slot starting on a multiple of
+    :data:`SLOT_ALIGN` floats. ``count`` is the schedule's position, kept
+    on the host and shared by every step built on this state: make one
+    per optimizer, and pass it to each packed step built on that
+    optimizer."""
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer):
+        init_adam_state(optimizer)
+        self.optimizer = optimizer
+        self.params = [p for g in optimizer.param_groups
+                       for p in g["params"]]
+        names = {id(p): n for n, p in trained_parameters(model)}
+        self.names = [names[id(p)] for p in self.params]
+        self.shapes = [t.shape for t in self.tensors()]
+        self.offsets, o = [], 0
+        for shape in self.shapes:
+            self.offsets.append(o)
+            o += -(-shape.numel() // SLOT_ALIGN) * SLOT_ALIGN
+        self.flat = torch.zeros(o, dtype=torch.float32,
+                                device=self.params[0].device)
+        self.count = [optimizer_steps(optimizer)]
+        self.repack()
+
+    def tensors(self) -> List[torch.Tensor]:
+        state = self.optimizer.state
+        return self.params + [state[p][k] for p in self.params
+                              for k in ADAM_KEYS]
+
+    def _slots(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        return [flat[o:o + shape.numel()].view(shape)
+                for o, shape in zip(self.offsets, self.shapes)]
+
+    def repack(self) -> None:
+        """Make every tensor the view of its slot again, copying in its
+        value where it is not (``optimizer.load_state_dict`` replaces
+        Adam's state tensors). The buffer stays the same, so steps
+        captured on it stay valid."""
+        state = self.optimizer.state
+        with torch.no_grad():
+            for i, (t, slot) in enumerate(zip(self.tensors(),
+                                              self._slots(self.flat))):
+                if (t.data_ptr() == slot.data_ptr()
+                        and t.shape == slot.shape):
+                    continue
+                slot.copy_(t)
+                if i < len(self.params):
+                    self.params[i].data = slot
+                else:
+                    j, k = divmod(i - len(self.params), len(ADAM_KEYS))
+                    state[self.params[j]][ADAM_KEYS[k]] = slot
+
+    def unravel(self, flat: torch.Tensor
+                ) -> Tuple[Dict[str, torch.Tensor],
+                           List[Dict[str, torch.Tensor]]]:
+        """``flat`` (this buffer or a copy of it) as (trained parameters by
+        name, Adam's state per parameter in the optimizer's order), views
+        of ``flat``."""
+        slots = self._slots(flat)
+        n = len(self.params)
+        params = dict(zip(self.names, slots[:n]))
+        state = [dict(zip(ADAM_KEYS, slots[n + 3 * j:n + 3 * j + 3]))
+                 for j in range(n)]
+        return params, state
+
+
+def _loss_for(model, refine: bool, gamma: float, num_iters: int) -> LossOf:
+    if refine:
+        return lambda batch: refine_loss_of(model, batch, num_iters)
+    return _stage1_loss(model, gamma, num_iters)
+
+
+def _round_trip(packed: PackedState) -> Callable[[], None]:
+    """``host_roundtrip``: the flat buffer to host memory (pinned where
+    the buffer is on the card) and back, bitwise."""
+    host = torch.empty(packed.flat.shape, dtype=packed.flat.dtype,
+                       pin_memory=packed.flat.is_cuda)
+
+    def round_trip() -> None:
+        host.copy_(packed.flat)
+        packed.flat.copy_(host)
+
+    return round_trip
+
+
+def make_packed_train_step(model, optimizer: torch.optim.Optimizer,
+                           schedule: Callable[[int], float], gamma: float,
+                           num_iters: int, refine: bool = False,
+                           host_roundtrip: bool = False,
+                           grad_dtype: Optional[str] = None,
+                           telemetry: bool = False,
+                           packed: Optional[PackedState] = None):
+    """The train step of either stage (``refine``) on the packed state
+    (``packed``, else a new :class:`PackedState` of ``optimizer``).
+    Returns ``(step, flat, unravel)`` as the JAX
+    ``make_packed_train_step`` does: ``step(batch) -> {"loss", "epe"}``
+    (it updates ``flat`` in place), the flat buffer, and ``unravel(flat)
+    -> (parameters, Adam state)``. ``host_roundtrip`` sends the buffer to
+    host memory and back before each step. Bitwise equal to
+    :func:`make_train_step` (:func:`make_refine_train_step`)."""
+    _check_levers(grad_dtype, telemetry)
+    packed = packed or PackedState(model, optimizer)
+    body = _train_body(optimizer, _loss_for(model, refine, gamma, num_iters),
+                       grad_dtype)
+    step = _eager_step(body, optimizer, schedule, packed.count,
+                       _round_trip(packed) if host_roundtrip else None)
+    return step, packed.flat, packed.unravel
+
+
+def make_graphed_packed_train_step(model, optimizer: torch.optim.Adam,
+                                   schedule: Callable[[int], float],
+                                   gamma: float, num_iters: int,
+                                   device: torch.device, refine: bool = False,
+                                   host_roundtrip: bool = False,
+                                   strict_retrace: bool = False,
+                                   grad_dtype: Optional[str] = None,
+                                   telemetry: bool = False,
+                                   packed: Optional[PackedState] = None):
+    """:func:`make_packed_train_step` as one captured program per input
+    signature (``packed_train_step``): the capture's warm-up is undone on
+    the one flat buffer; the round trip runs before each replay."""
+    _check_levers(grad_dtype, telemetry)
+    packed = packed or PackedState(model, optimizer)
+    body = _train_body(optimizer, _loss_for(model, refine, gamma, num_iters),
+                       grad_dtype)
+    step = _graphed_step("packed_train_step", body, optimizer, schedule,
+                         device, strict_retrace, packed,
+                         _round_trip(packed) if host_roundtrip else None)
+    return step, packed.flat, packed.unravel
+
+
+def stack_batches(batches: Sequence[Batch]) -> Batch:
+    """K batches stacked on a leading axis: the multistep steps' input."""
+    return {k: torch.stack([b[k] for b in batches]) for k in BATCH_KEYS}
+
+
+def _check_k(steps_per_dispatch: int) -> None:
+    if steps_per_dispatch < 1:
+        raise ValueError("steps_per_dispatch must be >= 1")
+
+
+def make_multistep_train_step(model, optimizer: torch.optim.Optimizer,
+                              schedule: Callable[[int], float], gamma: float,
+                              num_iters: int, steps_per_dispatch: int,
+                              refine: bool = False,
+                              grad_dtype: Optional[str] = None,
+                              telemetry: bool = False,
+                              packed: Optional[PackedState] = None):
+    """K = ``steps_per_dispatch`` packed train steps a call (the JAX
+    ``make_multistep_train_step``, eager): ``step(batches)`` takes a batch
+    whose tensors carry a leading axis of K (:func:`stack_batches`) and
+    returns ``{"loss", "epe"}`` of shape (K,), one entry a step. Returns
+    ``(step, flat, unravel)``; built on the ``packed`` state of a packed
+    single step, it shares that step's buffer and schedule position."""
+    _check_levers(grad_dtype, telemetry)
+    _check_k(steps_per_dispatch)
+    single, flat, unravel = make_packed_train_step(
+        model, optimizer, schedule, gamma, num_iters, refine,
+        grad_dtype=grad_dtype, packed=packed)
+
+    def multistep_train_step(batches: Batch) -> Batch:
+        out = [single({k: v[i] for k, v in batches.items()})
+               for i in range(steps_per_dispatch)]
+        return {k: torch.stack([o[k] for o in out]) for k in ("loss", "epe")}
+
+    multistep_train_step.count = single.count
+    return multistep_train_step, flat, unravel
+
+
+def make_graphed_multistep_train_step(model, optimizer: torch.optim.Adam,
+                                      schedule: Callable[[int], float],
+                                      gamma: float, num_iters: int,
+                                      steps_per_dispatch: int,
+                                      device: torch.device,
+                                      refine: bool = False,
+                                      strict_retrace: bool = False,
+                                      grad_dtype: Optional[str] = None,
+                                      telemetry: bool = False,
+                                      packed: Optional[PackedState] = None):
+    """:func:`make_multistep_train_step` as one captured program per input
+    signature (``multistep_train_step``): K whole train steps (forward,
+    loss, backward, the gradient cast, Adam) in one CUDA graph over K
+    static batches. The learning rates are one device tensor of K
+    entries, an input of the program filled once before each replay from
+    ``schedule(count + i)``; captured step i copies entry i into every
+    group's ``lr`` before its Adam step. Same kernels in the same order
+    as K replays of the packed single step: bitwise equal to them. On
+    the CPU the same program runs the K steps on the same static
+    buffers."""
+    _check_levers(grad_dtype, telemetry)
+    _check_k(steps_per_dispatch)
+    k_steps = steps_per_dispatch
+    lrs = _tensor_lrs(optimizer)
+    packed = packed or PackedState(model, optimizer)
+    body = _train_body(optimizer, _loss_for(model, refine, gamma, num_iters),
+                       grad_dtype)
+
+    def k_body(lr, pc1, pc2, mask, flow):
+        losses, epes = [], []
+        for i in range(k_steps):
+            for t in lrs:
+                t.copy_(lr[i])
+            loss, epe = body(pc1[i], pc2[i], mask[i], flow[i])
+            losses.append(loss)
+            epes.append(epe)
+        return torch.stack(losses), torch.stack(epes)
+
+    graphs = _graph_cache("multistep_train_step", k_body, optimizer, device,
+                          strict_retrace, packed)
+    count = packed.count
+
+    def inputs(batches: Batch) -> List[torch.Tensor]:
+        lr = torch.tensor([schedule(count[0] + i) for i in range(k_steps)],
+                          dtype=torch.float32)
+        return [lr] + [batches[k] for k in BATCH_KEYS]
+
+    def multistep_train_step(batches: Batch) -> Batch:
+        args = inputs(batches)
+        loss, epe = graphs.program_for(args)(*args)
+        count[0] += k_steps
+        return {"loss": loss, "epe": epe}
+
+    multistep_train_step.graphs = graphs
+    multistep_train_step.inputs = inputs
+    multistep_train_step.count = count
+    return multistep_train_step, packed.flat, packed.unravel
 
 
 def make_eval_step(model, num_iters: int, gamma: float,

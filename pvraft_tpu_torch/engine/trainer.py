@@ -36,6 +36,16 @@ Batch n+1's copy to the device is issued before step n runs
 (``device_prefetch``); the captured steps copy each batch into their
 static inputs.
 
+The K-step levers (``cfg.parallel``, the JAX ``ParallelConfig``):
+``packed_state`` packs the trained parameters and Adam's state into one
+flat buffer (``engine/steps.py::PackedState``; ``self.flat``,
+``self.unravel``) and runs the packed step (``packed_train_step``),
+with ``host_roundtrip`` sending that buffer to host memory and back
+before each step; ``steps_per_dispatch`` K > 1 runs K stacked device
+batches a call of the K-step step (``multistep_train_step``, one graph
+on the card), the epoch's last ``steps % K`` through the single packed
+step; ``device_prefetch`` is the depth of the device copies in flight.
+
 Stage 2 (``train.refine``): the model is a ``PVRaftRefine``, Adam covers
 its head only (``weights.trained_parameters``, the JAX ``_refine_mask``:
 the backbone gets no Adam state, no gradient and no update), the step is
@@ -77,13 +87,19 @@ from pvraft_tpu_torch.engine.checkpoint import (
 from pvraft_tpu_torch.engine.schedule import make_lr_schedule
 from pvraft_tpu_torch.engine.steps import (
     BATCH_KEYS,
+    PackedState,
     init_adam_state,
     make_eval_step,
     make_graphed_eval_step,
+    make_graphed_multistep_train_step,
+    make_graphed_packed_train_step,
     make_graphed_refine_train_step,
     make_graphed_train_step,
+    make_multistep_train_step,
+    make_packed_train_step,
     make_refine_train_step,
     make_train_step,
+    stack_batches,
 )
 from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 from pvraft_tpu_torch.rng import torch_seed
@@ -190,7 +206,12 @@ class Trainer:
         # Refine trains and evaluates at train.iters (engine_refine.py:199).
         self.eval_iters = t.iters if refine else t.eval_iters
         levers = {"grad_dtype": t.grad_dtype, "telemetry": t.telemetry}
-        if not graphs:
+        par = cfg.parallel
+        self.steps_k = par.steps_per_dispatch
+        self.multi_step = self.packed = self.flat = self.unravel = None
+        if par.packed_state:
+            self._build_packed(graphs, levers)
+        elif not graphs:
             if refine:
                 self.train_step = make_refine_train_step(
                     self.model, self.optimizer, self.schedule, t.iters,
@@ -199,11 +220,7 @@ class Trainer:
                 self.train_step = make_train_step(
                     self.model, self.optimizer, self.schedule, t.gamma,
                     t.iters, **levers)
-            self.eval_step = make_eval_step(self.model, self.eval_iters,
-                                            t.gamma, per_scene=True,
-                                            refine=refine)
-            return
-        if refine:
+        elif refine:
             self.train_step = make_graphed_refine_train_step(
                 self.model, self.optimizer, self.schedule, t.iters,
                 self.device, strict_retrace=t.strict_retrace, **levers)
@@ -211,22 +228,58 @@ class Trainer:
             self.train_step = make_graphed_train_step(
                 self.model, self.optimizer, self.schedule, t.gamma, t.iters,
                 self.device, strict_retrace=t.strict_retrace, **levers)
+        if not graphs:
+            self.eval_step = make_eval_step(self.model, self.eval_iters,
+                                            t.gamma, per_scene=True,
+                                            refine=refine)
+            return
         self.eval_step = make_graphed_eval_step(
             self.model, self.eval_iters, t.gamma, self.device, per_scene=True,
             strict_retrace=t.strict_retrace, refine=refine)
-        self._graphs = (self.train_step.graphs, self.eval_step.graphs)
-        # Capture both at the shapes training and evaluation feed them,
-        # from their loaders' first batches.
-        for cache, loader in zip(self._graphs,
-                                 (self.train_loader, self.val_loader)):
-            batch = to_device(first_batch(loader), self.device)
-            cache.program_for([batch[k] for k in BATCH_KEYS])
+        # Capture at the shapes training and evaluation feed them, from
+        # their loaders' first batches: the K-step step at K of them; the
+        # single step where it runs (with K > 1: an epoch's tail).
+        batch = to_device(first_batch(self.train_loader), self.device)
+        scene = to_device(first_batch(self.val_loader), self.device)
+        captures = []
+        if self.multi_step is None or self.steps_per_epoch % self.steps_k:
+            captures.append((self.train_step.graphs,
+                             [batch[k] for k in BATCH_KEYS]))
+        if self.multi_step is not None:
+            captures.append((self.multi_step.graphs, self.multi_step.inputs(
+                stack_batches([batch] * self.steps_k))))
+        captures.append((self.eval_step.graphs,
+                         [scene[k] for k in BATCH_KEYS]))
+        self._graphs = tuple(c for c, _ in captures)
+        for cache, inputs in captures:
+            cache.program_for(inputs)
+
+    def _build_packed(self, graphs: bool, levers: Dict[str, Any]) -> None:
+        """The packed single step and, with K > 1, the K-step step, on one
+        packed state (``self.flat``)."""
+        t, par = self.cfg.train, self.cfg.parallel
+        args = (self.model, self.optimizer, self.schedule, t.gamma, t.iters)
+        self.packed = PackedState(self.model, self.optimizer)
+        common = {"refine": t.refine, "packed": self.packed, **levers}
+        if graphs:
+            common.update(device=self.device,
+                          strict_retrace=t.strict_retrace)
+            single, multi = (make_graphed_packed_train_step,
+                             make_graphed_multistep_train_step)
+        else:
+            single, multi = make_packed_train_step, make_multistep_train_step
+        self.train_step, self.flat, self.unravel = single(
+            *args, host_roundtrip=par.host_roundtrip, **common)
+        if self.steps_k > 1:
+            self.multi_step, _, _ = multi(*args, self.steps_k, **common)
 
     def _on_device(self, host_batches):
-        """Host batches -> device batches, the next one's copy issued
-        before the current one is consumed."""
+        """Host batches -> device batches, the copies of the next
+        ``parallel.device_prefetch - 1`` issued before the current one is
+        consumed."""
         return device_prefetch(host_batches,
-                               lambda b: to_device(b, self.device))
+                               lambda b: to_device(b, self.device),
+                               self.cfg.parallel.device_prefetch)
 
     def compile_report(self) -> List[Dict[str, Any]]:
         """The captured train and eval programs' records (empty with
@@ -235,26 +288,42 @@ class Trainer:
 
     def training(self, epoch: int) -> Dict[str, Any]:
         """The train steps of one epoch. Returns the mean loss and EPE,
-        the step count, each step's loss, and the epoch's wall time per
-        step in ms (host clock, synchronised at the end)."""
+        the step count, each step's loss and EPE, and the epoch's wall
+        time per step in ms (host clock, synchronised at the end)."""
         cfg = self.cfg
         self.model.train()
         # Each step's loss and EPE, copied out of the step's outputs (a
         # graphed step overwrites them at the next replay).
         kept = torch.empty(self.steps_per_epoch, 2, device=self.device)
         n = 0
+
+        def keep(m):
+            nonlocal n
+            j = m["loss"].numel()
+            kept[n:n + j, 0].copy_(m["loss"].reshape(j))
+            kept[n:n + j, 1].copy_(m["epe"].reshape(j))
+            n += j
+
+        # With K > 1: K device batches stacked a call of the K-step step;
+        # the tail through the single (packed) step.
+        pending: List[Dict[str, torch.Tensor]] = []
         t0 = time.perf_counter()
         for batch in self._on_device(self.train_loader.epoch(epoch)):
-            m = self.train_step(batch)
-            kept[n, 0].copy_(m["loss"])
-            kept[n, 1].copy_(m["epe"])
-            n += 1
+            if self.multi_step is None:
+                keep(self.train_step(batch))
+                continue
+            pending.append(batch)
+            if len(pending) == self.steps_k:
+                keep(self.multi_step(stack_batches(pending)))
+                pending = []
+        for batch in pending:
+            keep(self.train_step(batch))
         # One device-to-host read per epoch, not per step.
         losses, epes = kept[:n].cpu().numpy().T.tolist() if n else ([], [])
         wall_ms = 1e3 * (time.perf_counter() - t0)
         return {"loss": float(np.mean(losses)) if n else float("nan"),
                 "epe": float(np.mean(epes)) if n else float("nan"),
-                "steps": n, "losses": losses,
+                "steps": n, "losses": losses, "epes": epes,
                 "step_ms": wall_ms / n if n else 0.0}
 
     def save(self, epoch: int, checkpoint_interval: int,
@@ -299,7 +368,16 @@ class Trainer:
             self.train_step.count[0] = (int(float(want[0]["step"]))
                                         if sched is None else sched)
             self.begin_epoch = epoch + 1
+        self._repack()
         return epoch
+
+    def _repack(self) -> None:
+        """Put the parameters and Adam's state back into their slots of
+        the packed buffer, which the packed steps read (the JAX
+        ``_repack``): anything that replaced one of those tensors
+        (``optimizer.load_state_dict``) broke its view."""
+        if self.packed is not None:
+            self.packed.repack()
 
     def load_stage1_weights(self, path: str) -> int:
         """Import a stage-1 checkpoint's parameters into the refine

@@ -14,7 +14,12 @@ Inputs are seeded. Rows:
     plus the plain kNN, the JAX bench's "pallas-vox" row;
   * ``lookup fused``: the fused lookup kernel (``csrc/corr_lookup.cu``);
   * ``corr_init dense``: the all-pairs product and top-k truncation;
+  * ``corr_init chunked``: the same streamed over chunks of
+    ``max(k, points // 8)`` candidates (``corr_chunk``);
+  * ``corr_init approx``: ``approx_topk``, the exact top-k in the port;
   * ``knn graph dense``: the 32-NN graph of a cloud;
+  * ``knn graph chunked``: the same streamed over chunks of
+    ``max(512, points // 8)`` points (``graph_chunk``);
   * ``gru fused``: the fused GRU update at width 64 and ``--dtype``
     (``csrc/gru_iter.cu`` at float32, ``csrc/gru_iter_bf16.cu`` at
     bfloat16).
@@ -23,9 +28,9 @@ The lookup and correlation rows are float32 at either dtype: a bfloat16
 model's encoders return float32 features (their GroupNorms promote), so
 its correlation cache and lookup are float32 too.
 
-The chunked and approximate rows of the JAX bench belong to slices not
-ported yet; their lines say so. Runs on the card unless ``--device``
-names another device.
+The rows are those of the JAX package's ``scripts/kernel_bench.py``, at
+its chunk sizes. Runs on the card unless ``--device`` names another
+device.
 """
 
 from __future__ import annotations
@@ -52,11 +57,6 @@ from pvraft_tpu_torch.ops.voxel import voxel_bin_means
 
 LEVELS, BASE_SCALE, RESOLUTION, KNN, FEATURE_DIM = 3, 0.25, 3, 32, 128
 REPS = 20
-NOT_PORTED = {
-    "corr_init chunked": "the streaming correlation slice",
-    "corr_init approx": "the approximate top-k slice",
-    "knn graph chunked": "the streaming graph slice",
-}
 
 
 def time_ms(fn: Callable[[], object], device: torch.device) -> float:
@@ -160,7 +160,13 @@ def bench(points: int = 8192, k: int = 512, batch: int = 2,
                  lambda: lookup_voxel_kernel(state, coords)),
                 ("lookup fused", lambda: lookup_fused(state, coords)),
                 ("corr_init dense", lambda: corr_init(f1, f2, x2, k)),
+                ("corr_init chunked", lambda: corr_init(
+                    f1, f2, x2, k, chunk=max(k, n // 8))),
+                ("corr_init approx", lambda: corr_init(f1, f2, x2, k,
+                                                       approx=True)),
                 ("knn graph dense", lambda: knn_indices(x2, x2, KNN)),
+                ("knn graph chunked", lambda: knn_indices(
+                    x2, x2, KNN, chunk=max(512, n // 8))),
                 ("gru fused", lambda: fused_gru_update(*gru_args))]
         return [{"name": name, "ms": time_ms(fn, dev), "timer": timer,
                  "dtype": dtype if name == "gru fused" else "float32"}
@@ -186,8 +192,6 @@ def main(argv=None) -> None:
     for row in bench(a.points, a.k, a.batch, dev, a.dtype):
         print(f"{row['name']:<20}{row['ms']:10.4f} ms  ({row['timer']})  "
               f"{row['dtype']}")
-    for row, where in NOT_PORTED.items():
-        print(f"{row:<20}  not ported: arrives with {where}")
 
 
 if __name__ == "__main__":

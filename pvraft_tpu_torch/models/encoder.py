@@ -14,10 +14,17 @@ from pvraft_tpu_torch.ops.geometry import Graph, build_graph
 
 
 class PointEncoder(nn.Module):
+    """``graph_chunk`` and ``graph_approx`` are the kNN build's ``chunk``
+    and ``approx`` (``ops/geometry.py::knn_indices``)."""
+
     def __init__(self, width: int = 32, graph_k: int = 32,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 graph_chunk: Optional[int] = None,
+                 graph_approx: bool = False):
         super().__init__()
         self.graph_k = graph_k
+        self.graph_chunk = graph_chunk
+        self.graph_approx = graph_approx
         self.conv1 = SetConv(3, width, compute_dtype)
         self.conv2 = SetConv(width, 2 * width, compute_dtype)
         self.conv3 = SetConv(2 * width, 4 * width, compute_dtype)
@@ -30,7 +37,8 @@ class PointEncoder(nn.Module):
         statistics. The kNN build itself is unmasked: the serve engine
         places padding geometrically far."""
         if graph is None:
-            graph = build_graph(pc, self.graph_k)
+            graph = build_graph(pc, self.graph_k, self.graph_chunk,
+                                self.graph_approx)
         x = self.conv1(pc, graph, mask)
         x = self.conv2(x, graph, mask)
         x = self.conv3(x, graph, mask)

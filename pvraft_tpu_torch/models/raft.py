@@ -6,17 +6,33 @@ over one :class:`UpdateIter` module. Submodule names follow the flax
 param paths (``feature_extractor.conv1.fc1``,
 ``update_iter.corr_lookup.out_conv1``, ...) so that ``weights.py`` maps a
 flax tree onto the state_dict by name.
+
+``remat``/``remat_policy`` (the JAX ``nn.remat`` of the scanned step):
+with autograd on, each iteration runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` and is
+recomputed in the backward (:func:`remat_iteration`); under ``no_grad``
+(serving, evaluation, the stage-2 backbone) nothing changes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from pvraft_tpu_torch.config import ModelConfig, compute_dtype
+from pvraft_tpu_torch.config import (
+    ModelConfig,
+    compute_dtype,
+    resolve_remat_policy,
+)
 from pvraft_tpu_torch.models.corr_block import CorrLookup
 from pvraft_tpu_torch.models.encoder import PointEncoder
 from pvraft_tpu_torch.models.layers import Dense, SetConv
@@ -25,18 +41,72 @@ from pvraft_tpu_torch.ops.corr import CorrState, corr_init
 from pvraft_tpu_torch.ops.geometry import Graph
 
 
+# The aten products whose outputs the "dots" policies keep (the JAX
+# checkpoint_dots and dots_with_no_batch_dims_saveable). The CUDA kernels
+# are ctypes calls that fill tensors made by torch.empty, which a
+# dispatch-mode policy cannot tell from any other empty tensor: the
+# policies name products only, and the kernels run again in the backward.
+SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default),
+}
+
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_iteration(policy: str, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` for ``policy``:
+    "full" keeps nothing and recomputes ``fn`` in the backward; "dots" and
+    "dots_no_batch" keep the outputs of :data:`SAVED_PRODUCTS` (selective
+    checkpointing) and recompute the rest. ("save_corr" is built by
+    structure in :class:`UpdateIter`.) ``preserve_rng_state=False``: the
+    model draws no random numbers, and reading the CUDA generator's state
+    fails while a graph is being captured."""
+    kw = {}
+    if policy in SAVED_PRODUCTS:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_products, SAVED_PRODUCTS[policy]))
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 class UpdateIter(nn.Module):
-    """One GRU refinement step."""
+    """One GRU refinement step. With a remat policy in force and autograd
+    on, the step runs under :func:`remat_iteration`; "save_corr" runs the
+    lookup outside the checkpoint, so its output is kept and the lookup
+    does not run again in the backward, and checkpoints the update
+    block."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.corr_lookup = CorrLookup(cfg)
         self.update_block = UpdateBlock(cfg)
+        self.remat = resolve_remat_policy(cfg)
 
     def forward(self, net, coords2, coords1, state: CorrState, inp,
                 graph: Graph, mask: Optional[torch.Tensor] = None):
         coords2 = coords2.detach()
+        policy = self.remat if torch.is_grad_enabled() else None
+        if policy == "save_corr":
+            corr = self.corr_lookup(state, coords2, mask)
+            return remat_iteration("full", self._update, net, coords2,
+                                   coords1, corr, inp, graph, mask)
+        if policy is not None:
+            return remat_iteration(policy, self._step, net, coords2, coords1,
+                                   state, inp, graph, mask)
+        return self._step(net, coords2, coords1, state, inp, graph, mask)
+
+    def _step(self, net, coords2, coords1, state, inp, graph, mask):
         corr = self.corr_lookup(state, coords2, mask)
+        return self._update(net, coords2, coords1, corr, inp, graph, mask)
+
+    def _update(self, net, coords2, coords1, corr, inp, graph, mask):
         flow = coords2 - coords1
         net, delta = self.update_block(net, inp, corr, flow, graph, mask)
         return net, coords2 + delta
@@ -57,10 +127,11 @@ class PVRaft(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = compute_dtype(cfg)
+        graph = (cfg.graph_chunk, cfg.approx_knn)
         self.feature_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k,
-                                              d)
+                                              d, *graph)
         self.context_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k,
-                                              d)
+                                              d, *graph)
         self.update_iter = UpdateIter(cfg)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
@@ -75,7 +146,7 @@ class PVRaft(nn.Module):
             fmap2, _ = self.feature_extractor(xyz2, mask=valid2)
         with record_function("pvraft.corr_init"):
             state = corr_init(fmap1, fmap2, xyz2, cfg.truncate_k,
-                              valid2=valid2)
+                              cfg.corr_chunk, cfg.approx_topk, valid2)
         with record_function("pvraft.context"):
             fct, _ = self.context_extractor(xyz1, graph=graph1, mask=valid1)
             net, inp = torch.split(fct, [cfg.hidden_dim, cfg.context_dim],

@@ -16,7 +16,9 @@ msgpack checkpoint of the port or of the JAX package, ``--torch_weights``
 a reference-published ``.params`` file; with ``--refine`` either holds a
 stage-2 (``PVRaftRefine``) model, evaluated at ``eval_iters``. The flags
 are ``test.py``'s for the fields this slice evaluates with, plus
-``--synthetic_objects``, ``--fused_gru`` and ``--device``; every other
+``--synthetic_objects``, ``--fused_gru`` and ``--device`` (``--approx_topk``
+and ``--approx_knn`` compute the exact top-k, as the JAX package does
+off the TPU); every other
 flag of ``test.py`` is rejected with the slice that brings it. Runs on
 the card unless ``--device`` names another device. Prints the means as
 one JSON line.
@@ -33,11 +35,7 @@ from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 
 # test.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--seq_parallel": "the parallel slice",
-    "--corr_chunk": "the streaming correlation slice",
-    "--graph_chunk": "the streaming graph slice",
-    "--approx_topk": "the approximate top-k slice",
-    "--approx_knn": "the approximate top-k slice",
+    "--seq_parallel": "the parallel slice (ROADMAP queue 1 item 8)",
     "--platform": "no slice: the port picks its device with --device",
 }
 
@@ -67,6 +65,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--truncate_k", type=int, default=512)
     p.add_argument("--corr_knn", type=int, default=32)
     p.add_argument("--eval_iters", type=int, default=32)
+    p.add_argument("--corr_chunk", type=int, default=None,
+                   help="streaming top-k chunk over N2 (memory saver)")
+    p.add_argument("--graph_chunk", type=int, default=None,
+                   help="streaming kNN graph chunk")
+    p.add_argument("--approx_topk", action="store_true",
+                   help="accepted; the exact top-k, as off the TPU")
+    p.add_argument("--approx_knn", action="store_true",
+                   help="accepted; the exact kNN, as off the TPU")
     p.add_argument("--eval_scan", type=int, default=1,
                    help="accepted so that the JAX package's commands "
                         "run, and changes nothing: a replay of the "
@@ -102,7 +108,9 @@ def config_from_args(a: argparse.Namespace) -> Config:
         model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
                           corr_levels=a.corr_levels, base_scale=a.base_scales,
                           use_pallas=a.use_pallas, fused_gru=a.fused_gru,
-                          compute_dtype="bfloat16" if a.bf16 else "float32"),
+                          compute_dtype="bfloat16" if a.bf16 else "float32",
+                          corr_chunk=a.corr_chunk, graph_chunk=a.graph_chunk,
+                          approx_topk=a.approx_topk, approx_knn=a.approx_knn),
         data=DataConfig(dataset=a.dataset, root=a.root,
                         max_points=a.max_points, num_workers=a.num_workers,
                         strict_sizes=not a.no_strict_sizes,

@@ -5,7 +5,9 @@
         [--num_epochs 2] [--batch_size 2] [--max_points 8192] [--iters 8]
         [--eval_iters 32]
         [--fused_gru] [--no-use_pallas] [--bf16] [--grad_dtype bfloat16]
-        [--device cpu]
+        [--corr_chunk C] [--graph_chunk C] [--remat_policy P]
+        [--packed_state [--steps_per_dispatch K | --host_roundtrip]]
+        [--device_prefetch 2] [--device cpu]
         [--exp_path EXP] [--resume | --weights CKPT]
         [--refine [--stage1_weights CKPT]] ...
 
@@ -15,7 +17,12 @@ tree (``python -m pvraft_tpu_torch.data.preprocess.flyingthings3d``),
 ``train.py``'s for the fields this slice trains with, plus
 ``--synthetic_objects``, ``--use_pallas/--no-use_pallas``,
 ``--fused_gru``, ``--no_native_loader`` (the threaded numpy loader,
-where no ``g++`` builds the native one) and ``--device``. Runs on the
+where no ``g++`` builds the native one) and ``--device``. The model
+levers (``--corr_chunk``, ``--graph_chunk``, ``--remat``,
+``--remat_policy``; ``--approx_topk`` and ``--approx_knn``, which
+compute the exact top-k: approx = exact off the TPU) and the K-step
+levers (``--packed_state``, ``--steps_per_dispatch``,
+``--host_roundtrip``, ``--device_prefetch``) parse as ``train.py``'s. Runs on the
 card unless ``--device`` names another device. Every other flag of ``train.py`` is rejected with
 the slice that brings it. Prints each epoch's train and val means and
 the final test means as JSON lines. Checkpoints go to
@@ -41,25 +48,15 @@ from pvraft_tpu_torch.config import (
     Config,
     DataConfig,
     ModelConfig,
+    ParallelConfig,
     TrainConfig,
 )
 
 # train.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--data_parallel": "the parallel slice",
-    "--seq_parallel": "the parallel slice",
-    "--corr_chunk": "the streaming correlation slice",
-    "--graph_chunk": "the streaming graph slice",
-    "--approx_topk": "the approximate top-k slice",
-    "--approx_knn": "the approximate top-k slice",
-    "--remat": "the memory levers (ROADMAP queue 1 item 7)",
-    "--remat_policy": "the memory levers (ROADMAP queue 1 item 7)",
+    "--data_parallel": "the parallel slice (ROADMAP queue 1 item 8)",
+    "--seq_parallel": "the parallel slice (ROADMAP queue 1 item 8)",
     "--scatter_free_vjp": "its recorded disposition (ROADMAP queue 1 item 7)",
-    "--packed_state": "the K-step train graph (ROADMAP queue 1 item 1)",
-    "--host_roundtrip": "the K-step train graph (ROADMAP queue 1 item 1)",
-    "--steps_per_dispatch": "the K-step train graph (ROADMAP queue 1 item 1)",
-    "--device_prefetch": "the parallel slice (ParallelConfig; the port "
-                         "keeps 2 batches in flight, its default)",
     "--platform": "no slice: the port picks its device with --device",
     "--scan_unroll": "no slice: a captured graph holds the GRU iterations "
                      "unrolled, whatever the unroll (ModelConfig.scan_unroll "
@@ -135,6 +132,35 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    choices=["float32", "bfloat16"],
                    help="cast gradients once after the backward; the "
                         "optimizer state stays float32")
+    p.add_argument("--corr_chunk", type=int, default=None,
+                   help="streaming top-k chunk over N2 (memory saver)")
+    p.add_argument("--graph_chunk", type=int, default=None,
+                   help="streaming kNN graph chunk (memory saver for 16k+ "
+                        "points)")
+    p.add_argument("--approx_topk", action="store_true",
+                   help="accepted; computes the exact top-k, as the JAX "
+                        "package does off the TPU")
+    p.add_argument("--approx_knn", action="store_true",
+                   help="accepted; computes the exact kNN, as the JAX "
+                        "package does off the TPU")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each GRU iteration in the backward")
+    p.add_argument("--remat_policy", default="none",
+                   help="none|full|dots|dots_no_batch|save_corr "
+                        "(overrides --remat; save_corr keeps the lookup's "
+                        "output and recomputes the rest)")
+    p.add_argument("--packed_state", action="store_true",
+                   help="the trained parameters and Adam's state as one "
+                        "flat buffer")
+    p.add_argument("--host_roundtrip", action="store_true",
+                   help="with --packed_state: the flat buffer to host "
+                        "memory and back before each step")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="with --packed_state: K train steps in one "
+                        "captured graph")
+    p.add_argument("--device_prefetch", type=int, default=2,
+                   help="batches kept in flight to the device (1: none "
+                        "ahead)")
     p.add_argument("--strict_retrace", action="store_true",
                    help="raise RetraceError when a graphed step meets an "
                         "input signature it has not captured")
@@ -151,7 +177,10 @@ def config_from_args(a: argparse.Namespace) -> Config:
         model=ModelConfig(truncate_k=a.truncate_k, corr_knn=a.corr_knn,
                           corr_levels=a.corr_levels, base_scale=a.base_scales,
                           use_pallas=a.use_pallas, fused_gru=a.fused_gru,
-                          compute_dtype="bfloat16" if a.bf16 else "float32"),
+                          compute_dtype="bfloat16" if a.bf16 else "float32",
+                          corr_chunk=a.corr_chunk, graph_chunk=a.graph_chunk,
+                          approx_topk=a.approx_topk, approx_knn=a.approx_knn,
+                          remat=a.remat, remat_policy=a.remat_policy),
         data=DataConfig(dataset=a.dataset, root=a.root,
                         max_points=a.max_points, num_workers=a.num_workers,
                         native_loader=not a.no_native_loader,
@@ -166,6 +195,10 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           grad_dtype=a.grad_dtype,
                           checkpoint_interval=a.checkpoint_interval,
                           ckpt_backend=a.ckpt_backend, refine=a.refine),
+        parallel=ParallelConfig(packed_state=a.packed_state,
+                                host_roundtrip=a.host_roundtrip,
+                                steps_per_dispatch=a.steps_per_dispatch,
+                                device_prefetch=a.device_prefetch),
         exp_path=a.exp_path,
     )
 
@@ -186,7 +219,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             trainer.load_weights(last, resume=True)
 
     def report(epoch, train, val):
-        train = {k: v for k, v in train.items() if k != "losses"}
+        train = {k: v for k, v in train.items()
+                 if k not in ("losses", "epes")}
         print(json.dumps({"epoch": epoch, "train": train, "val": val}),
               flush=True)
 

@@ -34,6 +34,10 @@ by the profiler) and three graphed train steps, stage 1's and stage 2's
 captured graphs and serves a fresh engine's flows bitwise. On a host
 with several cards, the replica pool: a replica per card, bitwise alike,
 all serving a burst, swapped together, one quarantined and revived.
+The train levers: the packed step, its host round trip and the K-step
+graph bitwise equal to the unpacked graphed steps; each remat policy's
+gradients bitwise equal to no remat's and its graphed step to its eager
+one; the chunked correlation and kNN selecting the dense candidates.
 """
 
 import numpy as np
@@ -995,3 +999,137 @@ def test_bf16_gru_launches_its_kernel_or_raises(dev, monkeypatch):
                             acts[3], w, torch.bfloat16)
     assert (gr.gru_iter_bf16.launches, gr.fused_gru_update.launches,
             gr.gru_iter_general.launches) == counts
+
+
+def _kept(metrics):
+    """A step's metrics as lists of floats, read before the next replay."""
+    return {k: v.reshape(-1).tolist() for k, v in metrics.items()}
+
+
+def test_k_step_graph_equals_single_replays_on_the_card(dev, monkeypatch):
+    """The packed state and the K-step graph (K = 3) on the card, under
+    deterministic algorithms: six steps as two 3-step replays against six
+    replays of the packed single step and six unpacked graphed steps:
+    losses, EPEs and every parameter bitwise; with ``host_roundtrip``
+    the packed step is bitwise too; the K-step capture recorded 3 x 2
+    lookups."""
+    from pvraft_tpu_torch.engine.schedule import make_lr_schedule
+    from pvraft_tpu_torch.engine.steps import (
+        PackedState,
+        make_graphed_multistep_train_step,
+        make_graphed_packed_train_step,
+        make_graphed_train_step,
+        stack_batches,
+    )
+
+    tiny = ModelConfig(truncate_k=64, corr_knn=16, graph_k=8, fused_gru=True)
+    weights = seeded_state_dict(tiny, 0)
+    schedule = make_lr_schedule("cosine", 1e-3, 1, 6, 12)
+    ds = SyntheticDataset(size=12, nb_points=256, noise=0.01, seed=2,
+                          n_objects=3)
+    batches = [to_device(collate([ds[2 * i], ds[2 * i + 1]]), dev)
+               for i in range(6)]
+    runs = {}
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for way in ("unpacked", "packed", "host_roundtrip", "k3"):
+            model = PVRaft(tiny).to(dev)
+            model.load_state_dict(weights)
+            opt = torch.optim.Adam(model.parameters(),
+                                   lr=torch.tensor(1e-3, device=dev),
+                                   capturable=True)
+            args = (model, opt, schedule, 0.8, 2)
+            # A replay overwrites the program's outputs: keep copies.
+            if way == "unpacked":
+                step = make_graphed_train_step(*args, dev)
+                out = [_kept(step(b)) for b in batches]
+            elif way == "k3":
+                packed = PackedState(model, opt)
+                multi, _, _ = make_graphed_multistep_train_step(
+                    *args, 3, dev, packed=packed)
+                out = [_kept(multi(stack_batches(batches[i:i + 3])))
+                       for i in (0, 3)]
+                launches = multi.graphs.report()[0]["launches"]
+            else:
+                step, _, _ = make_graphed_packed_train_step(
+                    *args, dev, host_roundtrip=way == "host_roundtrip")
+                out = [_kept(step(b)) for b in batches]
+            runs[way] = ([v for m in out for v in m["loss"]]
+                         + [v for m in out for v in m["epe"]],
+                         [p.detach().clone() for p in model.parameters()])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for way in ("packed", "host_roundtrip", "k3"):
+        assert runs[way][0] == runs["unpacked"][0], way
+        assert all(torch.equal(a, b) for a, b in zip(
+            runs[way][1], runs["unpacked"][1])), way
+    assert launches == {"fused_corr_lookup": 6, "fused_gru_update": 6}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "save_corr"])
+def test_remat_gradients_and_capture_on_the_card(dev, monkeypatch, policy):
+    """Each remat policy's gradients bitwise equal to no remat's under
+    deterministic algorithms (the lookup kernel that runs again in the
+    backward selects the same candidates), and its graphed step captures
+    and equals its eager step bitwise."""
+    from pvraft_tpu_torch.engine.schedule import make_lr_schedule
+    from pvraft_tpu_torch.engine.steps import (
+        make_graphed_train_step,
+        make_train_step,
+    )
+
+    base = {"truncate_k": 64, "corr_knn": 16, "graph_k": 8}
+    weights = seeded_state_dict(ModelConfig(**base), 0)
+    ds = SyntheticDataset(size=2, nb_points=256, noise=0.01, seed=3,
+                          n_objects=3)
+    batch = to_device(collate([ds[0], ds[1]]), dev)
+    schedule = make_lr_schedule("cosine", 1e-3, 1, 4, 4)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads, steps = {}, {}
+        for name in ("none", policy):
+            model = PVRaft(ModelConfig(**base, remat_policy=name)).to(dev)
+            model.load_state_dict(weights)
+            model.zero_grad(set_to_none=True)
+            sequence_loss_of(model, batch, 0.8, 2)[0].backward()
+            grads[name] = [p.grad.clone() for p in model.parameters()]
+        for name, make in (("graphed", make_graphed_train_step),
+                           ("eager", make_train_step)):
+            model = PVRaft(ModelConfig(**base, remat_policy=policy)).to(dev)
+            model.load_state_dict(weights)
+            opt = torch.optim.Adam(model.parameters(),
+                                   lr=torch.tensor(1e-3, device=dev),
+                                   capturable=True)
+            extra = (dev,) if name == "graphed" else ()
+            step = make(model, opt, schedule, 0.8, 2, *extra)
+            steps[name] = ([float(step(batch)["loss"]) for _ in range(2)],
+                           [p.detach().clone() for p in model.parameters()])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(grads[policy],
+                                                 grads["none"]))
+    assert steps["graphed"][0] == steps["eager"][0]
+    assert all(torch.equal(a, b) for a, b in zip(steps["graphed"][1],
+                                                 steps["eager"][1]))
+
+
+def test_chunked_levers_on_the_card(dev):
+    """``corr_chunk`` and ``graph_chunk`` on CUDA tensors: the same
+    candidates as the dense paths, correlations within float32 rounding
+    (cuBLAS may take another kernel for a chunk's product)."""
+    from pvraft_tpu_torch.ops.corr import corr_init
+    from pvraft_tpu_torch.ops.geometry import knn_indices
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    f1, f2 = (torch.randn(2, 512, 128, generator=g).to(dev)
+              for _ in range(2))
+    x2 = torch.rand(2, 1024, 3, generator=g).to(dev)
+    f2 = torch.cat([f2, torch.randn(2, 512, 128, generator=g).to(dev)], 1)
+    dense = corr_init(f1, f2, x2, 64)
+    chunked = corr_init(f1, f2, x2, 64, chunk=256)
+    torch.testing.assert_close(chunked.corr, dense.corr, rtol=0, atol=1e-5)
+    assert torch.equal(chunked.xyz, dense.xyz)
+    assert torch.equal(knn_indices(x2, x2, 16, chunk=256),
+                       knn_indices(x2, x2, 16))

@@ -435,15 +435,48 @@ def test_first_difference_names_the_submodule_that_parts():
 
 
 @pytest.mark.parametrize("flag,entry", [
-    ("--packed_state", "ROADMAP queue 1 item 1"),
-    ("--steps_per_dispatch", "ROADMAP queue 1 item 1"),
-    ("--host_roundtrip", "ROADMAP queue 1 item 1"),
-    ("--remat", "ROADMAP queue 1 item 7"),
+    ("--data_parallel", "ROADMAP queue 1 item 8"),
+    ("--seq_parallel", "ROADMAP queue 1 item 8"),
+    ("--scatter_free_vjp", "ROADMAP queue 1 item 7"),
 ])
 def test_later_levers_name_their_roadmap_entry(flag, entry, capsys):
     with pytest.raises(SystemExit):
         tcli.parse_args(["--dataset", "synthetic", flag])
     assert entry in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,field,want", [
+    (["--packed_state"], "parallel.packed_state", True),
+    (["--packed_state", "--steps_per_dispatch", "3"],
+     "parallel.steps_per_dispatch", 3),
+    (["--packed_state", "--host_roundtrip"], "parallel.host_roundtrip", True),
+    (["--device_prefetch", "1"], "parallel.device_prefetch", 1),
+    (["--corr_chunk", "64"], "model.corr_chunk", 64),
+    (["--graph_chunk", "64"], "model.graph_chunk", 64),
+    (["--approx_topk"], "model.approx_topk", True),
+    (["--approx_knn"], "model.approx_knn", True),
+    (["--remat"], "model.remat", True),
+    (["--remat_policy", "save_corr"], "model.remat_policy", "save_corr"),
+])
+def test_cli_takes_the_k_step_and_model_levers(flags, field, want):
+    """The ten flags of the K-step levers and the model levers parse as
+    the root ``train.py`` parses them, into the fields the JAX package's
+    config holds them in."""
+    cfg = tcli.config_from_args(tcli.parse_args(["--dataset", "synthetic",
+                                                 *flags]))
+    part, name = field.split(".")
+    assert getattr(getattr(cfg, part), name) == want
+
+
+def test_cli_refuses_what_the_parallel_config_refuses(capsys):
+    """The JAX ``ParallelConfig`` errors reach the CLI's config."""
+    with pytest.raises(ValueError, match="requires packed_state"):
+        tcli.config_from_args(tcli.parse_args(
+            ["--dataset", "synthetic", "--steps_per_dispatch", "2"]))
+    with pytest.raises(ValueError, match="host_roundtrip"):
+        tcli.config_from_args(tcli.parse_args(
+            ["--dataset", "synthetic", "--packed_state",
+             "--steps_per_dispatch", "2", "--host_roundtrip"]))
 
 
 def test_cli_accepts_the_graph_knobs(capsys):

@@ -243,15 +243,38 @@ def test_model_config_defaults_match_jax():
     assert jf == tf
 
 
-@pytest.mark.parametrize("kw", [
-    {"corr_chunk": 256}, {"graph_chunk": 256}, {"approx_topk": True},
-    {"approx_knn": True}, {"seq_shard": True}, {"remat": True},
-    {"remat_policy": "dots"}, {"scatter_free_vjp": True},
-])
+@pytest.mark.parametrize("kw", [{"seq_shard": True},
+                                {"scatter_free_vjp": True}])
 def test_model_config_rejects_later_slices(kw):
     jconfig.ModelConfig(**kw)            # the JAX package honors it
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tconfig.ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("kw,reaches", [
+    ({"corr_chunk": 256}, None),
+    ({"graph_chunk": 256}, ("feature_extractor.graph_chunk", 256)),
+    ({"approx_topk": True}, None),
+    ({"approx_knn": True}, ("context_extractor.graph_approx", True)),
+    ({"remat": True}, ("update_iter.remat", "full")),
+    ({"remat_policy": "dots"}, ("update_iter.remat", "dots")),
+])
+def test_model_config_takes_the_levers(kw, reaches):
+    """The memory levers the JAX package honors are taken, and reach the
+    module that runs them (their results: ``tests/test_torch_levers.py``;
+    ``corr_chunk`` and ``approx_topk`` go to ``corr_init`` at the call)."""
+    jconfig.ModelConfig(**kw)
+    cfg = tconfig.ModelConfig(**kw)
+    for name, value in kw.items():
+        assert getattr(cfg, name) == value
+    if reaches is not None:
+        from pvraft_tpu_torch.models import PVRaft
+
+        path, want = reaches
+        obj = PVRaft(cfg)
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        assert obj == want
 
 
 @pytest.mark.parametrize("kw", [

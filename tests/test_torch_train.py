@@ -339,7 +339,7 @@ def test_train_cli_runs_on_the_cpu_and_rejects_later_flags(capsys,
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 and '"test"' in lines[-1]
     with pytest.raises(SystemExit):
-        train.main(["--dataset", "synthetic", "--remat"])
+        train.main(["--dataset", "synthetic", "--seq_parallel"])
     assert "not ported yet" in capsys.readouterr().err
 
 
@@ -353,9 +353,10 @@ def test_kernel_bench_runs_on_the_cpu_and_needs_cuda_otherwise(
     rows = [ln[:20].strip() for ln in out if "ms  (host clock)" in ln]
     assert rows == [
         "lookup plain", "lookup voxel-kernel", "lookup fused",
-        "corr_init dense", "knn graph dense", "gru fused"]
-    assert "dtype=float32" in out[0] and out[6].endswith("float32")
-    assert sum("not ported" in ln for ln in out) == 3
+        "corr_init dense", "corr_init chunked", "corr_init approx",
+        "knn graph dense", "knn graph chunked", "gru fused"]
+    assert "dtype=float32" in out[0] and out[9].endswith("float32")
+    assert not any("not ported" in ln for ln in out)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kernel_bench.main([])
