@@ -182,6 +182,28 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            K = 4, a fresh process a reading, in turns; last, one 4-step
            call under the profiler with fused_gru off and on: kernel 1
            (and 2) 32 times;
+  phase 13 serve observability (``serve_observability``,
+           ``serve_observability_phase``; after phase 12, before the
+           profiler phases): the flagship ``ServeConfig()`` (bf16) behind
+           ``build_service`` with a ``ServeTelemetry`` stream, every
+           request traced, the memory monitor at 0.5 s and
+           ``strict_retrace``: phase 2's requests over HTTP bitwise
+           against direct calls, each a complete seven-stage span tree
+           (median ms per stage and group); the stream validated
+           (``obs/events.py``), the four Prometheus families (stage
+           counts, the HBM gauge against the last sample,
+           ``pvraft_serve_recompiles_total`` 0 through serving and a
+           ``POST /admin/reload``); the tracing cost (1-in-1 against off,
+           alternated; a client thread and a client process) and a bare
+           ``record_function``'s; ``compile_trip``
+           under strict (500, the replica healthy) and not (200); a second
+           engine and service under ``PVRAFT_CHECKS=1`` (every serving
+           lock an ``OrderedLock``, four clients bitwise); the CLI with
+           ``--events --trace_sample 1 --strict_retrace`` drained by
+           SIGINT; last, a ``/debug/trace`` window while a client sends
+           8,192-point requests (kernel 1's launches and the
+           ``device_execute`` ranges in the Chrome trace, 409 for a second
+           window);
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -209,7 +231,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 12, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -218,11 +240,13 @@ line; so does a machine without CUDA, or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
 import json
 import os
+import pickle
 import statistics
 import sys
 import time
@@ -2995,6 +3019,601 @@ def wait_for(predicate, timeout):
     return True
 
 
+# -------------------------------------------------------------- phase 13 --
+
+TRACE_REPS = 5               # HTTP calls per group at each sampling rate
+WINDOW_S = 2.0               # the /debug/trace window of the last step
+DEVMEM_INTERVAL_S = 0.5      # the memory monitor's period in phase 13
+
+
+def stage_trees(records, trace_ids):
+    """trace id -> (complete, root span, {stage: span}) of the traces in a
+    parsed stream."""
+    from pvraft_tpu_torch.obs.trace import SERVE_STAGES, trace_shape
+
+    spans = {}
+    for r in records:
+        if r["type"] == "span" and r["trace_id"] in trace_ids:
+            spans.setdefault(r["trace_id"], []).append(r)
+    out = {}
+    for tid, ss in spans.items():
+        roots, _, _, complete = trace_shape(ss, SERVE_STAGES)
+        out[tid] = (complete, roots[0] if len(roots) == 1 else None,
+                    {s["name"]: s for s in ss if "parent_id" in s})
+    return out
+
+
+def check_trees(trees, trace_ids, what):
+    """Every trace a complete request tree of the seven stages, each
+    child inside its root, device_execute longer than 0."""
+    from pvraft_tpu_torch.obs.trace import SERVE_STAGES
+
+    for tid in trace_ids:
+        complete, root, stages = trees[tid]
+        check(complete and root is not None
+              and set(stages) == set(SERVE_STAGES),
+              f"{what}: trace {tid} is not a complete request tree "
+              f"({sorted(stages)})")
+        check(all(root["start_ms"] <= s["start_ms"] <= s["end_ms"]
+                  <= root["end_ms"] for s in stages.values()),
+              f"{what}: trace {tid} has a stage outside its root")
+        ex = stages["device_execute"]
+        check(ex["end_ms"] > ex["start_ms"],
+              f"{what}: trace {tid} device_execute is empty")
+
+
+def serving_locks(server):
+    """Every lock of a built service (engine, batcher, metrics,
+    supervisor, watchdog, tracer, memory monitor, telemetry), by name."""
+    batcher, engine = server.batcher, server.batcher.engine
+    handler = server.httpd.RequestHandlerClass
+    locks = {"InferenceEngine._swap_lock": engine._swap_lock,
+             "MicroBatcher._intake_lock": batcher._intake_lock,
+             "MicroBatcher._count_lock": batcher._count_lock,
+             "ServeMetrics._lock": handler.metrics._lock,
+             "RetraceWatchdog._lock": batcher.watchdog._lock,
+             "Tracer._lock": server.tracer._lock,
+             "DeviceMemoryMonitor._state_lock":
+                 server.devmem_monitor._state_lock}
+    if server.supervisor is not None:
+        locks["ReplicaSupervisor._lock"] = server.supervisor._lock
+        locks["ReplicaSupervisor._thread_lock"] = \
+            server.supervisor._thread_lock
+    if handler.telemetry is not None:
+        locks["ServeTelemetry._lock"] = handler.telemetry._lock
+    for r in engine.replicas:
+        locks[f"Replica._lock[{r.index}]"] = r._lock
+        locks[f"Replica._count_lock[{r.index}]"] = r._count_lock
+    return locks
+
+
+def keep_handler_errors(server, errors):
+    """Collect into ``errors`` what the server's handler threads raise
+    (socketserver prints such an exception and drops it)."""
+    import traceback
+
+    server.httpd.handle_error = \
+        lambda request, address: errors.append(traceback.format_exc())
+
+
+def prom_value(text, name, labels=""):
+    """The value of one Prometheus sample (``labels`` as rendered)."""
+    import re
+
+    m = re.search(rf"^{name}{re.escape(labels)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def tracing_cost(server, requests, names, send,
+                 settings=(("traced_ms", 1, True), ("untraced_ms", 0, True))):
+    """Per group, the median ms of ``send(requests of the group)`` under
+    each of ``settings`` ((key, ``sample_every``, spans written to the
+    stream or not)), their order turned round each of TRACE_REPS rounds,
+    every reading kept."""
+    emit = server.tracer.emit
+    cost = {names[b]: {key: [] for key, _, _ in settings}
+            for _, _, b in requests}
+    for rep in range(TRACE_REPS):
+        for key, every, spans in (settings if rep % 2 == 0
+                                  else settings[::-1]):
+            server.tracer.sample_every = every
+            server.tracer.emit = emit if spans else None
+            for kind, reqs, bucket in requests:
+                t1 = time.perf_counter()
+                statuses = send(reqs)
+                cost[names[bucket]][key].append(
+                    1e3 * (time.perf_counter() - t1))
+                check(all(s[0] == 200 for s in statuses),
+                      f"serve observability tracing cost: {statuses}")
+    server.tracer.sample_every, server.tracer.emit = 1, emit
+    return {g: {**{key: statistics.median(v) for key, v in c.items()},
+                "reps": TRACE_REPS, "samples": c}
+            for g, c in cost.items()}
+
+
+# A client process for tracing_cost_external: it reads the pickled
+# requests, and for each "go" on its standard input sends one group's
+# requests (the group named on the line) and prints the statuses.
+EXTERNAL_CLIENT = """
+import json, pickle, sys
+sys.path.insert(0, ".")
+import chip_smoke
+port, path = int(sys.argv[1]), sys.argv[2]
+groups = {str(b): reqs for _, reqs, b in pickle.load(open(path, "rb"))}
+for line in sys.stdin:
+    reqs = groups[line.strip()]
+    out = chip_smoke.concurrently([
+        (lambda r=r: chip_smoke.http_predict(port, *r, True)[0])
+        for r in reqs])
+    print(json.dumps(out), flush=True)
+"""
+
+
+def tracing_cost_external(server, pickled, names):
+    """:func:`tracing_cost` with the requests sent by another process,
+    so that the client does not share this process's interpreter lock
+    with the service's threads (what a user's client sees), and a third
+    setting: every request traced with its spans kept from the stream
+    (the stage histograms only, as a service without telemetry); one
+    warm-up round first."""
+    import subprocess
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", EXTERNAL_CLIENT, str(server.port), pickled],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    with open(pickled, "rb") as f:
+        requests = pickle.load(f)
+    bucket_of = {id(reqs): b for _, reqs, b in requests}
+
+    def send(reqs):
+        proc.stdin.write(f"{bucket_of[id(reqs)]}\n")
+        proc.stdin.flush()
+        line = proc.stdout.readline()
+        check(bool(line), "serve observability: the client process died")
+        return [(s,) for s in json.loads(line)]
+
+    try:
+        for _, reqs, _ in requests:
+            send(reqs)
+        return tracing_cost(server, requests, names, send, settings=(
+            ("traced_ms", 1, True), ("traced_no_stream_ms", 1, False),
+            ("untraced_ms", 0, True)))
+    finally:
+        proc.stdin.close()
+        try:
+            proc.wait(60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+
+
+def serve_observability_phase(seed, dev, smi):
+    """Serve observability (``serve_observability``; after phase 12,
+    before the profiler phases): the flagship ``ServeConfig()`` (bf16)
+    from a msgpack checkpoint behind ``build_service`` with a telemetry
+    stream, ``trace_sample_every=1``, ``devmem_interval_s=0.5`` and
+    ``strict_retrace=True``. (1) Phase 2's requests over HTTP: bitwise
+    against the engine's direct calls, each with ``X-Pvraft-Trace`` and a
+    complete request tree on the stream; the median of each stage per
+    group. (2) The stream validates (header, one ``serve_compile`` per
+    captured program, spans, batches, >= 2 memory samples within the
+    card's limit); Prometheus has the four families, stage counts equal
+    to the traced requests per bucket, the HBM gauge equal to the last
+    sample, and ``pvraft_serve_recompiles_total`` 0 after the requests
+    and after a ``POST /admin/reload`` (a ``weight_swap`` record); the
+    process's compile count does not move. (3) The tracing cost: median
+    HTTP latency per group at 1-in-1 against off, alternated,
+    TRACE_REPS each, from a client thread of this process and from a
+    client process. (4) ``compile_trip`` from a FaultPlan: 500 under
+    strict, the counter at 1, a ``recompile`` record, the replica still
+    healthy; on a non-strict service 200 and the counter at 1. (5) The
+    sanitizer: a second engine and service built under
+    ``PVRAFT_CHECKS=1``, every serving lock an ``OrderedLock``, four
+    concurrent clients bitwise as without checks, no ``LockOrderError``.
+    (6) ``python -m pvraft_tpu_torch.serve serve --events F --trace_sample
+    1 --strict_retrace`` drained by SIGINT: exit 0, F validates and ends
+    with ``serve_shutdown``. (7) Last, ``/debug/trace?seconds=2`` while a
+    client sends 8,192-point requests: 200, a Chrome trace holding
+    kernel 1's launches and a ``device_execute`` range, 409 for a second
+    window meanwhile, ``trace_window`` start and stop on the stream. No
+    handler thread of the phase's services may raise."""
+    import signal
+    import subprocess
+    import threading
+
+    from pvraft_tpu_torch.analysis.concurrency import sanitizer
+    from pvraft_tpu_torch.engine.checkpoint import save_checkpoint
+    from pvraft_tpu_torch.obs.events import read_events, validate_events_file
+    from pvraft_tpu_torch.obs.retrace import compile_count
+    from pvraft_tpu_torch.obs.trace import SERVE_STAGES
+    from pvraft_tpu_torch.ops.cuda import kernel_of
+    from pvraft_tpu_torch.serve import (FaultPlan, FaultRule, InferenceEngine,
+                                        ServeConfig, ServeTelemetry,
+                                        build_service)
+    from pvraft_tpu_torch.serve import faults
+    from pvraft_tpu_torch.serve import server as server_mod
+    from pvraft_tpu_torch.weights import params_to_jax, seeded_state_dict
+
+    cfg = ServeConfig()
+    check(cfg.dtype == "bfloat16",
+          f"serve observability: ServeConfig() is not bf16: {cfg}")
+    requests = serve_requests(np.random.default_rng(seed + 1))
+    lone8192, group, lone2048 = (requests[0][1][0], requests[1][1],
+                                 requests[2][1][0])
+    names = {bucket: f"{'lone' if kind == 'predict' else 'group'}{bucket}"
+             for kind, _, bucket in requests}
+    out = {"gpu": smi}
+    t_phase = time.perf_counter()
+    with scratch_dir() as root:
+        paths = {}
+        for name, state, epoch in (
+                ("old", seeded_state_dict(cfg.model, seed), 0),
+                ("new", seeded_state_dict(cfg.model, seed + 100), 1)):
+            paths[name], = save_checkpoint(
+                os.path.join(root, name), params_to_jax(state), {}, epoch,
+                checkpoint_interval=0)
+        events = os.path.join(root, "serve.events.jsonl")
+        tel = ServeTelemetry(events, cfg=cfg)
+        engine = InferenceEngine.from_checkpoint(paths["old"], cfg,
+                                                 device=dev, telemetry=tel)
+        n_programs = (len(engine.replicas) * len(cfg.buckets)
+                      * len(cfg.batch_sizes))
+        server = build_service(
+            engine, telemetry=tel, trace_sample_every=1,
+            trace_dir=os.path.join(root, "traces"), strict_retrace=True,
+            devmem_interval_s=DEVMEM_INTERVAL_S)
+        compiles_at_seal = compile_count()
+        handler_errors = []
+        keep_handler_errors(server, handler_errors)
+        server.start()
+        port = server.port
+        try:
+            # (1) Flows and traces.
+            trace_ids = {}
+            for kind, reqs, bucket in requests:
+                for i, (pc1, pc2) in enumerate(reqs):
+                    status, flow, headers = http_predict(port, pc1, pc2,
+                                                         True)
+                    check(status == 200 and np.array_equal(
+                              flow, engine.predict(pc1, pc2)),
+                          f"serve observability {names[bucket]}[{i}]: "
+                          f"{status}, or the flow differs from "
+                          f"engine.predict")
+                    tid = headers.get("X-Pvraft-Trace")
+                    check(bool(tid), f"serve observability "
+                          f"{names[bucket]}[{i}]: no X-Pvraft-Trace")
+                    trace_ids.setdefault(bucket, []).append(tid)
+            group_bucket = engine.validate_request(*group[0])
+            alone = [engine.predict(*r) for r in group]
+            grouped = engine.predict_batch(group, group_bucket)
+            concurrent = concurrently([
+                (lambda r=r: http_predict(port, *r, True)) for r in group])
+            matched = []
+            for i, (status, flow, headers) in enumerate(concurrent):
+                check(status == 200 and headers.get("X-Pvraft-Trace"),
+                      f"serve observability concurrent {i}: {status}")
+                trace_ids[group_bucket].append(headers["X-Pvraft-Trace"])
+                matched.append(
+                    "bs1" if np.array_equal(flow, alone[i]) else
+                    "bs4" if np.array_equal(flow, grouped[i]) else None)
+            check(None not in matched, f"serve observability: concurrent "
+                  f"flows not bitwise a direct call's: {matched}")
+            all_ids = {t for ids in trace_ids.values() for t in ids}
+
+            def spans_written():
+                trees = stage_trees(read_events(events), all_ids)
+                return len(trees) == len(all_ids) and all(
+                    len(t[2]) == len(SERVE_STAGES) for t in trees.values())
+
+            check(wait_for(spans_written, 30),
+                  "serve observability: spans missing from the stream")
+            trees = stage_trees(read_events(events), all_ids)
+            check_trees(trees, all_ids, "serve observability")
+            out["stages_ms"] = {
+                names[b]: {s: statistics.median(
+                    trees[t][2][s]["end_ms"] - trees[t][2][s]["start_ms"]
+                    for t in ids) for s in SERVE_STAGES}
+                for b, ids in trace_ids.items()}
+            out["root_ms"] = {names[b]: statistics.median(
+                trees[t][1]["end_ms"] - trees[t][1]["start_ms"]
+                for t in ids) for b, ids in trace_ids.items()}
+            out["concurrent_matched"] = matched
+
+            # (2) The stream, Prometheus, the gauge, the swap.
+            check(wait_for(lambda: sum(
+                r["type"] == "device_memory"
+                for r in read_events(events)) >= 2, 30),
+                  "serve observability: fewer than 2 memory samples")
+            server.devmem_monitor.stop()
+            problems = validate_events_file(events)
+            check(not problems, f"serve observability stream: "
+                  f"{problems[:5]}")
+            records = read_events(events)
+            types = [r["type"] for r in records]
+            samples = [r["devices"][0] for r in records
+                       if r["type"] == "device_memory"]
+            check(types[0] == "run_header"
+                  and types.count("serve_compile") == n_programs
+                  and "span" in types and "serve_batch" in types,
+                  f"serve observability stream: {types.count('serve_compile')}"
+                  f" serve_compile of {n_programs}, types {set(types)}")
+            check(all(0 < s["bytes_in_use"] <= s["bytes_limit"]
+                      and s["peak_bytes_in_use"] >= s["bytes_in_use"]
+                      for s in samples),
+                  f"serve observability memory samples: {samples}")
+            _, text, _ = http_call(port, "GET", "/metrics?format=prometheus")
+            text = text.decode()
+            for family in ("pvraft_serve_stage_latency_ms",
+                           "pvraft_serve_recompiles_total",
+                           "pvraft_device_hbm_bytes",
+                           "pvraft_device_hbm_peak_bytes"):
+                check(f"# TYPE {family} " in text,
+                      f"serve observability: no {family} family")
+            for b, ids in trace_ids.items():
+                for s in SERVE_STAGES:
+                    got = prom_value(
+                        text, "pvraft_serve_stage_latency_ms_count",
+                        f'{{bucket="{b}",stage="{s}"}}')
+                    check(got == len(ids), f"serve observability: stage "
+                          f"{s} of bucket {b} counts {got}, traced "
+                          f"{len(ids)}")
+            last = samples[-1]
+            gauge = prom_value(text, "pvraft_device_hbm_bytes",
+                               f'{{device="{last["device_id"]}"}}')
+            check(gauge == last["bytes_in_use"],
+                  f"serve observability: HBM gauge {gauge} is not the "
+                  f"last sample {last['bytes_in_use']}")
+            check(prom_value(text, "pvraft_serve_recompiles_total") == 0,
+                  "serve observability: a recompile while serving")
+            status, body, _ = http_call(
+                port, "POST", "/admin/reload",
+                json.dumps({"ckpt": paths["new"]}))
+            swap = json.loads(body)
+            _, text, _ = http_call(port, "GET", "/metrics?format=prometheus")
+            recompiles = prom_value(text.decode(),
+                                    "pvraft_serve_recompiles_total")
+            swaps = [r for r in read_events(events)
+                     if r["type"] == "weight_swap"]
+            check(status == 200 and recompiles == 0 and len(swaps) == 1
+                  and swaps[0]["digest"] == swap["digest"],
+                  f"serve observability reload: {status}, recompiles "
+                  f"{recompiles}, {len(swaps)} weight_swap records")
+            check(compile_count() == compiles_at_seal,
+                  f"serve observability: {compile_count() - compiles_at_seal}"
+                  f" compiles while serving and swapping")
+            out["stream"] = {
+                "records": len(records),
+                "types": {t: types.count(t) for t in sorted(set(types))},
+                "memory_samples": len(samples),
+                "last_sample": last,
+                "memory_reserved": torch.cuda.memory_reserved(),
+                "memory_allocated": torch.cuda.memory_allocated(),
+                "pool_bytes": sum(r["pool_bytes"]
+                                  for r in engine.compile_report()),
+                "swap_ms": swap["swap_ms"], "recompiles_total": recompiles,
+                "compiles_while_serving": compile_count() - compiles_at_seal}
+
+            # (3) The tracing cost, alternating 1-in-1 and off, from a
+            # client thread of this process and from a client process.
+            pickled = os.path.join(root, "requests.pkl")
+            with open(pickled, "wb") as f:
+                pickle.dump(requests, f)
+            out["tracing_cost"] = tracing_cost(
+                server, requests, names,
+                lambda reqs: concurrently([
+                    (lambda r=r: http_predict(port, *r, True))
+                    for r in reqs]))
+            out["tracing_cost_client_process"] = tracing_cost_external(
+                server, pickled, names)
+            server.tracer.sample_every = 1
+            # What the device_execute range costs with no profiler on.
+            n_ranges = 100000
+            t1 = time.perf_counter()
+            for _ in range(n_ranges):
+                with torch.profiler.record_function("device_execute"):
+                    pass
+            out["record_function_us"] = (1e6 * (time.perf_counter() - t1)
+                                         / n_ranges)
+
+            # (4) compile_trip, strict and not.
+            trip = FaultPlan([FaultRule("compile_trip", nth=1, max_fires=1)])
+            with faults.injected(trip):
+                status, _, _ = http_predict(port, *lone2048, True)
+            _, text, _ = http_call(port, "GET", "/metrics?format=prometheus")
+            recs = [r for r in read_events(events)
+                    if r["type"] == "recompile"]
+            state = server.supervisor.state_of(0)
+            check(status == 500
+                  and prom_value(text.decode(),
+                                 "pvraft_serve_recompiles_total") == 1
+                  and len(recs) == 1 and state == "healthy",
+                  f"serve observability strict compile_trip: {status}, "
+                  f"{len(recs)} recompile records, replica 0 {state}")
+            check(http_predict(port, *lone2048, True)[0] == 200,
+                  "serve observability: no 200 after the strict trip")
+            loose = build_service(engine, trace_sample_every=0,
+                                  devmem_interval_s=0)
+            keep_handler_errors(loose, handler_errors)
+            loose.start()
+            try:
+                with faults.injected(trip):
+                    status, _, _ = http_predict(loose.port, *lone2048, True)
+                _, text, _ = http_call(loose.port, "GET",
+                                       "/metrics?format=prometheus")
+                loose_count = prom_value(text.decode(),
+                                         "pvraft_serve_recompiles_total")
+            finally:
+                loose.shutdown(drain=True)
+            check(status == 200 and loose_count == 1,
+                  f"serve observability non-strict compile_trip: {status}, "
+                  f"counter {loose_count}")
+            out["compile_trip"] = {"strict_status": 500,
+                                   "strict_replica": state,
+                                   "loose_status": status,
+                                   "loose_recompiles": loose_count}
+
+            # (5) The sanitizer on a second engine and service.
+            new_alone = [engine.predict(*r) for r in group]
+            new_grouped = engine.predict_batch(group, group_bucket)
+            os.environ["PVRAFT_CHECKS"] = "1"
+            try:
+                sanitizer.reset_order_graph()
+                checked = InferenceEngine.from_checkpoint(paths["new"], cfg,
+                                                          device=dev)
+                sserver = build_service(checked, trace_sample_every=1,
+                                        devmem_interval_s=DEVMEM_INTERVAL_S)
+                keep_handler_errors(sserver, handler_errors)
+                sserver.start()
+                try:
+                    locks = serving_locks(sserver)
+                    plain = sorted(k for k, v in locks.items()
+                                   if not isinstance(v,
+                                                     sanitizer.OrderedLock))
+                    check(not plain, f"serve observability sanitizer: plain "
+                          f"locks {plain}")
+                    flows = concurrently([
+                        (lambda r=r: http_predict(sserver.port, *r, True))
+                        for r in group])
+                finally:
+                    sserver.shutdown(drain=True)
+            finally:
+                del os.environ["PVRAFT_CHECKS"]
+            kinds = []
+            for i, (status, flow, _) in enumerate(flows):
+                check(status == 200, f"serve observability sanitizer "
+                      f"request {i}: {status}")
+                kinds.append("bs1" if np.array_equal(flow, new_alone[i])
+                             else "bs4" if np.array_equal(
+                                 flow, new_grouped[i]) else None)
+            check(None not in kinds, f"serve observability sanitizer: "
+                  f"flows not bitwise as without checks: {kinds}")
+            out["sanitizer"] = {"locks": len(locks), "matched": kinds,
+                                "edges": len(sanitizer.order_edges())}
+            del checked, sserver
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (6) The CLI with a stream, drained by SIGINT.
+            cli_port = free_port()
+            cli_events = os.path.join(root, "cli.events.jsonl")
+            log_path = os.path.join(root, "cli.log")
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "pvraft_tpu_torch.serve", "serve",
+                     "--ckpt", paths["new"], "--port", str(cli_port),
+                     "--events", cli_events, "--trace_sample", "1",
+                     "--strict_retrace", *TIER_CLI_FLAGS],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=log, stderr=subprocess.STDOUT)
+            try:
+                def healthy():
+                    check(proc.poll() is None, "serve observability: the "
+                          "CLI exited: " + open(log_path).read()[-2000:])
+                    try:
+                        return http_call(cli_port, "GET", "/healthz",
+                                         timeout=5)[0] == 200
+                    except OSError:
+                        return False
+
+                check(wait_for(healthy, CLI_START_S),
+                      "serve observability: the CLI did not answer")
+                health = http_json(cli_port, "/healthz")
+                status, _, headers = http_predict(cli_port, *lone2048, True)
+                proc.send_signal(signal.SIGINT)
+                code = proc.wait(120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+            problems = validate_events_file(cli_events)
+            cli_types = [r["type"] for r in read_events(cli_events)]
+            check(code == 0 and status == 200 and not problems
+                  and cli_types[-1] == "serve_shutdown"
+                  and "span" in cli_types
+                  and health["telemetry"]["trace_sample_every"] == 1,
+                  f"serve observability CLI: exit {code}, /predict "
+                  f"{status}, stream problems {problems[:3]}, last "
+                  f"{cli_types[-1:]}: {open(log_path).read()[-1500:]}")
+            out["cli"] = {"exit": code, "records": len(cli_types),
+                          "telemetry": health["telemetry"]}
+
+            # (7) Last: a profiler window while a client sends requests.
+            stop, answers = threading.Event(), []
+
+            def client():
+                while not stop.is_set():
+                    answers.append(http_predict(port, *lone8192, True)[0])
+
+            feeder = threading.Thread(target=client)
+            feeder.start()
+            check(wait_for(lambda: len(answers) >= 2, 60),
+                  "serve observability: the window's client got no answer")
+            window = {}
+
+            def first_window():
+                window["first"] = http_call(
+                    port, "GET", f"/debug/trace?seconds={WINDOW_S}")
+
+            opener = threading.Thread(target=first_window)
+            n_before = len(answers)
+            opener.start()
+            check(wait_for(lambda: server_mod._DEBUG_TRACE_LOCK.locked()
+                           or not opener.is_alive(), 30),
+                  "serve observability: the window did not open")
+            second = http_call(port, "GET", "/debug/trace?seconds=1")[0]
+            opener.join(120)
+            n_during = len(answers) - n_before
+            stop.set()
+            feeder.join(120)
+            status, body, _ = window["first"]
+            check(status == 200 and second == 409
+                  and all(a == 200 for a in answers),
+                  f"serve observability /debug/trace: {status} "
+                  f"{body[:300]!r}, second window {second}")
+            trace_dir = json.loads(body)["trace_dir"]
+            with open(os.path.join(trace_dir, "trace.json")) as f:
+                trace = json.load(f)["traceEvents"]
+            kernels = collections.Counter(
+                kernel_of(e.get("name", "")) for e in trace
+                if e.get("cat") == "kernel")
+            ranges = collections.Counter(
+                e.get("cat") for e in trace
+                if e.get("name") == "device_execute")
+            windows = [r["action"] for r in read_events(events)
+                       if r["type"] == "trace_window"]
+            check(kernels["fused_corr_lookup"] > 0 and sum(ranges.values())
+                  and windows == ["start", "stop"],
+                  f"serve observability trace: kernel 1 launches "
+                  f"{kernels['fused_corr_lookup']}, device_execute ranges "
+                  f"{dict(ranges)}, windows {windows}")
+            out["debug_trace"] = {
+                "seconds": WINDOW_S, "requests_during": n_during,
+                "kernel_launches": {k: v for k, v in kernels.items() if k},
+                "device_execute_ranges": dict(ranges),
+                "kernel1_per_range": (kernels["fused_corr_lookup"]
+                                      / max(1, ranges["gpu_user_annotation"]
+                                            or ranges["user_annotation"])),
+                "second_window": second}
+        finally:
+            server.shutdown(drain=True)
+            tel.close()
+        types = [r["type"] for r in read_events(events)]
+        problems = validate_events_file(events)
+        check(not problems and types[-1] == "serve_shutdown",
+              f"serve observability: final stream {problems[:3]}, last "
+              f"{types[-1:]}")
+        check(not handler_errors, f"serve observability: a handler thread "
+              f"raised: {handler_errors[:2]}")
+        out["stream"]["final_records"] = len(types)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # -------------------------------------------------------------- phase 12 --
 
 KSTEP = 4                    # steps per dispatch of phase 12's K-step graph
@@ -3721,6 +4340,9 @@ def main() -> int:
 
     levers = train_levers_phase(args.seed, dev)
     emit({"phase": "train_levers", **levers})
+
+    observability = serve_observability_phase(args.seed, dev, smi)
+    emit({"phase": "serve_observability", **observability})
 
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.

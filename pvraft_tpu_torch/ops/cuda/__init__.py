@@ -60,6 +60,8 @@ from typing import Any, Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
+from pvraft_tpu_torch.obs.retrace import note_compile
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
@@ -135,13 +137,18 @@ def build_all() -> Dict[str, str]:
             os.replace(tmp, libs[name])
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    note_compile(len(procs))
     return libs
 
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name`` (built on first use)."""
-    return ctypes.CDLL(build_all()[name])
+    """The loaded shared library of kernel ``name`` (built on first use).
+    A build and a load each count as compiles of the process
+    (``obs/retrace.py::note_compile``)."""
+    lib = ctypes.CDLL(build_all()[name])
+    note_compile()
+    return lib
 
 
 def check(code: int, what: str) -> None:

@@ -11,6 +11,8 @@
   * :mod:`~pvraft_tpu_torch.serve.faults`: deterministic fault plans;
   * :mod:`~pvraft_tpu_torch.serve.metrics`: :class:`ServeMetrics`, JSON
     and Prometheus;
+  * :mod:`~pvraft_tpu_torch.serve.events`: :class:`ServeTelemetry`, the
+    ``pvraft_events/v1`` stream of the service;
   * :mod:`~pvraft_tpu_torch.serve.server`: :class:`ServeHTTPServer` and
     :func:`build_service`.
 
@@ -31,6 +33,7 @@ from pvraft_tpu_torch.serve.engine import (
     pad_points,
     params_digest,
 )
+from pvraft_tpu_torch.serve.events import ServeTelemetry
 from pvraft_tpu_torch.serve.faults import (
     FaultPlan,
     FaultRule,
@@ -47,5 +50,5 @@ __all__ = ["BatcherConfig", "FaultPlan", "FaultRule", "InferenceEngine",
            "InjectedFaultError", "MicroBatcher", "PoolUnavailableError",
            "QueueFullError", "ReplicaSupervisor", "RequestError",
            "ServeConfig", "ServeHTTPServer", "ServeMetrics",
-           "ShutdownError", "SupervisorConfig", "build_service",
+           "ServeTelemetry", "ShutdownError", "SupervisorConfig", "build_service",
            "pad_points", "params_digest"]

@@ -5,13 +5,15 @@
 
 The JAX package's ``serve`` flags and defaults
 (``pvraft_tpu/serve/__main__.py``). The service runs on the card;
-``--platform cpu`` is the only way onto the CPU. The flags of telemetry,
-tracing, the retrace watchdog, the device-memory gauge and the cost plane
-(``--events``, ``--trace_sample``, ``--trace_dir``, ``--strict_retrace``,
-``--devmem_interval``, ``--cost_surface``) are refused by name: they
-arrive with ROADMAP queue 1 item 9. So is the ``validate-load``
-subcommand, which needs the load generator. SIGINT drains the service
-and exits 0.
+``--platform cpu`` is the only way onto the CPU. ``--events F`` writes
+the ``pvraft_events/v1`` stream to F; ``--trace_sample N`` traces 1
+request in N (16; 1: all, 0: off); ``--trace_dir`` is where
+``/debug/trace`` windows go; ``--strict_retrace`` fails a dispatch that
+compiles; ``--devmem_interval`` is the memory monitor's period (10 s; 0:
+off). ``--cost_surface`` is refused by name (the cost plane arrives with
+ROADMAP queue 1 item 9c), and so is the ``validate-load`` subcommand,
+which needs the load generator. SIGINT drains the service, writes the
+``serve_shutdown`` record, closes the stream and exits 0.
 """
 
 from __future__ import annotations
@@ -32,8 +34,7 @@ from pvraft_tpu_torch.serve.engine import (
 
 # JAX serve flags whose feature a later slice of the port brings: parsed
 # with default None, refused when given.
-LATER_FLAGS = ("events", "trace_sample", "trace_dir", "strict_retrace",
-               "devmem_interval", "cost_surface")
+LATER_FLAGS = ("cost_surface",)
 
 
 def _ints(text: str):
@@ -43,6 +44,7 @@ def _ints(text: str):
 def _cmd_serve(args) -> int:
     from pvraft_tpu_torch.config import ModelConfig
     from pvraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from pvraft_tpu_torch.serve.events import ServeTelemetry
     from pvraft_tpu_torch.serve.server import build_service
     from pvraft_tpu_torch.serve.supervisor import SupervisorConfig
 
@@ -52,12 +54,15 @@ def _cmd_serve(args) -> int:
         buckets=_ints(args.buckets), batch_sizes=_ints(args.batch_sizes),
         num_iters=args.iters, refine=args.refine, dtype=args.dtype,
         replicas=args.replicas)
+    telemetry = (ServeTelemetry(args.events, cfg=cfg)
+                 if args.events else None)
     print(f"[serve] capturing {len(cfg.buckets) * len(cfg.batch_sizes)} "
           f"predict programs per replica (buckets={cfg.buckets}, "
           f"batch_sizes={cfg.batch_sizes}, dtype={cfg.dtype}, "
           f"replicas={cfg.replicas or 'all'})...", flush=True)
     engine = InferenceEngine.from_checkpoint(args.ckpt, cfg,
-                                             device=args.platform)
+                                             device=args.platform,
+                                             telemetry=telemetry)
     print(f"[serve] replica pool: "
           f"{[str(r.device) for r in engine.replicas]}", flush=True)
     for rec in engine.compile_report():
@@ -67,12 +72,20 @@ def _cmd_serve(args) -> int:
                       if args.probe_interval is not None else None)
     server = build_service(engine, max_wait_ms=args.max_wait_ms,
                            queue_depth=args.queue_depth, host=args.host,
-                           port=args.port, quiet=not args.verbose,
+                           port=args.port, telemetry=telemetry,
+                           quiet=not args.verbose,
+                           trace_sample_every=args.trace_sample,
+                           trace_dir=args.trace_dir,
+                           strict_retrace=args.strict_retrace,
+                           devmem_interval_s=args.devmem_interval,
                            supervise=not args.no_supervise,
                            supervisor_cfg=supervisor_cfg)
     server.start()
+    tracing = (f"1-in-{args.trace_sample}" if args.trace_sample
+               else "off")
     print(f"[serve] listening on http://{server.host}:{server.port} "
-          f"(/predict /healthz /metrics /admin/reload)", flush=True)
+          f"(/predict /healthz /metrics /debug/trace /admin/reload); "
+          f"tracing {tracing}", flush=True)
     try:
         while True:
             time.sleep(3600)
@@ -81,6 +94,8 @@ def _cmd_serve(args) -> int:
         signal.signal(signal.SIGINT, signal.SIG_IGN)
         print("[serve] draining...", flush=True)
         server.shutdown(drain=True)
+        if telemetry is not None:
+            telemetry.close()
     return 0
 
 
@@ -122,6 +137,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                      help="replica pool size (0 = one per CUDA device)")
     srv.add_argument("--max_wait_ms", type=float, default=5.0)
     srv.add_argument("--queue_depth", type=int, default=64)
+    srv.add_argument("--events", default="",
+                     help="pvraft_events/v1 JSONL path for serve telemetry")
+    srv.add_argument("--trace_sample", type=int, default=16,
+                     help="trace 1-in-N requests (1 = all, 0 = off); "
+                          "spans ride the --events stream")
+    srv.add_argument("--trace_dir", default="",
+                     help="base directory for /debug/trace profiler "
+                          "windows (default: a temp dir)")
+    srv.add_argument("--strict_retrace", "--strict-retrace",
+                     dest="strict_retrace", action="store_true",
+                     help="fail a dispatch (HTTP 500) when a graph "
+                          "capture or kernel build is observed after "
+                          "startup sealed the program set; without it the "
+                          "retrace watchdog only emits `recompile` events "
+                          "+ the pvraft_serve_recompiles_total counter")
+    srv.add_argument("--devmem_interval", type=float, default=10.0,
+                     help="seconds between torch.cuda.memory_stats() "
+                          "samples (device_memory events + "
+                          "pvraft_device_hbm_bytes gauge; 0 disables)")
     srv.add_argument("--no-supervise", dest="no_supervise",
                      action="store_true",
                      help="serve without the replica supervisor")
@@ -129,15 +163,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                      help="supervisor probe cadence in seconds (default: "
                           "the supervisor's 0.5); also the 503 "
                           "Retry-After")
-    for name in LATER_FLAGS:
-        spellings = [f"--{name}"]
-        if name in ("strict_retrace", "cost_surface"):
-            spellings.append("--" + name.replace("_", "-"))
-        kw = ({"action": "store_const", "const": True}
-              if name == "strict_retrace" else {})
-        srv.add_argument(*spellings, dest=name, default=None,
-                         help="not ported yet (ROADMAP queue 1 item 9)",
-                         **kw)
+    srv.add_argument("--cost_surface", "--cost-surface",
+                     dest="cost_surface", default=None,
+                     help="not ported yet (ROADMAP queue 1 item 9c)")
     srv.add_argument("--platform", default=None, choices=["cpu", "cuda"],
                      help="cpu: serve on the CPU (default: the card)")
     srv.add_argument("--verbose", action="store_true",
@@ -147,7 +175,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     for name in LATER_FLAGS:
         if getattr(args, name) is not None:
             parser.error(f"--{name} is not ported yet: it arrives with the "
-                         f"observability slice (ROADMAP queue 1 item 9)")
+                         f"cost plane (ROADMAP queue 1 item 9c)")
     return args.fn(args)
 
 

@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from pvraft_tpu_torch.obs.retrace import note_compile
 from pvraft_tpu_torch.ops import cuda as _cuda
 
 Tensors = Tuple[torch.Tensor, ...]
@@ -136,7 +137,10 @@ def capture(name: str, fn: Callable[..., Tensors],
     before the warm-up, in place, then ``fn`` is captured into one graph
     in ``pool`` (a ``torch.cuda.graph_pool_handle()`` that programs which
     never run at once may share). Raises if the capture fails. On the
-    CPU: static buffers only, nothing runs."""
+    CPU: static buffers only, nothing runs. Either way it counts as one
+    compile of the process (``obs/retrace.py::note_compile``), which a
+    sealed service's retrace watchdog reads."""
+    note_compile()
     inputs = tuple(t.detach().to(device).clone() for t in example)
     if device.type != "cuda":
         return GraphProgram(name, fn, inputs)

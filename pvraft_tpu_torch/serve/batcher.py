@@ -27,8 +27,19 @@ is retried once on another replica, and admission shrinks with the
 healthy count (:class:`PoolUnavailableError` when none is left). The
 fault points (``serve/faults.py``) fire where they fire in JAX: the
 collector's ``queue_stall``, the replica points before each dispatch,
-outside the replica's lock. The JAX batcher's telemetry, tracing, retrace
-watchdog and cost plane arrive with ROADMAP queue 1 item 9.
+outside the replica's lock, and ``compile_trip`` after the replay.
+
+Observability (wired by ``build_service``): a ``telemetry`` sink gets
+``serve_batch``, ``serve_reject``, ``fault_injected`` and, once,
+``serve_shutdown`` records; a traced request (``submit(..., trace=)``)
+gets its ``validate`` mark at submit and ``queue_wait``, ``batch_form``
+and ``device_execute`` marks at dispatch, ``device_execute`` ending once
+the flow is on the host and wrapped in
+``torch.profiler.record_function("device_execute")``; a sealed retrace
+``watchdog`` is checked once per dispatch over that dispatch's window. A
+strict watchdog's :class:`~pvraft_tpu_torch.obs.retrace.RetraceError`
+fails the batch (HTTP 500) and is not counted against the replica. The
+JAX batcher's cost plane arrives with ROADMAP queue 1 item 9c.
 """
 
 from __future__ import annotations
@@ -40,7 +51,10 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
+from pvraft_tpu_torch.obs.retrace import RetraceError
 from pvraft_tpu_torch.serve import faults
 from pvraft_tpu_torch.serve.engine import RequestError
 
@@ -78,7 +92,8 @@ class BatcherConfig:
 
 class _Request:
     __slots__ = ("pc1", "pc2", "result", "error", "done", "t_enqueue",
-                 "t_dequeue", "abandoned", "_final")
+                 "t_dequeue", "abandoned", "trace", "bucket", "_final",
+                 "_finalized")
 
     def __init__(self, pc1: np.ndarray, pc2: np.ndarray):
         self.pc1 = pc1
@@ -91,13 +106,27 @@ class _Request:
         # queue wait.
         self.t_enqueue = time.monotonic()
         self.t_dequeue: Optional[float] = None
+        # The request's obs.trace.RequestTrace when it is sampled, and its
+        # bucket (the stage histograms' label).
+        self.trace = None
+        self.bucket: Optional[int] = None
         # Exactly one party (the dispatch counting a response, or the
-        # failure path) records this request's outcome.
-        self._final = threading.Lock()
+        # failure path) records this request's outcome: the first to set
+        # _finalized under _final, which is only ever tried, never waited
+        # for, and held for the test-and-set alone.
+        self._final = ordered_lock("_Request._final")
+        self._finalized = False  # guarded-by: _final
 
     def finalize(self) -> bool:
-        """True exactly once, for the party that records the outcome."""
-        return self._final.acquire(blocking=False)
+        """True exactly once, for the party that records the outcome (a
+        party that finds another one setting the flag has lost)."""
+        if not self._final.acquire(blocking=False):
+            return False
+        try:
+            won, self._finalized = not self._finalized, True
+            return won
+        finally:
+            self._final.release()
 
     def resolve(self, result: np.ndarray) -> None:
         self.result = result
@@ -121,8 +150,8 @@ class _Request:
 class MicroBatcher:
     """Bucket collectors -> batch queue -> per-replica executors."""
 
-    def __init__(self, engine, cfg: BatcherConfig, metrics=None,
-                 supervisor=None):
+    def __init__(self, engine, cfg: BatcherConfig, telemetry=None,
+                 metrics=None, watchdog=None, supervisor=None):
         largest = max(engine.cfg.batch_sizes)
         if cfg.max_batch > largest:
             raise ValueError(
@@ -131,7 +160,9 @@ class MicroBatcher:
                 f"bigger group")
         self.engine = engine
         self.cfg = cfg
+        self.telemetry = telemetry
         self.metrics = metrics
+        self.watchdog = watchdog
         self.supervisor = supervisor
         # The engine's replicas, or the engine itself as one executor
         # (test doubles without a pool).
@@ -145,9 +176,9 @@ class MicroBatcher:
         self._stopping = threading.Event()
         # Makes {stopping check -> enqueue} atomic against shutdown
         # setting the flag, so no accepted request is stranded.
-        self._intake_lock = threading.Lock()
+        self._intake_lock = ordered_lock("MicroBatcher._intake_lock")
         self._drain = True
-        self._count_lock = threading.Lock()
+        self._count_lock = ordered_lock("MicroBatcher._count_lock")
         self._served = 0    # guarded-by: _count_lock
         self._rejected = 0  # guarded-by: _count_lock
         self._drained = 0   # guarded-by: _count_lock
@@ -172,18 +203,28 @@ class MicroBatcher:
 
     # ------------------------------------------------------------- intake --
 
-    def submit(self, pc1: np.ndarray, pc2: np.ndarray) -> _Request:
+    def submit(self, pc1: np.ndarray, pc2: np.ndarray,
+               trace=None) -> _Request:
         """Validate and enqueue one request; its handle's ``wait()``
         yields the un-padded (n1, 3) flow. Raises :class:`RequestError`,
         :class:`QueueFullError`, :class:`PoolUnavailableError` or
-        :class:`ShutdownError`."""
+        :class:`ShutdownError`. ``trace`` (an ``obs.trace.RequestTrace``)
+        gets the ``validate`` mark here and the dispatch's marks later."""
+        t_validate = time.monotonic()
         try:
             bucket = self.engine.validate_request(pc1, pc2)
         except RequestError as e:
+            if trace is not None:
+                trace.mark("validate", t_validate, time.monotonic(),
+                           attrs={"rejected": e.reason})
             self._reject(e.reason)
             raise
+        if trace is not None:
+            trace.mark("validate", t_validate, time.monotonic())
         req = _Request(np.asarray(pc1, np.float32),
                        np.asarray(pc2, np.float32))
+        req.trace = trace
+        req.bucket = bucket
         n_points = max(pc1.shape[0], pc2.shape[0])
         reject = None
         effective_depth = self.cfg.queue_depth
@@ -215,12 +256,13 @@ class MicroBatcher:
             self._reject("shutdown")
             raise ShutdownError("server is shutting down")
         if reject == "unavailable":
-            self._reject("unavailable")
+            self._reject("unavailable", bucket=bucket)
             raise PoolUnavailableError(
                 "every replica is quarantined; the pool sheds load "
                 "until a probe revives one") from None
         if reject == "queue_full":
-            self._reject("queue_full")
+            self._reject("queue_full", bucket=bucket,
+                         queue_depth=effective_depth)
             raise QueueFullError(
                 f"bucket {bucket} queue is full "
                 f"({effective_depth} of {self.cfg.queue_depth} slots "
@@ -239,6 +281,8 @@ class MicroBatcher:
             self._rejected += 1
         if self.metrics is not None:
             self.metrics.record_failure(reason)
+        if self.telemetry is not None:
+            self.telemetry.emit_reject(reason)
 
     def record_failure_for(self, req: _Request, reason: str) -> None:
         """Record an accepted request's failure, unless a dispatch already
@@ -246,11 +290,15 @@ class MicroBatcher:
         if req.finalize():
             self.record_failure(reason)
 
-    def _reject(self, reason: str) -> None:
+    def _reject(self, reason: str, bucket: Optional[int] = None,
+                queue_depth: Optional[int] = None) -> None:
         with self._count_lock:
             self._rejected += 1
         if self.metrics is not None:
             self.metrics.record_reject(reason)
+        if self.telemetry is not None:
+            self.telemetry.emit_reject(reason, bucket=bucket,
+                                       queue_depth=queue_depth)
 
     def queue_depths(self) -> Dict[int, int]:
         return {b: q.qsize() for b, q in self._queues.items()}
@@ -329,7 +377,8 @@ class MicroBatcher:
                 if self._stopping.is_set() and not self._drain:
                     self._fail_group(group)
                     continue
-                faults.fire("queue_stall", bucket=bucket)
+                faults.fire("queue_stall", bucket=bucket,
+                            on_fire=self._on_fault)
                 self._enqueue_batch(bucket, group)
         finally:
             with self._count_lock:
@@ -392,6 +441,11 @@ class MicroBatcher:
             with self._count_lock:
                 self._executors_live -= 1
 
+    def _on_fault(self, record: Dict[str, Any]) -> None:
+        """The ``fault_injected`` sink of the batcher's fault points."""
+        if self.telemetry is not None:
+            self.telemetry.emit_fault(**record)
+
     def _dispatch(self, index: int, replica, bucket: int,
                   group: List[_Request], retried: bool = False) -> None:
         # Skip requests whose waiter timed out already.
@@ -399,6 +453,9 @@ class MicroBatcher:
         if not group:
             return
         t0 = time.monotonic()
+        # The watchdog's window: only a compile during this dispatch trips.
+        window = (self.watchdog.global_compiles()
+                  if self.watchdog is not None else 0)
         with self._count_lock:
             self._busy += 1
             self._replica_inflight[index] += len(group)
@@ -409,9 +466,17 @@ class MicroBatcher:
         try:
             # The replica's fault points, outside its lock (the probe
             # traverses the same ones).
-            faults.replica_faults(index, bucket=bucket)
-            flows = replica.predict_batch(
-                [(r.pc1, r.pc2) for r in group], bucket)
+            faults.replica_faults(index, bucket=bucket,
+                                  on_fire=self._on_fault)
+            # predict_batch returns once the flow is on the host.
+            with torch.profiler.record_function("device_execute"):
+                flows = replica.predict_batch(
+                    [(r.pc1, r.pc2) for r in group], bucket)
+            if self.watchdog is not None:
+                if faults.fire("compile_trip", replica=index, bucket=bucket,
+                               on_fire=self._on_fault):
+                    self.watchdog.inject_compile()
+                self._watchdog_check(bucket, len(group), window)
         except BaseException as e:  # noqa: BLE001 — fail or retry the group, not the executor
             failure = e
         finally:
@@ -430,6 +495,19 @@ class MicroBatcher:
         # request is neither counted as served nor resolved.
         live = [(r, f) for r, f in zip(group, flows)
                 if not r.abandoned and r.finalize()]
+        bs = self.engine.batch_size_for(len(group))
+        device_id = int(getattr(replica, "device_id", index))
+        for r, _ in live:
+            tr = r.trace
+            if tr is None or r.abandoned:
+                continue
+            # Marked before resolve(), which the handler waits on.
+            t_dq = r.t_dequeue if r.t_dequeue is not None else t0
+            tr.mark("queue_wait", r.t_enqueue, t_dq)
+            tr.mark("batch_form", t_dq, t0)
+            tr.mark("device_execute", t0, now,
+                    attrs={"bucket": bucket, "batch": bs, "n": len(group),
+                           "replica": index, "device_id": device_id})
         latencies = [(now - r.t_enqueue) * 1000.0 for r, _ in live]
         # Counted before resolving: a client that reads /metrics right
         # after its answer sees it counted.
@@ -438,10 +516,15 @@ class MicroBatcher:
             self._replica_batches[index] += 1
             if self._stopping.is_set():
                 self._drained += len(live)
+        fill = len(group) / bs
         if self.metrics is not None:
-            self.metrics.record_batch(
-                len(live), len(group) / self.engine.batch_size_for(len(group)),
-                latencies)
+            self.metrics.record_batch(len(live), fill, latencies)
+        if self.telemetry is not None:
+            self.telemetry.emit_batch(
+                bucket=bucket, batch=bs, n=len(live), fill=round(fill, 4),
+                latency_ms=round((now - t0) * 1000.0, 3),
+                queue_depth=self._queues[bucket].qsize(), replica=index,
+                device_id=device_id)
         for req, flow in live:
             req.resolve(flow)
 
@@ -450,9 +533,14 @@ class MicroBatcher:
                          retried: bool) -> None:
         """A dispatch raised: tell the supervisor, then retry the batch
         once on another in-rotation replica; a retried batch (or one with
-        no healthy sibling) fails."""
-        if self.supervisor is not None:
-            self.supervisor.record_failure(index)
+        no healthy sibling) fails. A strict watchdog's
+        :class:`RetraceError` fails the batch without touching the
+        supervisor: the replay succeeded, and the compile it reports is
+        the process's, which a retry would meet again."""
+        if self.supervisor is not None \
+                and not isinstance(error, RetraceError):
+            self.supervisor.record_failure(index,
+                                           reason=type(error).__name__)
             if not retried:
                 target = self.supervisor.retry_target(exclude=index)
                 if target is not None:
@@ -466,12 +554,28 @@ class MicroBatcher:
         for req in group:
             req.fail(error)
 
+    def _watchdog_check(self, bucket: int, n: int, window: int) -> None:
+        """The per-dispatch retrace check; every trip counts on
+        ``/metrics``, a strict one before it raises."""
+        try:
+            trips = self.watchdog.check(
+                signature=f"bucket={bucket} n={n}",
+                program=f"serve_dispatch_b{bucket}", window_start=window)
+        except RetraceError:
+            if self.metrics is not None:
+                self.metrics.record_recompile()
+            raise
+        if self.metrics is not None:
+            for _ in trips:
+                self.metrics.record_recompile()
+
     # ----------------------------------------------------------- shutdown --
 
     def shutdown(self, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop intake; ``drain=True`` serves queued work first. Safe to
-        call twice."""
+        call twice; the first call emits the ``serve_shutdown`` record."""
         with self._intake_lock:
+            already = self._stopping.is_set()
             self._drain = drain
             self._stopping.set()
         for t in self._collectors:
@@ -512,6 +616,11 @@ class MicroBatcher:
                     except queue.Empty:
                         break
                     self._fail_group([req])
+        if self.telemetry is not None and not already:
+            counts = self.counts
+            self.telemetry.emit_shutdown(served=counts["served"],
+                                         rejected=counts["rejected"],
+                                         drained=counts["drained"])
 
     @property
     def counts(self) -> Dict[str, int]:

@@ -53,6 +53,11 @@ port's or the JAX package's, ``engine/checkpoint.py::load_params``);
 :meth:`InferenceEngine.weights_info` reports the path, the epoch, the
 content digest (:func:`params_digest`, the JAX package's on the same
 weights) and the swap count.
+
+With a ``telemetry`` sink (``serve/events.py::ServeTelemetry``) the
+engine writes one ``serve_compile`` record per captured program of each
+replica and one ``weight_swap`` record per swap, after the swap's locks
+are released.
 """
 
 from __future__ import annotations
@@ -60,7 +65,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
-import threading
 import time
 from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
                     Union)
@@ -68,6 +72,7 @@ from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
 from pvraft_tpu_torch.config import ModelConfig
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.engine.checkpoint import load_params
@@ -248,10 +253,10 @@ class Replica:
         self.model = (PVRaftRefine if cfg.refine else PVRaft)(model_cfg)
         self.model.load_state_dict(state, strict=True)
         self.model.to(device).eval()
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("Replica._lock")
         # What swap_params reads to count the runs it waited for; written
         # inside _lock, read by a swap that does not hold it.
-        self._count_lock = threading.Lock()
+        self._count_lock = ordered_lock("Replica._count_lock")
         self._runs = 0            # guarded-by: _count_lock
         self._running = False     # guarded-by: _count_lock
         self.programs: Dict[Tuple[int, int], GraphProgram] = {}
@@ -260,8 +265,22 @@ class Replica:
                     if device.type == "cuda" else None)
             for bucket in cfg.buckets:
                 for bs in cfg.batch_sizes:
-                    self.programs[(bucket, bs)] = self._compile(
+                    program = self.programs[(bucket, bs)] = self._compile(
                         bucket, bs, pool)
+                    self._emit_compile(bucket, bs, program)
+
+    def _emit_compile(self, bucket: int, bs: int,
+                      program: GraphProgram) -> None:
+        telemetry = self.engine.telemetry
+        if telemetry is None:
+            return
+        rec = program.report()
+        telemetry.emit_compile(
+            bucket=bucket, batch=bs, lower_s=rec["warmup_s"],
+            compile_s=rec["capture_s"],
+            memory={"pool_bytes": rec["pool_bytes"]},
+            dtype=self.engine.cfg.dtype, replica=self.index,
+            device_id=self.device_id)
 
     def _compile(self, bucket: int, bs: int, pool) -> GraphProgram:
         """Capture the forward at (bs, bucket): padded clouds and validity
@@ -342,18 +361,21 @@ class InferenceEngine:
     :func:`params_from_jax`); either loads with ``strict=True``. The
     constructor captures every (bucket, batch size) program of every
     replica; a failed capture raises. Thread-safe: each replica's lock
-    admits one program run at a time (module docstring).
+    admits one program run at a time (module docstring). ``telemetry``
+    receives the ``serve_compile`` and ``weight_swap`` records.
     """
 
     def __init__(self, weights: Mapping, cfg: ServeConfig,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 telemetry=None):
         self.cfg = cfg
+        self.telemetry = telemetry
         state = state_dict_of(weights)
         devices = replica_devices(resolve_device(device), cfg.replicas)
         # Weights provenance (the /healthz weights block): checkpoint
         # path (None: in-memory weights), content digest, epoch (-1: none)
         # and swap count. One swap at a time, behind _swap_lock.
-        self._swap_lock = threading.Lock()
+        self._swap_lock = ordered_lock("InferenceEngine._swap_lock")
         self._weights: Dict[str, Any] = {
             "path": None, "digest": params_digest(state), "epoch": -1,
             "swaps": 0}  # guarded-by: _swap_lock
@@ -362,14 +384,14 @@ class InferenceEngine:
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: ServeConfig,
-                        device: Union[str, torch.device, None] = None
-                        ) -> "InferenceEngine":
+                        device: Union[str, torch.device, None] = None,
+                        telemetry=None) -> "InferenceEngine":
         """An engine serving the parameters of the msgpack checkpoint at
         ``path`` (``engine/checkpoint.py::load_params``); keeps ``path``
         and the checkpoint's epoch (-1 when it has none) as its weights
         provenance."""
         variables, epoch = load_params(path)
-        engine = cls(variables, cfg, device)
+        engine = cls(variables, cfg, device, telemetry=telemetry)
         with engine._swap_lock:
             engine._weights["path"] = path
             engine._weights["epoch"] = int(epoch)
@@ -461,11 +483,17 @@ class InferenceEngine:
             self._weights = {"path": path, "digest": digest,
                              "epoch": int(epoch),
                              "swaps": self._weights["swaps"] + 1}
-        return {"digest": digest, "previous_digest": previous,
-                "epoch": int(epoch), "path": path,
-                "replicas": len(self.replicas), "drained": drained,
-                "drained_in_time": all_in_time,
-                "swap_ms": round(1e3 * (time.monotonic() - t0), 3)}
+        report = {"digest": digest, "previous_digest": previous,
+                  "epoch": int(epoch), "path": path,
+                  "replicas": len(self.replicas), "drained": drained,
+                  "drained_in_time": all_in_time,
+                  "swap_ms": round(1e3 * (time.monotonic() - t0), 3)}
+        if self.telemetry is not None:
+            self.telemetry.emit_weight_swap(
+                digest=digest, epoch=int(epoch), path=path,
+                previous_digest=previous, replicas=len(self.replicas),
+                swap_ms=report["swap_ms"], drained=drained)
+        return report
 
     def reload_checkpoint(self, path: str,
                           drain_timeout_s: float = 30.0) -> Dict[str, Any]:

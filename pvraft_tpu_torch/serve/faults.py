@@ -8,9 +8,12 @@ supervisor's probe (:data:`FAULT_POINTS`, the JAX package's vocabulary):
   ``replica_latency_ms``      sleep ``value`` ms inside the dispatch
   ``replica_wedge``           block the dispatch until the plan clears
   ``queue_stall``             sleep ``value`` ms in a bucket collector
-  ``compile_trip``            a post-seal compile; the port's service has
-                              no retrace watchdog yet (ROADMAP queue 1
-                              item 9), so no call site fires it
+  ``compile_trip``            a compile after the seal: the batcher's
+                              dispatch fires it after the replay
+                              (``batcher.py::MicroBatcher._dispatch``) and
+                              counts one compile on the retrace watchdog
+                              (``RetraceWatchdog.inject_compile``), so the
+                              trip takes the watchdog's real path
 
 A point is **armed** only by an installed :class:`FaultPlan`: a
 deterministic schedule of :class:`FaultRule` records. A rule fires on the
@@ -20,8 +23,9 @@ one, else globally), again every ``every`` traversals after that, at most
 
 Disarmed, :func:`fire` is one attribute read and a ``None`` check. The
 plan is process-global (:func:`install_plan`, :func:`clear_plan`, the
-:func:`injected` context manager). Effects (sleep, block, raise) run
-outside the injector's lock.
+:func:`injected` context manager). Each firing is handed to the caller's
+``on_fire`` (the service's ``fault_injected`` event), then its effect
+(sleep, block, raise) runs, both outside the injector's lock.
 """
 
 from __future__ import annotations
@@ -30,13 +34,19 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
 
 # The JAX package's fault_injected.point vocabulary
 # (pvraft_tpu/obs/events.py::FAULT_POINTS).
 FAULT_POINTS = (
     "replica_predict_error", "replica_latency_ms", "replica_wedge",
     "queue_stall", "compile_trip")
+
+
+# The sink of a firing's record (``ServeTelemetry.emit_fault``).
+OnFire = Callable[[Dict[str, Any]], None]
 
 
 class InjectedFaultError(RuntimeError):
@@ -98,7 +108,7 @@ class _Injector:
     fires once more or not at all, both legitimate schedules."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("serve.faults._Injector._lock")
         self._plan: Optional[FaultPlan] = None
         self._installed_at = 0.0  # guarded-by: _lock
         # Traversals per (point, replica) and (point, None).
@@ -140,7 +150,8 @@ class _Injector:
             }
 
     def fire(self, point: str, replica: Optional[int],
-             bucket: Optional[int]) -> Tuple[Dict[str, Any], ...]:
+             bucket: Optional[int], on_fire: Optional[OnFire]
+             ) -> Tuple[Dict[str, Any], ...]:
         now = time.monotonic()
         fired: List[Tuple[FaultRule, Dict[str, Any]]] = []
         with self._lock:
@@ -180,6 +191,9 @@ class _Injector:
                     **({"bucket": bucket} if bucket is not None else {}),
                     **({"value": rule.value} if rule.value else {}),
                 }))
+        if on_fire is not None:
+            for _, rec in fired:
+                on_fire(rec)
         for rule, rec in fired:
             if point in ("replica_latency_ms", "queue_stall"):
                 time.sleep(rule.value / 1000.0)
@@ -198,25 +212,28 @@ _INJECTOR = _Injector()
 
 
 def fire(point: str, replica: Optional[int] = None,
-         bucket: Optional[int] = None) -> Tuple[Dict[str, Any], ...]:
+         bucket: Optional[int] = None, on_fire: Optional[OnFire] = None
+         ) -> Tuple[Dict[str, Any], ...]:
     """Traverse one fault point. Disarmed: returns ``()``, nothing counted
     or locked. Armed: counts the traversal and fires every matching rule
-    (records returned; ``replica_predict_error`` raises
-    :class:`InjectedFaultError`)."""
+    (``on_fire(record)`` per firing, then the effect;
+    ``replica_predict_error`` raises :class:`InjectedFaultError`); the
+    records are returned."""
     if _INJECTOR._plan is None:
         return ()
-    return _INJECTOR.fire(point, replica, bucket)
+    return _INJECTOR.fire(point, replica, bucket, on_fire)
 
 
-def replica_faults(replica: int, bucket: Optional[int] = None) -> None:
+def replica_faults(replica: int, bucket: Optional[int] = None,
+                   on_fire: Optional[OnFire] = None) -> None:
     """The replica points in order, latency -> wedge -> error: what the
     batcher's dispatch and the supervisor's probe traverse, so an armed
     replica fault fails the probe too."""
     if _INJECTOR._plan is None:
         return
-    fire("replica_latency_ms", replica=replica, bucket=bucket)
-    fire("replica_wedge", replica=replica, bucket=bucket)
-    fire("replica_predict_error", replica=replica, bucket=bucket)
+    for point in ("replica_latency_ms", "replica_wedge",
+                  "replica_predict_error"):
+        fire(point, replica=replica, bucket=bucket, on_fire=on_fire)
 
 
 def install_plan(plan: FaultPlan) -> None:

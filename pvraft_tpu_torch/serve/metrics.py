@@ -13,19 +13,21 @@ Two renderings of one store, with the JAX package's names and keys:
 
 * JSON (``/metrics``): :meth:`ServeMetrics.snapshot`;
 * Prometheus text 0.0.4 (``/metrics?format=prometheus``):
-  :func:`render_prometheus`, the ``pvraft_serve_*`` families.
+  :func:`render_prometheus`, the ``pvraft_serve_*`` families, and only
+  there the traced per-(bucket, stage) latency histograms
+  (:meth:`ServeMetrics.record_stages`), the device-memory gauges fed by
+  the memory monitor and the retrace watchdog's counter: the JSON
+  snapshot keeps the JAX package's keys.
 
-What the JAX store also carries arrives with ROADMAP queue 1 item 9: the
-traced per-(bucket, stage) latency histograms, the device-memory gauges,
-the retrace-watchdog counter and the cost-calibration series (whose
-rolling busy fraction :func:`replica_utilization` computes).
+The JAX store's cost-calibration series arrive with ROADMAP queue 1 item
+9c (their rolling busy fraction, :func:`replica_utilization`, is here).
 """
 
 from __future__ import annotations
 
-import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
 from pvraft_tpu_torch.serve.supervisor import REPLICA_STATES
 
 # Histogram edges (ms): a sample falls in the first bucket whose edge is
@@ -98,7 +100,7 @@ class ServeMetrics:
     :meth:`snapshot`, :meth:`prometheus` and :meth:`current_in_flight`."""
 
     def __init__(self, buckets):
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("ServeMetrics._lock")
         self.requests_total = 0   # guarded-by: _lock
         self.responses_total = 0  # guarded-by: _lock
         # Accepted requests whose outcome is not recorded yet.
@@ -112,6 +114,11 @@ class ServeMetrics:
         self.request_points = LatencyHistogram(edges=POINT_EDGES)  # guarded-by: _lock
         # Failed batches dispatched once more on another replica.
         self.retries_total = 0  # guarded-by: _lock
+        # Prometheus only: per-(bucket, stage) latency of traced
+        # requests, the newest device-memory rows, the watchdog's trips.
+        self.stage_latency: Dict[Tuple[int, str], LatencyHistogram] = {}  # guarded-by: _lock
+        self.device_memory: List[Dict[str, Any]] = []  # guarded-by: _lock
+        self.recompiles_total = 0  # guarded-by: _lock
 
     def current_in_flight(self) -> int:
         with self._lock:
@@ -126,6 +133,27 @@ class ServeMetrics:
                 self.per_bucket_requests.get(int(bucket), 0) + 1)
             if n_points is not None:
                 self.request_points.observe(float(n_points))
+
+    def record_stages(self, bucket: int,
+                      stage_ms: Dict[str, float]) -> None:
+        """The stage latencies of one traced request."""
+        with self._lock:
+            for stage, ms in stage_ms.items():
+                hist = self.stage_latency.get((int(bucket), stage))
+                if hist is None:
+                    hist = self.stage_latency[(int(bucket), stage)] = \
+                        LatencyHistogram()
+                hist.observe(ms)
+
+    def record_device_memory(self, rows: List[Dict[str, Any]]) -> None:
+        """The newest device-memory sample (a gauge: the last one wins)."""
+        with self._lock:
+            self.device_memory = [dict(r) for r in rows]
+
+    def record_recompile(self) -> None:
+        """One retrace-watchdog trip."""
+        with self._lock:
+            self.recompiles_total += 1
 
     def record_retry(self) -> None:
         with self._lock:
@@ -329,6 +357,27 @@ def render_prometheus(metrics: ServeMetrics,
                         "pvraft_serve_replica_state",
                         1 if row["state"] == state else 0,
                         {"replica": row["replica"], "state": state})
+    if metrics.device_memory:
+        doc.family("pvraft_device_hbm_bytes", "gauge",
+                   "Device bytes in use, latest device.memory_stats() "
+                   "sample (obs/device_memory.py).")
+        for row in metrics.device_memory:
+            doc.sample("pvraft_device_hbm_bytes", row["bytes_in_use"],
+                       {"device": row["device_id"]})
+        if any("peak_bytes_in_use" in r for r in metrics.device_memory):
+            doc.family("pvraft_device_hbm_peak_bytes", "gauge",
+                       "Peak device bytes in use since process start "
+                       "(allocator watermark).")
+            for row in metrics.device_memory:
+                if "peak_bytes_in_use" in row:
+                    doc.sample("pvraft_device_hbm_peak_bytes",
+                               row["peak_bytes_in_use"],
+                               {"device": row["device_id"]})
+    doc.family("pvraft_serve_recompiles_total", "counter",
+               "Retrace-watchdog trips: backend compiles observed after "
+               "the AOT program set sealed (each also rides the event "
+               "stream as a `recompile` record).")
+    doc.sample("pvraft_serve_recompiles_total", metrics.recompiles_total)
     doc.family("pvraft_serve_retries_total", "counter",
                "Failed micro-batches re-dispatched once on a different "
                "replica.")
@@ -339,4 +388,11 @@ def render_prometheus(metrics: ServeMetrics,
     doc.family("pvraft_serve_request_points", "histogram",
                "Requested points per cloud.")
     doc.histogram("pvraft_serve_request_points", metrics.request_points)
+    doc.family("pvraft_serve_stage_latency_ms", "histogram",
+               "Per-stage latency of traced requests by (bucket, stage) "
+               "— stages: ingress validate queue_wait batch_form "
+               "device_execute serialize respond.")
+    for (bucket, stage), hist in sorted(metrics.stage_latency.items()):
+        doc.histogram("pvraft_serve_stage_latency_ms", hist,
+                      {"bucket": bucket, "stage": stage})
     return doc.render()

@@ -23,9 +23,10 @@ wedged fault never holds the lock a probe needs.
 
 ``/healthz`` reports the per-replica rows and :meth:`pool_health`; the
 healthy count scales the batcher's admission. Thresholds are the JAX
-package's declared defaults (:data:`SUPERVISOR_DEFAULTS`). Replica-state
-events ride the telemetry stream in JAX; the port's arrives with ROADMAP
-queue 1 item 9.
+package's declared defaults (:data:`SUPERVISOR_DEFAULTS`). With a
+telemetry sink every transition is a ``replica_state`` event (with the
+state it left and why) and every fault the probe fires a
+``fault_injected`` one, emitted after the supervisor's lock is released.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
 from pvraft_tpu_torch.rng import DEFAULT_SEED, host_rng
 from pvraft_tpu_torch.serve import faults
 
@@ -114,15 +116,18 @@ class ReplicaSupervisor:
     """Health state per replica and the background probe and wedge-scan
     loop. The batcher's executors report concurrently with the probe
     thread; every state change happens under ``_lock``, and nothing is
-    called out to while it is held."""
+    called out to while it is held: transitions are emitted to
+    ``telemetry`` after its release."""
 
-    def __init__(self, engine, cfg: Optional[SupervisorConfig] = None):
+    def __init__(self, engine, cfg: Optional[SupervisorConfig] = None,
+                 telemetry=None):
         self.engine = engine
         self.cfg = cfg or SupervisorConfig()
+        self.telemetry = telemetry
         self.replicas = list(getattr(engine, "replicas", ()) or ()) \
             or [engine]
         n = len(self.replicas)
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("ReplicaSupervisor._lock")
         self._state = ["healthy"] * n            # guarded-by: _lock
         self._fail_streak = [0] * n              # guarded-by: _lock
         self._outlier_streak = [0] * n           # guarded-by: _lock
@@ -149,14 +154,29 @@ class ReplicaSupervisor:
                 (max(int(ecfg.min_points), 1), 3)).astype(np.float32)
             self._probe_bucket = int(ecfg.buckets[0])
         self._stop = threading.Event()
-        self._thread_lock = threading.Lock()
+        self._thread_lock = ordered_lock("ReplicaSupervisor._thread_lock")
         self._thread: Optional[threading.Thread] = None  # guarded-by: _thread_lock
 
-    def _set(self, i: int, new: str) -> None:
-        """One transition (the caller holds ``_lock``)."""
+    def _set(self, i: int, new: str, reason: str) -> Dict[str, Any]:
+        """One transition (the caller holds ``_lock``); returns its
+        ``replica_state`` record for :meth:`_emit`."""
         assert new in REPLICA_STATES
-        self._state[i] = new
+        old, self._state[i] = self._state[i], new
         self._transitions += 1
+        return {"replica": i, "state": new, "from_state": old,
+                "reason": reason,
+                "device_id": int(getattr(self.replicas[i], "device_id", i))}
+
+    def _emit(self, transitions: List[Dict[str, Any]]) -> None:
+        """Emit transitions decided under ``_lock``, after its release."""
+        if self.telemetry is not None:
+            for t in transitions:
+                self.telemetry.emit_replica_state(**t)
+
+    def _on_fault(self, record: Dict[str, Any]) -> None:
+        """The probe's ``fault_injected`` sink (the batcher has its own)."""
+        if self.telemetry is not None:
+            self.telemetry.emit_fault(**record)
 
     # ------------------------------------------------------------ signals --
 
@@ -164,33 +184,37 @@ class ReplicaSupervisor:
         """A dispatch on replica ``i`` took ``seconds``: resets the failure
         streak, feeds the outlier signal, recovers a degraded replica. A
         quarantined or probing replica's straggler changes nothing."""
+        transitions = []
         with self._lock:
             if self._state[i] in ("quarantined", "probing"):
-                return
-            if _observe_latency(self._ewma, self.cfg, bucket, seconds):
+                pass
+            elif _observe_latency(self._ewma, self.cfg, bucket, seconds):
                 self._outlier_streak[i] += 1
                 if (self._state[i] == "healthy"
                         and self._outlier_streak[i]
                         >= self.cfg.latency_outlier_after):
-                    self._set(i, "degraded")
+                    transitions.append(
+                        self._set(i, "degraded", "latency_outlier"))
             else:
                 self._fail_streak[i] = 0
                 self._outlier_streak[i] = 0
                 if self._state[i] == "degraded":
-                    self._set(i, "healthy")
+                    transitions.append(self._set(i, "healthy", "recovered"))
+        self._emit(transitions)
 
-    def record_failure(self, i: int) -> None:
+    def record_failure(self, i: int, reason: str = "dispatch_error") -> None:
         """A dispatch on replica ``i`` raised: healthy -> degraded ->
         quarantined on consecutive failures."""
+        transitions = []
         with self._lock:
-            if self._state[i] in ("quarantined", "probing"):
-                return
-            self._fail_streak[i] += 1
-            if self._fail_streak[i] >= self.cfg.quarantine_after:
-                self._set(i, "quarantined")
-            elif (self._fail_streak[i] >= self.cfg.degraded_after
-                  and self._state[i] == "healthy"):
-                self._set(i, "degraded")
+            if self._state[i] not in ("quarantined", "probing"):
+                self._fail_streak[i] += 1
+                if self._fail_streak[i] >= self.cfg.quarantine_after:
+                    transitions.append(self._set(i, "quarantined", reason))
+                elif (self._fail_streak[i] >= self.cfg.degraded_after
+                      and self._state[i] == "healthy"):
+                    transitions.append(self._set(i, "degraded", reason))
+        self._emit(transitions)
 
     def note_dispatch_start(self, i: int, t: float) -> int:
         """Track one in-flight dispatch; returns its token for
@@ -269,6 +293,7 @@ class ReplicaSupervisor:
 
     def _scan_wedged(self) -> None:
         now = time.monotonic()
+        transitions = []
         with self._lock:
             for i, starts in enumerate(self._dispatch_started):
                 if (starts
@@ -276,7 +301,8 @@ class ReplicaSupervisor:
                         > self.cfg.wedge_timeout_s
                         and self._state[i] not in ("quarantined",
                                                    "probing")):
-                    self._set(i, "quarantined")
+                    transitions.append(self._set(i, "quarantined", "wedged"))
+        self._emit(transitions)
 
     def _probe_quarantined(self) -> None:
         # A replica with a dispatch still in flight is stuck: probing it
@@ -289,8 +315,9 @@ class ReplicaSupervisor:
             with self._lock:
                 if self._state[i] != "quarantined":
                     continue
-                self._set(i, "probing")
+                transitions = [self._set(i, "probing", "probe")]
                 self._probes += 1
+            self._emit(transitions)
             ok = self._probe(i)
             with self._lock:
                 if self._state[i] != "probing":
@@ -298,10 +325,12 @@ class ReplicaSupervisor:
                 if ok:
                     self._fail_streak[i] = 0
                     self._outlier_streak[i] = 0
-                    self._set(i, "healthy")
+                    transitions = [self._set(i, "healthy", "probe_ok")]
                 else:
                     self._probe_failures += 1
-                    self._set(i, "quarantined")
+                    transitions = [self._set(i, "quarantined",
+                                             "probe_failed")]
+            self._emit(transitions)
 
     def _probe(self, i: int) -> bool:
         """The probe payload through replica ``i``'s smallest-bucket
@@ -312,7 +341,8 @@ class ReplicaSupervisor:
 
         def run() -> None:
             try:
-                faults.replica_faults(i, bucket=self._probe_bucket)
+                faults.replica_faults(i, bucket=self._probe_bucket,
+                                      on_fire=self._on_fault)
                 self.replicas[i].predict_batch(
                     [(self._probe_cloud, self._probe_cloud)],
                     self._probe_bucket)

@@ -10,8 +10,8 @@ doubles as in ``tests/test_serve.py`` and ``tests/test_serve_pool.py``;
 the HTTP service and its CLI; and the JAX ``build_service`` and the
 port's side by side on the same weights and the same HTTP requests:
 status codes, ``/healthz`` and ``/metrics`` keys, Prometheus families
-(ROADMAP queue 1 item 9's aside), flows within 2e-4 (the JAX-vs-torch
-model bar) and the swap report. Waits are on events, joins and
+(the cost plane's aside, ROADMAP queue 1 item 9c), flows within 2e-4
+(the JAX-vs-torch model bar) and the swap report. Waits are on events, joins and
 conditions with timeouts; nothing is asserted on wall time.
 """
 
@@ -61,11 +61,9 @@ TINY = {"truncate_k": 16, "corr_knn": 8, "graph_k": 4}
 POOL = {"buckets": (32,), "batch_sizes": (1, 2), "num_iters": 2,
         "dtype": "float32"}
 FLOW_ATOL = 2e-4
-# Families of the JAX exposition that arrive with ROADMAP queue 1 item 9
-# (traced stage histograms, retrace watchdog, device memory, cost plane).
-ITEM9_FAMILIES = {
-    "pvraft_serve_stage_latency_ms", "pvraft_serve_recompiles_total",
-    "pvraft_device_hbm_bytes", "pvraft_device_hbm_peak_bytes",
+# Families of the JAX exposition that arrive with ROADMAP queue 1 item 9c
+# (the cost plane).
+ITEM9C_FAMILIES = {
     "pvraft_serve_predicted_device_seconds_total",
     "pvraft_serve_device_busy_seconds_total",
     "pvraft_serve_replica_utilization",
@@ -835,10 +833,32 @@ def test_body_limits_equal_jax(services):
     assert codes == [400, 400]
 
 
-def test_debug_trace_names_item_9(services):
-    _, tserver = services
-    status, body, _ = _http(tserver, "GET", "/debug/trace?seconds=1")
-    assert status == 501 and "item 9" in json.loads(body)["detail"]
+@pytest.mark.parametrize("query", ["seconds=0.2", "seconds=0",
+                                   "seconds=61", "seconds=soon",
+                                   "profiler_running"])
+def test_debug_trace_answers_like_jax(services, query):
+    """``/debug/trace`` takes a CPU profiler window of the port's service
+    (200, the trace written); a ``seconds`` outside (0, 60] or not a
+    number gets 400 on both services; while another ``torch.profiler``
+    session runs in the process the port answers 500 and names it (two
+    sessions at once are not supported)."""
+    jserver, tserver = services
+    if query == "profiler_running":
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            status, body, _ = _http(tserver, "GET",
+                                    "/debug/trace?seconds=0.2")
+        assert status == 500 and "another torch.profiler session" in \
+            json.loads(body)["detail"]
+        return
+    status, body, _ = _http(tserver, "GET", f"/debug/trace?{query}")
+    if query == "seconds=0.2":
+        doc = json.loads(body)
+        assert status == 200 and doc["seconds"] == 0.2, body
+        assert (Path(doc["trace_dir"]) / "trace.json").stat().st_size > 0
+    else:
+        assert status == _http(jserver, "GET", f"/debug/trace?{query}")[0] \
+            == 400
 
 
 def test_json_and_msgpack_agree_bitwise(services):
@@ -879,7 +899,7 @@ def _families(text):
 def test_healthz_and_metrics_keys_equal_jax(services):
     """The same keys in /healthz (the programs' rows aside: captures
     against XLA compiles) and /metrics JSON, and the same Prometheus
-    families but item 9's."""
+    families but item 9c's."""
     for path in ("/predict", "/predict"):
         for server in services:
             _http(server, "POST", path, _json_body(_pc(20), _pc(21)))
@@ -887,7 +907,9 @@ def test_healthz_and_metrics_keys_equal_jax(services):
     jh = json.loads(_http(jserver, "GET", "/healthz")[1])
     th = json.loads(_http(tserver, "GET", "/healthz")[1])
     assert _keys(th, skip=("programs",)) == _keys(jh, skip=("programs",))
-    assert th["telemetry"]["tracing"] is False
+    assert th["telemetry"] == jh["telemetry"] == {
+        "events_path": None, "tracing": True, "trace_sample_every": 16,
+        "trace_dir": None}
     assert th["cost"] is None and th["cost_surface"] is None
     assert th["pool"] == jh["pool"]
     assert [r["state"] for r in th["replicas"]] == \
@@ -902,7 +924,7 @@ def test_healthz_and_metrics_keys_equal_jax(services):
     tp = _http(tserver, "GET", "/metrics?format=prometheus")
     assert tp[2]["Content-Type"] == jp[2]["Content-Type"]
     assert _families(tp[1].decode()) == \
-        _families(jp[1].decode()) - ITEM9_FAMILIES
+        _families(jp[1].decode()) - ITEM9C_FAMILIES
     assert _identity_holds(tp[1].decode())
 
 
@@ -942,20 +964,47 @@ def test_reload_reports_equal_jax(services, state, tmp_path):
 # ---------------------------------------------------------------- CLI --
 
 
-def test_cli_refuses_item_9_flags_and_validate_load(capsys):
-    from pvraft_tpu_torch.serve.__main__ import LATER_FLAGS, main
+OBS_DEFAULTS = {"events": "", "trace_sample": 16, "trace_dir": "",
+                "strict_retrace": False, "devmem_interval": 10.0}
 
-    for flag in ("--events=x", "--trace_sample=16", "--trace_dir=x",
-                 "--strict_retrace", "--strict-retrace",
-                 "--devmem_interval=10", "--cost_surface=x",
-                 "--cost-surface=x"):
+
+@pytest.mark.parametrize("case", ["defaults", "given", "strict-retrace",
+                                  "cost_surface", "cost-surface",
+                                  "validate_load"])
+def test_cli_observability_flags(monkeypatch, capsys, case):
+    """The five observability flags parse to the JAX CLI's defaults and
+    values; ``--cost_surface`` (either spelling) is refused naming item
+    9c and ``validate-load`` is refused."""
+    import pvraft_tpu.serve.__main__ as jcli
+    from pvraft_tpu_torch.serve import __main__ as cli
+
+    seen, jseen = {}, {}
+    monkeypatch.setattr(cli, "_cmd_serve", lambda a: seen.update(vars(a)))
+    monkeypatch.setattr(jcli, "_cmd_serve", lambda a: jseen.update(vars(a)))
+    assert cli.LATER_FLAGS == ("cost_surface",)
+    argv = {"defaults": [],
+            "given": ["--events", "e.jsonl", "--trace_sample", "1",
+                      "--trace_dir", "t", "--strict_retrace",
+                      "--devmem_interval", "0.5"],
+            "strict-retrace": ["--strict-retrace"],
+            "cost_surface": ["--cost_surface", "x"],
+            "cost-surface": ["--cost-surface=x"]}.get(case)
+    if argv is None:
         with pytest.raises(SystemExit):
-            main(["serve", "--ckpt", "x", flag])
-        assert "item 9" in capsys.readouterr().err
-    assert len(LATER_FLAGS) == 6
-    with pytest.raises(SystemExit):
-        main(["validate-load", "a.json"])
-    assert "validate-load is not ported yet" in capsys.readouterr().err
+            cli.main(["validate-load", "a.json"])
+        assert "validate-load is not ported yet" in capsys.readouterr().err
+        return
+    if case.startswith("cost"):
+        with pytest.raises(SystemExit):
+            cli.main(["serve", "--ckpt", "x", *argv])
+        assert "item 9c" in capsys.readouterr().err
+        return
+    cli.main(["serve", "--ckpt", "x", *argv])
+    jcli.main(["serve", "--ckpt", "x", *argv])
+    got = {k: seen[k] for k in OBS_DEFAULTS}
+    assert got == {k: jseen[k] for k in OBS_DEFAULTS}
+    if case == "defaults":
+        assert got == OBS_DEFAULTS
 
 
 def test_cli_needs_the_card_unless_cpu(monkeypatch, state, tmp_path):
