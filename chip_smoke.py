@@ -204,6 +204,28 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            8,192-point requests (kernel 1's launches and the
            ``device_execute`` ranges in the Chrome trace, 409 for a second
            window);
+  phase 14 train observability (``train_observability``,
+           ``train_observability_phase``; after phase 13, before the
+           profiler phases): the flagship ``TrainConfig`` (B = 2 x 8,192,
+           8 iterations, fp32, graphed, ``strict_retrace``) on synthetic
+           scenes. A ``telemetry`` Trainer with ``profile_dir`` trains an
+           epoch and validates: the ``train.events.jsonl`` stream
+           validated, every leaf in every ``step`` event, 8
+           ``delta_flow_norm`` entries, ``nonfinite`` 0, no
+           ``recompile``, one ``device_memory`` sample, the TensorBoard
+           tags, kernel 1 eight times a step in the Chrome trace, and the
+           first step's grad_norm, param_norm and update_ratio against
+           the plain eager step's (bar: 10 x the plain step's own spread,
+           at least 1e-4); its next epoch with the flows scaled up trips
+           ``zscore``; a NaN point at 8,192 points under
+           ``halt_on_divergence`` trips ``nonfinite`` at its step, writes
+           a snapshot, flushes the step events and raises, and ``python -m
+           pvraft_tpu_torch.doctor`` on the card names ``batch``; a
+           default Trainer afterwards trains, and its step's kernels are
+           held against phase 7's (in ``main``) and the telemetry step's;
+           ``step_time`` unarmed and armed in turns; the step profiler
+           (``profiling/step_profiler.py``) at the flagship, its
+           ``gru_fused`` rung launching kernel 2;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -231,7 +253,8 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 6, 7. Each phase prints one JSON line. Then the ``nvidia-smi`` line, one
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 6, 7. Each phase
+prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA, or a directory without the port.
@@ -1554,7 +1577,7 @@ def checkpoint_phase(seed, dev):
                     exp_path=os.path.join(root, name)), device=dev,
                     weights=state if name == "whole" else None)
                 if name == "resumed":
-                    os.makedirs(trainer.ckpt_dir)
+                    os.makedirs(trainer.ckpt_dir, exist_ok=True)
                     shutil.copy(os.path.join(root, "whole", "checkpoints",
                                              "000.msgpack"),
                                 os.path.join(trainer.ckpt_dir,
@@ -2283,7 +2306,7 @@ def refine_phase(seed, dev):
                     exp_path=os.path.join(root, name)), device=dev,
                     weights=state if name == "whole" else None)
                 if name == "resumed":
-                    os.makedirs(trainer.ckpt_dir)
+                    os.makedirs(trainer.ckpt_dir, exist_ok=True)
                     shutil.copy(os.path.join(root, "whole", "checkpoints",
                                              "000.msgpack"),
                                 os.path.join(trainer.ckpt_dir,
@@ -3975,6 +3998,386 @@ def train_levers_phase(seed, dev):
     return out
 
 
+# -------------------------------------------------------------- phase 14 --
+
+# step_time readings, a fresh process each, in turns: the flagship
+# graphed step with the monitors and the divergence detector unarmed and
+# armed (``Trainer.dispatch``: the state's copy, the monitors in the
+# graph, one host read a step).
+TELEMETRY_TURNS = (("unarmed", ()), ("armed", ("--telemetry",)),
+                   ("armed", ("--telemetry",)), ("unarmed", ()))
+# The monitors of the graphed kernel step against the plain eager step's
+# (use_pallas=False): this many times the plain path's own run-to-run
+# spread, and never below MONITOR_MIN_BAR (relative).
+MONITOR_FLOOR_FACTOR = 10.0
+MONITOR_MIN_BAR = 1e-4
+MONITORED = ("grad_norm", "param_norm", "update_ratio")
+ZSCORE_FLOW_SCALE = 100.0    # the ground truth flow of the z-score epoch
+TB_TAGS = ("Train/Loss", "Train/EPE", "telemetry/grad_norm",
+           "telemetry/update_ratio", "Val/Loss", "Val/EPE", "Val/Outlier",
+           "Val/Acc3dRelax", "Val/Acc3dStrict")
+
+
+class _Altered:
+    """A dataset whose scenes ``alter(index, scene)`` rewrites (a NaN
+    cloud, a scaled flow); ``alter`` may be replaced between epochs."""
+
+    def __init__(self, dataset, alter):
+        self.dataset = dataset
+        self.alter = alter
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        return self.alter(i, dict(self.dataset[i]))
+
+
+@contextlib.contextmanager
+def altered_training_set(alter):
+    """Trainers built inside train on ``_Altered(train set, alter)``;
+    the altered set is yielded, so that ``alter`` can change later."""
+    from pvraft_tpu_torch.engine import trainer as trainer_mod
+
+    real = trainer_mod.build_datasets
+    made = []
+
+    def build(cfg):
+        train, val, test = real(cfg)
+        made.append(_Altered(train, alter))
+        return made[-1], val, test
+
+    trainer_mod.build_datasets = build
+    try:
+        yield made
+    finally:
+        trainer_mod.build_datasets = real
+
+
+def kernel_totals(fn):
+    """Run ``fn()`` under the profiler: (each wrapper's kernels, every
+    kernel the card ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pvraft_tpu_torch.ops.cuda import kernel_of
+
+    torch.cuda.synchronize()
+    counts = dict(NO_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total += 1
+            wrapper = kernel_of(e.name)
+            if wrapper is not None:
+                counts[wrapper] += 1
+    return counts, total
+
+
+def plain_monitors(state, cfg, schedule, batch, dev):
+    """The first step's monitors of the plain eager step
+    (``use_pallas=False``) from ``state`` on ``batch`` on ``schedule``
+    (the trainer's)."""
+    from pvraft_tpu_torch.engine.steps import make_train_step
+    from pvraft_tpu_torch.models.raft import PVRaft
+
+    model = PVRaft(dataclasses.replace(cfg.model, use_pallas=False))
+    model.load_state_dict(state, strict=True)
+    model.to(dev)
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    t = cfg.train
+    step = make_train_step(model, optimizer, schedule, t.gamma, t.iters,
+                           telemetry=True)
+    tel = step(batch)["telemetry"]
+    out = {k: float(tel[k]) for k in MONITORED}
+    del model, optimizer, step, tel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def step_time_armed_turns():
+    """``python -m pvraft_tpu_torch.step_time --no-serve [--telemetry]``,
+    a fresh process per reading, in turns (TELEMETRY_TURNS)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for name, flags in TELEMETRY_TURNS:
+        proc = subprocess.run(
+            [sys.executable, "-m", "pvraft_tpu_torch.step_time",
+             "--no-serve", *flags], cwd=root, capture_output=True,
+            text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"step_time {flags}: rc {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        out.append({"way": name, "train_step_ms": line["train_step_ms"],
+                    "samples": line["samples"]["train"],
+                    "trainer_build_s": line["trainer_build_s"]})
+    return out
+
+
+def train_observability_phase(seed, dev, smi):
+    """Phase 14 (``train_observability``; after phase 13, before the
+    profiler phases): the flagship ``TrainConfig`` (B = 2 x 8,192, 8
+    iterations, fp32, graphed, ``strict_retrace``) on synthetic scenes.
+    (1) A ``telemetry`` Trainer with ``profile_dir`` and divergence
+    window 2 runs one epoch and validation: the stream validates; every
+    ``step`` event carries every leaf, ``delta_flow_norm`` 8 entries,
+    ``nonfinite`` 0; no ``recompile``; one ``device_memory`` sample; the
+    TensorBoard tags; kernel 1 eight times a step in the Chrome trace. The
+    first step's grad_norm, param_norm and update_ratio against the plain
+    eager step's (``use_pallas=False``), within MONITOR_FLOOR_FACTOR x
+    the plain step's own spread (two runs). (2) Epoch 1 of the same
+    Trainer with every flow scaled by ZSCORE_FLOW_SCALE: a ``zscore``
+    trip. (3) A NaN in one scene's first point at 8,192 points under
+    ``halt_on_divergence``: a ``nonfinite`` trip at that scene's step, a
+    snapshot, the step events flushed, ``DivergenceHalt``, no CUDA
+    error; ``python -m pvraft_tpu_torch.doctor`` on the card names
+    ``batch``. (4) A default Trainer afterwards: its graphed step's
+    kernels (against phase 7's count in ``main``) and the telemetry step's,
+    every kernel counted; one healthy epoch. (5) ``step_time`` unarmed
+    and armed in turns. (6) The step profiler at the flagship: the record
+    validates, its ``gru_fused`` rung launches kernel 2, its ``step``
+    beside ``step_time``'s graphed step."""
+    import subprocess
+
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.obs.divergence import DivergenceHalt
+    from pvraft_tpu_torch.obs.events import read_events, validate_events_file
+    from pvraft_tpu_torch.obs.monitors import TELEMETRY_LEAVES
+    from pvraft_tpu_torch.ops.cuda import kernel_of
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.profiling import profile_step, validate_step_profile
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    state = seeded_state_dict(ModelConfig(), seed)
+    base = flagship_train_config(seed)
+    out = {"gpu": smi}
+    t_phase = time.perf_counter()
+
+    def config(exp, **train):
+        return base.replace(exp_path=exp, train=dataclasses.replace(
+            base.train, strict_retrace=True, **train))
+
+    with scratch_dir() as root:
+        # (1) One epoch and validation, armed, under profile_dir.
+        exp = os.path.join(root, "telemetry")
+        profile = os.path.join(exp, "profile")
+        scale = [1.0]
+
+        def scaled(i, s):
+            s["flow"] = s["flow"] * scale[0]
+            return s
+
+        with altered_training_set(scaled):
+            trainer = Trainer(config(exp, telemetry=True, profile_dir=profile,
+                                     divergence_window=2),
+                              device=dev, weights=state)
+        first = to_device(first_batch(trainer.train_loader), dev)
+        t0 = time.perf_counter()
+        train = trainer.training(0)
+        epoch_s = time.perf_counter() - t0
+        trainer.save(0, base.train.checkpoint_interval)
+        val = trainer.val_test(0, "val")
+        events = os.path.join(exp, "train.events.jsonl")
+        problems = validate_events_file(events)
+        check(not problems, f"train observability: the stream: {problems}")
+        records = read_events(events)
+        steps = [r for r in records if r["type"] == "step"]
+        leaves = set(TELEMETRY_LEAVES)
+        check(len(steps) == train["steps"] == 2 and all(
+                  set(r["telemetry"]) == leaves
+                  and len(r["telemetry"]["delta_flow_norm"])
+                  == base.train.iters
+                  and r["telemetry"]["nonfinite"] == 0 for r in steps),
+              f"train observability: step events {steps}")
+        kinds = collections.Counter(r["type"] for r in records)
+        memory = [r for r in records if r["type"] == "device_memory"]
+        tags = sorted(trainer.tb.history)
+        check(kinds["recompile"] == 0 and len(memory) == 1
+              and memory[0]["context"] == "train"
+              and set(TB_TAGS) <= set(tags),
+              f"train observability: recompiles {kinds['recompile']}, "
+              f"memory samples {memory}, TensorBoard tags {tags}")
+        with open(os.path.join(profile, "trace.json")) as f:
+            trace = json.load(f)["traceEvents"]
+        in_window = collections.Counter(
+            kernel_of(e.get("name", "")) for e in trace
+            if e.get("cat") == "kernel")
+        windows = [r["action"] for r in records
+                   if r["type"] == "trace_window"]
+        check(in_window["fused_corr_lookup"]
+              == base.train.iters * train["steps"]
+              and windows == ["start", "stop"],
+              f"train observability: kernel 1 ran "
+              f"{in_window['fused_corr_lookup']} times in the profile_dir "
+              f"window of {train['steps']} steps; windows {windows}")
+        graphed = {k: steps[0]["telemetry"][k] for k in MONITORED}
+        plain = [plain_monitors(state, trainer.cfg, trainer.schedule, first,
+                                dev) for _ in range(2)]
+        floor = {k: rel(plain[1][k], plain[0][k]) for k in MONITORED}
+        err = {k: rel(graphed[k], plain[0][k]) for k in MONITORED}
+        bar = {k: max(MONITOR_FLOOR_FACTOR * floor[k], MONITOR_MIN_BAR)
+               for k in MONITORED}
+        check(all(err[k] <= bar[k] for k in MONITORED),
+              f"train observability: monitors of the kernel step {graphed} "
+              f"against the plain step's {plain[0]}: relative {err}, bars "
+              f"{bar}")
+        out["armed_epoch"] = {
+            "steps": train["steps"], "loss": train["loss"],
+            "step_ms": train["step_ms"], "epoch_s": epoch_s,
+            "val_epe3d": val["epe3d"], "events": dict(kinds),
+            "first_step_telemetry": steps[0]["telemetry"],
+            "kernel1_in_window": in_window["fused_corr_lookup"],
+            "kernels_in_window": sum(v for k, v in in_window.items() if k),
+            "trace_bytes": os.path.getsize(os.path.join(profile,
+                                                        "trace.json")),
+            "device_memory": memory[0]["devices"],
+            "tensorboard": {"backend": trainer.tb.backend, "tags": tags},
+            "monitors_vs_plain": {"graphed": graphed, "plain": plain,
+                                  "floor_rel": floor, "err_rel": err,
+                                  "bar_rel": bar}}
+        del trace
+
+        # (2) Epoch 1 with the flows scaled up: the loss spikes above the
+        # window of epoch 0's two healthy steps.
+        scale[0] = ZSCORE_FLOW_SCALE
+        zs = trainer.training(1)
+        trainer.close()
+        trips = [r for r in read_events(events) if r["type"] == "divergence"]
+        check(len(trips) >= 1 and trips[0]["reason"] == "zscore"
+              and trips[0]["step"] == 3,
+              f"train observability: the scaled epoch's trips {trips}")
+        out["zscore"] = {"losses": zs["losses"], "trips": trips}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (3) A NaN point at 8,192 points through the kernels, halting.
+        def poisoned(i, s):
+            if i == 2:
+                s["pc1"] = s["pc1"].copy()
+                s["pc1"][0, :] = np.nan
+            return s
+
+        exp = os.path.join(root, "nan")
+        with altered_training_set(poisoned):
+            trainer = Trainer(config(exp, telemetry=True,
+                                     halt_on_divergence=True),
+                              device=dev, weights=state)
+        want_step = 1 + [np.isnan(b["pc1"]).any() for b in
+                         trainer.train_loader.epoch(0)].index(True)
+        halted = None
+        try:
+            trainer.training(0)
+        except DivergenceHalt as e:
+            halted = str(e)
+        torch.cuda.synchronize()
+        trainer.close()
+        records = read_events(os.path.join(exp, "train.events.jsonl"))
+        kinds = [r["type"] for r in records]
+        trip = next((r for r in records if r["type"] == "divergence"), {})
+        snaps = sorted(os.listdir(os.path.join(exp, "snapshots")))
+        check(halted is not None and trip.get("reason") == "nonfinite"
+              and trip.get("step") == want_step and len(snaps) == 1
+              and kinds.count("step") == want_step
+              and "epoch_summary" not in kinds,
+              f"train observability NaN: halted {halted!r}, trip {trip}, "
+              f"expected at step {want_step}, snapshots {snaps}, events "
+              f"{kinds}")
+        report = os.path.join(root, "doctor.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pvraft_tpu_torch.doctor",
+             os.path.join(exp, "snapshots", snaps[0]), "--json", report],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        doctor_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"doctor: rc {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        with open(report) as f:
+            doc = json.load(f)
+        check(doc["first_nonfinite_stage"] == "batch"
+              and doc["device"].startswith("cuda"),
+              f"doctor: first non-finite stage "
+              f"{doc['first_nonfinite_stage']!r} on {doc['device']}")
+        out["nan"] = {
+            "trip": trip, "want_step": want_step, "halted": halted,
+            "events": kinds, "doctor_s": doctor_s,
+            "doctor": {r["stage"]: r["finite"] for r in doc["stages"]}}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (4) A default Trainer afterwards: the kernels of its step and of
+        # the telemetry step, and a healthy epoch.
+        trainer = Trainer(config(os.path.join(root, "after")), device=dev,
+                          weights=state)
+        batch = to_device(first_batch(PrefetchLoader(
+            trainer.train_ds, 2, num_workers=0)), dev)
+        off, off_total = kernel_totals(lambda: trainer.train_step(batch))
+        after = trainer.training(0)
+        trainer.close()
+        check(all(np.isfinite(after["losses"])),
+              f"train observability: the Trainer after the NaN run: "
+              f"{after['losses']}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        armed = Trainer(config(os.path.join(root, "armed"), telemetry=True),
+                        device=dev, weights=state)
+        on, on_total = kernel_totals(
+            lambda: armed.dispatch(armed.train_step, batch))
+        armed.close()
+        check(on == off, f"train observability: the telemetry step ran "
+              f"{on} of the port's kernels, the default step {off}")
+        out["launches"] = {"off": off, "on": on, "all_kernels_off": off_total,
+                           "all_kernels_on": on_total,
+                           "healthy_losses": after["losses"]}
+        del armed, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (5) Armed against unarmed, fresh processes in turns.
+    out["step_time"] = step_time_armed_turns()
+
+    # (6) The step profiler at the flagship.
+    record = profile_step(ModelConfig(), points=8192, batch=2, iters=8,
+                          reps=3, device=dev, variant="fp32", seed=seed)
+    problems = validate_step_profile(record)
+    fused = record["measurements"]["gru_fused"].get("launches", {})
+    check(not problems and fused.get("fused_gru_update") == 8
+          and record["platform"] == "gpu",
+          f"step profiler: {problems}; gru_fused rung launches {fused}")
+    graphed_ms = statistics.median(
+        r["train_step_ms"] for r in out["step_time"] if r["way"] == "unarmed")
+    out["step_profile"] = {
+        "record": record,
+        "step_ms": 1e3 * record["total_step_s"],
+        "step_time_graphed_ms": graphed_ms,
+        "gap": 1e3 * record["total_step_s"] / graphed_ms - 1}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # --------------------------------------------------------------- phase 6 --
 
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
@@ -4344,6 +4747,9 @@ def main() -> int:
     observability = serve_observability_phase(args.seed, dev, smi)
     emit({"phase": "serve_observability", **observability})
 
+    train_obs = train_observability_phase(args.seed, dev, smi)
+    emit({"phase": "train_observability", **train_obs})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -4351,6 +4757,11 @@ def main() -> int:
 
     launches = launches_phase(args.seed, dev)
     emit({"phase": "launches", **launches})
+    check(train_obs["launches"]["off"]
+          == launches["train"]["unfused_gru"]["train_step"],
+          f"launches: phase 14's default train step ran "
+          f"{train_obs['launches']['off']}, phase 7's "
+          f"{launches['train']['unfused_gru']['train_step']}")
     steps = launches["train"]["fused_gru"]
     off_runs = {k: sum(o["launches"][k] for o in off.values())
                 for k in NO_LAUNCHES}

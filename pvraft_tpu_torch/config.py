@@ -141,13 +141,6 @@ def reject_later(cfg: Any, later: Iterable[Tuple[str, bool, str]]) -> None:
             )
 
 
-def non_default(cfg: Any, names: Iterable[str], where: str):
-    """``(field, armed, slice)`` rows arming every named field of ``cfg``
-    whose value differs from its default."""
-    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
-    return [(n, getattr(cfg, n) != defaults[n], where) for n in names]
-
-
 DATASETS = ("FT3D", "KITTI", "synthetic")
 LR_SCHEDULES = ("parity", "cosine", "constant")
 
@@ -178,7 +171,11 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization schedule (the JAX ``TrainConfig``)."""
+    """Optimization schedule (the JAX ``TrainConfig``). ``telemetry``
+    arms the in-step monitors and the divergence detector
+    (``divergence_window``, ``divergence_zscore``; snapshots up to
+    ``max_snapshots``; ``halt_on_divergence``); ``profile_dir`` profiles
+    the first epoch (``engine/trainer.py``)."""
 
     batch_size: int = 2
     num_epochs: int = 20
@@ -212,7 +209,13 @@ class TrainConfig:
         if self.lr_schedule not in LR_SCHEDULES:
             raise ValueError(f"lr_schedule must be one of {LR_SCHEDULES}, "
                              f"got {self.lr_schedule!r}")
-        later = [
+        if self.divergence_window < 2:
+            raise ValueError(f"divergence_window must be >= 2, "
+                             f"got {self.divergence_window}")
+        if self.divergence_zscore < 0:
+            raise ValueError(f"divergence_zscore must be >= 0 (0 disables), "
+                             f"got {self.divergence_zscore}")
+        reject_later(self, (
             # One card evaluates one scene per step: 0 (one scene per
             # data device) and 1 are the same here.
             ("eval_batch", self.eval_batch not in (0, 1),
@@ -221,13 +224,7 @@ class TrainConfig:
              "its recorded disposition (ROADMAP queue 1 item 2): Orbax is "
              "not installed where the port runs, so the port writes and "
              "reads msgpack checkpoints only"),
-        ]
-        later += non_default(
-            self, ("profile_dir", "telemetry", "divergence_window",
-                   "divergence_zscore", "max_snapshots",
-                   "halt_on_divergence"),
-            "the observability slice")
-        reject_later(self, later)
+        ))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,14 @@ synthetic scenes from seed 2. They come through a
 :class:`~pvraft_tpu_torch.data.PrefetchLoader` with ``min(2,
 num_workers)`` threads, each scene's copy to the device issued before the
 previous scene's step runs.
+
+Like the JAX ``Evaluator`` it writes a ``pvraft_events/v1`` stream,
+``exp_path/testalone.events.jsonl`` (a ``run_header`` of mode
+``"eval"`` and one ``eval`` record, epoch -1), the ``<Dataset>/...``
+TensorBoard scalars and ``exp_path/logs/TestAlone_<dataset>.log``,
+whose ``[count/n] k=v ...`` lines give the running means every
+``log_every`` scenes: the only reads of the device before the end.
+:meth:`Evaluator.close` closes them.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from pvraft_tpu_torch.engine.steps import (
     make_graphed_eval_step,
 )
 from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
+from pvraft_tpu_torch.obs.events import RunTelemetry
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import params_from_jax, seeded_state_dict
 
@@ -88,6 +97,10 @@ class Evaluator:
                  device: Union[str, torch.device, None] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.telemetry = RunTelemetry(cfg.exp_path, "TestAlone",
+                                      cfg.data.dataset)
+        self.log = self.telemetry.log
+        self.telemetry.emit_header(cfg, mode="eval")
         self.dataset = build_eval_dataset(cfg)
         self.loader = PrefetchLoader(
             self.dataset, 1, drop_last=False,
@@ -115,6 +128,7 @@ class Evaluator:
         package's msgpack file), in place; returns its epoch."""
         params, _, self.epoch = load_checkpoint(path, with_opt_state=False)
         self.model.load_state_dict(params_from_jax(params), strict=True)
+        self.log.info(f"loaded checkpoint {path} (epoch {self.epoch})")
         return self.epoch
 
     def load_torch(self, path: str) -> int:
@@ -123,13 +137,19 @@ class Evaluator:
         state, self.epoch = load_torch_checkpoint(
             path, refine=self.cfg.train.refine)
         self.model.load_state_dict(state, strict=True)
+        self.log.info(f"imported torch checkpoint {path} (epoch "
+                      f"{self.epoch})")
         return self.epoch
 
-    def run(self, dump_dir: Optional[str] = None) -> Dict[str, float]:
+    def run(self, dump_dir: Optional[str] = None,
+            log_every: int = 50) -> Dict[str, float]:
         """The running means of the per-scene metrics over the dataset.
-        ``dump_dir`` writes each scene's clouds and flow."""
+        ``dump_dir`` writes each scene's clouds and flow. Every
+        ``log_every`` scenes (0: never) the running means go to the log,
+        as ``[count/n] k=v ...``."""
         sums: Dict[str, torch.Tensor] = {}
         count = 0
+        n_scenes = len(self.dataset)
         for batch, scene in device_prefetch(
                 self.loader.epoch(0),
                 lambda b: (b, to_device(b, self.device))):
@@ -145,5 +165,21 @@ class Evaluator:
                     np.save(os.path.join(scene, "flow.npy"), flow[row])
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.sum()
-            count += batch["pc1"].shape[0]
-        return {k: float(v) / max(1, count) for k, v in sums.items()}
+            seen = count + batch["pc1"].shape[0]
+            if log_every and count // log_every != seen // log_every:
+                self.log.info(f"[{seen}/{n_scenes}] " + " ".join(
+                    f"{k}={float(v) / seen:.4f}"
+                    for k, v in sorted(sums.items())))
+            count = seen
+        means = {k: float(v) / max(1, count) for k, v in sums.items()}
+        self.log.info(f"{self.cfg.data.dataset} ({count} scenes): " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(means.items())))
+        # A standalone evaluation has no epoch: -1.
+        self.telemetry.emit_eval(self.cfg.data.dataset, epoch=-1,
+                                 scenes=count, metrics=means)
+        return means
+
+    def close(self) -> None:
+        """Close the telemetry sink (the event stream, the TensorBoard
+        writer, the log file). Idempotent."""
+        self.telemetry.close()

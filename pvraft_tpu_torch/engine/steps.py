@@ -28,6 +28,18 @@ twin run K whole train steps on K stacked batches, the graphed one as one
 CUDA graph whose learning rates come from one device tensor of K
 entries, filled once before each replay. Both stages, as the JAX
 ``refine=True``. All of them are bitwise equal to as many single steps.
+
+``telemetry=True`` (every train step factory) adds the in-step numerics
+monitors (``obs/monitors.py``) as ``metrics["telemetry"]``, as the JAX
+steps do: :class:`StepMonitor` copies the trained parameters just before
+Adam's step (inside the capture; the packed steps copy the parameters'
+slots of the flat buffer) and computes the leaves from the copy, the
+gradients, the update (the parameters after the step less the copy) and
+the flows, as static outputs of the graph; the K-step step's leaves
+carry a leading axis of K. The stage-1 single steps carry
+``delta_flow_norm``; the refine, packed and K-step steps do not (the JAX
+steps' leaf sets). With ``telemetry=False`` nothing of it is built: the
+step runs and launches what it did before.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import torch
 
 from pvraft_tpu_torch.engine.loss import compute_loss, sequence_loss
 from pvraft_tpu_torch.engine.metrics import epe_train, flow_metrics
+from pvraft_tpu_torch.obs import monitors
 from pvraft_tpu_torch.obs.retrace import GraphCache
 from pvraft_tpu_torch.serve.aot import capture
 from pvraft_tpu_torch.weights import trained_parameters
@@ -135,36 +148,89 @@ def _cast_param_grads(optimizer: torch.optim.Optimizer,
         p.grad = g
 
 
-def _check_levers(grad_dtype: Optional[str], telemetry: bool) -> None:
+def _check_levers(grad_dtype: Optional[str]) -> None:
     if grad_dtype not in (*FLOAT32_NAMES, "bfloat16"):
         raise ValueError(f"grad_dtype must be 'float32' or 'bfloat16', "
                          f"got {grad_dtype!r}")
-    if telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet: it arrives with the observability "
-            "slice")
 
 
-# loss_of(batch) -> (loss, the flow the EPE is read from)
-LossOf = Callable[[Batch], Tuple[torch.Tensor, torch.Tensor]]
+class StepMonitor:
+    """The telemetry of one train step (``obs/monitors.py``): every
+    parameter of ``model``, the ones ``optimizer`` trains (the views of
+    the ``packed`` state's flat buffer where it is given), and whether
+    the step's stacked flows are monitored (``flows``). ``paths`` is the
+    layout of the leaves the step returns after its loss and EPE."""
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, flows: bool,
+                 packed: Optional["PackedState"] = None):
+        self.model = model
+        self.packed = packed
+        self.flows = flows
+        self.trained = [p for g in optimizer.param_groups
+                        for p in g["params"]]
+        names = {id(p): n for n, p in model.named_parameters()}
+        self.trained_names = [names[id(p)] for p in self.trained]
+        groups = sorted({monitors.param_group(n) for n in names.values()})
+        self.paths = ([("grad_norm",), ("param_norm",), ("update_ratio",)]
+                      + [("grad_norm_by_group", g) for g in groups]
+                      + ([("delta_flow_norm",)] if flows else [])
+                      + [("nonfinite",)])
+
+    def before(self) -> List[torch.Tensor]:
+        """Copies of the trained parameters, taken just before the
+        optimizer's step: one multi-tensor copy, or one copy of the
+        parameters' slots of the packed buffer."""
+        if self.packed is not None:
+            flat = self.packed.flat
+            return self.packed.param_views(
+                flat[:self.packed.param_end].clone())
+        return list(torch._foreach_mul([p.detach() for p in self.trained],
+                                       1.0))
+
+    def leaves(self, before: List[torch.Tensor], loss: torch.Tensor,
+               flows: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """The leaves, in ``paths`` order, after the step."""
+        pre = dict(zip(self.trained_names, before))
+        named = list(self.model.named_parameters())
+        tel = monitors.telemetry_leaves(
+            {n: pre.get(n, p.detach()) for n, p in named},
+            {n: p.grad for n, p in named},
+            torch._foreach_sub([p.detach() for p in self.trained], before),
+            loss.detach(), flows if self.flows else None)
+        return monitors.flatten(tel)
+
+    def telemetry(self, leaves: Sequence[torch.Tensor]) -> Dict:
+        return monitors.unflatten(self.paths, leaves)
 
 
-def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None
-                ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+# loss_of(batch) -> (loss, the flow the EPE is read from, the stacked
+# flows of stage 1 or None)
+LossOf = Callable[[Batch], Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]]
+
+
+def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None,
+                monitor: Optional[StepMonitor] = None
+                ) -> Callable[..., Tuple[torch.Tensor, ...]]:
     """zero_grad / ``loss_of`` / backward / the gradients through
     :func:`maybe_cast_grads` / step at the optimizer's current learning
-    rate; returns (loss, epe) of the last flow."""
+    rate; returns (loss, epe) of the last flow, then ``monitor``'s leaves
+    where it is given."""
 
     def body(pc1, pc2, mask, flow):
         batch = {"pc1": pc1, "pc2": pc2, "mask": mask, "flow": flow}
         optimizer.zero_grad(set_to_none=True)
-        loss, last = loss_of(batch)
+        loss, last, flows = loss_of(batch)
         loss.backward()
         _cast_param_grads(optimizer, grad_dtype)
+        pre = monitor.before() if monitor is not None else None
         optimizer.step()
         with torch.no_grad():
             epe = epe_train(last, mask, flow)
-        return loss.detach(), epe
+            if monitor is None:
+                return loss.detach(), epe
+            return (loss.detach(), epe, *monitor.leaves(pre, loss, flows))
 
     return body
 
@@ -172,13 +238,32 @@ def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None
 def _stage1_loss(model, gamma: float, num_iters: int) -> LossOf:
     def loss_of(batch: Batch):
         loss, flows = sequence_loss_of(model, batch, gamma, num_iters)
-        return loss, flows[-1]
+        return loss, flows[-1], flows
 
     return loss_of
 
 
+def _refine_loss(model, num_iters: int) -> LossOf:
+    def loss_of(batch: Batch):
+        loss, flow = refine_loss_of(model, batch, num_iters)
+        return loss, flow, None
+
+    return loss_of
+
+
+def _metrics(out: Sequence[torch.Tensor],
+             monitor: Optional[StepMonitor]) -> Batch:
+    """A step's ``{"loss", "epe"[, "telemetry"]}`` from its body's
+    outputs."""
+    metrics = {"loss": out[0], "epe": out[1]}
+    if monitor is not None:
+        metrics["telemetry"] = monitor.telemetry(out[2:])
+    return metrics
+
+
 def _eager_step(body, optimizer, schedule, count: Optional[List[int]] = None,
-                before: Optional[Callable[[], None]] = None
+                before: Optional[Callable[[], None]] = None,
+                monitor: Optional[StepMonitor] = None
                 ) -> Callable[[Batch], Batch]:
     count = [optimizer_steps(optimizer)] if count is None else count
 
@@ -186,12 +271,20 @@ def _eager_step(body, optimizer, schedule, count: Optional[List[int]] = None,
         if before is not None:
             before()
         set_lr(optimizer, schedule(count[0]))
-        loss, epe = body(*(batch[k] for k in BATCH_KEYS))
+        out = body(*(batch[k] for k in BATCH_KEYS))
         count[0] += 1
-        return {"loss": loss, "epe": epe}
+        return _metrics(out, monitor)
 
     train_step.count = count
+    train_step.monitor = monitor
     return train_step
+
+
+def _monitor(telemetry: bool, model, optimizer, flows: bool,
+             packed: Optional["PackedState"] = None
+             ) -> Optional[StepMonitor]:
+    return (StepMonitor(model, optimizer, flows, packed) if telemetry
+            else None)
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,
@@ -204,9 +297,11 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     once, here, and kept on the host (under ``capturable`` the optimizer's
     own count is a device tensor) in ``step.count[0]``, the schedule's
     position, which a resume sets."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
+    monitor = _monitor(telemetry, model, optimizer, flows=True)
     return _eager_step(_train_body(optimizer, _stage1_loss(
-        model, gamma, num_iters), grad_dtype), optimizer, schedule)
+        model, gamma, num_iters), grad_dtype, monitor), optimizer, schedule,
+        monitor=monitor)
 
 
 def make_refine_train_step(model, optimizer: torch.optim.Optimizer,
@@ -218,10 +313,11 @@ def make_refine_train_step(model, optimizer: torch.optim.Optimizer,
     make_refine_train_step``): :func:`make_train_step` on a PVRaftRefine
     and an optimizer over its head (``weights.trained_parameters``), with
     :func:`refine_loss_of` for the loss. The backbone gets no gradient."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
+    monitor = _monitor(telemetry, model, optimizer, flows=False)
     return _eager_step(_train_body(
-        optimizer, lambda batch: refine_loss_of(model, batch, num_iters),
-        grad_dtype), optimizer, schedule)
+        optimizer, _refine_loss(model, num_iters), grad_dtype, monitor),
+        optimizer, schedule, monitor=monitor)
 
 
 def _tensor_lrs(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
@@ -257,7 +353,8 @@ def _graph_cache(name: str, body, optimizer: torch.optim.Adam,
 def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
                   device: torch.device, strict_retrace: bool,
                   packed: Optional["PackedState"] = None,
-                  before: Optional[Callable[[], None]] = None
+                  before: Optional[Callable[[], None]] = None,
+                  monitor: Optional[StepMonitor] = None
                   ) -> Callable[[Batch], Batch]:
     lrs = _tensor_lrs(optimizer)
     graphs = _graph_cache(name, body, optimizer, device, strict_retrace,
@@ -272,12 +369,13 @@ def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
         lr = schedule(count[0])
         for t in lrs:
             t.fill_(lr)
-        loss, epe = program(*inputs)
+        out = program(*inputs)
         count[0] += 1
-        return {"loss": loss, "epe": epe}
+        return _metrics(out, monitor)
 
     train_step.graphs = graphs
     train_step.count = count
+    train_step.monitor = monitor
     return train_step
 
 
@@ -295,10 +393,12 @@ def make_graphed_train_step(model, optimizer: torch.optim.Adam,
     is its :class:`GraphCache` (``step.graphs.program_for(inputs)``
     captures without running a step; ``step.graphs.report()``). The step
     count is read from the optimizer once, here, into ``step.count[0]``."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
+    monitor = _monitor(telemetry, model, optimizer, flows=True)
     return _graphed_step("train_step", _train_body(
-        optimizer, _stage1_loss(model, gamma, num_iters), grad_dtype),
-        optimizer, schedule, device, strict_retrace)
+        optimizer, _stage1_loss(model, gamma, num_iters), grad_dtype,
+        monitor), optimizer, schedule, device, strict_retrace,
+        monitor=monitor)
 
 
 def make_graphed_refine_train_step(model, optimizer: torch.optim.Adam,
@@ -312,10 +412,11 @@ def make_graphed_refine_train_step(model, optimizer: torch.optim.Adam,
     signature (``refine_train_step``), as :func:`make_graphed_train_step`
     captures the stage-1 step: the backbone's iterations run in the graph
     without autograd, the head's forward, backward and Adam with it."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
+    monitor = _monitor(telemetry, model, optimizer, flows=False)
     return _graphed_step("refine_train_step", _train_body(
-        optimizer, lambda batch: refine_loss_of(model, batch, num_iters),
-        grad_dtype), optimizer, schedule, device, strict_retrace)
+        optimizer, _refine_loss(model, num_iters), grad_dtype, monitor),
+        optimizer, schedule, device, strict_retrace, monitor=monitor)
 
 
 # --- the K-step levers: packed state, host round trip, K steps a graph ----
@@ -359,6 +460,18 @@ class PackedState:
                                 device=self.params[0].device)
         self.count = [optimizer_steps(optimizer)]
         self.repack()
+
+    @property
+    def param_end(self) -> int:
+        """The end of the parameters' slots, which come first."""
+        return self.offsets[len(self.params)]
+
+    def param_views(self, buf: torch.Tensor) -> List[torch.Tensor]:
+        """The parameters' slots as views of ``buf`` (a copy of the flat
+        buffer, or of its first :attr:`param_end` floats)."""
+        n = len(self.params)
+        return [buf[o:o + shape.numel()].view(shape)
+                for o, shape in zip(self.offsets[:n], self.shapes[:n])]
 
     def tensors(self) -> List[torch.Tensor]:
         state = self.optimizer.state
@@ -404,7 +517,7 @@ class PackedState:
 
 def _loss_for(model, refine: bool, gamma: float, num_iters: int) -> LossOf:
     if refine:
-        return lambda batch: refine_loss_of(model, batch, num_iters)
+        return _refine_loss(model, num_iters)
     return _stage1_loss(model, gamma, num_iters)
 
 
@@ -436,12 +549,14 @@ def make_packed_train_step(model, optimizer: torch.optim.Optimizer,
     -> (parameters, Adam state)``. ``host_roundtrip`` sends the buffer to
     host memory and back before each step. Bitwise equal to
     :func:`make_train_step` (:func:`make_refine_train_step`)."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
     packed = packed or PackedState(model, optimizer)
+    monitor = _monitor(telemetry, model, optimizer, False, packed)
     body = _train_body(optimizer, _loss_for(model, refine, gamma, num_iters),
-                       grad_dtype)
+                       grad_dtype, monitor)
     step = _eager_step(body, optimizer, schedule, packed.count,
-                       _round_trip(packed) if host_roundtrip else None)
+                       _round_trip(packed) if host_roundtrip else None,
+                       monitor)
     return step, packed.flat, packed.unravel
 
 
@@ -457,13 +572,15 @@ def make_graphed_packed_train_step(model, optimizer: torch.optim.Adam,
     """:func:`make_packed_train_step` as one captured program per input
     signature (``packed_train_step``): the capture's warm-up is undone on
     the one flat buffer; the round trip runs before each replay."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
     packed = packed or PackedState(model, optimizer)
+    monitor = _monitor(telemetry, model, optimizer, False, packed)
     body = _train_body(optimizer, _loss_for(model, refine, gamma, num_iters),
-                       grad_dtype)
+                       grad_dtype, monitor)
     step = _graphed_step("packed_train_step", body, optimizer, schedule,
                          device, strict_retrace, packed,
-                         _round_trip(packed) if host_roundtrip else None)
+                         _round_trip(packed) if host_roundtrip else None,
+                         monitor)
     return step, packed.flat, packed.unravel
 
 
@@ -490,18 +607,26 @@ def make_multistep_train_step(model, optimizer: torch.optim.Optimizer,
     returns ``{"loss", "epe"}`` of shape (K,), one entry a step. Returns
     ``(step, flat, unravel)``; built on the ``packed`` state of a packed
     single step, it shares that step's buffer and schedule position."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
     _check_k(steps_per_dispatch)
     single, flat, unravel = make_packed_train_step(
         model, optimizer, schedule, gamma, num_iters, refine,
-        grad_dtype=grad_dtype, packed=packed)
+        grad_dtype=grad_dtype, telemetry=telemetry, packed=packed)
+    monitor = single.monitor
 
     def multistep_train_step(batches: Batch) -> Batch:
         out = [single({k: v[i] for k, v in batches.items()})
                for i in range(steps_per_dispatch)]
-        return {k: torch.stack([o[k] for o in out]) for k in ("loss", "epe")}
+        metrics = {k: torch.stack([o[k] for o in out])
+                   for k in ("loss", "epe")}
+        if monitor is not None:
+            metrics["telemetry"] = monitor.telemetry(
+                [torch.stack(leaf) for leaf in zip(
+                    *(monitors.flatten(o["telemetry"]) for o in out))])
+        return metrics
 
     multistep_train_step.count = single.count
+    multistep_train_step.monitor = monitor
     return multistep_train_step, flat, unravel
 
 
@@ -525,23 +650,23 @@ def make_graphed_multistep_train_step(model, optimizer: torch.optim.Adam,
     as K replays of the packed single step: bitwise equal to them. On
     the CPU the same program runs the K steps on the same static
     buffers."""
-    _check_levers(grad_dtype, telemetry)
+    _check_levers(grad_dtype)
     _check_k(steps_per_dispatch)
     k_steps = steps_per_dispatch
     lrs = _tensor_lrs(optimizer)
     packed = packed or PackedState(model, optimizer)
+    monitor = _monitor(telemetry, model, optimizer, False, packed)
     body = _train_body(optimizer, _loss_for(model, refine, gamma, num_iters),
-                       grad_dtype)
+                       grad_dtype, monitor)
 
     def k_body(lr, pc1, pc2, mask, flow):
-        losses, epes = [], []
+        outs = []
         for i in range(k_steps):
             for t in lrs:
                 t.copy_(lr[i])
-            loss, epe = body(pc1[i], pc2[i], mask[i], flow[i])
-            losses.append(loss)
-            epes.append(epe)
-        return torch.stack(losses), torch.stack(epes)
+            outs.append(body(pc1[i], pc2[i], mask[i], flow[i]))
+        # (loss, epe[, leaves...]) of every step, each stacked over K.
+        return tuple(torch.stack(col) for col in zip(*outs))
 
     graphs = _graph_cache("multistep_train_step", k_body, optimizer, device,
                           strict_retrace, packed)
@@ -554,13 +679,14 @@ def make_graphed_multistep_train_step(model, optimizer: torch.optim.Adam,
 
     def multistep_train_step(batches: Batch) -> Batch:
         args = inputs(batches)
-        loss, epe = graphs.program_for(args)(*args)
+        out = graphs.program_for(args)(*args)
         count[0] += k_steps
-        return {"loss": loss, "epe": epe}
+        return _metrics(out, monitor)
 
     multistep_train_step.graphs = graphs
     multistep_train_step.inputs = inputs
     multistep_train_step.count = count
+    multistep_train_step.monitor = monitor
     return multistep_train_step, packed.flat, packed.unravel
 
 

@@ -55,14 +55,41 @@ at ``train.iters`` (the reference's ``engine_refine.py:199``), and
 backbone. Checkpoints hold ``optax.masked``'s state, as the JAX refine
 Trainer's do.
 
-Not in this slice: TensorBoard and the event log, divergence snapshots
-(the observability slice), data-parallel meshes (the parallel slice).
+Observability (the JAX Trainer's): one :class:`~pvraft_tpu_torch.obs.
+events.RunTelemetry` (``self.telemetry``) writes the ``pvraft_events/v1``
+stream ``exp_path/train.events.jsonl`` (a ``run_header``; per epoch the
+``step`` events, flushed at the epoch's end from its one read of the
+device, a ``device_memory`` sample on the card, ``epoch_summary``;
+``checkpoint``, ``eval``, ``trace_window``, ``divergence``,
+``snapshot`` and ``recompile`` records), the reference's TensorBoard
+scalars and ``exp_path/logs/Train_<dataset>.log``. A
+:class:`~pvraft_tpu_torch.obs.retrace.RetraceWatchdog` watches the train
+programs (not the eval step, as in JAX). ``train.telemetry`` arms the
+in-step monitors (``metrics["telemetry"]``, written into the ``step``
+events) and the divergence detector (``obs/divergence.py``), which reads
+the loss and the non-finite count on the host once per optimizer step:
+its one cost. Before each step it copies the train state on the device
+(the flat buffer in packed mode), and on a trip writes that copy with
+the step's batch as a snapshot (at most ``max_snapshots``; none with
+``steps_per_dispatch`` > 1, where detection runs per dispatch), emits
+the ``divergence`` record (at most :attr:`Trainer.MAX_DIVERGENCE_EVENTS`)
+and, under ``halt_on_divergence``, raises
+:class:`~pvraft_tpu_torch.obs.divergence.DivergenceHalt` once the
+epoch's step events are written: a halted epoch gets no summary and no
+checkpoint. ``train.profile_dir``: a ``torch.profiler`` window over the
+first epoch, every thread, written there as a Chrome trace
+(``profiling/timers.py::trace_context``), between ``trace_window``
+records. :meth:`Trainer.close` (``fit`` calls it) closes the stream.
+
+Not in this slice: the cost plane (item 9c), data-parallel meshes (the
+parallel slice).
 """
 
 from __future__ import annotations
 
 import os
 import time
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -86,6 +113,7 @@ from pvraft_tpu_torch.engine.checkpoint import (
 )
 from pvraft_tpu_torch.engine.schedule import make_lr_schedule
 from pvraft_tpu_torch.engine.steps import (
+    ADAM_KEYS,
     BATCH_KEYS,
     PackedState,
     init_adam_state,
@@ -102,6 +130,16 @@ from pvraft_tpu_torch.engine.steps import (
     stack_batches,
 )
 from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
+from pvraft_tpu_torch.obs import monitors
+from pvraft_tpu_torch.obs.device_memory import sample_device_memory
+from pvraft_tpu_torch.obs.divergence import (
+    DivergenceDetector,
+    DivergenceHalt,
+    dump_snapshot,
+)
+from pvraft_tpu_torch.obs.events import RunTelemetry
+from pvraft_tpu_torch.obs.retrace import RetraceWatchdog, signature
+from pvraft_tpu_torch.profiling.timers import StepTimer, trace_context
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import (
     opt_state_from_jax,
@@ -151,11 +189,36 @@ class Trainer:
     graphed steps).
     """
 
+    # Divergence records a run emits before it mutes them (snapshots are
+    # bounded by TrainConfig.max_snapshots): once the state is corrupt
+    # every later step trips again.
+    MAX_DIVERGENCE_EVENTS = 10
+
     def __init__(self, cfg: Config, device: Union[str, torch.device, None] = None,
                  weights: Optional[Mapping] = None, opt_state: Any = None,
                  graphs: bool = True, capturable: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        t = cfg.train
+        self.telemetry = RunTelemetry(cfg.exp_path, "Train", cfg.data.dataset)
+        self.log = self.telemetry.log
+        self.tb = self.telemetry.tb
+        self.telemetry.emit_header(cfg, mode="train")
+        self.detector = (DivergenceDetector(t.divergence_window,
+                                            t.divergence_zscore)
+                         if t.telemetry else None)
+        self.snap_dir = os.path.join(cfg.exp_path, "snapshots")
+        self.snapshots_taken = 0
+        self.trips_emitted = 0
+        self.step_count = 0       # optimizer steps before this epoch
+        self._epoch_steps = 0     # steps the detector has seen this epoch
+        self._held: List[torch.Tensor] = []   # the pre-step state's copy
+        if t.telemetry and cfg.parallel.steps_per_dispatch > 1:
+            self.log.info(
+                "telemetry: divergence snapshots disabled with "
+                "steps_per_dispatch > 1 (per-step pre-states never exist "
+                "outside the fused scan); monitors + detection stay on at "
+                "dispatch granularity")
         self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg)
         bs = cfg.train.batch_size
         if bs > len(self.train_ds):
@@ -197,7 +260,6 @@ class Trainer:
         if opt_state is not None:
             self.optimizer.load_state_dict(
                 opt_state_from_jax(opt_state, self.model, self.optimizer))
-        t = cfg.train
         self.ckpt_dir = os.path.join(cfg.exp_path, "checkpoints")
         self.best_epe = float("inf")
         self.begin_epoch = 0
@@ -232,13 +294,27 @@ class Trainer:
             self.eval_step = make_eval_step(self.model, self.eval_iters,
                                             t.gamma, per_scene=True,
                                             refine=refine)
-            return
-        self.eval_step = make_graphed_eval_step(
-            self.model, self.eval_iters, t.gamma, self.device, per_scene=True,
-            strict_retrace=t.strict_retrace, refine=refine)
-        # Capture at the shapes training and evaluation feed them, from
-        # their loaders' first batches: the K-step step at K of them; the
-        # single step where it runs (with K > 1: an epoch's tail).
+        else:
+            self.eval_step = make_graphed_eval_step(
+                self.model, self.eval_iters, t.gamma, self.device,
+                per_scene=True, strict_retrace=t.strict_retrace,
+                refine=refine)
+            self._capture()
+        # The train programs' retraces become `recompile` records (strict:
+        # RetraceError); the eval step is not watched, as in JAX.
+        self.retrace = RetraceWatchdog(emit=self.telemetry.emit_recompile,
+                                       strict=t.strict_retrace,
+                                       context="train")
+        for step in (self.train_step, self.multi_step):
+            graphs_of = getattr(step, "graphs", None)
+            if graphs_of is not None:
+                self.retrace.watch(graphs_of.name, graphs_of)
+
+    def _capture(self) -> None:
+        """Capture the steps at the shapes training and evaluation feed
+        them, from their loaders' first batches: the K-step step at K of
+        them; the single step where it runs (with K > 1: an epoch's
+        tail)."""
         batch = to_device(first_batch(self.train_loader), self.device)
         scene = to_device(first_batch(self.val_loader), self.device)
         captures = []
@@ -274,11 +350,11 @@ class Trainer:
             self.multi_step, _, _ = multi(*args, self.steps_k, **common)
 
     def _on_device(self, host_batches):
-        """Host batches -> device batches, the copies of the next
-        ``parallel.device_prefetch - 1`` issued before the current one is
-        consumed."""
+        """Host batches -> (host batch, device batch) pairs, the copies of
+        the next ``parallel.device_prefetch - 1`` issued before the
+        current one is consumed."""
         return device_prefetch(host_batches,
-                               lambda b: to_device(b, self.device),
+                               lambda b: (b, to_device(b, self.device)),
                                self.cfg.parallel.device_prefetch)
 
     def compile_report(self) -> List[Dict[str, Any]]:
@@ -286,16 +362,147 @@ class Trainer:
         ``graphs=False``)."""
         return [r for g in self._graphs for r in g.report()]
 
+    # -- divergence: pre-step state copies and trips -----------------------
+
+    def _trained(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _capture_state(self) -> Tuple[Any, int]:
+        """A copy on the device of the train state before the next step
+        (the flat buffer in packed mode; else the trained parameters and
+        Adam's state) and the schedule's position. The copy goes into
+        buffers kept from step to step, in one multi-tensor copy: no
+        allocation, a few launches, nothing read to the host."""
+        count = self.train_step.count[0]
+        if self.packed is not None:
+            src = [self.packed.flat]
+        else:
+            init_adam_state(self.optimizer)
+            trained = self._trained()
+            src = trained + [self.optimizer.state[p][k] for p in trained
+                             for k in ADAM_KEYS]
+        if len(self._held) != len(src):
+            self._held = [torch.empty_like(t) for t in src]
+        with torch.no_grad():
+            torch._foreach_copy_(self._held, src)
+        return (self._held[0] if self.packed is not None
+                else self._held), count
+
+    def _state_trees(self, state: Tuple[Any, int]):
+        """A :meth:`_capture_state` copy as the flax state-dict trees of
+        the parameters and the optax state (``params_to_jax``,
+        ``opt_state_to_jax``), read to the host."""
+        copy, count = state
+        trained = self._trained()
+        if self.packed is not None:
+            params, adam = self.packed.unravel(copy)
+        else:
+            n = len(trained)
+            names = dict((id(p), name)
+                         for name, p in trained_parameters(self.model))
+            params = {names[id(p)]: c for p, c in zip(trained, copy[:n])}
+            adam = [dict(zip(ADAM_KEYS, copy[n + 3 * j:n + 3 * j + 3]))
+                    for j in range(n)]
+        full = {name: params.get(name, p)
+                for name, p in self.model.named_parameters()}
+        held = SimpleNamespace(state=dict(zip(trained, adam)))
+        return (params_to_jax(full),
+                opt_state_to_jax(held, self.model, count))
+
+    def _handle_trip(self, trip, epoch: int, step: int, prev_state,
+                     host_batch) -> None:
+        """One firing of the detector: a snapshot where the step's batch
+        and pre-step state were kept and the budget allows, the
+        ``divergence`` record, and under ``halt_on_divergence``
+        :class:`DivergenceHalt`."""
+        if self.trips_emitted >= self.MAX_DIVERGENCE_EVENTS:
+            return
+        self.trips_emitted += 1
+        t = self.cfg.train
+        snap_path = None
+        if (prev_state is not None and host_batch is not None
+                and self.snapshots_taken < t.max_snapshots):
+            params, opt_state = self._state_trees(prev_state)
+            snap_path = dump_snapshot(
+                self.snap_dir, host_batch, params, opt_state, step=step,
+                epoch=epoch, reason=trip.reason, loss=trip.loss, cfg=self.cfg,
+                extra_meta={"zscore": trip.zscore, "schedule": {
+                    "steps_per_epoch": self.steps_per_epoch,
+                    "dataset_size": len(self.train_ds)}})
+            self.snapshots_taken += 1
+            self.telemetry.emit_snapshot(epoch, step, snap_path, trip.reason)
+        self.telemetry.emit_divergence(epoch, step, trip.reason, trip.loss,
+                                       zscore=trip.zscore,
+                                       snapshot=snap_path)
+        if self.trips_emitted == self.MAX_DIVERGENCE_EVENTS:
+            self.log.info(
+                f"telemetry: {self.trips_emitted} divergence events "
+                "emitted; muting further divergence reporting for this run "
+                "(state is likely persistently corrupt — see the first "
+                "snapshot)")
+        if t.halt_on_divergence:
+            raise DivergenceHalt(
+                f"training diverged at epoch {epoch} step {step} "
+                f"({trip.reason}, loss={trip.loss})"
+                + (f"; snapshot dumped to {snap_path} — replay with "
+                   f"python -m pvraft_tpu_torch.doctor" if snap_path else ""))
+
+    # -- loops ---------------------------------------------------------------
+
+    def dispatch(self, step: Callable, batch: Dict[str, torch.Tensor],
+                 epoch: int = 0, host_batch=None,
+                 keep: Optional[Callable[[Dict], None]] = None):
+        """One call of a train step (``self.train_step`` or
+        ``self.multi_step``) as an epoch makes it: under
+        ``train.telemetry`` a device copy of the state first (one step a
+        call, while the snapshot budget lasts), then the step,
+        ``keep(metrics)``, the retrace check, and the armed detector's
+        one host read of the loss and the non-finite count
+        (:meth:`_observe`), which may raise :class:`DivergenceHalt`.
+        Returns the step's metrics."""
+        armed = self.detector is not None
+        prev = (self._capture_state()
+                if armed and self.multi_step is None
+                and self.snapshots_taken < self.cfg.train.max_snapshots
+                else None)
+        m = step(batch)
+        if keep is not None:
+            keep(m)
+        self.retrace.check(signature=lambda: signature(
+            [batch[k] for k in BATCH_KEYS]))
+        if armed:
+            self._observe(m, epoch, host_batch, prev)
+        return m
+
+    def _observe(self, m, epoch: int, host_batch, prev_state) -> None:
+        losses, nonfinite = torch.stack([
+            m["loss"].reshape(-1).float(),
+            m["telemetry"]["nonfinite"].reshape(-1).float()]).tolist()
+        for loss, bad in zip(losses, nonfinite):
+            self._epoch_steps += 1
+            trip = self.detector.update(loss, int(bad))
+            if trip is not None:
+                self._handle_trip(trip, epoch,
+                                  self.step_count + self._epoch_steps,
+                                  prev_state, host_batch)
+
     def training(self, epoch: int) -> Dict[str, Any]:
         """The train steps of one epoch. Returns the mean loss and EPE,
         the step count, each step's loss and EPE, and the epoch's wall
-        time per step in ms (host clock, synchronised at the end)."""
-        cfg = self.cfg
+        time per step in ms (host clock, synchronised at the end). Writes
+        the epoch's ``step`` events (with their telemetry) and its
+        ``epoch_summary``; raises :class:`DivergenceHalt` after the step
+        events under ``halt_on_divergence``."""
+        t = self.cfg.train
         self.model.train()
         # Each step's loss and EPE, copied out of the step's outputs (a
-        # graphed step overwrites them at the next replay).
+        # graphed step overwrites them at the next replay), and each
+        # step's telemetry as one row.
         kept = torch.empty(self.steps_per_epoch, 2, device=self.device)
+        rows: List[torch.Tensor] = []
+        layout: List[Any] = []
         n = 0
+        self._epoch_steps = 0
 
         def keep(m):
             nonlocal n
@@ -303,28 +510,70 @@ class Trainer:
             kept[n:n + j, 0].copy_(m["loss"].reshape(j))
             kept[n:n + j, 1].copy_(m["epe"].reshape(j))
             n += j
+            if "telemetry" in m:
+                rows.append(monitors.step_rows(m["telemetry"], j))
+                layout[:] = layout or [m["telemetry"], j]
 
-        # With K > 1: K device batches stacked a call of the K-step step;
-        # the tail through the single (packed) step.
-        pending: List[Dict[str, torch.Tensor]] = []
-        t0 = time.perf_counter()
-        for batch in self._on_device(self.train_loader.epoch(epoch)):
-            if self.multi_step is None:
-                keep(self.train_step(batch))
-                continue
-            pending.append(batch)
-            if len(pending) == self.steps_k:
-                keep(self.multi_step(stack_batches(pending)))
-                pending = []
-        for batch in pending:
-            keep(self.train_step(batch))
+        profile = t.profile_dir if epoch == self.begin_epoch else ""
+        timer = StepTimer()
+        halt: Optional[DivergenceHalt] = None
+        with trace_context(profile) as window:
+            if window is not None:
+                self.telemetry.emit_trace_window("start", profile, epoch)
+            timer.start()
+            # With K > 1: K device batches stacked a call of the K-step
+            # step; the tail through the single (packed) step.
+            pending: List[Dict[str, torch.Tensor]] = []
+            try:
+                for host, batch in self._on_device(
+                        self.train_loader.epoch(epoch)):
+                    if self.multi_step is None:
+                        self.dispatch(self.train_step, batch, epoch, host,
+                                      keep)
+                        continue
+                    pending.append(batch)
+                    if len(pending) == self.steps_k:
+                        self.dispatch(self.multi_step,
+                                      stack_batches(pending), epoch,
+                                      keep=keep)
+                        pending = []
+                for batch in pending:
+                    self.dispatch(self.train_step, batch, epoch, keep=keep)
+            except DivergenceHalt as e:
+                halt = e
+            timer.stop(kept)
+        if profile:
+            self.telemetry.emit_trace_window("stop", profile, epoch)
         # One device-to-host read per epoch, not per step.
         losses, epes = kept[:n].cpu().numpy().T.tolist() if n else ([], [])
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        return {"loss": float(np.mean(losses)) if n else float("nan"),
-                "epe": float(np.mean(epes)) if n else float("nan"),
-                "steps": n, "losses": losses, "epes": epes,
-                "step_ms": wall_ms / n if n else 0.0}
+        tels = (monitors.host_records(layout[0], layout[1],
+                                      torch.cat(rows).cpu().tolist())
+                if rows else [None] * n)
+        for i, (loss, epe, tel) in enumerate(zip(losses, epes, tels)):
+            self.telemetry.emit_step(epoch, self.step_count + i + 1, loss,
+                                     epe, telemetry=tel)
+        self.step_count += n
+        devmem = sample_device_memory()
+        if devmem:
+            self.telemetry.emit_device_memory(devmem, context="train")
+        if halt is not None:
+            raise halt
+        step_ms = 1e3 * timer.mean / n if n else 0.0
+        out = {"loss": float(np.mean(losses)) if n else float("nan"),
+               "epe": float(np.mean(epes)) if n else float("nan"),
+               "steps": n, "losses": losses, "epes": epes,
+               "step_ms": step_ms}
+        if n:
+            self.telemetry.emit_epoch_summary(
+                epoch, steps=n, loss=out["loss"], epe=out["epe"],
+                step_ms=round(step_ms, 3))
+            self.log.info(f"epoch {epoch}: loss {out['loss']:.4f} epe "
+                          f"{out['epe']:.4f} step {step_ms:.1f} ms")
+        else:
+            self.telemetry.emit_epoch_summary(epoch, steps=0)
+            self.log.info(f"epoch {epoch}: steps=0 (empty epoch — loader "
+                          "yielded no batches)")
+        return out
 
     def save(self, epoch: int, checkpoint_interval: int,
              best: bool = False) -> Tuple[str, ...]:
@@ -342,6 +591,8 @@ class Trainer:
             epoch, checkpoint_interval, best=best,
             backend=self.cfg.train.ckpt_backend)
         self.save_s.append(time.perf_counter() - t0)
+        self.telemetry.emit_checkpoint(epoch, "best" if best else "last",
+                                       path=self.ckpt_dir)
         return paths
 
     def load_weights(self, path: str, resume: bool = False) -> int:
@@ -368,7 +619,10 @@ class Trainer:
             self.train_step.count[0] = (int(float(want[0]["step"]))
                                         if sched is None else sched)
             self.begin_epoch = epoch + 1
+            # The step events' axis continues across restarts.
+            self.step_count = self.begin_epoch * self.steps_per_epoch
         self._repack()
+        self.log.info(f"loaded weights from {path} (epoch {epoch})")
         return epoch
 
     def _repack(self) -> None:
@@ -390,6 +644,7 @@ class Trainer:
         params, epoch = load_params(path)
         self.model.backbone.load_state_dict(params_from_jax(params),
                                             strict=True)
+        self.log.info(f"imported stage-1 weights from {path} (epoch {epoch})")
         return epoch
 
     def val_test(self, epoch: int, mode: str = "val") -> Dict[str, float]:
@@ -407,13 +662,21 @@ class Trainer:
         self.model.eval()
         sums: Dict[str, torch.Tensor] = {}
         count = 0
-        for batch in self._on_device(loader.epoch(0)):
+        t0 = time.perf_counter()
+        for _, batch in self._on_device(loader.epoch(0)):
             out, _ = self.eval_step(batch)
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + v.sum()
             count += batch["pc1"].shape[0]
         means = {k: float(v) / max(1, count) for k, v in sums.items()}
-        if mode == "val" and means["epe3d"] < self.best_epe:
+        eval_s = time.perf_counter() - t0
+        self.log.info(f"{mode} epoch {epoch}: {count} scenes in "
+                      f"{eval_s:.1f}s ({count / max(eval_s, 1e-9):.1f} "
+                      "scenes/s, eval_batch=1)")
+        self.telemetry.emit_eval(mode, epoch, count, means)
+        self.log.info(f"{mode} epoch {epoch}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(means.items())))
+        if mode == "val" and means.get("epe3d", float("inf")) < self.best_epe:
             self.best_epe = means["epe3d"]
             self.save(epoch, 0, best=True)
         return means
@@ -423,11 +686,19 @@ class Trainer:
         """Train, save ``last_checkpoint`` (the JAX ``training``'s save)
         and validate every epoch from ``begin_epoch`` (``report(epoch,
         train, val)`` after each), then test once on the best validation
-        epoch's weights; returns the test means."""
+        epoch's weights and :meth:`close`; returns the test means."""
         for epoch in range(self.begin_epoch, self.cfg.train.num_epochs):
             train = self.training(epoch)
             self.save(epoch, self.cfg.train.checkpoint_interval)
             val = self.val_test(epoch, "val")
             if report is not None:
                 report(epoch, train, val)
-        return self.val_test(self.cfg.train.num_epochs - 1, "test")
+        result = self.val_test(self.cfg.train.num_epochs - 1, "test")
+        self.close()
+        return result
+
+    def close(self) -> None:
+        """Close the telemetry sink (the event stream, the TensorBoard
+        writer, the log file). Idempotent; a Trainer used without ``fit``
+        should be closed when done."""
+        self.telemetry.close()

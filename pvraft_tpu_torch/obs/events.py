@@ -15,8 +15,12 @@ accepts wherever a number is required.
 The serving tier (``serve/events.py::ServeTelemetry``) writes
 ``serve_compile``, ``serve_batch``, ``serve_reject``, ``serve_shutdown``,
 ``span``, ``trace_window``, ``recompile``, ``device_memory``,
-``replica_state``, ``fault_injected`` and ``weight_swap``; the other
-types are validated too, so a stream of either package checks here.
+``replica_state``, ``fault_injected`` and ``weight_swap``; the Trainer
+and the Evaluator write theirs through :class:`RunTelemetry`
+(``run_header``, ``step``, ``epoch_summary``, ``eval``, ``checkpoint``,
+``trace_window``, ``divergence``, ``snapshot``, ``span``, ``recompile``,
+``device_memory``); the other types are validated too, so a stream of
+either package checks here.
 
 :func:`run_metadata` describes the process in the JAX package's words:
 ``devices.platform`` is ``"gpu"`` on a CUDA device (JAX's name for an
@@ -452,3 +456,118 @@ class EventLog:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def given(**fields: Any) -> Dict[str, Any]:
+    """The fields that are not None (optional fields are left out)."""
+    return {k: v for k, v in fields.items() if v is not None}
+
+
+class RunTelemetry:
+    """The run's one sink (the JAX ``RunTelemetry``): each ``emit_*``
+    writes one record to the ``pvraft_events/v1`` stream
+    ``<exp_path>/<mode>.events.jsonl`` (``train.events.jsonl``,
+    ``testalone.events.jsonl``) and, where the JAX sink does, the
+    reference's TensorBoard scalars and a line of the text log
+    (``utils/logging.py``): ``step`` writes ``Train/Loss`` and
+    ``Train/EPE`` at the global step, and ``telemetry/grad_norm`` and
+    ``telemetry/update_ratio`` where it carries them; ``eval`` writes
+    ``<Mode>/{Loss,EPE,Outlier,Acc3dRelax,Acc3dStrict}`` at the epoch."""
+
+    # eval metric key -> the reference's TensorBoard tag suffix.
+    EVAL_TAGS = (("loss", "Loss"), ("epe3d", "EPE"), ("outlier", "Outlier"),
+                 ("acc3d_relax", "Acc3dRelax"),
+                 ("acc3d_strict", "Acc3dStrict"))
+
+    def __init__(self, exp_path: str, mode: str = "Train", dataset: str = "",
+                 events_name: Optional[str] = None):
+        from pvraft_tpu_torch.utils.logging import ExperimentLog, TBWriter
+
+        self.log = ExperimentLog(exp_path, mode, dataset)
+        self.tb = TBWriter(os.path.join(exp_path, "logs"))
+        name = events_name or f"{mode.lower()}.events.jsonl"
+        self.events = EventLog(os.path.join(exp_path, name))
+
+    def info(self, msg: str) -> None:
+        self.log.info(msg)
+
+    def emit_header(self, cfg=None, mode: str = "train") -> None:
+        self.events.emit("run_header", **run_metadata(cfg, mode=mode))
+
+    def emit_step(self, epoch: int, step: int, loss: float, epe: float,
+                  telemetry: Optional[Dict[str, Any]] = None) -> None:
+        self.events.emit("step", epoch=epoch, step=step, loss=loss, epe=epe,
+                         **given(telemetry=telemetry))
+        self.tb.add_scalar("Train/Loss", loss, step)
+        self.tb.add_scalar("Train/EPE", epe, step)
+        for key in ("grad_norm", "update_ratio"):
+            if telemetry is not None and key in telemetry:
+                self.tb.add_scalar(f"telemetry/{key}", telemetry[key], step)
+
+    def emit_epoch_summary(self, epoch: int, steps: int, **extra: Any) -> None:
+        self.events.emit("epoch_summary", epoch=epoch, steps=steps, **extra)
+
+    def emit_eval(self, mode: str, epoch: int, scenes: int,
+                  metrics: Dict[str, float]) -> None:
+        self.events.emit("eval", mode=mode, epoch=epoch, scenes=scenes,
+                         metrics=metrics)
+        tag = mode.capitalize()
+        for key, suffix in self.EVAL_TAGS:
+            if key in metrics:
+                self.tb.add_scalar(f"{tag}/{suffix}", metrics[key], epoch)
+
+    def emit_checkpoint(self, epoch: int, kind: str,
+                        path: Optional[str] = None) -> None:
+        self.events.emit("checkpoint", epoch=epoch, kind=kind,
+                         **given(path=path))
+
+    def emit_trace_window(self, action: str, trace_dir: str,
+                          epoch: int) -> None:
+        self.events.emit("trace_window", action=action, trace_dir=trace_dir,
+                         epoch=epoch)
+
+    def emit_divergence(self, epoch: int, step: int, reason: str,
+                        loss: float, zscore: Optional[float] = None,
+                        snapshot: Optional[str] = None) -> None:
+        self.events.emit("divergence", epoch=epoch, step=step, reason=reason,
+                         loss=loss, **given(zscore=zscore, snapshot=snapshot))
+        self.log.info(
+            f"DIVERGENCE at epoch {epoch} step {step}: {reason} "
+            f"(loss={loss})" + (f" snapshot={snapshot}" if snapshot else ""))
+
+    def emit_snapshot(self, epoch: int, step: int, path: str,
+                      reason: str) -> None:
+        self.events.emit("snapshot", epoch=epoch, step=step, path=path,
+                         reason=reason)
+
+    def emit_span(self, **span: Any) -> None:
+        """One ``span`` record: the step profiler's stages arrive here
+        through ``obs/trace.py::trace_from_step_profile``."""
+        self.events.emit("span", **span)
+
+    def emit_recompile(self, program: str, count: int,
+                       baseline: Optional[int] = None,
+                       signature: Optional[str] = None,
+                       context: Optional[str] = None) -> None:
+        """The retrace watchdog saw a train program capture a new input
+        signature after warm-up."""
+        self.events.emit("recompile", program=program, count=count,
+                         **given(baseline=baseline, signature=signature,
+                                 context=context))
+        self.log.info(
+            f"RECOMPILE: {program} program count grew to {count}"
+            + (f" (baseline {baseline})" if baseline is not None else "")
+            + (f" on {signature}" if signature else ""))
+
+    def emit_device_memory(self, devices: list,
+                           context: Optional[str] = None) -> None:
+        """One sample of ``obs/device_memory.py::sample_device_memory``."""
+        self.events.emit("device_memory", devices=devices,
+                         **given(context=context))
+
+    def close(self) -> None:
+        """Close the stream, the TensorBoard writer and the log file.
+        Idempotent."""
+        self.events.close()
+        self.tb.close()
+        self.log.close()

@@ -26,7 +26,8 @@ comparable within one process, not wall time.
 An unsampled request costs one ``None`` check: nothing is stamped or
 allocated for it. :func:`trace_shape` and :func:`collect_traces` read
 span records back into trees (the checks of the tests and of
-``chip_smoke.py``).
+``chip_smoke.py``). :func:`trace_from_step_profile` gives the train
+step the same span format, from the step profiler's breakdown.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ SERVE_STAGES = (
     "ingress", "validate", "queue_wait", "batch_form", "device_execute",
     "serialize", "respond")
 SERVE_ROOT = "request"
+# The train step's tree: a root over the step profiler's breakdown
+# (profiling/step_profiler.py::BREAKDOWN_STAGES).
+TRAIN_ROOT = "train_step"
 
 SPAN_REQUIRED = ("trace_id", "span_id", "name", "start_ms", "end_ms")
 SPAN_OPTIONAL = ("parent_id", "attrs")
@@ -194,3 +198,37 @@ def collect_traces(records: Sequence[Dict[str, Any]],
             "counts": {"traces": len(traces), "spans": n_spans,
                        "complete": n_complete, "orphan_spans": n_orphans},
             "traces": traces}
+
+
+def trace_from_step_profile(record: Dict[str, Any],
+                            trace_id: Optional[str] = None
+                            ) -> List[Dict[str, Any]]:
+    """A ``pvraft_step_profile/v1`` record's breakdown as spans: one
+    ``train_step`` root of ``total_step_s`` and the stages end to end in
+    breakdown order (they telescope, so laid end to end they are the
+    measured decomposition). A stage that timing noise made slightly
+    negative becomes an empty span; the record keeps the signed value."""
+    if "breakdown_s" not in record or "total_step_s" not in record:
+        raise ValueError(
+            "step-profile record has no breakdown (incomplete ladder); "
+            "cannot build a trace")
+    tid = trace_id or new_trace_id()
+    root_id = uuid.uuid4().hex[:12]
+    spans: List[Dict[str, Any]] = [{
+        "trace_id": tid, "span_id": root_id, "name": TRAIN_ROOT,
+        "start_ms": 0.0,
+        "end_ms": round(record["total_step_s"] * 1000.0, 3),
+        "attrs": {k: record.get(k) for k in
+                  ("platform", "variant", "points", "batch", "iters")},
+    }]
+    cursor = 0.0
+    for i, (stage, sec) in enumerate(record["breakdown_s"].items()):
+        dur_ms = max(0.0, sec * 1000.0)
+        spans.append({
+            "trace_id": tid, "span_id": f"{root_id}.{i}",
+            "parent_id": root_id, "name": stage,
+            "start_ms": round(cursor, 3),
+            "end_ms": round(cursor + dur_ms, 3),
+        })
+        cursor += dur_ms
+    return spans

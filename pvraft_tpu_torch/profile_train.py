@@ -4,6 +4,7 @@
         [--no-use_pallas] [--refine] [--dtype float32|bfloat16] [--top 12]
         [--steps_per_dispatch K] [--packed_state [--host_roundtrip]]
         [--remat_policy P] [--corr_chunk C] [--graph_chunk C] [--points N]
+        [--telemetry]
 
 Trains the flagship ``ModelConfig`` at the ``TrainConfig`` defaults
 (B=2 scenes of 8,192 points, 8 GRU iterations, fp32, Adam) on seeded
@@ -29,7 +30,9 @@ names the dtype. The levers (``lever_args``): ``--steps_per_dispatch K``
 profiles one call of the K-step step (K steps: its busy time is K
 steps'), ``--packed_state`` and ``--host_roundtrip`` the packed single
 step, ``--remat_policy``, ``--corr_chunk`` and ``--graph_chunk`` the
-model levers, ``--points`` the clouds' size. Needs a CUDA device.
+model levers, ``--points`` the clouds' size; ``--telemetry`` profiles
+the armed call (``Trainer.dispatch``: the state's copy, the step with
+its monitors, the detector's host read). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -65,19 +68,21 @@ def flagship_train_config(seed: int = 0, epochs: int = 1,
                           refine: bool = False, grad_dtype: str = "float32",
                           points: int = 8192, scenes: int = 4,
                           parallel: Optional[ParallelConfig] = None,
-                          **model_kw) -> Config:
+                          telemetry: bool = False, **model_kw) -> Config:
     """The flagship ModelConfig and the TrainConfig defaults (B=2,
     8 iterations, eval at 32) on ``scenes`` (4) seeded FT3D-like
     synthetic scenes of ``points`` (8,192) points (4 independently moving
     objects each). ``refine``: the canonical stage-2 run's (``--refine
     --iters 32``; it evaluates at 32 too). ``parallel``: the K-step
-    levers (default: none)."""
+    levers (default: none). ``telemetry``: the monitors and the
+    divergence detector."""
     return Config(model=ModelConfig(**model_kw),
                   data=DataConfig(dataset="synthetic", synthetic_size=scenes,
                                   synthetic_objects=4, max_points=points),
                   train=TrainConfig(num_epochs=epochs, seed=seed,
                                     refine=refine, grad_dtype=grad_dtype,
-                                    iters=32 if refine else 8),
+                                    iters=32 if refine else 8,
+                                    telemetry=telemetry),
                   parallel=parallel or ParallelConfig())
 
 
@@ -97,6 +102,10 @@ def lever_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--graph_chunk", type=int, default=None)
     ap.add_argument("--points", type=int, default=8192,
                     help="points per cloud of the train and eval steps")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="arm the monitors and the divergence detector: a "
+                         "call is Trainer.dispatch's, the state's copy, "
+                         "the step with its monitors, one host read")
 
 
 def lever_config(args: argparse.Namespace) -> Dict[str, Any]:
@@ -116,16 +125,20 @@ def lever_config(args: argparse.Namespace) -> Dict[str, Any]:
             kw[name] = getattr(args, name)
     if args.points != 8192:
         kw["points"] = args.points
+    if args.telemetry:
+        kw["telemetry"] = True
     return kw
 
 
 def step_call(trainer: Trainer, batch) -> Callable[[], Any]:
-    """One call of the trainer's train step on ``batch``: the K-step
-    step on ``batch`` stacked K times where the trainer has one."""
+    """One call of the trainer's train step on ``batch`` as an epoch
+    makes it (``Trainer.dispatch``: with ``train.telemetry`` the state's
+    copy and the detector's host read too): the K-step step on ``batch``
+    stacked K times where the trainer has one."""
     if trainer.multi_step is None:
-        return lambda: trainer.train_step(batch)
+        return lambda: trainer.dispatch(trainer.train_step, batch)
     stacked = stack_batches([batch] * trainer.steps_k)
-    return lambda: trainer.multi_step(stacked)
+    return lambda: trainer.dispatch(trainer.multi_step, stacked)
 
 
 def phased_step(trainer: Trainer, batch) -> None:
@@ -204,6 +217,7 @@ def main(argv=None) -> int:
                           "remat_policy": cfg.model.remat_policy,
                           "corr_chunk": cfg.model.corr_chunk,
                           "graph_chunk": cfg.model.graph_chunk,
+                          "telemetry": cfg.train.telemetry,
                           **row}), flush=True)
         del trainer, batch
         gc.collect()

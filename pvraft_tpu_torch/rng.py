@@ -27,6 +27,7 @@ STREAMS: Tuple[Tuple[str, str], ...] = (
     ("data.subsample", "per-scene subsample permutations"),
     ("data.synthetic", "synthetic scene-flow scene generation"),
     ("serve.probe", "supervisor health-probe payload cloud"),
+    ("profile.data", "step-profiler synthetic input clouds"),
 )
 
 STREAM_NAMES: Tuple[str, ...] = tuple(name for name, _ in STREAMS)

@@ -21,12 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
-from pvraft_tpu_torch.obs.events import EventLog, run_metadata
-
-
-def _given(**fields: Any) -> Dict[str, Any]:
-    """The fields that are not None (optional fields are left out)."""
-    return {k: v for k, v in fields.items() if v is not None}
+from pvraft_tpu_torch.obs.events import EventLog, given, run_metadata
 
 
 class ServeTelemetry:
@@ -54,8 +49,8 @@ class ServeTelemetry:
         (``{"pool_bytes": ...}``)."""
         self._emit("serve_compile", bucket=bucket, batch=batch,
                    lower_s=lower_s, compile_s=compile_s,
-                   **_given(memory=memory, dtype=dtype, replica=replica,
-                            device_id=device_id))
+                   **given(memory=memory, dtype=dtype, replica=replica,
+                           device_id=device_id))
 
     def emit_batch(self, bucket: int, batch: int, n: int, fill: float,
                    latency_ms: float, queue_depth: Optional[int] = None,
@@ -63,13 +58,13 @@ class ServeTelemetry:
                    device_id: Optional[int] = None) -> None:
         self._emit("serve_batch", bucket=bucket, batch=batch, n=n,
                    fill=fill, latency_ms=latency_ms,
-                   **_given(queue_depth=queue_depth, replica=replica,
-                            device_id=device_id))
+                   **given(queue_depth=queue_depth, replica=replica,
+                           device_id=device_id))
 
     def emit_reject(self, reason: str, bucket: Optional[int] = None,
                     queue_depth: Optional[int] = None) -> None:
         self._emit("serve_reject", reason=reason,
-                   **_given(bucket=bucket, queue_depth=queue_depth))
+                   **given(bucket=bucket, queue_depth=queue_depth))
 
     def emit_trace_window(self, action: str, trace_dir: str) -> None:
         """A ``/debug/trace`` profiler window; serving has no epoch, so
@@ -88,14 +83,14 @@ class ServeTelemetry:
                        context: Optional[str] = None) -> None:
         """The sealed retrace watchdog saw a compile during a dispatch."""
         self._emit("recompile", program=program, count=count,
-                   **_given(baseline=baseline, signature=signature,
-                            context=context))
+                   **given(baseline=baseline, signature=signature,
+                           context=context))
 
     def emit_device_memory(self, devices: list,
                            context: Optional[str] = None) -> None:
         """One sample of the memory monitor (``obs/device_memory.py``)."""
         self._emit("device_memory", devices=devices,
-                   **_given(context=context))
+                   **given(context=context))
 
     def emit_replica_state(self, replica: int, state: str,
                            from_state: Optional[str] = None,
@@ -103,8 +98,8 @@ class ServeTelemetry:
                            device_id: Optional[int] = None) -> None:
         """One transition of the supervisor's state machine."""
         self._emit("replica_state", replica=replica, state=state,
-                   **_given(from_state=from_state, reason=reason,
-                            device_id=device_id))
+                   **given(from_state=from_state, reason=reason,
+                           device_id=device_id))
 
     def emit_fault(self, point: str, replica: Optional[int] = None,
                    bucket: Optional[int] = None,
@@ -113,8 +108,8 @@ class ServeTelemetry:
                    value: Optional[float] = None) -> None:
         """One firing of a fault point (``serve/faults.py``)."""
         self._emit("fault_injected", point=point,
-                   **_given(replica=replica, bucket=bucket,
-                            traversal=traversal, fires=fires, value=value))
+                   **given(replica=replica, bucket=bucket,
+                           traversal=traversal, fires=fires, value=value))
 
     def emit_weight_swap(self, digest: str, epoch: int,
                          path: Optional[str] = None,
@@ -125,9 +120,9 @@ class ServeTelemetry:
         """One hot swap (``InferenceEngine.swap_params``); ``epoch`` is
         the checkpoint's or -1."""
         self._emit("weight_swap", digest=digest, epoch=epoch,
-                   **_given(path=path, previous_digest=previous_digest,
-                            replicas=replicas, swap_ms=swap_ms,
-                            drained=drained))
+                   **given(path=path, previous_digest=previous_digest,
+                           replicas=replicas, swap_ms=swap_ms,
+                           drained=drained))
 
     def emit_shutdown(self, served: int, rejected: int,
                       drained: int) -> None:

@@ -59,6 +59,7 @@ import torch
 from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
 from pvraft_tpu_torch.engine import msgpack
 from pvraft_tpu_torch.obs.trace import Tracer
+from pvraft_tpu_torch.profiling.timers import start_profiler
 from pvraft_tpu_torch.serve import faults
 from pvraft_tpu_torch.serve.batcher import (
     BatcherConfig,
@@ -118,8 +119,6 @@ def _profile_window(seconds: float, base: str, telemetry) -> str:
     ``base`` (``trace.json``, a Chrome trace); returns the directory.
     Raises when another profiler session is running: two at once are not
     supported (they can take the process down)."""
-    from torch.profiler import ProfilerActivity, profile
-
     if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
         raise RuntimeError("another torch.profiler session is running in "
                            "this process; one profiler at a time")
@@ -127,15 +126,9 @@ def _profile_window(seconds: float, base: str, telemetry) -> str:
     os.makedirs(base, exist_ok=True)
     trace_dir = tempfile.mkdtemp(
         prefix=time.strftime("trace_%Y%m%d_%H%M%S_"), dir=base)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
     # Every thread's ranges: the executors' device_execute, not only
     # this handler thread's (the default records the starting thread's).
-    prof = profile(activities=activities,
-                   experimental_config=torch._C._profiler._ExperimentalConfig(
-                       profile_all_threads=True))
-    prof.start()
+    prof = start_profiler()
     announced = False
     try:
         # "start" only once the profiler runs, so start and stop pair.

@@ -4,6 +4,7 @@
         [--refine] [--dtype float32|bfloat16] [--fused-gru] [--no-serve]
         [--steps_per_dispatch K] [--packed_state [--host_roundtrip]]
         [--remat_policy P] [--corr_chunk C] [--graph_chunk C] [--points N]
+        [--telemetry]
 
 On one CUDA device: the train step (B=2 x 8,192 points, 8 GRU
 iterations, Adam; median of 6 after 2 warm-up steps), the eval step (one
@@ -31,7 +32,10 @@ of the K-step step on the batch stacked K times and reports ms per
 step (the call's time / K), ``--packed_state`` the packed single step,
 ``--host_roundtrip`` it with the round trip, ``--remat_policy``,
 ``--corr_chunk``, ``--graph_chunk`` and ``--points`` the model levers
-and the clouds' size.
+and the clouds' size, ``--telemetry`` the Trainer's monitors and
+divergence detector (a timed call is ``Trainer.dispatch``'s: the
+state's copy, the step with its monitors and the detector's host
+read).
 
 A fresh process is the yardstick for eager times: a long run such as
 ``chip_smoke.py`` reads its eager steps slower than this, by an amount

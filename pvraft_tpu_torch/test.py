@@ -21,7 +21,9 @@ and ``--approx_knn`` compute the exact top-k, as the JAX package does
 off the TPU); every other
 flag of ``test.py`` is rejected with the slice that brings it. Runs on
 the card unless ``--device`` names another device. Prints the means as
-one JSON line.
+one JSON line; the running means every 50 scenes go to
+``<exp_path>/logs/TestAlone_<dataset>.log`` and the ``eval`` record to
+``<exp_path>/testalone.events.jsonl`` (``engine/evaluator.py``).
 """
 
 from __future__ import annotations
@@ -132,6 +134,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.torch_weights:
         ev.load_torch(args.torch_weights)
     means = ev.run(dump_dir=args.dump_dir)
+    ev.close()
     print(json.dumps(dict(sorted(means.items()))), flush=True)
 
 

@@ -8,6 +8,8 @@
         [--corr_chunk C] [--graph_chunk C] [--remat_policy P]
         [--packed_state [--steps_per_dispatch K | --host_roundtrip]]
         [--device_prefetch 2] [--device cpu]
+        [--telemetry [--divergence_zscore 6] [--divergence_window 64]
+                     [--halt_on_divergence]] [--profile_dir DIR]
         [--exp_path EXP] [--resume | --weights CKPT]
         [--refine [--stage1_weights CKPT]] ...
 
@@ -23,9 +25,15 @@ levers (``--corr_chunk``, ``--graph_chunk``, ``--remat``,
 compute the exact top-k: approx = exact off the TPU) and the K-step
 levers (``--packed_state``, ``--steps_per_dispatch``,
 ``--host_roundtrip``, ``--device_prefetch``) parse as ``train.py``'s. Runs on the
-card unless ``--device`` names another device. Every other flag of ``train.py`` is rejected with
-the slice that brings it. Prints each epoch's train and val means and
-the final test means as JSON lines. Checkpoints go to
+card unless ``--device`` names another device. ``--telemetry``,
+``--divergence_zscore``, ``--divergence_window``,
+``--halt_on_divergence`` and ``--profile_dir`` arm the train
+observability (``engine/trainer.py``); the event stream
+``<exp_path>/train.events.jsonl``, the log
+``<exp_path>/logs/Train_<dataset>.log`` and the TensorBoard scalars are
+written whatever the flags. Every other flag of ``train.py`` is rejected
+with the slice that brings it. Prints each epoch's train and val means
+and the final test means as JSON lines. Checkpoints go to
 ``<exp_path>/checkpoints`` (``engine/checkpoint.py``); ``--weights``
 resumes from a checkpoint (parameters, Adam state, schedule position,
 epoch), ``--resume`` from ``last_checkpoint`` where there is one: the
@@ -62,11 +70,6 @@ LATER_FLAGS = {
                      "unrolled, whatever the unroll (ModelConfig.scan_unroll "
                      "is accepted only to load configs shared with the JAX "
                      "package)",
-    "--profile_dir": "the observability slice",
-    "--telemetry": "the observability slice",
-    "--divergence_zscore": "the observability slice",
-    "--divergence_window": "the observability slice",
-    "--halt_on_divergence": "the observability slice",
 }
 
 
@@ -161,6 +164,25 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device_prefetch", type=int, default=2,
                    help="batches kept in flight to the device (1: none "
                         "ahead)")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the first epoch "
+                        "here")
+    p.add_argument("--telemetry", action="store_true",
+                   help="run-health telemetry (pvraft_tpu_torch/obs): "
+                        "in-step numerics monitors in the train step, loss "
+                        "divergence detection, crash snapshots replayable "
+                        "by python -m pvraft_tpu_torch.doctor")
+    p.add_argument("--divergence_zscore", type=float, default=6.0,
+                   help="with --telemetry: trip when loss exceeds this "
+                        "many trailing std devs over the window (0 "
+                        "disables; the NaN/Inf sentinel stays armed)")
+    p.add_argument("--divergence_window", type=int, default=64,
+                   help="with --telemetry: trailing window (healthy "
+                        "steps) of the loss z-score detector")
+    p.add_argument("--halt_on_divergence", action="store_true",
+                   help="with --telemetry: stop after the first "
+                        "divergence snapshot instead of training on "
+                        "with corrupt state")
     p.add_argument("--strict_retrace", action="store_true",
                    help="raise RetraceError when a graphed step meets an "
                         "input signature it has not captured")
@@ -193,6 +215,10 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           lr_schedule=a.lr_schedule,
                           strict_retrace=a.strict_retrace,
                           grad_dtype=a.grad_dtype,
+                          profile_dir=a.profile_dir, telemetry=a.telemetry,
+                          divergence_zscore=a.divergence_zscore,
+                          divergence_window=a.divergence_window,
+                          halt_on_divergence=a.halt_on_divergence,
                           checkpoint_interval=a.checkpoint_interval,
                           ckpt_backend=a.ckpt_backend, refine=a.refine),
         parallel=ParallelConfig(packed_state=a.packed_state,

@@ -165,26 +165,54 @@ def test_train_and_data_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("cls,kw", [
-    (tconfig.TrainConfig, {"divergence_zscore": 3.0}),
-    (tconfig.TrainConfig, {"telemetry": True}),
     (tconfig.TrainConfig, {"ckpt_backend": "orbax"}),
     (tconfig.TrainConfig, {"eval_batch": 4}),
-    (tconfig.TrainConfig, {"halt_on_divergence": True}),
-    (tconfig.TrainConfig, {"max_snapshots": 5}),
-    (tconfig.TrainConfig, {"profile_dir": "profiles"}),
 ])
 def test_train_config_rejects_later_slices(cls, kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cls(**kw)
 
 
+@pytest.mark.parametrize("kw,error", [
+    ({"divergence_zscore": 3.0}, None),
+    ({"telemetry": True}, None),
+    ({"halt_on_divergence": True}, None),
+    ({"max_snapshots": 5}, None),
+    ({"profile_dir": "profiles"}, None),
+    ({"divergence_window": 1}, "divergence_window must be >= 2"),
+    ({"divergence_zscore": -1.0}, "divergence_zscore must be >= 0"),
+])
+def test_train_config_observability_knobs_match_jax(kw, error):
+    """The observability knobs are the JAX TrainConfig's: the same
+    values accepted, the same ValueErrors."""
+    if error is None:
+        assert (dataclasses.asdict(tconfig.TrainConfig(**kw))
+                == dataclasses.asdict(JTrainConfig(**kw)))
+        return
+    for cls in (tconfig.TrainConfig, JTrainConfig):
+        with pytest.raises(ValueError, match=error):
+            cls(**kw)
+
+
 def test_make_train_step_rejects_later_levers():
     from pvraft_tpu_torch.engine.steps import make_train_step
+    from pvraft_tpu_torch.obs.monitors import TELEMETRY_LEAVES
 
     with pytest.raises(ValueError, match="grad_dtype"):
         make_train_step(None, None, None, GAMMA, 1, grad_dtype="float16")
-    with pytest.raises(NotImplementedError, match="observability"):
-        make_train_step(None, None, None, GAMMA, 1, telemetry=True)
+    # telemetry is ported: the step returns JAX's leaves.
+    model = TRaft(tconfig.ModelConfig(**TINY))
+    step = make_train_step(model, torch.optim.Adam(model.parameters()),
+                           lambda _: 1e-3, GAMMA, 1, telemetry=True)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.uniform(-1, 1, (B, N, 3)).astype(
+        np.float32)) for k in ("pc1", "pc2", "flow")}
+    batch["mask"] = torch.ones(B, N)
+    tel = step(batch)["telemetry"]
+    assert tuple(tel) == TELEMETRY_LEAVES
+    assert set(tel["grad_norm_by_group"]) == {
+        "context_extractor", "feature_extractor", "update_iter"}
+    assert tel["delta_flow_norm"].shape == (1,) and int(tel["nonfinite"]) == 0
 
 
 # --- Adam and the optax state ------------------------------------------------
