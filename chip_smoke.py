@@ -226,6 +226,23 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            ``step_time`` unarmed and armed in turns; the step profiler
            (``profiling/step_profiler.py``) at the flagship, its
            ``gru_fused`` rung launching kernel 2;
+  phase 15 the cost plane and the program inventory (``cost_plane``,
+           ``cost_plane_phase``; after phase 14, before the profiler
+           phases): every program of the catalog (``python -m
+           pvraft_tpu_torch.programs list``) counted on the card at the
+           flagship size into the ``pvraft_costs/v1`` inventory
+           (``programs/costs.py``; every record ok, validator and
+           coverage clean, each kernel spec's bytes its analytic bytes and
+           PERF.md's Bound column), a serve spec and the train step
+           counted on the CPU and the card alike (Adam's capturable ops
+           named); ``ServeConfig()`` behind ``build_service`` with the
+           inventory as its cost surface: phase 2's requests over HTTP,
+           one valid ``cost_calibration`` per dispatch, the ``/healthz``
+           ``cost`` rows counting the dispatches, the seven cost families,
+           the measured/predicted ratio per (bucket, batch, dtype); two
+           flagship Trainer steps with the surface (the ``epoch_summary``
+           ``cost`` block, comparable false); the bitwise replay harness
+           (``analysis/determinism/replay.py``) at the flagship size;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -253,7 +270,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 6, 7. Each phase
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 6, 7. Each phase
 prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -270,6 +287,7 @@ import gc
 import json
 import os
 import pickle
+import re
 import statistics
 import sys
 import time
@@ -278,16 +296,15 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.kernel_bench import device_ms
+from pvraft_tpu_torch.ops import kernel_bounds
 from pvraft_tpu_torch.ops.cuda import KERNEL_SYMBOLS, gru_variant, lookup_variant
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
-# CUDA-core FLOP/s and dense TF32 and bf16 tensor-core FLOP/s. The bound of a kernel
-# is the larger of its bytes over the memory rate and its operations over
-# the compute rate of the units it runs on.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 495e12
-BF16_FLOPS_PER_S = 989e12
+# The H100 SXM's published peaks and each kernel's bytes and operations
+# live in the package (ops/kernel_bounds.py), which the program inventory
+# counts kernels by too. The bound of a kernel is the larger of its bytes
+# over the memory rate and its operations over the compute rate of the
+# units it runs on.
+bound = kernel_bounds.bound
 
 LOOKUP_SHAPES = ((1, 8192), (2, 8192), (4, 8192), (4, 4096), (1, 2048))
 TRAIN_SHAPE = (2, 8192)      # B x N of the train step and the kernel bench
@@ -414,12 +431,9 @@ def lookup_case(name, args):
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"lookup {name}: two launches are not bitwise equal")
     filled = float((got[0] != 0).float().mean()) if got[0].numel() else 0.0
-    vox_n = levels * res**3
     plan = general_plan(kernel, k, knn, res, levels)
-    bytes_ = 4 * b * n * (k + 3 * k + 3) + 4 * b * n * (vox_n + 5 * knn)
-    # Per candidate: 3 offsets, 5 for the distance, per level 3 divisions,
-    # 3 roundings and 3 range tests; knn comparisons.
-    ops = b * n * k * (3 + 5 + 9 * levels + knn)
+    cost = kernel_bounds.lookup_cost(b, n, k, levels, res, knn)
+    bytes_, ops = cost.bytes, cost.ops
     return {
         "kernel": kernel, "resolution": res,
         "shape": [b, n, k], "knn": knn, "levels": levels,
@@ -539,15 +553,6 @@ def general_lookup_split(rng, dev):
     return out
 
 
-def bound(bytes_: float, ops: float, flops_per_s: float = FP32_FLOPS_PER_S):
-    """The least time for ``bytes_`` moved and ``ops`` done at
-    ``flops_per_s``, and which of the two sets it."""
-    t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / flops_per_s
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
 def gru_inputs(rng, b, n, dev, scale=1.0, h=WIDTH, c=None, f=WIDTH):
     """Seeded GRU operands at hidden width ``h``, context width ``c``
     (default ``h``) and correlation features of ``f`` (default WIDTH, the
@@ -630,15 +635,11 @@ def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None,
 
     lib_err = float((unfused() - want).abs().max())
     check(lib_err <= tol, f"gru {b}x{n}: unfused modules differ by {lib_err}")
-    weight_bytes = sum(4 * w.numel() for w in args[4])
-    # Per point: net, inp, cor and flow8 read, the new net written.
-    bytes_ = 4 * b * n * (2 * h + c + f + 8) + weight_bytes
-    # Per point: conv_corr, conv_flow (8 padded rows), conv, the three
-    # gates over concat(inp, hid, flow8), and net into the gates.
-    flops = 2 * b * n * (f * h + 8 * h + 2 * h * h
-                         + (c + h + 8) * 3 * h + h * 3 * h)
     mode = ("tuned" if variant == "tuned"
             else general_gru_plan(h, c, f).mode)
+    cost = kernel_bounds.gru_cost(b, n, h, c, f,
+                                  "fma" if mode == "fma" else "tf32")
+    bytes_, flops = cost.bytes, cost.flops
     return {
         "kernel": kernel, "shape": [b, n, h, c, f], "mode": mode,
         "activation_scale": scale,
@@ -647,9 +648,7 @@ def check_gru(rng, b, n, dev, scale=1.0, tol=1e-5, h=WIDTH, c=None,
         "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
         "plain_ms": device_ms(lambda: gru_math(*args)),
         "library_ms": device_ms(unfused),
-        "bytes": bytes_, "ops": flops,
-        **(bound(bytes_, flops) if mode == "fma"
-           else bound(bytes_, 3 * flops, TF32_FLOPS_PER_S)),
+        "bytes": bytes_, "ops": flops, **kernel_bounds.cost_bound(cost),
         "fp32_bound_ms": bound(bytes_, flops)["bound_ms"],
     }
 
@@ -743,12 +742,8 @@ def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None, f=WIDTH):
     lib_err = float((lib - want).abs().max())
     check(within(lib, want, **BF16_MODEL_TOL),
           f"gru bf16 {b}x{n}: unfused bf16 modules differ by {lib_err}")
-    weight_bytes = sum(4 * w.numel() for w in weights)
-    # Per point: net, inp and flow8 (float32) and cor (bf16) read, the new
-    # net (float32) written.
-    bytes_ = b * n * (4 * (2 * h + c + 8) + 2 * f) + weight_bytes
-    flops = 2 * b * n * (f * h + 8 * h + 2 * h * h
-                         + (c + h + 8) * 3 * h + h * 3 * h)
+    cost = kernel_bounds.gru_cost(b, n, h, c, f, "bf16")
+    bytes_, flops = cost.bytes, cost.flops
     return {
         "kernel": "gru_iter_bf16", "shape": [b, n, h, c, f],
         "max_abs_err": err, **BF16_OP_TOL, "beyond_op_tol": stray,
@@ -759,8 +754,7 @@ def check_gru_bf16(rng, b, n, dev, h=WIDTH, c=None, f=WIDTH):
         "call_ms": cuda_ms(lambda: fused_gru_update(*args)),
         "plain_ms": device_ms(lambda: gru_math(*args)),
         "library_ms": device_ms(unfused),
-        "bytes": bytes_, "ops": flops,
-        **bound(bytes_, flops, BF16_FLOPS_PER_S),
+        "bytes": bytes_, "ops": flops, **kernel_bounds.cost_bound(cost),
         "fp32_bound_ms": bound(bytes_, flops)["bound_ms"],
     }
 
@@ -789,11 +783,9 @@ def voxel_case(name, corr, xyz, coords, scale, levels=LEVELS,
     check(torch.equal(got, again), f"voxel {name}: launches not bitwise equal")
     filled = float((got != 0).float().mean())
     b, n, k = corr.shape
-    vox_n = levels * res**3
     plan = general_plan(kernel, k, 0, res, levels)
-    bytes_ = 4 * b * n * (k + 3 * k) + 4 * b * n * vox_n
-    # Per candidate and level: 3 divisions, 3 roundings, 3 range tests.
-    ops = b * n * k * 9 * levels
+    cost = kernel_bounds.voxel_cost(b, n, k, levels, res)
+    bytes_, ops = cost.bytes, cost.ops
     return {
         "kernel": kernel, "resolution": res, "levels": levels,
         "shape": [b, n, k], "base_scale": scale, "max_abs_err": err,
@@ -4383,6 +4375,249 @@ def train_observability_phase(seed, dev, smi):
 # name: ModelConfig keywords of an 8,192-point serve request that the tuned
 # kernels do not take: the general lookup, and the general GRU update
 # (hidden + context must stay 128, the context encoder's width).
+# name -> the figure of PERF.md §6's Bound column (MB) its bytes give.
+PERF_BOUND_MB = {"cuda_corr_lookup_fwd": "75.1", "cuda_voxel_corr_fwd": "69.8",
+                 "cuda_gru_iter_bf16_fwd": "7.81",
+                 "cuda_gru_iter_general_fwd": "7.69"}
+# Counted on the CPU and on the card at "tiny" in the same process.
+CROSS_DEVICE = ("serve_predict_bf16_b2048_bs1", "flagship_train_step_fp32")
+# The only ops whose counts may differ there: Adam's, capturable on the
+# card (its step and bias corrections on the device), on the host's
+# clock on the CPU.
+ADAM_OPS = re.compile(r"^(_foreach_\w+|_local_scalar_dense)$")
+COST_REPS = 3                # each request (group) sent this many times
+# The cost plane's Prometheus families (serve/metrics.py::_render_cost).
+COST_FAMILIES = {"pvraft_serve_predicted_device_seconds_total",
+                 "pvraft_serve_device_busy_seconds_total",
+                 "pvraft_serve_replica_utilization",
+                 "pvraft_serve_cost_predicted_seconds_total",
+                 "pvraft_serve_cost_measured_seconds_total",
+                 "pvraft_serve_cost_dispatches_total",
+                 "pvraft_serve_cost_calibration_ratio"}
+
+
+def kernel_spec_cost(spec):
+    """The analytic cost (ops/kernel_bounds.py) of a ``kernel`` spec's one
+    launch, from its geometry."""
+    from pvraft_tpu_torch.ops.cuda.gru_iter import gru_cost
+
+    kind, geo = next(iter(spec.geometry.items()))
+    b, n = geo["b"], geo["n"]
+    if kind == "lookup":
+        return kernel_bounds.lookup_cost(b, n, geo["k"], geo["levels"],
+                                         geo["resolution"], geo["knn"])
+    if kind == "voxel":
+        return kernel_bounds.voxel_cost(b, n, geo["k"], geo["levels"],
+                                        geo["resolution"])
+    return gru_cost(b, n, geo["hidden"], geo["context"], geo["corr"],
+                    getattr(torch, geo["dtype"]))
+
+
+def cross_device_counts(dev):
+    """Each of CROSS_DEVICE counted at "tiny" on the CPU and on the card:
+    flops, bytes and the ops whose (calls, bytes, flops) differ."""
+    from pvraft_tpu_torch.programs import get
+    from pvraft_tpu_torch.programs.costs import count_program
+
+    out = {}
+    for name in CROSS_DEVICE:
+        rows = {}
+        for where in ("cpu", dev):
+            fn, inputs = get(name).build(where, "tiny")
+            got = count_program(fn, inputs)
+            rows[str(where)] = got
+            del fn, inputs
+        cpu, card = rows["cpu"], rows[str(dev)]
+        ops = sorted(set(cpu["by_op"]) | set(card["by_op"]))
+        out[name] = {
+            "cpu": {"flops": cpu["flops"], "bytes": cpu["bytes_accessed"]},
+            "gpu": {"flops": card["flops"], "bytes": card["bytes_accessed"]},
+            "equal": (cpu["flops"], cpu["bytes_accessed"])
+            == (card["flops"], card["bytes_accessed"]),
+            "ops_differ": {op: {"cpu": cpu["by_op"].get(op),
+                                "gpu": card["by_op"].get(op)}
+                           for op in ops
+                           if cpu["by_op"].get(op) != card["by_op"].get(op)}}
+    return out
+
+
+def cost_plane_phase(seed, dev, smi):
+    """The cost plane and the program inventory (``cost_plane``; after
+    phase 14, before the profiler phases). (1) The inventory: every spec
+    of the catalog (``python -m pvraft_tpu_torch.programs list``) counted
+    on the card at the flagship size (``programs/costs.py::run_costs``)
+    into ``programs/costs.py::default_costs_path()``: every record ok,
+    the port's validator and coverage check clean, each ``kernel``
+    forward spec's bytes equal to its analytic bytes
+    (``ops/kernel_bounds.py``) and those of PERF_BOUND_MB to PERF.md's
+    Bound column; CROSS_DEVICE counted on the CPU and on the card in this
+    process: the serve spec equal, the train step equal but for Adam's
+    ops (ADAM_OPS), which are named. (2) Serving: ``ServeConfig()``
+    behind ``build_service`` with the inventory as its cost surface and a
+    ``ServeTelemetry`` stream; phase 2's requests over HTTP (each lone
+    request and the concurrent group of four COST_REPS times): the
+    stream validates, one valid ``cost_calibration`` per dispatch
+    (platform gpu, comparable false), the ``/healthz`` ``cost`` rows
+    count exactly the dispatches of each (bucket, batch), the seven cost
+    families in the Prometheus exposition; the measured/predicted ratio
+    per (bucket, batch, dtype). (3) Training: a Trainer on the flagship
+    ``TrainConfig`` with the inventory trains one epoch of 2 steps: its
+    ``epoch_summary`` carries the ``cost`` block (platform gpu, comparable
+    false), ``step_ratio`` and ``hw_utilization``. (4) The replay harness
+    (``analysis/determinism/replay.py``) at the flagship size: the train
+    step and the serve dispatch bitwise across two builds from scratch."""
+    from pvraft_tpu_torch.analysis.determinism.replay import replay_report
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.obs.events import read_events, validate_events_file
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.programs import load_catalog, specs
+    from pvraft_tpu_torch.programs.costs import (check_coverage,
+                                                 default_costs_path,
+                                                 run_costs, validate_costs)
+    from pvraft_tpu_torch.serve import (InferenceEngine, ServeConfig,
+                                        ServeTelemetry, build_service)
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    out = {"gpu": smi}
+    t_phase = time.perf_counter()
+    # (1) The inventory.
+    load_catalog()
+    catalog = list(specs().values())
+    t0 = time.perf_counter()
+    doc = run_costs(catalog, dev, "flagship")
+    out["inventory_s"] = time.perf_counter() - t0
+    path = default_costs_path()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+    failed = {r["name"]: r.get("error") for r in doc["programs"]
+              if not r["ok"]}
+    check(not failed, f"cost plane: records not ok: {failed}")
+    problems = validate_costs(doc, path) + check_coverage(doc, catalog, path)
+    check(not problems, f"cost plane: the inventory: {problems}")
+    out["inventory"] = {
+        "topology": doc["topology"], "hbm_limit_bytes": doc["hbm_limit_bytes"],
+        "programs": {r["name"]: {
+            "flops": r["flops"], "bytes": r["bytes_accessed"],
+            "live_bytes": r["memory"]["live_bytes_estimate"],
+            "max_memory_allocated": r["memory"].get("max_memory_allocated"),
+            "kernel_launches": r["kernel_launches"], "count_s": r["count_s"]}
+            for r in doc["programs"]}}
+    kernels = {}
+    for spec in catalog:
+        if "kernel" not in spec.tags or not spec.name.endswith("_fwd"):
+            continue
+        cost = kernel_spec_cost(spec)
+        got = out["inventory"]["programs"][spec.name]["bytes"]
+        check(got == cost.bytes, f"cost plane: {spec.name} counts {got} "
+              f"bytes, its kernel's analytic bytes are {cost.bytes}")
+        kernels[spec.name] = {"bytes": got, "flops": cost.flops,
+                              "analytic_bytes": cost.bytes,
+                              **kernel_bounds.cost_bound(cost)}
+    for name, mb in PERF_BOUND_MB.items():
+        digits = len(mb.split(".")[1])
+        got = f"{kernels[name]['bytes'] / 1e6:.{digits}f}"
+        check(got == mb, f"cost plane: {name} {got} MB, PERF.md's Bound "
+              f"column {mb} MB")
+    out["kernels"] = kernels
+    cross = out["cross_device"] = cross_device_counts(dev)
+    serve_spec, train_spec = CROSS_DEVICE
+    check(cross[serve_spec]["equal"], f"cost plane: {serve_spec} counts "
+          f"differ between the CPU and the card: {cross[serve_spec]}")
+    odd = [op for op in cross[train_spec]["ops_differ"]
+           if not ADAM_OPS.match(op)]
+    check(cross[train_spec]["cpu"]["flops"]
+          == cross[train_spec]["gpu"]["flops"] and not odd,
+          f"cost plane: {train_spec} differs between the CPU and the card "
+          f"beyond Adam's ops: {odd}, {cross[train_spec]}")
+    # (2) Serving with the surface armed.
+    cfg = ServeConfig()
+    requests = serve_requests(np.random.default_rng(seed + 1))
+    with scratch_dir() as root:
+        events = os.path.join(root, "serve.events.jsonl")
+        tel = ServeTelemetry(events, cfg=cfg)
+        engine = InferenceEngine(seeded_state_dict(cfg.model, seed), cfg,
+                                 device=dev, telemetry=tel)
+        server = build_service(engine, telemetry=tel, cost_surface=path,
+                               devmem_interval_s=0)
+        server.start()
+        try:
+            for _ in range(COST_REPS):
+                for kind, group, bucket in requests:
+                    got = concurrently([
+                        (lambda r=r: http_predict(server.port, *r, True))
+                        for r in group])
+                    check(all(s == 200 for s, _, _ in got),
+                          f"cost plane: /predict {[s for s, _, _ in got]}")
+            health = http_json(server.port, "/healthz")
+            status, prom, _ = http_call(server.port, "GET",
+                                        "/metrics?format=prometheus")
+            metrics = http_json(server.port, "/metrics")
+        finally:
+            server.shutdown(drain=True)
+            tel.close()
+        check(not validate_events_file(events),
+              f"cost plane: {validate_events_file(events)[:5]}")
+        records = read_events(events)
+    batches = collections.Counter((r["bucket"], r["batch"]) for r in records
+                                  if r["type"] == "serve_batch")
+    calib = [r for r in records if r["type"] == "cost_calibration"]
+    check(len(calib) == sum(batches.values()) == metrics["batches_total"],
+          f"cost plane: {len(calib)} cost_calibration events, "
+          f"{sum(batches.values())} serve_batch, "
+          f"{metrics['batches_total']} batches")
+    check(all(r["platform"] == "gpu" and r["comparable"] is False
+              and r["basis"] == "roofline" for r in calib),
+          "cost plane: a cost_calibration off platform gpu or comparable")
+    rows = {(r["bucket"], r["batch"]): r for r in health["cost"]["calibration"]}
+    check({k: r["n"] for k, r in rows.items()} == dict(batches),
+          f"cost plane: /healthz cost rows {sorted(rows)} count "
+          f"{[r['n'] for r in rows.values()]}, dispatches {dict(batches)}")
+    families = set(re.findall(r"^# TYPE (\S+) ", prom.decode(), re.M))
+    missing = COST_FAMILIES - families
+    check(status == 200 and not missing,
+          f"cost plane: families missing {sorted(missing)}")
+    out["serve"] = {
+        "cost_surface": health["cost_surface"],
+        "utilization": health["cost"]["utilization"],
+        "calibration": [
+            {k: r[k] for k in ("bucket", "batch", "dtype", "n", "predicted_s",
+                               "measured_s", "ratio", "extrapolated")}
+            for r in health["cost"]["calibration"]]}
+    # (3) Training with the surface.
+    with scratch_dir() as root:
+        tcfg = flagship_train_config(seed).replace(exp_path=root)
+        trainer = Trainer(tcfg, device=dev, cost_surface=path)
+        try:
+            trainer.training(0)
+        finally:
+            trainer.close()
+        stream = os.path.join(root, "train.events.jsonl")
+        check(not validate_events_file(stream),
+              f"cost plane: {validate_events_file(stream)[:5]}")
+        summary = [r for r in read_events(stream)
+                   if r["type"] == "epoch_summary"]
+    cost = summary[-1].get("cost") if summary else None
+    check(cost is not None and cost["platform"] == "gpu"
+          and cost["comparable"] is False,
+          f"cost plane: the epoch_summary's cost block: {cost}")
+    out["train"] = {"steps": summary[-1]["steps"],
+                    "step_ms": summary[-1]["step_ms"], "cost": cost}
+    # (4) The replay harness.
+    t0 = time.perf_counter()
+    report = replay_report(dev, "flagship")
+    out["replay_s"] = time.perf_counter() - t0
+    out["replay"] = {e["name"]: {k: e[k] for k in (
+        "bitwise_identical", "n_output_leaves", "digest")}
+        | ({"first_difference": e["first_difference"]}
+           if "first_difference" in e else {})
+        for e in report["programs"]}
+    check(report["verdict"] == "bitwise",
+          f"cost plane: the replay is {report['verdict']}: {out['replay']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
                                           "corr_knn": 64}),
                 ("hidden32_context96_fused_gru",
@@ -4749,6 +4984,9 @@ def main() -> int:
 
     train_obs = train_observability_phase(args.seed, dev, smi)
     emit({"phase": "train_observability", **train_obs})
+
+    cost_plane = cost_plane_phase(args.seed, dev, smi)
+    emit({"phase": "cost_plane", **cost_plane})
 
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.

@@ -80,9 +80,15 @@ checkpoint. ``train.profile_dir``: a ``torch.profiler`` window over the
 first epoch, every thread, written there as a Chrome trace
 (``profiling/timers.py::trace_context``), between ``trace_window``
 records. :meth:`Trainer.close` (``fit`` calls it) closes the stream.
+Each ``epoch_summary`` carries a ``cost`` block where the inventory
+prices the train step (:meth:`Trainer._step_cost_report`): the measured
+step against the flagship train step's roofline, ``step_ratio`` and
+``hw_utilization``, never ``comparable`` off a TPU. The inventory is the
+``cost_surface`` given, else ``programs/costs.py::default_costs_path()``
+looked up once; any failure leaves the block out: observability never
+fails training.
 
-Not in this slice: the cost plane (item 9c), data-parallel meshes (the
-parallel slice).
+Not in this slice: data-parallel meshes (the parallel slice).
 """
 
 from __future__ import annotations
@@ -140,6 +146,7 @@ from pvraft_tpu_torch.obs.divergence import (
 from pvraft_tpu_torch.obs.events import RunTelemetry
 from pvraft_tpu_torch.obs.retrace import RetraceWatchdog, signature
 from pvraft_tpu_torch.profiling.timers import StepTimer, trace_context
+from pvraft_tpu_torch.programs.costs import CostSurface, hardware_utilization
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import (
     opt_state_from_jax,
@@ -186,7 +193,10 @@ class Trainer:
     named. ``graphs``: the graphed steps (default) or the eager ones.
     ``capturable``: the graphed steps' Adam, its learning rate a tensor
     on ``device`` and, on the card, ``capturable`` (default: with the
-    graphed steps).
+    graphed steps). ``cost_surface``: the inventory that prices the
+    ``epoch_summary``'s ``cost`` block, a ``CostSurface`` or a path
+    (default: ``programs/costs.py::default_costs_path()``, where it
+    exists).
     """
 
     # Divergence records a run emits before it mutes them (snapshots are
@@ -196,8 +206,11 @@ class Trainer:
 
     def __init__(self, cfg: Config, device: Union[str, torch.device, None] = None,
                  weights: Optional[Mapping] = None, opt_state: Any = None,
-                 graphs: bool = True, capturable: Optional[bool] = None):
+                 graphs: bool = True, capturable: Optional[bool] = None,
+                 cost_surface: Any = None):
         self.cfg = cfg
+        # The cost block's inventory: looked up at the first epoch's end.
+        self._cost_surface: Any = cost_surface
         self.device = resolve_device(device)
         t = cfg.train
         self.telemetry = RunTelemetry(cfg.exp_path, "Train", cfg.data.dataset)
@@ -564,9 +577,11 @@ class Trainer:
                "steps": n, "losses": losses, "epes": epes,
                "step_ms": step_ms}
         if n:
+            cost = self._step_cost_report(step_ms / 1e3)
             self.telemetry.emit_epoch_summary(
                 epoch, steps=n, loss=out["loss"], epe=out["epe"],
-                step_ms=round(step_ms, 3))
+                step_ms=round(step_ms, 3),
+                **({"cost": cost} if cost is not None else {}))
             self.log.info(f"epoch {epoch}: loss {out['loss']:.4f} epe "
                           f"{out['epe']:.4f} step {step_ms:.1f} ms")
         else:
@@ -574,6 +589,37 @@ class Trainer:
             self.log.info(f"epoch {epoch}: steps=0 (empty epoch — loader "
                           "yielded no batches)")
         return out
+
+    def _step_cost_report(self, step_s: float) -> Optional[Dict[str, Any]]:
+        """The ``epoch_summary`` ``cost`` block (the JAX Trainer's): the
+        measured step seconds beside the inventory's flagship train step
+        at the model's compute dtype (``CostSurface.lookup_train_step``),
+        its roofline seconds, their ratio and the hardware utilization
+        its flops give. A run at another shape reads the ratio as scale
+        evidence. Any failure gives None."""
+        if self._cost_surface is None or isinstance(self._cost_surface, str):
+            try:
+                self._cost_surface = CostSurface.load(self._cost_surface)
+            except Exception:  # noqa: BLE001 — observability must not fail training
+                self._cost_surface = False
+        surface = self._cost_surface
+        if surface is False or step_s <= 0:
+            return None
+        dtype = self.cfg.model.compute_dtype or "float32"
+        rec = surface.lookup_train_step(dtype)
+        if rec is None or rec.device_seconds <= 0:
+            return None
+        platform = "gpu" if self.device.type == "cuda" else self.device.type
+        util = hardware_utilization(rec.flops, step_s, dtype)
+        return {
+            "program": rec.name,
+            "basis": rec.basis,
+            "predicted_step_ms": round(rec.device_seconds * 1e3, 3),
+            "step_ratio": round(step_s / rec.device_seconds, 4),
+            "hw_utilization": round(util, 6) if util is not None else None,
+            "platform": platform,
+            "comparable": platform == "tpu" and rec.comparable,
+        }
 
     def save(self, epoch: int, checkpoint_interval: int,
              best: bool = False) -> Tuple[str, ...]:

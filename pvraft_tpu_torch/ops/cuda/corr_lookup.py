@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from pvraft_tpu_torch.ops import cuda as _cuda
+from pvraft_tpu_torch.ops import kernel_bounds
 from pvraft_tpu_torch.ops.corr import knn_select, take_candidates
 from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
@@ -259,7 +260,12 @@ class _FusedLookup(torch.autograd.Function):
     def forward(ctx, corr, xyz, coords, num_levels, base_scale, resolution,
                 knn):
         run = _launch if corr.is_cuda else corr_lookup_plain
-        out = run(corr, xyz, coords, num_levels, base_scale, resolution, knn)
+        with kernel_bounds.kernel_scope(
+                kernel_bounds.lookup_cost, *corr.shape, num_levels,
+                resolution, knn) as scope:
+            out = run(corr, xyz, coords, num_levels, base_scale, resolution,
+                      knn)
+            scope.done(out)
         ctx.save_for_backward(corr, xyz, coords, out[3])
         ctx.geometry = (num_levels, base_scale, resolution)
         ctx.mark_non_differentiable(out[3])

@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from pvraft_tpu_torch.ops import cuda as _cuda
+from pvraft_tpu_torch.ops import kernel_bounds
 
 # Flow is zero-padded from 3 to FLOW_PAD channels; the zero columns
 # contribute exact zeros.
@@ -432,19 +433,41 @@ def gru_iter_bf16(net: torch.Tensor, inp: torch.Tensor, cor: torch.Tensor,
             h, c, f, rows, _sm_count(dev.index))[:3])
 
 
+def gru_cost(b: int, n: int, h: int, c: int, f: int,
+             dtype: torch.dtype = torch.float32) -> kernel_bounds.KernelCost:
+    """The work of one update by the kernel that takes it on the card:
+    the bf16 kernel at bfloat16; at float32 the tuned kernel or the
+    general one's tensor-core modes (3xTF32), or its "fma" mode."""
+    if dtype == torch.bfloat16:
+        unit = "bf16"
+    elif (_cuda.gru_variant(h, c, f) == "general"
+          and general_gru_plan(h, c, f).mode == "fma"):
+        unit = "fma"
+    else:
+        unit = "tf32"
+    return kernel_bounds.gru_cost(b, n, h, c, f, unit)
+
+
 class _FusedGru(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dtype, net, inp, cor, flow8, *weights):
         ctx.dtype = dtype
         ctx.save_for_backward(net, inp, cor, flow8, *weights)
-        if not net.is_cuda:
-            return gru_math(net, inp, cor, flow8, weights, dtype)
-        if dtype == torch.bfloat16:
-            return gru_iter_bf16(net, inp, cor, flow8, weights)
-        if dtype != torch.float32:
-            raise ValueError(f"fused_gru_update: no kernel computes in "
-                             f"{dtype}; it takes float32 and bfloat16")
-        return _launch(net, inp, cor, flow8, weights)
+        b, n, h = net.shape
+        with kernel_bounds.kernel_scope(
+                gru_cost, b, n, h, inp.shape[-1], cor.shape[-1],
+                dtype) as scope:
+            if not net.is_cuda:
+                out = gru_math(net, inp, cor, flow8, weights, dtype)
+            elif dtype == torch.bfloat16:
+                out = gru_iter_bf16(net, inp, cor, flow8, weights)
+            elif dtype != torch.float32:
+                raise ValueError(f"fused_gru_update: no kernel computes in "
+                                 f"{dtype}; it takes float32 and bfloat16")
+            else:
+                out = _launch(net, inp, cor, flow8, weights)
+            scope.done(out)
+        return out
 
     @staticmethod
     def backward(ctx, g):

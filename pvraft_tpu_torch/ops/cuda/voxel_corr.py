@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from pvraft_tpu_torch.ops import cuda as _cuda
+from pvraft_tpu_torch.ops import kernel_bounds
 from pvraft_tpu_torch.ops.cuda.corr_lookup import corr_lookup_general
 from pvraft_tpu_torch.ops.voxel import voxel_bin_means, voxel_bwd
 
@@ -66,10 +67,13 @@ class _VoxelBinMeans(torch.autograd.Function):
     def forward(ctx, corr, rel, num_levels, base_scale, resolution):
         ctx.save_for_backward(corr, rel)
         ctx.geometry = (num_levels, base_scale, resolution)
-        if not corr.is_cuda:
-            return voxel_bin_means(corr, rel, num_levels, base_scale,
-                                   resolution)
-        return _launch(corr, rel, num_levels, base_scale, resolution)
+        run = _launch if corr.is_cuda else voxel_bin_means
+        with kernel_bounds.kernel_scope(
+                kernel_bounds.voxel_cost, *corr.shape, num_levels,
+                resolution) as scope:
+            out = run(corr, rel, num_levels, base_scale, resolution)
+            scope.done(out)
+        return out
 
     @staticmethod
     def backward(ctx, g):

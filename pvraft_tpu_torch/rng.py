@@ -28,6 +28,8 @@ STREAMS: Tuple[Tuple[str, str], ...] = (
     ("data.synthetic", "synthetic scene-flow scene generation"),
     ("serve.probe", "supervisor health-probe payload cloud"),
     ("profile.data", "step-profiler synthetic input clouds"),
+    ("replay.input", "the program catalog's inputs (programs/catalog.py), "
+                     "which the bitwise replay rebuilds"),
 )
 
 STREAM_NAMES: Tuple[str, ...] = tuple(name for name, _ in STREAMS)

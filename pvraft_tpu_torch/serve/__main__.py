@@ -10,9 +10,11 @@ the ``pvraft_events/v1`` stream to F; ``--trace_sample N`` traces 1
 request in N (16; 1: all, 0: off); ``--trace_dir`` is where
 ``/debug/trace`` windows go; ``--strict_retrace`` fails a dispatch that
 compiles; ``--devmem_interval`` is the memory monitor's period (10 s; 0:
-off). ``--cost_surface`` is refused by name (the cost plane arrives with
-ROADMAP queue 1 item 9c), and so is the ``validate-load`` subcommand,
-which needs the load generator. SIGINT drains the service, writes the
+off). ``--cost_surface PATH`` arms the cost plane from a
+``pvraft_costs/v1`` inventory (``python -m pvraft_tpu_torch.programs
+costs``): it loads before the program table is captured, so a bad path
+fails at once. The ``validate-load`` subcommand is refused: it needs the
+load generator. SIGINT drains the service, writes the
 ``serve_shutdown`` record, closes the stream and exits 0.
 """
 
@@ -31,10 +33,6 @@ from pvraft_tpu_torch.serve.engine import (
     SERVE_DEFAULT_ITERS,
     SERVE_DEFAULT_REPLICAS,
 )
-
-# JAX serve flags whose feature a later slice of the port brings: parsed
-# with default None, refused when given.
-LATER_FLAGS = ("cost_surface",)
 
 
 def _ints(text: str):
@@ -56,6 +54,14 @@ def _cmd_serve(args) -> int:
         replicas=args.replicas)
     telemetry = (ServeTelemetry(args.events, cfg=cfg)
                  if args.events else None)
+    # The surface loads before the capture: a bad path fails at once.
+    cost_surface = None
+    if args.cost_surface:
+        from pvraft_tpu_torch.programs.costs import CostSurface
+
+        cost_surface = CostSurface.load(args.cost_surface)
+        print(f"[serve] cost surface armed: {args.cost_surface} "
+              f"({len(cost_surface)} program records)", flush=True)
     print(f"[serve] capturing {len(cfg.buckets) * len(cfg.batch_sizes)} "
           f"predict programs per replica (buckets={cfg.buckets}, "
           f"batch_sizes={cfg.batch_sizes}, dtype={cfg.dtype}, "
@@ -79,7 +85,8 @@ def _cmd_serve(args) -> int:
                            strict_retrace=args.strict_retrace,
                            devmem_interval_s=args.devmem_interval,
                            supervise=not args.no_supervise,
-                           supervisor_cfg=supervisor_cfg)
+                           supervisor_cfg=supervisor_cfg,
+                           cost_surface=cost_surface)
     server.start()
     tracing = (f"1-in-{args.trace_sample}" if args.trace_sample
                else "off")
@@ -164,18 +171,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                           "the supervisor's 0.5); also the 503 "
                           "Retry-After")
     srv.add_argument("--cost_surface", "--cost-surface",
-                     dest="cost_surface", default=None,
-                     help="not ported yet (ROADMAP queue 1 item 9c)")
+                     dest="cost_surface", default="",
+                     help="arm the cost plane from a pvraft_costs/v1 "
+                          "inventory (python -m pvraft_tpu_torch.programs "
+                          "costs): every dispatch priced in predicted "
+                          "device-seconds and measured against the price "
+                          "(Prometheus, cost_calibration events, the "
+                          "/healthz cost block); empty: disarmed")
     srv.add_argument("--platform", default=None, choices=["cpu", "cuda"],
                      help="cpu: serve on the CPU (default: the card)")
     srv.add_argument("--verbose", action="store_true",
                      help="log every HTTP request")
     srv.set_defaults(fn=_cmd_serve)
     args = parser.parse_args(argv)
-    for name in LATER_FLAGS:
-        if getattr(args, name) is not None:
-            parser.error(f"--{name} is not ported yet: it arrives with the "
-                         f"cost plane (ROADMAP queue 1 item 9c)")
     return args.fn(args)
 
 

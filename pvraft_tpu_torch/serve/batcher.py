@@ -38,8 +38,9 @@ the flow is on the host and wrapped in
 ``torch.profiler.record_function("device_execute")``; a sealed retrace
 ``watchdog`` is checked once per dispatch over that dispatch's window. A
 strict watchdog's :class:`~pvraft_tpu_torch.obs.retrace.RetraceError`
-fails the batch (HTTP 500) and is not counted against the replica. The
-JAX batcher's cost plane arrives with ROADMAP queue 1 item 9c.
+fails the batch (HTTP 500) and is not counted against the replica. With
+a ``costing`` model (``serve/costing.py``) every successful dispatch is
+priced and measured over the same ``device_execute`` window.
 """
 
 from __future__ import annotations
@@ -151,7 +152,8 @@ class MicroBatcher:
     """Bucket collectors -> batch queue -> per-replica executors."""
 
     def __init__(self, engine, cfg: BatcherConfig, telemetry=None,
-                 metrics=None, watchdog=None, supervisor=None):
+                 metrics=None, watchdog=None, supervisor=None,
+                 costing=None):
         largest = max(engine.cfg.batch_sizes)
         if cfg.max_batch > largest:
             raise ValueError(
@@ -164,6 +166,9 @@ class MicroBatcher:
         self.metrics = metrics
         self.watchdog = watchdog
         self.supervisor = supervisor
+        # The cost plane (serve/costing.py): every successful dispatch is
+        # priced and measured. None: one attribute check a dispatch.
+        self.costing = costing
         # The engine's replicas, or the engine itself as one executor
         # (test doubles without a pool).
         self.replicas = list(getattr(engine, "replicas", ()) or ()) \
@@ -497,6 +502,10 @@ class MicroBatcher:
                 if not r.abandoned and r.finalize()]
         bs = self.engine.batch_size_for(len(group))
         device_id = int(getattr(replica, "device_id", index))
+        # Priced at the dispatched program's batch size, over the
+        # device_execute window.
+        if self.costing is not None:
+            self.costing.observe_dispatch(bucket, bs, index, t0, now)
         for r, _ in live:
             tr = r.trace
             if tr is None or r.abandoned:

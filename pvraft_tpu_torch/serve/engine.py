@@ -236,6 +236,28 @@ def _on(device: torch.device):
             else contextlib.nullcontext())
 
 
+def predict_fn(model: torch.nn.Module, num_iters: int, refine: bool):
+    """The function a replica captures per (bucket, batch size): padded
+    clouds and validity masks in, without autograd, the last flow (or a
+    PVRaftRefine's refined flow) out, as a 1-tuple."""
+
+    def forward(xyz1, xyz2, valid1, valid2):
+        with torch.no_grad():
+            out = model(xyz1, xyz2, num_iters, valid1, valid2)
+        return (out if refine else out[0][-1],)
+
+    return forward
+
+
+def warmup_inputs(bucket: int, bs: int) -> Tuple[torch.Tensor, ...]:
+    """The capture's warm-up inputs at (bs, bucket): seeded clouds inside
+    the coordinate limit, every point valid."""
+    gen = torch.Generator().manual_seed(bucket * 16 + bs)
+    cloud = torch.rand(bs, bucket, 3, generator=gen) * 2 - 1
+    valid = torch.ones(bs, bucket, dtype=torch.bool)
+    return cloud, cloud.flip(1), valid, valid
+
+
 class Replica:
     """One device's executor: its own model copy, captured (bucket,
     batch) table and graph pool, and the lock that admits one program
@@ -283,23 +305,12 @@ class Replica:
             device_id=self.device_id)
 
     def _compile(self, bucket: int, bs: int, pool) -> GraphProgram:
-        """Capture the forward at (bs, bucket): padded clouds and validity
-        masks in, the last (or refined) flow out. Warmed up on seeded
-        clouds inside the coordinate limit, every point valid."""
+        """Capture :func:`predict_fn` at (bs, bucket), warmed up on
+        :func:`warmup_inputs`."""
         cfg = self.engine.cfg
-        model, iters, refine = self.model, cfg.num_iters, cfg.refine
-
-        def forward(xyz1, xyz2, valid1, valid2):
-            with torch.no_grad():
-                out = model(xyz1, xyz2, iters, valid1, valid2)
-            return (out if refine else out[0][-1],)
-
-        gen = torch.Generator().manual_seed(bucket * 16 + bs)
-        cloud = torch.rand(bs, bucket, 3, generator=gen) * 2 - 1
-        valid = torch.ones(bs, bucket, dtype=torch.bool)
         return capture(predict_program_name(bucket, bs, cfg.dtype),
-                       forward, (cloud, cloud.flip(1), valid, valid),
-                       self.device, pool)
+                       predict_fn(self.model, cfg.num_iters, cfg.refine),
+                       warmup_inputs(bucket, bs), self.device, pool)
 
     def predict_batch(self, requests: Sequence[Tuple[np.ndarray, np.ndarray]],
                       bucket: int) -> List[np.ndarray]:

@@ -12,8 +12,9 @@ package's fields. Handler threads, executors, the supervisor and the
 monitor emit concurrently, so every emit goes through one lock: the
 stream's ``seq`` stays sequential.
 
-The cost plane's ``cost_calibration`` (ROADMAP item 9c) and the fleet's
-``fleet_route`` and ``canary_verdict`` (item 11) are not emitted yet.
+With a cost surface armed, ``cost_calibration`` (one per priced
+dispatch, ``serve/costing.py``). The fleet's ``fleet_route`` and
+``canary_verdict`` (item 11) are not emitted yet.
 """
 
 from __future__ import annotations
@@ -110,6 +111,23 @@ class ServeTelemetry:
         self._emit("fault_injected", point=point,
                    **given(replica=replica, bucket=bucket,
                            traversal=traversal, fires=fires, value=value))
+
+    def emit_cost_calibration(self, bucket: int, batch: int, dtype: str,
+                              predicted_s: float, measured_s: float,
+                              platform: str, comparable: bool,
+                              replica: Optional[int] = None,
+                              basis: Optional[str] = None,
+                              extrapolated: Optional[bool] = None,
+                              program: Optional[str] = None) -> None:
+        """One dispatch priced through the cost surface beside its
+        measured wall-seconds. ``comparable`` may be true only on
+        platform "tpu" (the validator rejects anything else)."""
+        self._emit("cost_calibration", bucket=bucket, batch=batch,
+                   dtype=dtype, predicted_s=predicted_s,
+                   measured_s=measured_s, platform=platform,
+                   comparable=comparable,
+                   **given(replica=replica, basis=basis,
+                           extrapolated=extrapolated, program=program))
 
     def emit_weight_swap(self, digest: str, epoch: int,
                          path: Optional[str] = None,

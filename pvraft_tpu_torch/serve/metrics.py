@@ -19,12 +19,18 @@ Two renderings of one store, with the JAX package's names and keys:
   the memory monitor and the retrace watchdog's counter: the JSON
   snapshot keeps the JAX package's keys.
 
-The JAX store's cost-calibration series arrive with ROADMAP queue 1 item
-9c (their rolling busy fraction, :func:`replica_utilization`, is here).
+The cost-calibration series (``serve/costing.py``) exist only while the
+store is armed (:meth:`ServeMetrics.arm_cost`, by ``build_service`` with
+a cost surface): predicted and measured device-seconds per (bucket,
+batch, dtype), busy seconds and the rolling busy fraction per replica
+(:func:`replica_utilization`). A disarmed store renders the exposition as
+it did before them; ``/healthz`` reads :meth:`ServeMetrics.cost_snapshot`.
 """
 
 from __future__ import annotations
 
+import collections
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from pvraft_tpu_torch.analysis.concurrency.sanitizer import ordered_lock
@@ -45,6 +51,9 @@ POINT_EDGES = (
 
 # The window of the per-replica busy fraction.
 UTILIZATION_WINDOW_S = 60.0
+# At most this many dispatch intervals a replica (intervals older than the
+# window are pruned first).
+_BUSY_INTERVALS_MAX = 65536
 
 
 class LatencyHistogram:
@@ -119,6 +128,14 @@ class ServeMetrics:
         self.stage_latency: Dict[Tuple[int, str], LatencyHistogram] = {}  # guarded-by: _lock
         self.device_memory: List[Dict[str, Any]] = []  # guarded-by: _lock
         self.recompiles_total = 0  # guarded-by: _lock
+        # The cost plane, armed by build_service with a cost surface.
+        self.cost_armed = False  # guarded-by: _lock
+        self.predicted_device_seconds_total = 0.0  # guarded-by: _lock
+        self.busy_seconds: Dict[int, float] = {}  # guarded-by: _lock
+        # (bucket, batch, dtype) -> running calibration sums.
+        self.cost_calibration: Dict[Tuple[int, int, str], Dict[str, Any]] = {}  # guarded-by: _lock
+        # replica -> recent (t_start, t_end) dispatch intervals.
+        self._busy_intervals: Dict[int, Any] = {}  # guarded-by: _lock
 
     def current_in_flight(self) -> int:
         with self._lock:
@@ -158,6 +175,80 @@ class ServeMetrics:
     def record_retry(self) -> None:
         with self._lock:
             self.retries_total += 1
+
+    def arm_cost(self) -> None:
+        """Turn the cost-calibration series on."""
+        with self._lock:
+            self.cost_armed = True
+
+    def record_cost(self, bucket: int, batch: int, dtype: str,
+                    replica: int, predicted_s: float, measured_s: float,
+                    t_start: float, t_end: float, comparable: bool,
+                    extrapolated: bool) -> None:
+        """One priced and measured dispatch (``serve/costing.py``)."""
+        key = (int(bucket), int(batch), dtype)
+        with self._lock:
+            self.predicted_device_seconds_total += predicted_s
+            self.busy_seconds[int(replica)] = (
+                self.busy_seconds.get(int(replica), 0.0) + measured_s)
+            slot = self.cost_calibration.get(key)
+            if slot is None:
+                slot = self.cost_calibration[key] = {
+                    "n": 0, "predicted_s": 0.0, "measured_s": 0.0,
+                    "comparable": comparable, "extrapolated": 0}
+            slot["n"] += 1
+            slot["predicted_s"] += predicted_s
+            slot["measured_s"] += measured_s
+            # An incomparable dispatch makes its whole key incomparable.
+            slot["comparable"] = slot["comparable"] and comparable
+            slot["extrapolated"] += 1 if extrapolated else 0
+            window = self._busy_intervals.get(int(replica))
+            if window is None:
+                window = self._busy_intervals[int(replica)] = \
+                    collections.deque(maxlen=_BUSY_INTERVALS_MAX)
+            window.append((t_start, t_end))
+            # Pruned by age, so that a busy replica's intervals always
+            # span the window they are divided by.
+            cutoff = t_end - UTILIZATION_WINDOW_S
+            while window and window[0][1] < cutoff:
+                window.popleft()
+
+    def cost_snapshot(self, now: Optional[float] = None
+                      ) -> Optional[Dict[str, Any]]:
+        """The ``/healthz`` ``cost`` block: the calibration rows, busy
+        seconds and utilization per replica (None while disarmed)."""
+        if now is None:
+            now = time.monotonic()
+        with self._lock:
+            if not self.cost_armed:
+                return None
+            rows = []
+            for (bucket, batch, dtype), slot in sorted(
+                    self.cost_calibration.items()):
+                rows.append({
+                    "bucket": bucket, "batch": batch, "dtype": dtype,
+                    "n": slot["n"],
+                    "predicted_s": round(slot["predicted_s"], 6),
+                    "measured_s": round(slot["measured_s"], 6),
+                    "ratio": (round(slot["measured_s"]
+                                    / slot["predicted_s"], 4)
+                              if slot["predicted_s"] > 0 else None),
+                    "comparable": slot["comparable"],
+                    "extrapolated": slot["extrapolated"],
+                })
+            return {
+                "predicted_device_seconds_total": round(
+                    self.predicted_device_seconds_total, 6),
+                "device_busy_seconds": {
+                    str(r): round(sec, 6)
+                    for r, sec in sorted(self.busy_seconds.items())},
+                "utilization_window_s": UTILIZATION_WINDOW_S,
+                "utilization": {
+                    str(r): round(u, 4)
+                    for r, u in sorted(replica_utilization(
+                        self._busy_intervals, now).items())},
+                "calibration": rows,
+            }
 
     def record_reject(self, reason: str) -> None:
         """A request refused before it was accepted."""
@@ -382,6 +473,8 @@ def render_prometheus(metrics: ServeMetrics,
                "Failed micro-batches re-dispatched once on a different "
                "replica.")
     doc.sample("pvraft_serve_retries_total", metrics.retries_total)
+    if metrics.cost_armed:
+        _render_cost(doc, metrics)
     doc.family("pvraft_serve_latency_ms", "histogram",
                "End-to-end request latency (enqueue to resolve), ms.")
     doc.histogram("pvraft_serve_latency_ms", metrics.latency)
@@ -396,3 +489,51 @@ def render_prometheus(metrics: ServeMetrics,
         doc.histogram("pvraft_serve_stage_latency_ms", hist,
                       {"bucket": bucket, "stage": stage})
     return doc.render()
+
+
+def _render_cost(doc: _PromDoc, metrics: ServeMetrics) -> None:
+    """The cost plane's seven families (``serve/costing.py``)."""
+    doc.family("pvraft_serve_predicted_device_seconds_total", "counter",
+               "Predicted device-seconds of every priced dispatch "
+               "(CostSurface over the pvraft_costs/v1 inventory).")
+    doc.sample("pvraft_serve_predicted_device_seconds_total",
+               round(metrics.predicted_device_seconds_total, 6))
+    doc.family("pvraft_serve_device_busy_seconds_total", "counter",
+               "Measured dispatch wall-seconds per replica (the "
+               "device_execute window the trace plane marks).")
+    for replica, busy in sorted(metrics.busy_seconds.items()):
+        doc.sample("pvraft_serve_device_busy_seconds_total",
+                   round(busy, 6), {"replica": replica})
+    doc.family("pvraft_serve_replica_utilization", "gauge",
+               "Busy fraction of the trailing "
+               f"{UTILIZATION_WINDOW_S:.0f}s window per replica.")
+    for replica, util in sorted(replica_utilization(
+            metrics._busy_intervals, time.monotonic()).items()):
+        doc.sample("pvraft_serve_replica_utilization", round(util, 4),
+                   {"replica": replica})
+    cal = [(slot, {"bucket": b, "batch": bs, "dtype": dt})
+           for (b, bs, dt), slot in sorted(metrics.cost_calibration.items())]
+    doc.family("pvraft_serve_cost_predicted_seconds_total", "counter",
+               "Predicted device-seconds by (bucket, batch, dtype).")
+    for slot, labels in cal:
+        doc.sample("pvraft_serve_cost_predicted_seconds_total",
+                   round(slot["predicted_s"], 6), labels)
+    doc.family("pvraft_serve_cost_measured_seconds_total", "counter",
+               "Measured dispatch seconds by (bucket, batch, dtype).")
+    for slot, labels in cal:
+        doc.sample("pvraft_serve_cost_measured_seconds_total",
+                   round(slot["measured_s"], 6), labels)
+    doc.family("pvraft_serve_cost_dispatches_total", "counter",
+               "Priced dispatches by (bucket, batch, dtype).")
+    for slot, labels in cal:
+        doc.sample("pvraft_serve_cost_dispatches_total", slot["n"], labels)
+    doc.family("pvraft_serve_cost_calibration_ratio", "gauge",
+               "measured/predicted device-seconds by (bucket, batch, "
+               "dtype): how far a dispatch sits from the card's roofline "
+               "(recorded, never enforceable off a TPU: comparable=false "
+               "on the event stream).")
+    for slot, labels in cal:
+        if slot["predicted_s"] > 0:
+            doc.sample("pvraft_serve_cost_calibration_ratio",
+                       round(slot["measured_s"] / slot["predicted_s"], 4),
+                       labels)

@@ -22,9 +22,11 @@ Endpoints, with the JAX package's routes, bodies and status codes:
       readiness: buckets, batch sizes, dtype, the supervisor's ``pool``
       block, the armed fault plan, per-replica rows, in-flight count,
       weights provenance, the captured programs and the ``telemetry``
-      block (events path, tracing, sample rate, trace directory).
-      ``cost`` and ``cost_surface`` stay null until the cost plane
-      (ROADMAP queue 1 item 9c).
+      block (events path, tracing, sample rate, trace directory);
+      with a cost surface armed, ``cost`` (predicted against measured
+      device-seconds per (bucket, batch, dtype), busy seconds and
+      utilization per replica) and ``cost_surface`` (what the price
+      table covers), else null.
   ``GET /metrics``
       JSON (default) or ``?format=prometheus`` (``serve/metrics.py``).
   ``POST /admin/reload``
@@ -212,8 +214,11 @@ class _Handler(BaseHTTPRequestHandler):
             "replicas": self.batcher.replica_stats(),
             "in_flight": (self.metrics.current_in_flight()
                           if self.metrics is not None else None),
-            "cost": None,
-            "cost_surface": None,
+            "cost": (self.metrics.cost_snapshot()
+                     if self.metrics is not None else None),
+            "cost_surface": (self.batcher.costing.coverage()
+                             if self.batcher.costing is not None
+                             else None),
             "weights": engine.weights_info(),
             "programs": engine.compile_report(),
             "telemetry": {
@@ -529,7 +534,8 @@ def build_service(engine, *, max_wait_ms: float = 5.0,
                   strict_retrace: bool = False,
                   devmem_interval_s: float = 10.0,
                   supervise: bool = True,
-                  supervisor_cfg=None) -> ServeHTTPServer:
+                  supervisor_cfg=None,
+                  cost_surface=None) -> ServeHTTPServer:
     """engine -> metrics -> batcher -> HTTP, at the JAX package's
     defaults: ``max_batch`` is the largest captured batch size, one
     :class:`ServeMetrics` reaches the batcher and the handler, and
@@ -548,12 +554,33 @@ def build_service(engine, *, max_wait_ms: float = 5.0,
     ``strict_retrace`` into HTTP 500; a :class:`~pvraft_tpu_torch.obs.
     device_memory.DeviceMemoryMonitor` samples the card every
     ``devmem_interval_s`` seconds (0: never; the CPU has nothing to
-    sample). ``trace_dir`` is where ``/debug/trace`` windows go. Returns
-    an unstarted server (``.start()``, ``.shutdown()``)."""
+    sample). ``trace_dir`` is where ``/debug/trace`` windows go.
+
+    Cost calibration: ``cost_surface``, a :class:`~pvraft_tpu_torch.
+    programs.costs.CostSurface` or the path of a ``pvraft_costs/v1``
+    document, arms the pricing plane (``serve/costing.py``): every
+    dispatch priced and measured, the seven ``pvraft_serve_*`` cost
+    families, ``cost_calibration`` events, the ``/healthz`` ``cost``
+    and ``cost_surface`` blocks. None (the default) leaves one
+    attribute check on the dispatch path and the exposition as before.
+    Returns an unstarted server (``.start()``, ``.shutdown()``)."""
     from pvraft_tpu_torch.obs.device_memory import DeviceMemoryMonitor
     from pvraft_tpu_torch.obs.retrace import RetraceWatchdog
 
     metrics = ServeMetrics(engine.cfg.buckets)
+    costing = None
+    if cost_surface is not None:
+        from pvraft_tpu_torch.programs.costs import CostSurface
+        from pvraft_tpu_torch.serve.costing import ServeCostModel
+
+        surface = (CostSurface.load(cost_surface)
+                   if isinstance(cost_surface, str) else cost_surface)
+        costing = ServeCostModel(
+            surface, buckets=engine.cfg.buckets,
+            batch_sizes=engine.cfg.batch_sizes, dtype=engine.cfg.dtype,
+            platform=getattr(engine, "platform", "cpu"), metrics=metrics,
+            telemetry=telemetry)
+        metrics.arm_cost()
     supervisor = (ReplicaSupervisor(engine, cfg=supervisor_cfg,
                                     telemetry=telemetry)
                   if supervise else None)
@@ -567,7 +594,7 @@ def build_service(engine, *, max_wait_ms: float = 5.0,
                       max_wait_ms=max_wait_ms, queue_depth=queue_depth,
                       eager_when_idle=eager_when_idle),
         telemetry=telemetry, metrics=metrics, watchdog=watchdog,
-        supervisor=supervisor)
+        supervisor=supervisor, costing=costing)
     tracer = Tracer(
         sample_every=trace_sample_every,
         emit=telemetry.emit_span if telemetry is not None else None)

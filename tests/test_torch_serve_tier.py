@@ -10,7 +10,7 @@ doubles as in ``tests/test_serve.py`` and ``tests/test_serve_pool.py``;
 the HTTP service and its CLI; and the JAX ``build_service`` and the
 port's side by side on the same weights and the same HTTP requests:
 status codes, ``/healthz`` and ``/metrics`` keys, Prometheus families
-(the cost plane's aside, ROADMAP queue 1 item 9c), flows within 2e-4
+(both services armed with one port cost inventory), flows within 2e-4
 (the JAX-vs-torch model bar) and the swap report. Waits are on events, joins and
 conditions with timeouts; nothing is asserted on wall time.
 """
@@ -61,8 +61,8 @@ TINY = {"truncate_k": 16, "corr_knn": 8, "graph_k": 4}
 POOL = {"buckets": (32,), "batch_sizes": (1, 2), "num_iters": 2,
         "dtype": "float32"}
 FLOW_ATOL = 2e-4
-# Families of the JAX exposition that arrive with ROADMAP queue 1 item 9c
-# (the cost plane).
+# The cost plane's families (serve/costing.py): rendered by an armed
+# service only.
 ITEM9C_FAMILIES = {
     "pvraft_serve_predicted_device_seconds_total",
     "pvraft_serve_device_busy_seconds_total",
@@ -730,11 +730,26 @@ def test_healthz_reports_replicas():
 
 
 @pytest.fixture(scope="module")
-def services(pool, jpool):
+def surface(tmp_path_factory):
+    """A port cost inventory of two fp32 serve specs (counted at "tiny"
+    on the CPU): it prices the pool's bucket by extrapolation."""
+    from pvraft_tpu_torch.programs import get, load_catalog
+    from pvraft_tpu_torch.programs.costs import run_costs
+
+    load_catalog()
+    doc = run_costs([get(f"serve_predict_fp32_b2048_bs{bs}")
+                     for bs in (1, 4)], "cpu", "tiny")
+    path = tmp_path_factory.mktemp("surface") / "programs_costs.json"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def services(pool, jpool, surface):
     """The JAX service and the port's on the same weights, supervised,
-    started on ephemeral ports."""
-    jserver = jbuild_service(jpool)
-    tserver = build_service(pool)
+    armed with one cost surface, started on ephemeral ports."""
+    jserver = jbuild_service(jpool, cost_surface=surface)
+    tserver = build_service(pool, cost_surface=surface)
     jserver.start()
     tserver.start()
     yield jserver, tserver
@@ -898,19 +913,27 @@ def _families(text):
 
 def test_healthz_and_metrics_keys_equal_jax(services):
     """The same keys in /healthz (the programs' rows aside: captures
-    against XLA compiles) and /metrics JSON, and the same Prometheus
-    families but item 9c's."""
+    against XLA compiles; the cost block's per-replica maps aside: keyed
+    by the replicas each pool happened to use) and /metrics JSON, the same
+    cost-surface block, and the same Prometheus families."""
     for path in ("/predict", "/predict"):
         for server in services:
             _http(server, "POST", path, _json_body(_pc(20), _pc(21)))
     jserver, tserver = services
     jh = json.loads(_http(jserver, "GET", "/healthz")[1])
     th = json.loads(_http(tserver, "GET", "/healthz")[1])
-    assert _keys(th, skip=("programs",)) == _keys(jh, skip=("programs",))
+    skip = ("programs", "cost")
+    assert _keys(th, skip=skip) == _keys(jh, skip=skip)
+    assert _keys(th["cost"], skip=("device_busy_seconds", "utilization")) \
+        == _keys(jh["cost"], skip=("device_busy_seconds", "utilization"))
+    assert th["cost_surface"] == jh["cost_surface"]
+    assert [(r["bucket"], r["batch"], r["dtype"], r["comparable"])
+            for r in th["cost"]["calibration"]] == \
+        [(r["bucket"], r["batch"], r["dtype"], r["comparable"])
+         for r in jh["cost"]["calibration"]]
     assert th["telemetry"] == jh["telemetry"] == {
         "events_path": None, "tracing": True, "trace_sample_every": 16,
         "trace_dir": None}
-    assert th["cost"] is None and th["cost_surface"] is None
     assert th["pool"] == jh["pool"]
     assert [r["state"] for r in th["replicas"]] == \
         [r["state"] for r in jh["replicas"]] == ["healthy", "healthy"]
@@ -923,8 +946,8 @@ def test_healthz_and_metrics_keys_equal_jax(services):
     jp = _http(jserver, "GET", "/metrics?format=prometheus")
     tp = _http(tserver, "GET", "/metrics?format=prometheus")
     assert tp[2]["Content-Type"] == jp[2]["Content-Type"]
-    assert _families(tp[1].decode()) == \
-        _families(jp[1].decode()) - ITEM9C_FAMILIES
+    assert _families(tp[1].decode()) == _families(jp[1].decode())
+    assert ITEM9C_FAMILIES <= _families(tp[1].decode())
     assert _identity_holds(tp[1].decode())
 
 
@@ -972,16 +995,15 @@ OBS_DEFAULTS = {"events": "", "trace_sample": 16, "trace_dir": "",
                                   "cost_surface", "cost-surface",
                                   "validate_load"])
 def test_cli_observability_flags(monkeypatch, capsys, case):
-    """The five observability flags parse to the JAX CLI's defaults and
-    values; ``--cost_surface`` (either spelling) is refused naming item
-    9c and ``validate-load`` is refused."""
+    """The five observability flags and ``--cost_surface`` (either
+    spelling) parse to the JAX CLI's defaults and values; ``validate-load``
+    is refused."""
     import pvraft_tpu.serve.__main__ as jcli
     from pvraft_tpu_torch.serve import __main__ as cli
 
     seen, jseen = {}, {}
     monkeypatch.setattr(cli, "_cmd_serve", lambda a: seen.update(vars(a)))
     monkeypatch.setattr(jcli, "_cmd_serve", lambda a: jseen.update(vars(a)))
-    assert cli.LATER_FLAGS == ("cost_surface",)
     argv = {"defaults": [],
             "given": ["--events", "e.jsonl", "--trace_sample", "1",
                       "--trace_dir", "t", "--strict_retrace",
@@ -994,17 +1016,15 @@ def test_cli_observability_flags(monkeypatch, capsys, case):
             cli.main(["validate-load", "a.json"])
         assert "validate-load is not ported yet" in capsys.readouterr().err
         return
-    if case.startswith("cost"):
-        with pytest.raises(SystemExit):
-            cli.main(["serve", "--ckpt", "x", *argv])
-        assert "item 9c" in capsys.readouterr().err
-        return
     cli.main(["serve", "--ckpt", "x", *argv])
     jcli.main(["serve", "--ckpt", "x", *argv])
-    got = {k: seen[k] for k in OBS_DEFAULTS}
-    assert got == {k: jseen[k] for k in OBS_DEFAULTS}
+    keys = (*OBS_DEFAULTS, "cost_surface")
+    got = {k: seen[k] for k in keys}
+    assert got == {k: jseen[k] for k in keys}
     if case == "defaults":
-        assert got == OBS_DEFAULTS
+        assert got == {**OBS_DEFAULTS, "cost_surface": ""}
+    if case.startswith("cost"):
+        assert got["cost_surface"] == "x"
 
 
 def test_cli_needs_the_card_unless_cpu(monkeypatch, state, tmp_path):
