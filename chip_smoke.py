@@ -86,7 +86,10 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            state); the Evaluator (32 iterations, one scene per step) on
            ``best_checkpoint`` gives ``fit``'s test means bitwise;
            ``InferenceEngine.from_checkpoint`` answers a request bitwise
-           like the eager forward; the checkpoint's bytes,
+           like the eager forward; ``python -m pvraft_tpu_torch.export``
+           writes ``best_checkpoint`` under the reference's key names and
+           ``load_torch_checkpoint`` reads it back bitwise
+           (``export_phase``); the checkpoint's bytes,
            save and load seconds, the evaluator's ms per scene;
   phase 8  real data from disk (``real_data``, ``real_data_phase``; run
            after phase 5, before the profiler phases): an FT3D tree (16
@@ -179,7 +182,7 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            1-iteration forward at 1 x 8,192 with chunks of 2048 against
            the dense one (max |dflow| <= 1e-4); ``python -m
            pvraft_tpu_torch.step_time --no-serve`` at K = 1 (packed) and
-           K = 4, a fresh process a reading, in turns; last, one 4-step
+           K = 4, a fresh process a reading, one each; last, one 4-step
            call under the profiler with fused_gru off and on: kernel 1
            (and 2) 32 times;
   phase 13 serve observability (``serve_observability``,
@@ -243,6 +246,22 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            flagship Trainer steps with the surface (the ``epoch_summary``
            ``cost`` block, comparable false); the bitwise replay harness
            (``analysis/determinism/replay.py``) at the flagship size;
+  phase 16 data parallelism (``parallel``, ``parallel_phase``; after
+           phase 15, before the profiler phases), each leg a process of
+           this script (``--leg``) so that no process group outlives it:
+           (a) the flagship graphed Trainer in an NCCL group of one rank
+           against no group: captured under ``deterministic()``, 3 steps
+           bitwise; captured as for training, one NCCL reduction kernel
+           and 8 kernel-1 launches in a replayed step (profiler), ms a
+           step in turns, and a fused_gru step (8 kernel-2 launches
+           beside the reduction); (b) two gloo ranks on the card, eager,
+           per-device batch 2, against one process at batch 4 (step-1
+           loss and gradients) and against their twin in one process
+           (under deterministic(): 3 steps' losses, step-1 gradients and
+           parameters bitwise), the ranks bitwise equal, ms a step, peak
+           GB per rank;
+           (c) the graphed Evaluator at ``eval_batch`` 4 against 1
+           (per-scene EPE within 1e-5 at 1 iteration; recorded at 32);
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -270,7 +289,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 6, 7. Each phase
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 6, 7. Each phase
 prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -1532,6 +1551,33 @@ def _state_trees_equal(a, b) -> bool:
         np.array_equal(np.asarray(a), np.asarray(b))
 
 
+def export_phase(src, dst):
+    """``python -m pvraft_tpu_torch.export`` of ``src`` (the best
+    checkpoint) to a reference ``.params`` file, read back by
+    ``load_torch_checkpoint``: the same parameters bitwise, the same
+    epoch. Returns its seconds, bytes and tensor count."""
+    import io
+
+    from pvraft_tpu_torch import export
+    from pvraft_tpu_torch.engine.checkpoint import (
+        load_params, load_torch_checkpoint)
+    from pvraft_tpu_torch.weights import params_from_jax
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        code = export.main([src, dst])
+    export_s = time.perf_counter() - t0
+    back, back_epoch = load_torch_checkpoint(dst)
+    variables, epoch = load_params(src)
+    want = params_from_jax(variables)
+    check(code == 0 and back_epoch == epoch and list(back) == list(want)
+          and all(torch.equal(back[k], want[k]) for k in want),
+          f"export: {dst} does not read back as {src} (epoch {back_epoch} "
+          f"/ {epoch})")
+    return {"export_s": export_s, "bytes": os.path.getsize(dst),
+            "tensors": len(back), "epoch": epoch, "bitwise": True}
+
+
 def checkpoint_phase(seed, dev):
     """The slice at full width: the flagship model trained graphed (B=2 x
     8,192, 4 synthetic scenes) by ``fit`` for 2 epochs into a scratch
@@ -1638,6 +1684,7 @@ def checkpoint_phase(seed, dev):
         check(means == whole["test"],
               f"evaluator on best_checkpoint {means} against fit's test "
               f"means {whole['test']}")
+        exported = export_phase(best, os.path.join(root, "best.params"))
         serve_cfg = ServeConfig(buckets=(8192,), batch_sizes=(1,),
                                 dtype="float32")
         engine = InferenceEngine.from_checkpoint(best, serve_cfg, device=dev)
@@ -1665,7 +1712,7 @@ def checkpoint_phase(seed, dev):
             "resumed_losses": resumed["kept"][1]["losses"],
             "test_means": whole["test"],
             "evaluator_bitwise": True, "evaluator": evaluator,
-            "serve_from_checkpoint_bitwise": True,
+            "serve_from_checkpoint_bitwise": True, "export": exported,
             "checkpoint_bytes": os.path.getsize(latest_checkpoint(ckpt_dir)),
             "save_s": whole["save_s"],
             "evaluator_ms_per_scene": evaluator["ms_per_scene"]})
@@ -3638,12 +3685,11 @@ LONG_POINTS = 16384          # the chunks' clouds (2 x 16,384)
 LONG_CHUNK = 4096            # corr_chunk and graph_chunk there
 FLAGSHIP_CHUNK = 2048        # corr_chunk and graph_chunk at 1 x 8,192
 CHUNK_LOSS_REL = 1e-4        # dense against chunked loss at 16,384 points
-# step_time readings, a fresh process each, in turns: ms per step of the
-# packed single step (K = 1) and of the K-step graph.
+# step_time readings, a fresh process each: ms per step of the packed
+# single step (K = 1) and of the K-step graph, one reading each (each
+# costs ~25 s of Trainer build; the script keeps under its time limit).
 STEP_TIME_TURNS = (("k1", ("--packed_state",)),
-                   ("k4", ("--steps_per_dispatch", str(KSTEP))),
-                   ("k4", ("--steps_per_dispatch", str(KSTEP))),
-                   ("k1", ("--packed_state",)))
+                   ("k4", ("--steps_per_dispatch", str(KSTEP))))
 
 
 def packed_config(seed, scenes=4, **par):
@@ -3903,8 +3949,8 @@ def chunk_runs(seed, dev, state):
 
 def step_time_turns(dev):
     """``python -m pvraft_tpu_torch.step_time --no-serve`` for the packed
-    single step and the K-step graph, a fresh process per reading, in
-    turns (STEP_TIME_TURNS); returns each reading's line."""
+    single step and the K-step graph, a fresh process per reading
+    (STEP_TIME_TURNS); returns each reading's line."""
     import subprocess
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4050,27 +4096,17 @@ def altered_training_set(alter):
 
 
 def kernel_totals(fn):
-    """Run ``fn()`` under the profiler: (each wrapper's kernels, every
-    kernel the card ran)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``fn()`` under the profiler (``device_kernels``): (each
+    wrapper's kernels, every device activity the card ran for it)."""
+    from pvraft_tpu_torch.ops.cuda import device_kernels, kernel_of
 
-    from pvraft_tpu_torch.ops.cuda import kernel_of
-
-    torch.cuda.synchronize()
     counts = dict(NO_LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            total += 1
-            wrapper = kernel_of(e.name)
-            if wrapper is not None:
-                counts[wrapper] += 1
-    return counts, total
+    _, names = device_kernels(fn)
+    for name in names:
+        wrapper = kernel_of(name)
+        if wrapper is not None:
+            counts[wrapper] += 1
+    return counts, len(names)
 
 
 def plain_monitors(state, cfg, schedule, batch, dev):
@@ -4618,6 +4654,549 @@ def cost_plane_phase(seed, dev, smi):
     return out
 
 
+# -------------------------------------------------------------- phase 16 --
+
+PARALLEL_STEPS = 3           # compared train steps of each leg
+PARALLEL_TIMED = 4           # steps timed per turn of leg (a)
+GLOO_STEPS = 5               # eager steps of leg (b): 3 compared, all timed
+PARALLEL_LEG_S = 420.0       # bound on each leg's process
+EVAL_BATCH = 4               # leg (c): scenes a step
+EVAL_SCENE_TOL = 1e-5        # leg (c): per-scene EPE, eval_batch 4 against 1,
+                             # at 1 iteration
+PARALLEL_LOSS_REL = 1e-4     # leg (b): losses against one process
+# Leg (b)'s step-1 gradients against one process at batch 4, worst leaf
+# ||g - g_ref|| / ||g_ref|| (4.5e-2 in two runs on the H100: the batch
+# size changes GroupNorm's summation order, leg (c)).
+BATCH4_GRAD_REL = 0.1
+# NCCL's reduction kernels: the ring/tree AllReduce, and the one-rank
+# premultiplied sum that an average over one rank launches.
+ALLREDUCE_KERNEL = re.compile(r"AllReduce|oneRankReduce")
+
+
+def replay_kernels(fn):
+    """``fn()`` under the profiler (``device_kernels``): per wrapper the
+    kernels of ``KERNEL_SYMBOLS`` the card ran (replays included), and
+    the NCCL reduction kernels by name."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    counts = dict(NO_LAUNCHES)
+    reduce = collections.Counter()
+    _, names = kernels.device_kernels(fn)
+    for name in names:
+        wrapper = kernels.kernel_of(name)
+        if wrapper is not None:
+            counts[wrapper] += 1
+        elif ALLREDUCE_KERNEL.search(name):
+            reduce[name] += 1
+    return counts, dict(reduce)
+
+
+def param_digest(model) -> str:
+    """sha256 of every parameter's bytes, in order."""
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def epoch_batches(loader, n, dev):
+    """The first batch of each of epochs 0 .. n-1, on the card."""
+    from pvraft_tpu_torch.data import to_device
+
+    out = []
+    for epoch in range(n):
+        it = loader.epoch(epoch)
+        try:
+            out.append(to_device(next(it), dev))
+        finally:
+            it.close()
+    return out
+
+
+def compared_steps(trainer, batches):
+    """Loss, EPE and the parameters' digest after each step."""
+    out = []
+    for b in batches:
+        m = trainer.train_step(b)
+        out.append((float(m["loss"]), float(m["epe"]),
+                    param_digest(trainer.model)))
+    return out
+
+
+def eager_steps(trainer, batches):
+    """The eager steps of leg (b): each step's loss, EPE, host ms
+    (synchronised) and parameter digest, the gradients after step 1 (on
+    the host), the wrapper launches per step and the peak GB. The first
+    ``PARALLEL_STEPS`` steps, the compared ones, run under
+    ``deterministic()``; the rest as in training (the timed ones)."""
+    losses, epes, ms, digests = [], [], [], []
+    grads = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with (deterministic() if i < PARALLEL_STEPS
+              else contextlib.nullcontext()):
+            m = trainer.train_step(b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        epes.append(float(m["epe"]))
+        digests.append(param_digest(trainer.model))
+        if i == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in trainer.model.named_parameters()}
+    counts = read_counts()
+    return {"losses": losses, "epes": epes, "ms": ms, "digests": digests,
+            "grads": grads,
+            "launches_per_step": {k: v / len(batches)
+                                  for k, v in counts.items()},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def batch_first_difference(model, batch, iters=1):
+    """The first submodule call (in the order calls finish) whose output
+    for scene 0 differs between ``model`` run on the whole ``batch`` and
+    on scene 0 alone, eagerly, without gradients: ``{"module", "call",
+    "shape", "max_abs_diff"}``, or None."""
+    def run(b):
+        records, calls = [], collections.Counter()
+
+        def hook_for(name):
+            def hook(_mod, _args, out):
+                calls[name] += 1
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                records.append(((name, calls[name]), [
+                    t.detach().clone() for t in outs if torch.is_tensor(t)]))
+            return hook
+
+        handles = [m.register_forward_hook(hook_for(n))
+                   for n, m in model.named_modules() if n]
+        try:
+            with torch.no_grad():
+                model(b["pc1"], b["pc2"], iters)
+        finally:
+            for h in handles:
+                h.remove()
+        return records
+
+    n = batch["pc1"].shape[0]
+    alone = dict(run({k: v[:1] for k, v in batch.items()}))
+    for key, tensors in run(batch):
+        for a, b in zip(tensors, alone.get(key, ())):
+            if a.dim() and a.shape[0] == n and b.shape[0] == 1:
+                a = a[:1]
+            if a.shape == b.shape and not torch.equal(a, b):
+                return {"module": key[0], "call": key[1],
+                        "shape": list(a.shape),
+                        "max_abs_diff": float((a.double() - b.double())
+                                              .abs().max())}
+    return None
+
+
+def eval_batch_pair(cfg, dev, root):
+    """The graphed Evaluator at ``eval_batch`` 1 and :data:`EVAL_BATCH` on
+    ``cfg``'s test scenes: each one's means and ms a scene, the per-scene
+    EPE of the first batch from both, and their largest difference."""
+    from pvraft_tpu_torch.data import first_batch, to_device
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+
+    evs, out = {}, {}
+    for eb in (1, EVAL_BATCH):
+        ev = Evaluator(cfg.replace(
+            train=dataclasses.replace(cfg.train, eval_batch=eb),
+            exp_path=os.path.join(root, f"eval_batch{eb}")), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means = ev.run()
+        torch.cuda.synchronize()
+        out[f"eval_batch{eb}"] = {
+            "means": means, "programs": ev.compile_report(),
+            "ms_per_scene": 1e3 * (time.perf_counter() - t0)
+            / len(ev.dataset)}
+        evs[eb] = ev
+    batch = to_device(first_batch(evs[EVAL_BATCH].loader), dev)
+    four = evs[EVAL_BATCH].eval_step(batch)[0]["epe3d"].clone()
+    one = torch.stack([evs[1].eval_step({k: v[b:b + 1] for k, v in
+                                         batch.items()})[0]["epe3d"][0].clone()
+                       for b in range(four.shape[0])])
+    out.update({"epe_batch1": one.tolist(), "epe_batch4": four.tolist(),
+                "per_scene_max_abs_err": float((four - one).abs().max()),
+                "means_max_abs_err": max(
+                    abs(out[f"eval_batch{EVAL_BATCH}"]["means"][k] - v)
+                    for k, v in out["eval_batch1"]["means"].items()),
+                "scenes": int(four.shape[0]), "model": evs[1].model})
+    for ev in evs.values():
+        ev.close()
+    return out, batch
+
+
+def accumulated_steps(trainer, batches, parts=2):
+    """The twin of ``parts`` data-parallel ranks in one process: each
+    step splits its batch into ``parts`` equal slices (the ranks' blocks,
+    ``PrefetchLoader(shard=...)``), sums their backward passes' gradients
+    into ``.grad`` in rank order, scales them by 1 / ``parts``, and takes
+    ``trainer``'s eager Adam step at its schedule; the loss and EPE are
+    the slices' means. Returns what :func:`eager_steps` does, gradients
+    after step 1 and digests included."""
+    from pvraft_tpu_torch.engine.metrics import epe_train
+    from pvraft_tpu_torch.engine.steps import sequence_loss_of, set_lr
+
+    t, model, opt = trainer.cfg.train, trainer.model, trainer.optimizer
+    losses, epes, digests, grads = [], [], [], None
+    for i, batch in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        set_lr(opt, trainer.schedule(i))
+        loss = epe = 0.0
+        n = batch["pc1"].shape[0] // parts
+        for j in range(parts):
+            part = {k: v[j * n:(j + 1) * n] for k, v in batch.items()}
+            lj, flows = sequence_loss_of(model, part, t.gamma, t.iters)
+            lj.backward()
+            with torch.no_grad():
+                loss = loss + lj.detach()
+                epe = epe + epe_train(flows[-1], part["mask"], part["flow"])
+        with torch.no_grad():
+            for p in model.parameters():
+                p.grad.mul_(1.0 / parts)
+        opt.step()
+        losses.append(float(loss * (1.0 / parts)))
+        epes.append(float(epe * (1.0 / parts)))
+        digests.append(param_digest(model))
+        if i == 0:
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()}
+    return {"losses": losses, "epes": epes, "digests": digests,
+            "grads": grads}
+
+
+def eval_batch_leg(seed, dev, root):
+    """Leg (c): the graphed Evaluator at ``eval_batch`` 4 against 1 on the
+    flagship's 4 synthetic test scenes. At 1 iteration the per-scene EPE
+    and the means agree within :data:`EVAL_SCENE_TOL`; at the default 32
+    they are recorded: the first op whose result depends on the batch
+    size (found eagerly, at 1 iteration) starts a summation-order
+    difference that an untrained model's diverging iterations grow."""
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+
+    cfg = flagship_train_config(seed)
+    out = {}
+    for iters in (1, cfg.train.eval_iters):
+        pair, batch = eval_batch_pair(cfg.replace(train=dataclasses.replace(
+            cfg.train, eval_iters=iters)), dev, root)
+        model = pair.pop("model")
+        if iters == 1:
+            check(pair["scenes"] == EVAL_BATCH
+                  and pair["per_scene_max_abs_err"] <= EVAL_SCENE_TOL
+                  and pair["means_max_abs_err"] <= EVAL_SCENE_TOL,
+                  f"eval_batch {EVAL_BATCH} against 1, 1 iteration: "
+                  f"per-scene EPE {pair['epe_batch4']} / "
+                  f"{pair['epe_batch1']} (bar {EVAL_SCENE_TOL})")
+            out["first_difference"] = batch_first_difference(model, batch)
+        else:
+            check(all(np.isfinite(pair["epe_batch4"] + pair["epe_batch1"])),
+                  f"eval_batch at {iters} iterations: {pair}")
+        out[f"iters{iters}"] = pair
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_leg_one(seed, port, path):
+    """Legs (c) and (a), and the one-process reference of leg (b), in one
+    process of their own: (c) the Evaluator; (a) the flagship graphed
+    Trainer without a process group, then in an NCCL group of one rank
+    (``initialize``): captured under ``deterministic()``, 3 steps bitwise
+    equal; captured as in training (a pair built anew), ms a step in
+    turns (groupless, NCCL, NCCL, groupless) and one replay of each under
+    the profiler; one replayed ``fused_gru`` step in the group. Then the
+    group is left and the reference of (b) runs: the eager Trainer at
+    batch 4."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.parallel import initialize, shutdown
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    dev = torch.device("cuda")
+    state = seeded_state_dict(ModelConfig(), seed)
+    out = {}
+
+    def release(*trainers):
+        for t in trainers:
+            t.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with scratch_dir() as root:
+        out["evaluator"] = eval_batch_leg(seed, dev, root)
+        release()
+        cfg = flagship_train_config(seed)
+
+        def trainer(name, cfg=cfg):
+            # Leg (a) compares train steps: the eval step each Trainer
+            # captures too runs 1 iteration, to keep the captures short.
+            return Trainer(cfg.replace(
+                train=dataclasses.replace(cfg.train, eval_iters=1),
+                exp_path=os.path.join(root, name)), device=dev,
+                weights=state)
+
+        # The groupless pair is built before the group exists: a step
+        # reduces over the process group there is when it is made.
+        with deterministic():
+            plain = trainer("plain")
+            batches = epoch_batches(plain.train_loader, PARALLEL_STEPS, dev)
+            plain_steps = compared_steps(plain, batches)
+        check(plain.train_step.reduce is None,
+              "leg (a): the groupless step reduces")
+        release(plain)
+        del plain
+        timed_plain = trainer("plain_timed")
+        initialize(f"localhost:{port}", num_processes=1, process_id=0,
+                   backend="nccl", local_rank=0)
+        with deterministic():
+            nccl = trainer("nccl")
+            reduce = nccl.train_step.reduce
+            check(reduce is not None and reduce.average
+                  and reduce.world == 1,
+                  "leg (a): the step in an NCCL group of one rank does not "
+                  "average over it")
+            nccl_steps = compared_steps(nccl, batches)
+        check(nccl_steps == plain_steps,
+              f"leg (a): NCCL world 1 against no group, 3 steps: "
+              f"{nccl_steps} / {plain_steps}")
+        det_programs = nccl.compile_report()[:1]
+        release(nccl)
+        del nccl, reduce
+        timed_nccl = trainer("nccl_timed")
+        check(timed_nccl.train_step.reduce is not None
+              and timed_plain.train_step.reduce is None,
+              "leg (a): the timed pair's reductions")
+        turns = []
+        for name, t in (("groupless", timed_plain), ("nccl", timed_nccl),
+                        ("nccl", timed_nccl), ("groupless", timed_plain)):
+            turns.append((name, cuda_ms(
+                lambda t=t: t.train_step(batches[0]),
+                reps=PARALLEL_TIMED, warmup=1)))
+        counts, kernels_reduce = replay_kernels(
+            lambda: timed_nccl.train_step(batches[0]))
+        plain_counts, plain_reduce = replay_kernels(
+            lambda: timed_plain.train_step(batches[0]))
+        check(counts["fused_corr_lookup"] == cfg.train.iters
+              and sum(kernels_reduce.values()) == 1 and not plain_reduce
+              and plain_counts == counts,
+              f"leg (a): one replay ran {counts} and reductions "
+              f"{kernels_reduce} (groupless: {plain_counts}, "
+              f"{plain_reduce})")
+        programs = timed_nccl.compile_report()[:1]
+        plain_programs = timed_plain.compile_report()[:1]
+        release(timed_plain, timed_nccl)
+        del timed_plain, timed_nccl
+        # Kernel 2 beside the collective: one fused_gru step, replayed.
+        fused = trainer("nccl_fused_gru",
+                        flagship_train_config(seed, fused_gru=True))
+        first = fused.train_step(batches[0])
+        fused_counts, fused_reduce = replay_kernels(
+            lambda: fused.train_step(batches[0]))
+        check(fused.train_step.reduce is not None
+              and fused_counts["fused_corr_lookup"] == cfg.train.iters
+              and fused_counts["fused_gru_update"] == cfg.train.iters
+              and sum(fused_reduce.values()) == 1
+              and np.isfinite(float(first["loss"])),
+              f"leg (a): the fused_gru step in the group ran "
+              f"{fused_counts} and reductions {fused_reduce}, loss "
+              f"{float(first['loss'])}")
+        release(fused)
+        del fused
+        out["nccl_world1"] = {
+            "steps": nccl_steps, "bitwise": True, "turns_ms": turns,
+            "launches_per_step": counts, "allreduce_kernels": kernels_reduce,
+            "groupless_launches_per_step": plain_counts,
+            "fused_gru_launches_per_step": fused_counts,
+            "fused_gru_allreduce_kernels": fused_reduce,
+            "fused_gru_loss": float(first["loss"]),
+            "programs": programs, "groupless_programs": plain_programs,
+            "deterministic_programs": det_programs,
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+            "mode": "bitwise: deterministic() captures; turns and "
+                    "replays: captures as in training"}
+        shutdown()
+        # The reference at batch 4, and the two ranks' twin in this
+        # process (under deterministic(), as the ranks' compared steps).
+        for name in ("batch4", "accumulated"):
+            ref = Trainer(cfg.replace(
+                train=dataclasses.replace(cfg.train, batch_size=4),
+                exp_path=os.path.join(root, name)), device=dev,
+                weights=state, graphs=False)
+            batches = epoch_batches(ref.train_loader, GLOO_STEPS, dev)
+            if name == "accumulated":
+                with deterministic():
+                    out[name] = accumulated_steps(
+                        ref, batches[:PARALLEL_STEPS])
+            else:
+                out[name] = eager_steps(ref, batches)
+            ref.close()
+            del ref, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.save(out, path)
+
+
+def parallel_leg_rank(seed, rank, world, port, path):
+    """Leg (b), one rank: the flagship eager Trainer at per-device batch
+    2 in a gloo group of ``world`` ranks on the one card."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.parallel import initialize, shutdown
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    dev = torch.device("cuda")
+    initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+               backend="gloo", local_rank=0)
+    try:
+        with scratch_dir() as root:
+            cfg = flagship_train_config(seed).replace(
+                exp_path=os.path.join(root, f"rank{rank}"))
+            trainer = Trainer(cfg, device=dev, graphs=False,
+                              weights=seeded_state_dict(ModelConfig(), seed))
+            check(trainer.train_step.reduce is not None
+                  and not trainer.train_step.reduce.average
+                  and trainer.train_loader.shard == (rank, world),
+                  "leg (b): the rank's step or loader is not sharded")
+            out = eager_steps(trainer, epoch_batches(trainer.train_loader,
+                                                     GLOO_STEPS, dev))
+            trainer.close()
+        torch.save(out, path)
+    finally:
+        shutdown()
+
+
+def run_legs(legs, logs):
+    """Start every ``(name, argv)`` leg (this script with ``--leg``)
+    together, wait for them (``PARALLEL_LEG_S`` each at most; a hung one
+    is killed) and raise with a leg's last output lines if it failed."""
+    import subprocess
+
+    procs = []
+    for name, argv in legs:
+        log = open(os.path.join(logs, f"{name}.log"), "w")
+        procs.append((name, log, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv],
+            stdout=log, stderr=subprocess.STDOUT)))
+    deadline = time.monotonic() + PARALLEL_LEG_S
+    try:
+        for _, _, p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for name, _, p in procs:
+        if p.returncode != 0:
+            with open(os.path.join(logs, f"{name}.log")) as fh:
+                tail = fh.read()[-4000:]
+            raise RuntimeError(f"parallel leg {name} exited {p.returncode}:"
+                               f"\n{tail}")
+
+
+def parallel_phase(seed):
+    """Phase 16 (``parallel``; after phase 15, before the profiler phases):
+    data parallelism over ``torch.distributed``, each leg in a process of
+    its own so that no process group outlives it. (a) The flagship graphed
+    Trainer in an NCCL group of one rank against no group: 3 steps
+    bitwise (``deterministic()`` captures), then as captured for
+    training one NCCL reduction kernel and 8 kernel-1 launches a replayed
+    step and ms a step in turns, and a ``fused_gru`` step with 8 kernel-2
+    launches beside the reduction. (b) Two gloo ranks on the one card, eager, at
+    per-device batch 2, against one process at batch 4 (step 1's loss
+    within ``PARALLEL_LOSS_REL``, its gradients under ``GRAD_BOUNDS``, 8
+    iterations, and ``BATCH4_GRAD_REL`` on the worst leaf) and against their twin in one process
+    (:func:`accumulated_steps`: the compared steps of both under
+    ``deterministic()``, 3 steps' losses, step 1's gradients and the
+    parameters after each step bitwise), the ranks' parameters bitwise
+    equal after every step, ms a step (the steps after the compared
+    ones) and peak GB per rank.
+    (c) The graphed Evaluator at ``eval_batch`` 4 against 1: per-scene
+    EPE within 1e-5 at 1 iteration, recorded at 32
+    (``eval_batch_leg``)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with scratch_dir() as root:
+        one = os.path.join(root, "one.pt")
+        run_legs([("one", ["--leg", "one", "--seed", str(seed),
+                           "--port", str(free_port()), "--out", one])], root)
+        port = str(free_port())
+        ranks = [os.path.join(root, f"rank{r}.pt") for r in range(2)]
+        run_legs([(f"rank{r}", ["--leg", "rank", "--seed", str(seed),
+                                "--rank", str(r), "--world", "2",
+                                "--port", port, "--out", ranks[r]])
+                  for r in range(2)], root)
+        out = torch.load(one, weights_only=False)
+        ranks = [torch.load(p, weights_only=False) for p in ranks]
+    ref, twin = out.pop("batch4"), out.pop("accumulated")
+    check(ranks[0]["digests"] == ranks[1]["digests"]
+          and ranks[0]["losses"] == ranks[1]["losses"],
+          "leg (b): the two ranks' parameters or losses differ")
+    # Against one process at batch 4: step 1's loss and gradients. The
+    # forward at per-device batch 2 sums in other orders than at batch 4
+    # (GroupNorm's reduction depends on the batch, leg (c)), 8 iterations
+    # of an untrained model grow that, and so do Adam's first updates
+    # (~lr x sign(g)): the later steps' losses are recorded.
+    rel = [abs(x - y) / abs(y) for x, y in zip(
+        ranks[0]["losses"][:PARALLEL_STEPS], ref["losses"])]
+    check(rel[0] <= PARALLEL_LOSS_REL,
+          f"leg (b): step-1 loss {ranks[0]['losses'][0]} against one "
+          f"process {ref['losses'][0]} (relative {rel[0]})")
+    grads = grad_agreement((ranks[0]["losses"][0], ranks[0]["grads"]),
+                           (ref["losses"][0], ref["grads"]))
+    bar = dict(GRAD_BOUNDS["iters8"], max_rel=BATCH4_GRAD_REL)
+    check(grads["loss_rel"] <= bar["loss_rel"]
+          and grads["min_cos"] >= bar["min_cos"]
+          and grads["max_rel"] <= bar["max_rel"],
+          f"leg (b): step-1 gradients against one process: {grads} "
+          f"(bars {bar})")
+    # Against the ranks' twin in one process (the same slices, their
+    # gradients summed in rank order and halved, both under
+    # deterministic()): the collective must do exactly what the twin
+    # does, so every compared step's loss, step 1's gradients and the
+    # parameters after each step are equal to the bit. A reduction that
+    # sums without scaling, or mixes the buckets, fails here.
+    twin_grads = grad_agreement((ranks[0]["losses"][0], ranks[0]["grads"]),
+                                (twin["losses"][0], twin["grads"]))
+    bitwise_twin = {
+        "losses": ranks[0]["losses"][:PARALLEL_STEPS] == twin["losses"],
+        "grads_step1": all(torch.equal(ranks[0]["grads"][k], g)
+                           for k, g in twin["grads"].items()),
+        "params": ranks[0]["digests"][:PARALLEL_STEPS] == twin["digests"]}
+    check(all(bitwise_twin.values()),
+          f"leg (b): against the ranks' twin {bitwise_twin}: losses "
+          f"{ranks[0]['losses'][:PARALLEL_STEPS]} / {twin['losses']}, "
+          f"step-1 gradients {twin_grads}")
+    for r in ranks:
+        check(r["launches_per_step"]["fused_corr_lookup"] == 8,
+              f"leg (b): a rank's eager step launched "
+              f"{r['launches_per_step']}")
+    for r in (*ranks, ref, twin):
+        del r["grads"], r["digests"]
+    out["gloo_two_ranks"] = {
+        "ranks": ranks, "batch4": ref, "accumulated": twin,
+        "loss_rel": rel, "grads": grads, "grads_accumulated": twin_grads,
+        "bitwise_accumulated": bitwise_twin, "bitwise_ranks": True,
+        "bounds": bar, "mode": f"steps 1-{PARALLEL_STEPS} under "
+        f"deterministic(), the rest as in training"}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
                                           "corr_knn": 64}),
                 ("hidden32_context96_fused_gru",
@@ -4693,7 +5272,8 @@ def launches_phase(seed, dev):
     dtype (bfloat16), fused_gru off and on, and one bf16 train step and
     eval step with fused_gru. The kernels the
     card ran are counted by their device symbols
-    (``measured``): what the replays launched, which no wrapper sees.
+    (``measured``): what the replays launched, which no wrapper sees, in
+    windows that two marker kernels show whole (``device_kernels``).
     Each pass must launch what its capture recorded and no wrapper may
     launch eagerly. This phase runs last: after a profiler session the
     process's eager launches run slower (CUPTI stays attached), which
@@ -4702,6 +5282,7 @@ def launches_phase(seed, dev):
     from pvraft_tpu_torch.config import ModelConfig
     from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
     from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.ops.cuda import window_counts
     from pvraft_tpu_torch.profile_train import flagship_train_config
     from pvraft_tpu_torch.serve import (InferenceEngine, ServeConfig,
                                         build_service)
@@ -4856,7 +5437,8 @@ def launches_phase(seed, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return {"serve": serve, "train": train, "refine": refine, "bf16": bf16,
-            "http": http, "eager_train_step_ms_after_profiler": after_ms}
+            "http": http, "eager_train_step_ms_after_profiler": after_ms,
+            "profiler_windows": dict(window_counts)}
 
 
 def bench_phase(dev):
@@ -4880,6 +5462,12 @@ def bench_phase(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # Phase 16 runs its legs as processes of this script (--leg).
+    ap.add_argument("--leg", choices=("one", "rank"), default=None,
+                    help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4887,6 +5475,15 @@ def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace; phase 3 compares
     # gradients under torch.use_deterministic_algorithms.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if args.leg is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if args.leg == "one":
+            parallel_leg_one(args.seed, args.port, args.out)
+        else:
+            parallel_leg_rank(args.seed, args.rank, args.world, args.port,
+                              args.out)
+        return 0
     from pvraft_tpu_torch.ops import cuda as kernels
     from pvraft_tpu_torch.profile_serve import nvidia_smi
 
@@ -4988,6 +5585,9 @@ def main() -> int:
     cost_plane = cost_plane_phase(args.seed, dev, smi)
     emit({"phase": "cost_plane", **cost_plane})
 
+    parallel = parallel_phase(args.seed)
+    emit({"phase": "parallel", **parallel})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -5057,6 +5657,13 @@ def main() -> int:
                 launches["refine"]["fused_gru"]["eval_step"][name],
             "refine_serve_launches": launches["refine"]["serve"][name],
             "http_serve_launches": launches["http"][name],
+            "nccl_world1_train_launches_per_step":
+                parallel["nccl_world1"]["launches_per_step"][name],
+            "nccl_world1_fused_gru_train_launches_per_step":
+                parallel["nccl_world1"]["fused_gru_launches_per_step"][name],
+            "gloo_rank_train_launches_per_step":
+                parallel["gloo_two_ranks"]["ranks"][0]["launches_per_step"][
+                    name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

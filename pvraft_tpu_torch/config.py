@@ -32,8 +32,10 @@ state and the K-step train graph (``engine/steps.py``);
 ``device_prefetch`` is the depth of the batches' copies in flight to the
 device. ``donate`` is accepted and changes nothing: a captured graph
 writes into its own buffers, so there is no input buffer to give away.
-One card: ``data_axis`` -1 or 1 and ``seq_axis`` 1; other layouts
-arrive with the parallel slice.
+``data_axis`` is the data-parallel ranks (-1: every rank of the process
+group; ``parallel/mesh.py::make_mesh`` holds it to the world size);
+``seq_axis`` other than 1 and ``ModelConfig.seq_shard`` arrive with the
+sequence-parallel ring (ROADMAP queue 1 item 8b).
 
 ``ModelConfig.scan_unroll`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX package unrolls its
@@ -43,7 +45,7 @@ CUDA graph holds fully unrolled whatever the value. The train CLI
 refuses ``--scan_unroll`` for that reason. ``TrainConfig.eval_scan`` is
 accepted likewise and changes nothing: the JAX ``Evaluator`` scans S
 scenes per dispatch to save dispatches, and a replay of the port's
-captured eval step is one launch per scene already
+captured eval step is one launch per batch already
 (``engine/evaluator.py``). ``TrainConfig.strict_retrace`` makes a graphed step raise
 ``obs/retrace.py::RetraceError`` when it meets an input signature it has
 not captured.
@@ -122,12 +124,17 @@ class ModelConfig:
             raise ValueError("approx_knn is not supported with seq_shard")
         # Knobs of features a later slice of the port brings.
         later = (
-            ("seq_shard", self.seq_shard, "the parallel slice"),
+            ("seq_shard", self.seq_shard, SEQ_PARALLEL),
             ("scatter_free_vjp", self.scatter_free_vjp,
              "its recorded disposition (ROADMAP queue 1 item 7): a "
              "TPU-motivated VJP whose forward equals the default path's"),
         )
         reject_later(self, later)
+
+
+# Where the refusals of the sequence axis point.
+SEQ_PARALLEL = ("the sequence-parallel half of the parallel slice (ROADMAP "
+                "queue 1 item 8b)")
 
 
 def reject_later(cfg: Any, later: Iterable[Tuple[str, bool, str]]) -> None:
@@ -216,10 +223,6 @@ class TrainConfig:
             raise ValueError(f"divergence_zscore must be >= 0 (0 disables), "
                              f"got {self.divergence_zscore}")
         reject_later(self, (
-            # One card evaluates one scene per step: 0 (one scene per
-            # data device) and 1 are the same here.
-            ("eval_batch", self.eval_batch not in (0, 1),
-             "the parallel slice"),
             ("ckpt_backend", self.ckpt_backend == "orbax",
              "its recorded disposition (ROADMAP queue 1 item 2): Orbax is "
              "not installed where the port runs, so the port writes and "
@@ -229,7 +232,7 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The JAX ``ParallelConfig`` on one card.
+    """The JAX ``ParallelConfig``.
 
     ``packed_state``: the trained parameters and Adam's state live in one
     flat float32 buffer (``engine/steps.py::make_packed_train_step``).
@@ -239,9 +242,10 @@ class ParallelConfig:
     the epoch's tail through the single packed step. ``device_prefetch``:
     batches whose copies to the device are in flight (1: none ahead).
     ``donate`` is accepted and changes nothing: a captured graph writes
-    into its own buffers. ``data_axis`` -1 (every device, here one) or 1
-    and ``seq_axis`` 1 are one card; any other layout raises
-    ``NotImplementedError``."""
+    into its own buffers. ``data_axis``: the ranks of the data axis (-1:
+    every rank; checked against the world size by ``make_mesh``);
+    ``seq_axis`` other than 1 raises ``NotImplementedError``, naming the
+    sequence-parallel slice."""
 
     data_axis: int = -1
     seq_axis: int = 1
@@ -266,17 +270,12 @@ class ParallelConfig:
             raise ValueError("steps_per_dispatch > 1 already removes the "
                              "per-step dispatches; host_roundtrip (a "
                              "per-step host sync) would put them back")
-        reject_later(self, (
-            ("data_axis", self.data_axis not in (-1, 1),
-             "the parallel slice (ROADMAP queue 1 item 8)"),
-            ("seq_axis", self.seq_axis != 1,
-             "the parallel slice (ROADMAP queue 1 item 8)"),
-        ))
+        reject_later(self, (("seq_axis", self.seq_axis != 1, SEQ_PARALLEL),))
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Model, data, training and (one-card) parallel configuration: the
+    """Model, data, training and parallel configuration: the
     JAX ``Config``. ``exp_path`` holds the run's checkpoints
     (``exp_path/checkpoints``)."""
 

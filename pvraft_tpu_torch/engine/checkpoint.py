@@ -20,6 +20,12 @@ file (a torch pickle of ``{'epoch', 'state_dict'}`` with the reference's
 key names) into the port's state_dict, through the port's own copy of the
 JAX package's reference-name mapping (``import_torch_state_dict``,
 ``pvraft_tpu/engine/checkpoint.py:549-672``), stage 1 and stage 2.
+:func:`export_torch_state_dict` is the way back, the port's copy of the
+JAX package's exporter (``checkpoint.py:670-755``): a flax tree as the
+reference's state_dict, which ``python -m pvraft_tpu_torch.export``
+writes as a ``.params`` file. As the JAX docstring demands, the two
+directions are written out separately, so that a round trip catches a
+drift on either side.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.engine import msgpack
-from pvraft_tpu_torch.weights import params_from_jax
+from pvraft_tpu_torch.weights import params_from_jax, params_to_jax
 
 SUFFIX = ".msgpack"
 ORBAX_SUFFIX = ".orbax"
@@ -75,15 +81,21 @@ def save_checkpoint(ckpt_dir: str, params: Mapping[str, Any],
         raise ValueError(f"unknown checkpoint backend {backend!r}")
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"epoch": int(epoch), "params": params, "opt_state": opt_state}
+    paths = checkpoint_paths(ckpt_dir, epoch, checkpoint_interval, best)
+    for p in paths:
+        _write(p, payload)
+    return paths
+
+
+def checkpoint_paths(ckpt_dir: str, epoch: int, checkpoint_interval: int,
+                     best: bool = False) -> Tuple[str, ...]:
+    """The files :func:`save_checkpoint` writes for these arguments."""
     names = ["last_checkpoint"]
     if checkpoint_interval and (epoch + 1) % checkpoint_interval == 0:
         names.append(f"{epoch:03d}")
     if best:
         names.append("best_checkpoint")
-    paths = tuple(os.path.join(ckpt_dir, n + SUFFIX) for n in names)
-    for p in paths:
-        _write(p, payload)
-    return paths
+    return tuple(os.path.join(ckpt_dir, n + SUFFIX) for n in names)
 
 
 def load_payload(path: str) -> Dict[str, Any]:
@@ -267,3 +279,99 @@ def import_torch_state_dict(state_dict: Mapping[str, np.ndarray]
         else:
             raise ValueError(f"unknown top-level module {key}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Export to the reference's key names.
+# ---------------------------------------------------------------------------
+
+# The reference's module of each SetConv leaf: fc1 a Conv2d
+# (model/flot/gconv.py:26), fc2 and fc3 1x1 Conv1ds, gn1-3 GroupNorms.
+_SETCONV_KIND = {"fc1": "conv2d", "fc2": "conv1d", "fc3": "conv1d",
+                 "gn1": "gn", "gn2": "gn", "gn3": "gn"}
+_REFINE_CONV = ("ref_conv1", "ref_conv2", "ref_conv3")
+
+
+def _to_torch_leaves(kind: str, leaves: Mapping[str, Any]
+                     ) -> Dict[str, np.ndarray]:
+    """One reference module of ``kind`` from its flax leaves (the inverse
+    of :func:`_convert_tensor`): a Dense ``kernel (in, out)`` becomes the
+    ``(out, in[, 1[, 1]])`` conv or Linear weight, a GroupNorm ``scale``
+    its weight, a PReLU ``alpha`` its weight."""
+    out: Dict[str, np.ndarray] = {}
+    if kind in ("conv1d", "conv2d", "linear"):
+        k = np.asarray(leaves["kernel"]).T
+        out["weight"] = {"conv1d": lambda w: w[:, :, None],
+                         "conv2d": lambda w: w[:, :, None, None],
+                         "linear": lambda w: w}[kind](k)
+        if "bias" in leaves:
+            out["bias"] = np.asarray(leaves["bias"])
+    elif kind == "gn":
+        out["weight"] = np.asarray(leaves["scale"])
+        out["bias"] = np.asarray(leaves["bias"])
+    elif kind == "prelu":
+        out["weight"] = np.asarray(leaves["alpha"]).reshape(-1)
+    else:
+        raise ValueError(f"unknown module kind {kind}")
+    return out
+
+
+def export_torch_state_dict(tree: Mapping[str, Any], refine: bool = False
+                            ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`import_torch_state_dict`: a flax params tree
+    (the ``{"params": ...}`` inner dict, as ``weights.params_to_jax``
+    gives it; the wrapper is accepted) as a state dict the reference's
+    models load with ``strict=True`` (``model/RAFTSceneFlow.py``,
+    ``RAFTSceneFlowRefine.py``). ``refine`` expects the PVRaftRefine
+    layout (stage 1 under ``backbone``, the head at the top) and emits
+    ``refine_block.*``. ``SetConv.fc1`` and ``corr_block.knn_conv.0``
+    are Conv2d, ``refine_block.fc`` a Linear, every other conv a 1x1
+    Conv1d."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def emit(prefix, kind, leaves):
+        for name, v in _to_torch_leaves(kind, leaves).items():
+            sd[f"{prefix}.{name}"] = v
+
+    def emit_setconv(prefix, node):
+        for sub, leaves in node.items():
+            emit(f"{prefix}.{sub}", _SETCONV_KIND[sub], leaves)
+
+    backbone = tree["backbone"] if refine else tree
+    for enc in ("feature_extractor", "context_extractor"):
+        for theirs, ours in _ENCODER_CONV.items():
+            emit_setconv(f"{enc}.{theirs}", backbone[enc][ours])
+    cl = backbone["update_iter"]["corr_lookup"]
+    for theirs, ours, kind in (
+            ("out_conv.0", "out_conv1", "conv1d"), ("out_conv.1", "out_gn", "gn"),
+            ("out_conv.2", "out_prelu", "prelu"),
+            ("out_conv.3", "out_conv2", "conv1d"),
+            ("knn_conv.0", "knn_conv", "conv2d"), ("knn_conv.1", "knn_gn", "gn"),
+            ("knn_conv.2", "knn_prelu", "prelu"),
+            ("knn_out", "knn_out", "conv1d")):
+        emit(f"corr_block.{theirs}", kind, cl[ours])
+    ub = backbone["update_iter"]["update_block"]
+    for sub, names in (("motion_encoder", ("conv_corr", "conv_flow", "conv")),
+                       ("gru", ("convz", "convr", "convq"))):
+        for name in names:
+            emit(f"update_block.{sub}.{name}", "conv1d", ub[sub][name])
+    fh = ub["flow_head"]
+    emit("update_block.flow_head.conv1", "conv1d", fh["conv1"])
+    emit_setconv("update_block.flow_head.setconv", fh["setconv"])
+    emit("update_block.flow_head.out_conv.0", "conv1d", fh["out_conv1"])
+    emit("update_block.flow_head.out_conv.2", "conv1d", fh["out_conv2"])
+    if refine:
+        for name in _REFINE_CONV:
+            emit_setconv(f"refine_block.{name}", tree[name])
+        emit("refine_block.fc", "linear", tree["fc"])
+    return sd
+
+
+def export_state_dict(state: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, np.ndarray]:
+    """:func:`export_torch_state_dict` of a port state_dict (a PVRaft's,
+    or a PVRaftRefine's: its ``backbone.`` keys say so)."""
+    refine = any(k.startswith("backbone.") for k in state)
+    return export_torch_state_dict(params_to_jax(state)["params"], refine)

@@ -1,15 +1,24 @@
 """Standalone evaluation (port of ``pvraft_tpu/engine/evaluator.py::
 Evaluator``, the reference's ``test.py:70-156``).
 
-The reference protocol: one scene per step (batch 1) at ``eval_iters``
-(32) GRU iterations, running means of the per-scene metrics, and an
-optional dump of each scene's ``pc1``, ``pc2`` and flow as
-``<dump_dir>/<dataset>/<idx>/{pc1,pc2,flow}.npy`` (the layout the
-reference's ``visual.py`` reads). The eval step is the graphed one
-(``engine/steps.py::make_graphed_eval_step``), captured at construction.
-The running sums add the scenes one by one in dataset order, as
-``Trainer.val_test`` does, so the means equal the trainer's test pass on
-the same weights to the bit.
+The reference protocol: the per-scene metrics at ``eval_iters`` (32) GRU
+iterations, their running means, and an optional dump of each scene's
+``pc1``, ``pc2`` and flow as ``<dump_dir>/<dataset>/<idx>/{pc1,pc2,
+flow}.npy`` (the layout the reference's ``visual.py`` reads). As in the
+JAX ``Evaluator``, ``TrainConfig.eval_batch`` scenes run as one batch a
+step (0: one scene per data rank), each with its own mask and metrics,
+so the running means are those of the reference's one-scene loop. The
+eval step is the graphed one (``engine/steps.py::
+make_graphed_eval_step``), captured at construction at ``eval_batch``
+and at the dataset's smaller tail batch. The running sums add each
+step's scenes in dataset order, as ``Trainer.val_test`` does, so the
+means equal the trainer's test pass on the same weights to the bit.
+
+On several processes (``mesh``, ``parallel/``) the scenes are sharded
+over the ranks where ``eval_scene_shard`` says that is exact, and the
+sums and counts of every rank meet in one collective at the end
+(``parallel/mesh.py::combine_sums``); rank 0 alone writes the log, the
+stream and the tags. ``dump_dir`` is single-process, as in JAX.
 
 With ``TrainConfig.refine`` the model is a ``PVRaftRefine`` and the
 step the refine eval step (the masked L1 and the metrics of the refined
@@ -18,9 +27,9 @@ Trainer's own refine validation runs at ``train.iters``).
 
 ``TrainConfig.eval_scan`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX ``Evaluator`` runs S
-scenes per dispatch through a ``lax.scan`` to save the per-scene
+batches per dispatch through a ``lax.scan`` to save the per-batch
 dispatches, and a replay of the port's captured step is already one
-launch per scene.
+launch per batch.
 
 The datasets are the JAX ``build_eval_dataset``'s: FT3D's test split
 (``val/``), KITTI's 142 scenes (zero-shot, the reference protocol), or
@@ -67,6 +76,13 @@ from pvraft_tpu_torch.engine.steps import (
 )
 from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 from pvraft_tpu_torch.obs.events import RunTelemetry
+from pvraft_tpu_torch.parallel.mesh import (
+    Mesh,
+    combine_sums,
+    eval_scene_shard,
+    make_mesh,
+    replicate,
+)
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import params_from_jax, seeded_state_dict
 
@@ -87,37 +103,50 @@ def build_eval_dataset(cfg: Config):
 
 
 class Evaluator:
-    """``Evaluator(cfg, device=None)``: the eval dataset, a PVRaft (a
-    PVRaftRefine with ``train.refine``) with seeded weights (``cfg.train.seed``'s ``model.init`` stream, as the
-    Trainer seeds it) until :meth:`load` or :meth:`load_torch`, and the
-    captured eval program. Runs on ``cuda`` unless ``device`` names
-    another device."""
+    """``Evaluator(cfg, device=None, mesh=None)``: the eval dataset, a
+    PVRaft (a PVRaftRefine with ``train.refine``) with seeded weights
+    (``cfg.train.seed``'s ``model.init`` stream, as the Trainer seeds it)
+    until :meth:`load` or :meth:`load_torch`, and the captured eval
+    program. Runs on ``cuda`` unless ``device`` names another device.
+    ``mesh``: the ranks (default: every rank of the process group on the
+    data axis, as the JAX ``make_mesh(n_seq=1)``)."""
 
     def __init__(self, cfg: Config,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
         self.telemetry = RunTelemetry(cfg.exp_path, "TestAlone",
-                                      cfg.data.dataset)
+                                      cfg.data.dataset,
+                                      enabled=self.mesh.process_index == 0)
         self.log = self.telemetry.log
         self.telemetry.emit_header(cfg, mode="eval")
         self.dataset = build_eval_dataset(cfg)
-        self.loader = PrefetchLoader(
-            self.dataset, 1, drop_last=False,
-            num_workers=min(2, cfg.data.num_workers))
         t = cfg.train
+        self.eval_batch = max(1, self.mesh.shape["data"]
+                              if t.eval_batch <= 0 else t.eval_batch)
+        self.shard = eval_scene_shard(len(self.dataset), self.eval_batch,
+                                      self.mesh)
+        self.loader = PrefetchLoader(
+            self.dataset, self.eval_batch, drop_last=False,
+            num_workers=min(2, cfg.data.num_workers), shard=self.shard)
         self.model = (PVRaftRefine if t.refine else PVRaft)(cfg.model)
         self.model.load_state_dict(seeded_state_dict(
             cfg.model, torch_seed(t.seed, "model.init"), t.refine),
             strict=True)
         self.model.to(self.device).eval()
+        replicate(self.model, self.mesh)
         self.epoch: Optional[int] = None
         self.eval_step = make_graphed_eval_step(
             self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
             strict_retrace=t.strict_retrace, refine=t.refine)
-        scene = to_device(first_batch(self.loader), self.device)
-        inputs = [scene[k] for k in BATCH_KEYS]
-        self.eval_step.graphs.program_for(inputs)
+        scenes = to_device(first_batch(self.loader), self.device)
+        tail = (len(self.dataset) // self.shard[1]) % self.eval_batch
+        for size in sorted({scenes["pc1"].shape[0], tail} - {0},
+                           reverse=True):
+            self.eval_step.graphs.program_for(
+                [scenes[k][:size] for k in BATCH_KEYS])
 
     def compile_report(self):
         """The captured program's records."""
@@ -128,6 +157,7 @@ class Evaluator:
         package's msgpack file), in place; returns its epoch."""
         params, _, self.epoch = load_checkpoint(path, with_opt_state=False)
         self.model.load_state_dict(params_from_jax(params), strict=True)
+        replicate(self.model, self.mesh)
         self.log.info(f"loaded checkpoint {path} (epoch {self.epoch})")
         return self.epoch
 
@@ -137,6 +167,7 @@ class Evaluator:
         state, self.epoch = load_torch_checkpoint(
             path, refine=self.cfg.train.refine)
         self.model.load_state_dict(state, strict=True)
+        replicate(self.model, self.mesh)
         self.log.info(f"imported torch checkpoint {path} (epoch "
                       f"{self.epoch})")
         return self.epoch
@@ -144,12 +175,16 @@ class Evaluator:
     def run(self, dump_dir: Optional[str] = None,
             log_every: int = 50) -> Dict[str, float]:
         """The running means of the per-scene metrics over the dataset.
-        ``dump_dir`` writes each scene's clouds and flow. Every
-        ``log_every`` scenes (0: never) the running means go to the log,
-        as ``[count/n] k=v ...``."""
+        ``dump_dir`` (one process only) writes each scene's clouds and
+        flow. Every ``log_every`` scenes (0: never) the running means of
+        this rank's scenes go to the log, as ``[count/n] k=v ...``."""
+        if dump_dir is not None and self.mesh.process_count > 1:
+            raise ValueError(
+                "--dump_dir is single-host only; re-run eval on one host "
+                "to dump scenes for visualization")
         sums: Dict[str, torch.Tensor] = {}
         count = 0
-        n_scenes = len(self.dataset)
+        n_scenes = len(self.dataset) // self.shard[1]
         for batch, scene in device_prefetch(
                 self.loader.epoch(0),
                 lambda b: (b, to_device(b, self.device))):
@@ -171,6 +206,7 @@ class Evaluator:
                     f"{k}={float(v) / seen:.4f}"
                     for k, v in sorted(sums.items())))
             count = seen
+        sums, count = combine_sums(sums, count, self.mesh, self.shard[1])
         means = {k: float(v) / max(1, count) for k, v in sums.items()}
         self.log.info(f"{self.cfg.data.dataset} ({count} scenes): " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(means.items())))

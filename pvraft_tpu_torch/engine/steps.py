@@ -29,6 +29,14 @@ CUDA graph whose learning rates come from one device tensor of K
 entries, filled once before each replay. Both stages, as the JAX
 ``refine=True``. All of them are bitwise equal to as many single steps.
 
+Data parallelism (``parallel/``): with a process group, every train step
+factory's body (:func:`_train_body`) averages the gradients, the loss
+and the EPE over the group's ranks in one collective
+(:class:`GradientAllReduce`) right after the backward, before the bf16
+gradient cast, the monitors and Adam: the JAX order, where GSPMD's
+gradients are global before either reads them. It runs at every world
+size, 1 included.
+
 ``telemetry=True`` (every train step factory) adds the in-step numerics
 monitors (``obs/monitors.py``) as ``metrics["telemetry"]``, as the JAX
 steps do: :class:`StepMonitor` copies the trained parameters just before
@@ -44,14 +52,16 @@ step runs and launches what it did before.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from pvraft_tpu_torch.engine.loss import compute_loss, sequence_loss
 from pvraft_tpu_torch.engine.metrics import epe_train, flow_metrics
 from pvraft_tpu_torch.obs import monitors
 from pvraft_tpu_torch.obs.retrace import GraphCache
+from pvraft_tpu_torch.parallel.distributed import is_initialized
 from pvraft_tpu_torch.serve.aot import capture
 from pvraft_tpu_torch.weights import trained_parameters
 
@@ -210,28 +220,85 @@ LossOf = Callable[[Batch], Tuple[torch.Tensor, torch.Tensor,
                                  Optional[torch.Tensor]]]
 
 
+class GradientAllReduce:
+    """The data-parallel reduction of one train step (the gradient
+    all-reduce GSPMD inserts into the JAX step): the gradients of the
+    parameters ``optimizer`` trains, then the step's loss and EPE, packed
+    into one flat float32 bucket, one collective over ``group``, and the
+    result scaled to the mean over its ranks: every rank's gradients
+    become the global batch's, the same bit for bit on every rank, and
+    the loss and EPE the global batch's means. On NCCL the collective
+    averages itself (``ReduceOp.AVG``, a premultiplied sum: at one rank an
+    in-place SUM launches no kernel, an average launches one, so a
+    profile of the step shows the reduction); gloo has no average, so it
+    sums and the bucket is scaled by 1 / world. Inside a
+    captured step the collective is captured too (NCCL only)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, group: Any):
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.average = dist.get_backend(group) == "nccl"
+        self.calls = 0
+
+    def __call__(self, loss: torch.Tensor, epe: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [loss.reshape(1).float(), epe.reshape(1).float()])
+        if self.average:
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
+        else:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+            flat.mul_(1.0 / self.world)
+        parts = flat.split([g.numel() for g in grads] + [1, 1])
+        torch._foreach_copy_(grads, [v.view_as(g)
+                                     for v, g in zip(parts, grads)])
+        self.calls += 1
+        return parts[-2].reshape(()), parts[-1].reshape(())
+
+
+def data_group() -> Any:
+    """The group a train step reduces over: the whole process group where
+    there is one (of any size, 1 included), else None (one process:
+    nothing to reduce)."""
+    return dist.group.WORLD if is_initialized() else None
+
+
 def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None,
                 monitor: Optional[StepMonitor] = None
                 ) -> Callable[..., Tuple[torch.Tensor, ...]]:
-    """zero_grad / ``loss_of`` / backward / the gradients through
+    """zero_grad / ``loss_of`` / backward / with a process group, the
+    gradients, loss and EPE through :class:`GradientAllReduce` over
+    :func:`data_group` / the gradients through
     :func:`maybe_cast_grads` / step at the optimizer's current learning
     rate; returns (loss, epe) of the last flow, then ``monitor``'s leaves
-    where it is given."""
+    where it is given (read from the reduced gradients and loss; the
+    flows' leaves are this rank's batch's). ``body.reduce`` is the
+    reduction, or None."""
+    group = data_group()
+    reduce = GradientAllReduce(optimizer, group) if group is not None \
+        else None
 
     def body(pc1, pc2, mask, flow):
         batch = {"pc1": pc1, "pc2": pc2, "mask": mask, "flow": flow}
         optimizer.zero_grad(set_to_none=True)
         loss, last, flows = loss_of(batch)
         loss.backward()
+        with torch.no_grad():
+            loss = loss.detach()
+            epe = epe_train(last, mask, flow)
+            if reduce is not None:
+                loss, epe = reduce(loss, epe)
         _cast_param_grads(optimizer, grad_dtype)
         pre = monitor.before() if monitor is not None else None
         optimizer.step()
         with torch.no_grad():
-            epe = epe_train(last, mask, flow)
             if monitor is None:
-                return loss.detach(), epe
-            return (loss.detach(), epe, *monitor.leaves(pre, loss, flows))
+                return loss, epe
+            return (loss, epe, *monitor.leaves(pre, loss, flows))
 
+    body.reduce = reduce
     return body
 
 
@@ -277,6 +344,7 @@ def _eager_step(body, optimizer, schedule, count: Optional[List[int]] = None,
 
     train_step.count = count
     train_step.monitor = monitor
+    train_step.reduce = body.reduce
     return train_step
 
 
@@ -296,7 +364,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     holds this step's gradient. The step count is read from the optimizer
     once, here, and kept on the host (under ``capturable`` the optimizer's
     own count is a device tensor) in ``step.count[0]``, the schedule's
-    position, which a resume sets."""
+    position, which a resume sets. With a process group the gradients,
+    loss and EPE are the mean over its ranks (:func:`data_group`, in every
+    train step factory)."""
     _check_levers(grad_dtype)
     monitor = _monitor(telemetry, model, optimizer, flows=True)
     return _eager_step(_train_body(optimizer, _stage1_loss(
@@ -376,6 +446,7 @@ def _graphed_step(name: str, body, optimizer: torch.optim.Adam, schedule,
     train_step.graphs = graphs
     train_step.count = count
     train_step.monitor = monitor
+    train_step.reduce = body.reduce
     return train_step
 
 
@@ -627,6 +698,7 @@ def make_multistep_train_step(model, optimizer: torch.optim.Optimizer,
 
     multistep_train_step.count = single.count
     multistep_train_step.monitor = monitor
+    multistep_train_step.reduce = single.reduce
     return multistep_train_step, flat, unravel
 
 
@@ -687,6 +759,7 @@ def make_graphed_multistep_train_step(model, optimizer: torch.optim.Adam,
     multistep_train_step.inputs = inputs
     multistep_train_step.count = count
     multistep_train_step.monitor = monitor
+    multistep_train_step.reduce = body.reduce
     return multistep_train_step, packed.flat, packed.unravel
 
 

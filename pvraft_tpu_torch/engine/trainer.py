@@ -1,10 +1,10 @@
 """Trainer of both stages (port of ``pvraft_tpu/engine/trainer.py::
 Trainer``).
 
-One card: seeded (or JAX-imported) weights, Adam with the configured
+Seeded (or JAX-imported) weights, Adam with the configured
 learning-rate schedule, the train step over the shuffled training set
 (FT3D's train split, or synthetic scenes), and per-epoch validation at
-``eval_iters`` with one scene per step. ``fit`` trains, saves and
+``eval_iters``, ``eval_batch`` scenes per step (one on one card). ``fit`` trains, saves and
 validates every epoch from ``begin_epoch``, then tests once on the
 weights of the epoch with the lowest validation EPE (strict ``<``), read
 back from ``best_checkpoint``.
@@ -20,10 +20,10 @@ into the tensors the captured steps read, never swapped for new ones.
 
 The train and eval steps are the graphed ones (``engine/steps.py``): at
 construction the trainer captures the train step at the training batch's
-shape and the eval step at one scene's, each as one CUDA graph on the
-card (on the CPU: the same functions on the same static buffers), with
-Adam's learning rate a tensor on the trainer's device and Adam
-``capturable`` on the card. ``graphs=False`` takes the eager steps with
+shape and the eval step at each of its loaders' batch sizes, each as
+one CUDA graph on the card (on the CPU: the same functions on the same
+static buffers), with Adam's learning rate a tensor on the trainer's
+device and Adam ``capturable`` on the card. ``graphs=False`` takes the eager steps with
 a plain Adam (a float learning rate): the yardstick of the graphed
 steps. ``capturable=True`` gives the eager steps the graphed steps' Adam
 instead, for a bitwise comparison.
@@ -88,7 +88,26 @@ step against the flagship train step's roofline, ``step_ratio`` and
 looked up once; any failure leaves the block out: observability never
 fails training.
 
-Not in this slice: data-parallel meshes (the parallel slice).
+Data parallelism (the JAX ``Trainer(cfg, mesh)``; ``parallel/``): one
+process per card, as ``torchrun --nproc_per_node=N -m
+pvraft_tpu_torch.train`` starts them, on a :class:`~pvraft_tpu_torch.
+parallel.mesh.Mesh` of the process group's ranks (``mesh``, default
+``make_mesh(parallel.data_axis)``). ``train.batch_size`` is per device:
+``batch_contract`` gives the global and the local batch, and the train
+loader gives this rank its block of every global batch (``shard=(rank,
+world)``). The parameters are broadcast from rank 0 at construction and
+after every load (``replicate``), and every train step averages its
+gradients, loss and EPE over the ranks in one collective
+(``engine/steps.py::GradientAllReduce``): the ranks stay bitwise equal.
+Validation and test run ``train.eval_batch`` scenes a step (0: one per
+data rank), sharded over the ranks by ``eval_scene_shard`` where that is
+exact, and their sums meet in one all-reduce. Rank 0 alone writes
+checkpoints (a barrier and a visibility check follow, before any rank
+reads one), events, logs and TensorBoard tags. As in JAX, several
+processes refuse ``steps_per_dispatch`` > 1 and ``host_roundtrip``, and
+take no divergence snapshots; graphs need NCCL (gloo collectives cannot
+be captured: with gloo on the card, ``graphs=False``); ``make_mesh``
+refuses a sequence axis (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -100,6 +119,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pvraft_tpu_torch.config import Config
 from pvraft_tpu_torch.data import (
@@ -112,6 +132,7 @@ from pvraft_tpu_torch.data import (
 )
 from pvraft_tpu_torch.device import resolve_device
 from pvraft_tpu_torch.engine.checkpoint import (
+    checkpoint_paths,
     find_checkpoint,
     load_checkpoint,
     load_params,
@@ -145,8 +166,19 @@ from pvraft_tpu_torch.obs.divergence import (
 )
 from pvraft_tpu_torch.obs.events import RunTelemetry
 from pvraft_tpu_torch.obs.retrace import RetraceWatchdog, signature
+from pvraft_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_true,
+    barrier,
+    batch_contract,
+    combine_sums,
+    eval_scene_shard,
+    make_mesh,
+    replicate,
+)
 from pvraft_tpu_torch.profiling.timers import StepTimer, trace_context
 from pvraft_tpu_torch.programs.costs import CostSurface, hardware_utilization
+from pvraft_tpu_torch.programs.partitioning import check_replicated
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import (
     opt_state_from_jax,
@@ -180,9 +212,34 @@ def build_datasets(cfg: Config):
     raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
+def _check_parallel(cfg: Config, mesh: Mesh, device: torch.device,
+                    graphs: bool) -> None:
+    """The levers a data-parallel run refuses (the JAX Trainer's
+    refusals, and the port's own: graphs need NCCL)."""
+    par = cfg.parallel
+    if mesh.process_count > 1 and par.steps_per_dispatch > 1:
+        raise ValueError(
+            "parallel.steps_per_dispatch > 1 is single-process only (the "
+            "fused mode stacks every process's device batches into one "
+            "graph, as the JAX Trainer refuses); set steps_per_dispatch=1 "
+            "on multi-process runs")
+    if mesh.process_count > 1 and par.host_roundtrip:
+        raise ValueError(
+            "parallel.host_roundtrip is single-host only (it round-trips "
+            "the full train state through this process's host memory); "
+            "disable it on multi-process runs")
+    if (graphs and device.type == "cuda" and mesh.data_group is not None
+            and dist.get_backend(mesh.data_group) != "nccl"):
+        raise ValueError(
+            f"graphed train steps need NCCL: a "
+            f"{dist.get_backend(mesh.data_group)} collective cannot be "
+            f"captured in a CUDA graph; pass graphs=False for the eager "
+            f"steps on that backend")
+
+
 class Trainer:
     """``Trainer(cfg, device=None, weights=None, opt_state=None,
-    graphs=True, capturable=None)``.
+    graphs=True, capturable=None, cost_surface=None, mesh=None)``.
 
     ``weights``: a port state_dict or a JAX flax params tree (mapped by
     :func:`params_from_jax`) of the stage's model (a PVRaftRefine's with
@@ -196,7 +253,8 @@ class Trainer:
     graphed steps). ``cost_surface``: the inventory that prices the
     ``epoch_summary``'s ``cost`` block, a ``CostSurface`` or a path
     (default: ``programs/costs.py::default_costs_path()``, where it
-    exists).
+    exists). ``mesh``: the data-parallel layout of the process group's
+    ranks (default: ``make_mesh`` of ``cfg.parallel.data_axis``).
     """
 
     # Divergence records a run emits before it mutes them (snapshots are
@@ -207,13 +265,17 @@ class Trainer:
     def __init__(self, cfg: Config, device: Union[str, torch.device, None] = None,
                  weights: Optional[Mapping] = None, opt_state: Any = None,
                  graphs: bool = True, capturable: Optional[bool] = None,
-                 cost_surface: Any = None):
+                 cost_surface: Any = None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         # The cost block's inventory: looked up at the first epoch's end.
         self._cost_surface: Any = cost_surface
         self.device = resolve_device(device)
-        t = cfg.train
-        self.telemetry = RunTelemetry(cfg.exp_path, "Train", cfg.data.dataset)
+        t, par = cfg.train, cfg.parallel
+        self.mesh = mesh = mesh if mesh is not None else make_mesh(
+            None if par.data_axis < 0 else par.data_axis, par.seq_axis)
+        _check_parallel(cfg, mesh, self.device, graphs)
+        self.telemetry = RunTelemetry(cfg.exp_path, "Train", cfg.data.dataset,
+                                      enabled=mesh.process_index == 0)
         self.log = self.telemetry.log
         self.tb = self.telemetry.tb
         self.telemetry.emit_header(cfg, mode="train")
@@ -226,6 +288,13 @@ class Trainer:
         self.step_count = 0       # optimizer steps before this epoch
         self._epoch_steps = 0     # steps the detector has seen this epoch
         self._held: List[torch.Tensor] = []   # the pre-step state's copy
+        # A snapshot holds this process's batch only: one process alone.
+        self._snap_capable = mesh.process_count == 1
+        if t.telemetry and not self._snap_capable:
+            self.log.info(
+                "telemetry: divergence snapshots disabled on multi-process "
+                "runs (the offending global batch is not host-addressable); "
+                "monitors + detection stay on")
         if t.telemetry and cfg.parallel.steps_per_dispatch > 1:
             self.log.info(
                 "telemetry: divergence snapshots disabled with "
@@ -233,10 +302,18 @@ class Trainer:
                 "outside the fused scan); monitors + detection stay on at "
                 "dispatch granularity")
         self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg)
-        bs = cfg.train.batch_size
-        if bs > len(self.train_ds):
-            raise ValueError(f"batch size {bs} exceeds the dataset size "
-                             f"{len(self.train_ds)}")
+        n_data, n_proc = mesh.shape["data"], mesh.process_count
+        self.global_batch, bs = batch_contract(t.batch_size, mesh)
+        self.log.info(
+            f"mesh {mesh.shape}: per-device batch {t.batch_size} -> global "
+            f"batch {self.global_batch}"
+            + (f" ({bs}/process x {n_proc})" if n_proc > 1 else ""))
+        if self.global_batch > len(self.train_ds):
+            raise ValueError(
+                f"global batch {self.global_batch} (= {t.batch_size}/device "
+                f"x {n_data} devices) exceeds dataset size "
+                f"{len(self.train_ds)}; use a smaller mesh or per-device "
+                f"batch")
         refine = cfg.train.refine
         if weights is None:
             weights = seeded_state_dict(
@@ -246,16 +323,28 @@ class Trainer:
         self.model = (PVRaftRefine if refine else PVRaft)(cfg.model)
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device)
+        # Every leaf replicates (the rules' specs are all ()); the refine
+        # head, which no rule names, replicates too.
+        check_replicated(self.model.backbone if refine else self.model)
+        replicate(self.model, mesh)
 
         d = cfg.data
         self.train_loader = PrefetchLoader(
             self.train_ds, bs, shuffle=True, drop_last=True,
             num_workers=d.num_workers, seed=cfg.train.seed,
-            native=d.native_loader)
+            native=d.native_loader, shard=(mesh.process_index, n_proc))
+        # eval_batch scenes a step, per-scene metrics (0: one scene per
+        # data rank); scene-sharded over the processes where exact.
+        self.eval_batch = max(1, n_data if t.eval_batch <= 0
+                              else t.eval_batch)
+        self.eval_shards = {
+            mode: eval_scene_shard(len(ds), self.eval_batch, mesh)
+            for mode, ds in (("val", self.val_ds), ("test", self.test_ds))}
         self.val_loader, self.test_loader = (
-            PrefetchLoader(ds, 1, drop_last=False,
-                           num_workers=min(2, d.num_workers))
-            for ds in (self.val_ds, self.test_ds))
+            PrefetchLoader(ds, self.eval_batch, drop_last=False,
+                           num_workers=min(2, d.num_workers),
+                           shard=self.eval_shards[mode])
+            for mode, ds in (("val", self.val_ds), ("test", self.test_ds)))
         self.steps_per_epoch = max(1, len(self.train_loader))
         self.schedule = make_lr_schedule(
             cfg.train.lr_schedule, cfg.train.lr, cfg.train.num_epochs,
@@ -281,7 +370,6 @@ class Trainer:
         # Refine trains and evaluates at train.iters (engine_refine.py:199).
         self.eval_iters = t.iters if refine else t.eval_iters
         levers = {"grad_dtype": t.grad_dtype, "telemetry": t.telemetry}
-        par = cfg.parallel
         self.steps_k = par.steps_per_dispatch
         self.multi_step = self.packed = self.flat = self.unravel = None
         if par.packed_state:
@@ -323,13 +411,23 @@ class Trainer:
             if graphs_of is not None:
                 self.retrace.watch(graphs_of.name, graphs_of)
 
+    def _eval_sizes(self) -> List[int]:
+        """The batch sizes the val and test loaders give: ``eval_batch``
+        and each loader's smaller tail batch."""
+        sizes = {self.eval_batch}
+        for mode, ds in (("val", self.val_ds), ("test", self.test_ds)):
+            tail = (len(ds) // self.eval_shards[mode][1]) % self.eval_batch
+            sizes |= {tail} if tail else set()
+        return sorted(sizes, reverse=True)
+
     def _capture(self) -> None:
         """Capture the steps at the shapes training and evaluation feed
         them, from their loaders' first batches: the K-step step at K of
         them; the single step where it runs (with K > 1: an epoch's
-        tail)."""
+        tail); the eval step at every batch size of the val and test
+        loaders."""
         batch = to_device(first_batch(self.train_loader), self.device)
-        scene = to_device(first_batch(self.val_loader), self.device)
+        scenes = to_device(first_batch(self.val_loader), self.device)
         captures = []
         if self.multi_step is None or self.steps_per_epoch % self.steps_k:
             captures.append((self.train_step.graphs,
@@ -337,9 +435,11 @@ class Trainer:
         if self.multi_step is not None:
             captures.append((self.multi_step.graphs, self.multi_step.inputs(
                 stack_batches([batch] * self.steps_k))))
-        captures.append((self.eval_step.graphs,
-                         [scene[k] for k in BATCH_KEYS]))
-        self._graphs = tuple(c for c, _ in captures)
+        for size in self._eval_sizes():
+            if size <= scenes["pc1"].shape[0]:
+                captures.append((self.eval_step.graphs,
+                                 [scenes[k][:size] for k in BATCH_KEYS]))
+        self._graphs = tuple(dict.fromkeys(c for c, _ in captures))
         for cache, inputs in captures:
             cache.program_for(inputs)
 
@@ -475,7 +575,7 @@ class Trainer:
         Returns the step's metrics."""
         armed = self.detector is not None
         prev = (self._capture_state()
-                if armed and self.multi_step is None
+                if armed and self.multi_step is None and self._snap_capable
                 and self.snapshots_taken < self.cfg.train.max_snapshots
                 else None)
         m = step(batch)
@@ -628,14 +728,35 @@ class Trainer:
         also ``{epoch:03d}`` by ``checkpoint_interval``, and
         ``best_checkpoint`` with ``best``);
         returns the paths and appends the seconds it took to
-        ``save_s``."""
+        ``save_s``. On several processes rank 0 alone writes (the ranks
+        hold the same state), then every rank waits for it and checks
+        that the file is there: a rank that cannot see it fails with
+        every other (the JAX package's one writer, barrier and
+        visibility check; ``exp_path`` must be shared)."""
         t0 = time.perf_counter()
-        paths = save_checkpoint(
-            self.ckpt_dir, params_to_jax(self.model.state_dict()),
-            opt_state_to_jax(self.optimizer, self.model,
-                             self.train_step.count[0]),
-            epoch, checkpoint_interval, best=best,
-            backend=self.cfg.train.ckpt_backend)
+        if self.mesh.process_index == 0:
+            paths = save_checkpoint(
+                self.ckpt_dir, params_to_jax(self.model.state_dict()),
+                opt_state_to_jax(self.optimizer, self.model,
+                                 self.train_step.count[0]),
+                epoch, checkpoint_interval, best=best,
+                backend=self.cfg.train.ckpt_backend)
+        if self.mesh.process_count > 1:
+            barrier(self.mesh)
+            if self.mesh.process_index != 0:
+                paths = checkpoint_paths(self.ckpt_dir, epoch,
+                                         checkpoint_interval, best)
+            seen = os.path.exists(paths[0])
+            for _ in range(10):
+                if seen:
+                    break
+                time.sleep(0.5)
+                seen = os.path.exists(paths[0])
+            if not all_true(seen, self.mesh, self.device):
+                raise RuntimeError(
+                    f"checkpoint {paths[0]} written by process 0 is not "
+                    "visible on every process: multi-process checkpoints "
+                    "need a shared exp_path")
         self.save_s.append(time.perf_counter() - t0)
         self.telemetry.emit_checkpoint(epoch, "best" if best else "last",
                                        path=self.ckpt_dir)
@@ -667,6 +788,7 @@ class Trainer:
             self.begin_epoch = epoch + 1
             # The step events' axis continues across restarts.
             self.step_count = self.begin_epoch * self.steps_per_epoch
+        replicate(self.model, self.mesh)
         self._repack()
         self.log.info(f"loaded weights from {path} (epoch {epoch})")
         return epoch
@@ -690,16 +812,18 @@ class Trainer:
         params, epoch = load_params(path)
         self.model.backbone.load_state_dict(params_from_jax(params),
                                             strict=True)
+        replicate(self.model, self.mesh)
         self.log.info(f"imported stage-1 weights from {path} (epoch {epoch})")
         return epoch
 
     def val_test(self, epoch: int, mode: str = "val") -> Dict[str, float]:
         """Means of the per-scene eval metrics over the val (or test) set,
-        one scene per step at ``self.eval_iters`` iterations. A val pass
-        whose EPE is the lowest so far saves ``best_checkpoint``; the test
-        pass
-        loads ``best_checkpoint`` first where there is one (the JAX
-        ``val_test``, ``engine.py:191``)."""
+        ``self.eval_batch`` scenes a step at ``self.eval_iters``
+        iterations, summed scene by scene and, on several processes,
+        over the ranks (``parallel/mesh.py::combine_sums``). A val pass
+        whose EPE is the lowest so far saves ``best_checkpoint``; the
+        test pass loads ``best_checkpoint`` first where there is one (the
+        JAX ``val_test``, ``engine.py:191``)."""
         loader = self.val_loader if mode == "val" else self.test_loader
         if mode == "test":
             best = find_checkpoint(self.ckpt_dir, "best_checkpoint")
@@ -714,11 +838,13 @@ class Trainer:
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + v.sum()
             count += batch["pc1"].shape[0]
+        sums, count = combine_sums(sums, count, self.mesh,
+                                   self.eval_shards[mode][1])
         means = {k: float(v) / max(1, count) for k, v in sums.items()}
         eval_s = time.perf_counter() - t0
         self.log.info(f"{mode} epoch {epoch}: {count} scenes in "
                       f"{eval_s:.1f}s ({count / max(eval_s, 1e-9):.1f} "
-                      "scenes/s, eval_batch=1)")
+                      f"scenes/s, eval_batch={self.eval_batch})")
         self.telemetry.emit_eval(mode, epoch, count, means)
         self.log.info(f"{mode} epoch {epoch}: " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(means.items())))

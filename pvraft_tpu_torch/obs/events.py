@@ -35,6 +35,8 @@ import os
 import time
 from typing import Any, Dict, IO, List, Optional
 
+from pvraft_tpu_torch.parallel.distributed import process_count, process_index
+
 SCHEMA_VERSION = "pvraft_events/v1"
 
 # type -> (required fields, optional fields); the base fields are stamped
@@ -392,10 +394,8 @@ def run_metadata(cfg=None, mode: str = "train") -> Dict[str, Any]:
         "devices": {
             "platform": "gpu" if cuda else "cpu",
             "device_count": torch.cuda.device_count() if cuda else 1,
-            # One process: the port has no multi-process runs yet
-            # (ROADMAP queue 1 item 8).
-            "process_index": 0,
-            "process_count": 1,
+            "process_index": process_index(),
+            "process_count": process_count(),
         },
         "versions": {"torch": torch.__version__, "cuda": torch.version.cuda},
     }
@@ -480,13 +480,18 @@ class RunTelemetry:
                  ("acc3d_strict", "Acc3dStrict"))
 
     def __init__(self, exp_path: str, mode: str = "Train", dataset: str = "",
-                 events_name: Optional[str] = None):
+                 events_name: Optional[str] = None,
+                 enabled: Optional[bool] = None):
         from pvraft_tpu_torch.utils.logging import ExperimentLog, TBWriter
 
-        self.log = ExperimentLog(exp_path, mode, dataset)
-        self.tb = TBWriter(os.path.join(exp_path, "logs"))
+        # Rank 0 alone writes (the JAX EventLog's process-0 rule): the
+        # other ranks' sinks construct and write nothing.
+        if enabled is None:
+            enabled = process_index() == 0
+        self.log = ExperimentLog(exp_path, mode, dataset, enabled=enabled)
+        self.tb = TBWriter(os.path.join(exp_path, "logs"), enabled=enabled)
         name = events_name or f"{mode.lower()}.events.jsonl"
-        self.events = EventLog(os.path.join(exp_path, name))
+        self.events = EventLog(os.path.join(exp_path, name), enabled=enabled)
 
     def info(self, msg: str) -> None:
         self.log.info(msg)

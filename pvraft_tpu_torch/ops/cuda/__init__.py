@@ -38,7 +38,8 @@ counts it into :data:`captured` instead, and the program keeps that
 share (``serve/aot.py::GraphProgram.launches``). What a replay launches
 is measured, not inferred: :func:`measured_launches` runs a function
 under ``torch.profiler`` and counts the card's kernels by their device
-symbols (:data:`KERNEL_SYMBOLS`), replayed ones included. A kernel's
+symbols (:data:`KERNEL_SYMBOLS`), replayed ones included, in a window
+that two marker kernels show whole (:func:`device_kernels`). A kernel's
 first launch on a device builds and loads its library and, for the tuned
 GRU kernel, opts in to its shared memory; :func:`check_capturable`
 refuses a capture before that first eager launch.
@@ -56,7 +57,8 @@ import re
 import shutil
 import struct
 import subprocess
-from typing import Any, Callable, Dict, Sequence, Tuple, Union
+import time
+from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -317,22 +319,79 @@ def kernel_of(event_name: str):
     return None
 
 
-def measured_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
-    """Run ``fn()`` under ``torch.profiler`` (CUPTI) with a synchronize
-    at its end; returns its result and, per wrapper, the kernels of
-    :data:`KERNEL_SYMBOLS` that the card ran meanwhile: eager launches
-    and those a CUDA graph's replay made alike."""
+# The marker kernel that frames a profiler window's work
+# (``torch.cuda._sleep``); the head markers of each try of a window; and
+# the windows :func:`device_kernels` opened, those it ran again, and the
+# head markers the profiler lost.
+MARKER_KERNEL = "spin_kernel"
+HEAD_MARKERS = (256, 4096, 32768)
+window_counts = collections.Counter()
+
+
+def device_kernels(fn: Callable[[], Any]) -> Tuple[Any, List[str]]:
+    """Run ``fn()`` in a ``torch.profiler`` (CUPTI) window and return its
+    result and the names of the device activities the card ran for it
+    (kernels, copies, replayed ones included), in start order.
+
+    The profiler can drop the first records of a window, from a dozen to
+    a thousand (``profiling/windows.py``). So the window waits
+    ``profiling/timers.py::PROFILER_LEAD_S``, launches head markers
+    (:data:`MARKER_KERNEL`), runs ``fn()`` between synchronizes, then
+    one tail marker and the wait again. The records are whole when a
+    head marker and the tail marker survive; else the window runs again
+    with more head markers, :data:`HEAD_MARKERS` in turn; then
+    RuntimeError."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    from pvraft_tpu_torch.profiling.timers import PROFILER_LEAD_S
+
+    lost = []
+    for markers in HEAD_MARKERS:
         torch.cuda.synchronize()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            wrapper = kernel_of(e.name)
-            if wrapper is not None:
-                counts[wrapper] += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_LEAD_S)
+            for _ in range(markers):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_LEAD_S)
+        window_counts["windows"] += 1
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        work = [i for i, n in enumerate(names) if MARKER_KERNEL not in n]
+        seen = len(names) - len(work)
+        if work:
+            head, tail = work[0], len(names) - 1 - work[-1]
+            whole = head >= 1 and tail == 1 and seen == head + 1
+        else:
+            head, whole = max(seen - 1, 0), seen == markers + 1
+        window_counts["head_markers_lost"] += markers - head
+        if whole:
+            return out, [names[i] for i in work]
+        window_counts["run_again"] += 1
+        lost.append({"head_markers": markers, "seen": seen,
+                     "activities": len(names), "first": names[:2],
+                     "last": names[-2:]})
+    raise RuntimeError(f"the profiler lost the head or the tail marker in "
+                       f"each of {len(HEAD_MARKERS)} windows, no count is "
+                       f"whole: {lost}")
+
+
+def measured_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+    """Run ``fn()`` under :func:`device_kernels`; returns its result
+    and, per wrapper, the kernels of :data:`KERNEL_SYMBOLS` that the card
+    ran meanwhile: eager launches and those a CUDA graph's replay made
+    alike."""
+    out, names = device_kernels(fn)
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for name in names:
+        wrapper = kernel_of(name)
+        if wrapper is not None:
+            counts[wrapper] += 1
     return out, counts

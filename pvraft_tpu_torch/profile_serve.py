@@ -38,6 +38,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pvraft_tpu_torch.config import ModelConfig
+from pvraft_tpu_torch.profiling.timers import PROFILER_LEAD_S
 from pvraft_tpu_torch.serve import InferenceEngine, ServeConfig
 from pvraft_tpu_torch.weights import seeded_state_dict
 
@@ -78,6 +79,7 @@ def profile_call(fn, top: int) -> dict:
     time, idle share, kernel count, device-busy time within each
     ``pvraft.*`` range and the ``top`` kernels by device time."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

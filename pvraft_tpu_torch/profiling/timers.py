@@ -19,11 +19,18 @@ from typing import Iterator, List, Optional
 import torch
 
 TRACE_FILE = "trace.json"
+# Now and then the profiler drops the first device records of a window,
+# as if it dated them before the window opened (on an H100, ``python -m
+# pvraft_tpu_torch.profiling.windows``: the head of the window's activity
+# sequence, in about 2% of windows). A window with CUDA activity therefore
+# waits this long after it opens before the work it is to see.
+PROFILER_LEAD_S = 0.05
 
 
 def start_profiler():
     """A started ``torch.profiler.profile`` over CPU and (with a card)
-    CUDA activity that records every thread's ranges. Raises
+    CUDA activity, after :data:`PROFILER_LEAD_S`, that records every
+    thread's ranges. Raises
     RuntimeError while another profiler session runs in the process."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -37,6 +44,8 @@ def start_profiler():
                    experimental_config=torch._C._profiler._ExperimentalConfig(
                        profile_all_threads=True))
     prof.start()
+    if torch.cuda.is_available():
+        time.sleep(PROFILER_LEAD_S)
     return prof
 
 

@@ -1,0 +1,112 @@
+"""Parameter partitioning rules (the port's copy of
+``pvraft_tpu/programs/partitioning.py``'s rules and matching).
+
+A rule is ``(regex, spec)``: ``re.search`` over a leaf's ``/``-joined
+flax path (``params/feature_extractor/conv1/fc1/kernel``), ``spec`` a
+tuple of mesh axis names (or None) per dimension; ``()`` replicates.
+Every leaf must match exactly one rule: a leaf no rule names, or one two
+rules fight over, raises. Today every leaf replicates (the model is
+~0.8 MB), which is all the data-parallel Trainer can run: it holds every
+leaf's spec to ``()`` (:func:`check_replicated`), and a leaf that would
+shard raises, naming the sequence-parallel slice (ROADMAP queue 1 item
+8b) that would bring sharded parameters.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+Spec = Tuple[Optional[str], ...]
+Rules = Sequence[Tuple[str, Spec]]
+
+# The mesh axes a spec may name (parallel/mesh.py's (data, seq)).
+MESH_AXES = ("data", "seq")
+
+# Batch arrays (B, N, ...): batch over data, points over seq.
+BATCH_PARTITION = ("data", "seq")
+
+# The exactly-once ladder over PVRaft's 95 leaves: the three anchored
+# prefixes partition the module tree.
+PARTITION_RULES: Tuple[Tuple[str, Spec], ...] = (
+    # The twin SetConv encoders (feature + context): replicate.
+    (r"^params/(feature|context)_extractor/", ()),
+    # The correlation lookup's head (voxel + knn branches): replicate.
+    (r"^params/update_iter/corr_lookup/", ()),
+    # MotionEncoder + ConvGRU + FlowHead: replicate.
+    (r"^params/update_iter/update_block/", ()),
+)
+
+
+def match_report(rules: Rules, leaf_paths: Sequence[str]
+                 ) -> Tuple[Dict[str, Spec], List[str],
+                            List[Tuple[str, List[str]]], List[str]]:
+    """``(mapping, unmatched, multi, unused)``: leaf path -> spec for the
+    leaves one rule matches, the leaves none matches, the leaves several
+    match (with their regexes), and the rules that match no leaf."""
+    compiled = [(pat, re.compile(pat), spec) for pat, spec in rules]
+    mapping: Dict[str, Spec] = {}
+    unmatched: List[str] = []
+    multi: List[Tuple[str, List[str]]] = []
+    used = set()
+    for path in leaf_paths:
+        hits = [(pat, spec) for pat, rx, spec in compiled if rx.search(path)]
+        used.update(pat for pat, _ in hits)
+        if not hits:
+            unmatched.append(path)
+        elif len(hits) > 1:
+            multi.append((path, [pat for pat, _ in hits]))
+        else:
+            mapping[path] = hits[0][1]
+    unused = [pat for pat, _, _ in compiled if pat not in used]
+    return mapping, unmatched, multi, unused
+
+
+def match_partition_rules(rules: Rules, leaf_paths: Sequence[str]
+                          ) -> Dict[str, Spec]:
+    """Leaf path -> spec, or raise on any leaf that matches no rule or
+    more than one."""
+    mapping, unmatched, multi, _unused = match_report(rules, leaf_paths)
+    problems = [f"no partition rule matches leaf {path!r}"
+                for path in unmatched]
+    problems += [f"leaf {path!r} matched {len(pats)} rules ({pats}); rules "
+                 f"must be disjoint (exactly-once discipline)"
+                 for path, pats in multi]
+    if problems:
+        raise ValueError("partition-rule coverage: " + "; ".join(problems))
+    return mapping
+
+
+def flax_leaf_paths(state: Mapping[str, torch.Tensor]) -> List[str]:
+    """A state_dict's leaves under their flax paths (``weights.
+    params_to_jax``'s names, ``params/...``), sorted."""
+    from pvraft_tpu_torch.weights import params_to_jax
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            path = f"{prefix}/{key}"
+            if isinstance(value, Mapping):
+                yield from walk(value, path)
+            else:
+                yield path
+
+    return sorted(walk(params_to_jax(state)["params"], "params"))
+
+
+def check_replicated(model: torch.nn.Module,
+                     rules: Rules = PARTITION_RULES) -> Dict[str, Spec]:
+    """The specs of ``model``'s leaves under ``rules``, by flax path,
+    every one ``()``; a leaf the rules would shard raises: data
+    parallelism replicates every parameter, and sharded parameters
+    arrive with the sequence-parallel slice."""
+    specs = match_partition_rules(rules, flax_leaf_paths(model.state_dict()))
+    sharded = {p: s for p, s in specs.items() if any(a is not None for a in s)}
+    if sharded:
+        raise NotImplementedError(
+            f"{len(sharded)} parameter leaves would shard "
+            f"({sorted(sharded)[:3]} ...): the port's data-parallel Trainer "
+            f"replicates every parameter; sharded parameters arrive with "
+            f"the sequence-parallel slice (ROADMAP queue 1 item 8b)")
+    return specs

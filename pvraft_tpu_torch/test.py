@@ -10,8 +10,10 @@
 preprocessed tree (``python -m pvraft_tpu_torch.data.preprocess.kitti``),
 ``FT3D`` on FlyingThings3D's test split, ``synthetic`` on seeded scenes.
 
-The reference protocol (``engine/evaluator.py``): one scene per step at
-``eval_iters`` GRU iterations, running means. ``--weights`` takes a
+The reference protocol (``engine/evaluator.py``): per-scene metrics at
+``eval_iters`` GRU iterations, running means; ``--eval_batch`` scenes a
+step (0: one per data rank), and under ``torchrun --nproc_per_node=N -m
+pvraft_tpu_torch.test`` the ranks share the scenes. ``--weights`` takes a
 msgpack checkpoint of the port or of the JAX package, ``--torch_weights``
 a reference-published ``.params`` file; with ``--refine`` either holds a
 stage-2 (``PVRaftRefine``) model, evaluated at ``eval_iters``. The flags
@@ -33,11 +35,17 @@ import json
 import sys
 from typing import List, Optional
 
-from pvraft_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from pvraft_tpu_torch.config import (
+    SEQ_PARALLEL,
+    Config,
+    DataConfig,
+    ModelConfig,
+    TrainConfig,
+)
 
 # test.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--seq_parallel": "the parallel slice (ROADMAP queue 1 item 8)",
+    "--seq_parallel": SEQ_PARALLEL,
     "--platform": "no slice: the port picks its device with --device",
 }
 
@@ -78,10 +86,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--eval_scan", type=int, default=1,
                    help="accepted so that the JAX package's commands "
                         "run, and changes nothing: a replay of the "
-                        "captured eval step is one launch per scene")
+                        "captured eval step is one launch per batch")
     p.add_argument("--eval_batch", type=int, default=0,
-                   help="scenes per eval step; one card evaluates one "
-                        "scene per step (0 and 1 are the same)")
+                   help="scenes per eval step, each with its own "
+                        "metrics (0: one per data rank)")
     p.add_argument("--refine", action="store_true",
                    help="evaluate a stage-2 (refine) checkpoint")
     p.add_argument("--weights", default=None,
@@ -127,7 +135,10 @@ def config_from_args(a: argparse.Namespace) -> Config:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.parallel import initialize, process_index
 
+    # Under torchrun the ranks share the scenes (nothing on one process).
+    initialize(backend="gloo" if args.device == "cpu" else None)
     ev = Evaluator(config_from_args(args), device=args.device)
     if args.weights:
         ev.load(args.weights)
@@ -135,7 +146,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         ev.load_torch(args.torch_weights)
     means = ev.run(dump_dir=args.dump_dir)
     ev.close()
-    print(json.dumps(dict(sorted(means.items()))), flush=True)
+    if process_index() == 0:
+        print(json.dumps(dict(sorted(means.items()))), flush=True)
 
 
 if __name__ == "__main__":

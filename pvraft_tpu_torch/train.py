@@ -7,7 +7,7 @@
         [--fused_gru] [--no-use_pallas] [--bf16] [--grad_dtype bfloat16]
         [--corr_chunk C] [--graph_chunk C] [--remat_policy P]
         [--packed_state [--steps_per_dispatch K | --host_roundtrip]]
-        [--device_prefetch 2] [--device cpu]
+        [--device_prefetch 2] [--device cpu] [--data_parallel N]
         [--telemetry [--divergence_zscore 6] [--divergence_window 64]
                      [--halt_on_divergence]] [--profile_dir DIR]
         [--exp_path EXP] [--resume | --weights CKPT]
@@ -42,6 +42,19 @@ root ``train.py``'s semantics. ``--refine`` trains stage 2 (the
 ``--iters 32 --num_epochs 10``), and ``--stage1_weights`` imports a
 stage-1 checkpoint into its backbone first: stage-1 import, then
 ``--weights``, then ``--resume``, in the root ``train.py``'s order.
+
+Data parallelism, one process per card::
+
+    torchrun --nproc_per_node=N -m pvraft_tpu_torch.train ... \
+        [--data_parallel N]
+
+``main`` joins the process group first (``parallel/distributed.py::
+initialize``: NCCL on the card, gloo on the CPU), as the root
+``train.py`` initializes ``jax.distributed``. ``--batch_size`` is per
+device; ``--data_parallel`` is the data axis (-1, the default: every
+rank) and must equal the world size. Rank 0 alone prints, writes
+checkpoints, events, logs and tags. ``--seq_parallel`` is refused: the
+sequence-parallel ring is ROADMAP queue 1 item 8b.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ from typing import List, Optional
 
 from pvraft_tpu_torch.config import (
     LR_SCHEDULES,
+    SEQ_PARALLEL,
     Config,
     DataConfig,
     ModelConfig,
@@ -62,8 +76,7 @@ from pvraft_tpu_torch.config import (
 
 # train.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--data_parallel": "the parallel slice (ROADMAP queue 1 item 8)",
-    "--seq_parallel": "the parallel slice (ROADMAP queue 1 item 8)",
+    "--seq_parallel": SEQ_PARALLEL,
     "--scatter_free_vjp": "its recorded disposition (ROADMAP queue 1 item 7)",
     "--platform": "no slice: the port picks its device with --device",
     "--scan_unroll": "no slice: a captured graph holds the GRU iterations "
@@ -188,6 +201,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "input signature it has not captured")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without one)")
+    p.add_argument("--data_parallel", type=int, default=-1,
+                   help="ranks on the data axis (-1: all; launch one "
+                        "process per card with torchrun)")
     args = p.parse_args(argv)
     if args.stage1_weights and not args.refine:
         p.error("--stage1_weights needs --refine")
@@ -221,7 +237,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           halt_on_divergence=a.halt_on_divergence,
                           checkpoint_interval=a.checkpoint_interval,
                           ckpt_backend=a.ckpt_backend, refine=a.refine),
-        parallel=ParallelConfig(packed_state=a.packed_state,
+        parallel=ParallelConfig(data_axis=a.data_parallel,
+                                packed_state=a.packed_state,
                                 host_roundtrip=a.host_roundtrip,
                                 steps_per_dispatch=a.steps_per_dispatch,
                                 device_prefetch=a.device_prefetch),
@@ -233,8 +250,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     from pvraft_tpu_torch.engine.checkpoint import latest_checkpoint
     from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.parallel import initialize, process_index
 
+    # Joins torchrun's processes into one group (nothing on one process).
+    initialize(backend="gloo" if args.device == "cpu" else None)
     trainer = Trainer(config_from_args(args), device=args.device)
+    lead = process_index() == 0
     if args.stage1_weights:
         trainer.load_stage1_weights(args.stage1_weights)
     if args.weights:
@@ -247,12 +268,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     def report(epoch, train, val):
         train = {k: v for k, v in train.items()
                  if k not in ("losses", "epes")}
-        print(json.dumps({"epoch": epoch, "train": train, "val": val}),
-              flush=True)
+        if lead:
+            print(json.dumps({"epoch": epoch, "train": train, "val": val}),
+                  flush=True)
 
     test = trainer.fit(report)
-    print(json.dumps({"test": test, "device": str(trainer.device)}),
-          flush=True)
+    if lead:
+        print(json.dumps({"test": test, "device": str(trainer.device)}),
+              flush=True)
 
 
 if __name__ == "__main__":

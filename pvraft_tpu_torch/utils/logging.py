@@ -24,11 +24,16 @@ from typing import Dict, List, Tuple
 class TBWriter:
     """TensorBoard scalars, always kept in ``history`` as ``tag ->
     [(step, value)]``; written to ``log_dir`` too where
-    ``torch.utils.tensorboard`` imports (``backend`` says which)."""
+    ``torch.utils.tensorboard`` imports (``backend`` says which).
+    ``enabled=False`` (a process other than rank 0) writes nothing:
+    backend ``"off"``."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         self.history: Dict[str, List[Tuple[int, float]]] = defaultdict(list)
         self._writer = None
+        if not enabled:
+            self.backend = "off"
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -60,17 +65,22 @@ class ExperimentLog:
     """The experiment directory (``logs/``, ``checkpoints/``) and the
     mode's log file ``logs/<mode>_<dataset>.log`` (``<mode>.log`` without
     a dataset), one file handler per path however many instances open
-    it."""
+    it. ``enabled=False`` (a process other than rank 0) makes no
+    directory and writes no line."""
 
-    def __init__(self, exp_path: str, mode: str = "Train", dataset: str = ""):
+    def __init__(self, exp_path: str, mode: str = "Train", dataset: str = "",
+                 enabled: bool = True):
         self.root = exp_path
         self.log_dir = os.path.join(exp_path, "logs")
         self.ckpt_dir = os.path.join(exp_path, "checkpoints")
-        os.makedirs(self.log_dir, exist_ok=True)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.enabled = enabled
         name = f"{mode}_{dataset}" if dataset else mode
         self.path = os.path.abspath(os.path.join(self.log_dir, f"{name}.log"))
         self.logger = logging.getLogger(f"pvraft_tpu_torch.{name}")
+        if not enabled:
+            return
+        os.makedirs(self.log_dir, exist_ok=True)
+        os.makedirs(self.ckpt_dir, exist_ok=True)
         self.logger.setLevel(logging.INFO)
         self.logger.propagate = False
         if not any(isinstance(h, logging.FileHandler)
@@ -82,12 +92,15 @@ class ExperimentLog:
             self.logger.addHandler(handler)
 
     def info(self, msg: str) -> None:
-        self.logger.info(msg)
+        if self.enabled:
+            self.logger.info(msg)
 
     def close(self) -> None:
         """Remove and close the logger's file handlers (loggers live for
         the process; without this every Trainer of a long process keeps a
         file open). Idempotent."""
+        if not self.enabled:
+            return
         for handler in list(self.logger.handlers):
             if isinstance(handler, logging.FileHandler):
                 self.logger.removeHandler(handler)

@@ -435,7 +435,7 @@ def test_first_difference_names_the_submodule_that_parts():
 
 
 @pytest.mark.parametrize("flag,entry", [
-    ("--data_parallel", "ROADMAP queue 1 item 8"),
+    ("--seq_parallel=2", "ROADMAP queue 1 item 8b"),
     ("--seq_parallel", "ROADMAP queue 1 item 8"),
     ("--scatter_free_vjp", "ROADMAP queue 1 item 7"),
 ])

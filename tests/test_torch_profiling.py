@@ -9,7 +9,10 @@ record out as JAX's spans, and those spans written through
 ``RunTelemetry.emit_span`` pass both stream validators; the CLI's
 ``profile`` and ``validate``; ``StepTimer``, ``trace_context`` and the
 Trainer's ``profile_dir`` window (``trace_window`` records, a Chrome
-trace, and a refusal while another profiler session runs).
+trace, and a refusal while another profiler session runs); where
+``profiling/windows.py`` places the records a window lost, and
+``ops/cuda.device_kernels`` counting only windows its markers show whole
+(a stand-in profiler that drops a window's first records).
 """
 
 import copy
@@ -182,6 +185,70 @@ def test_step_timer_and_trace_context(tmp_path):
         with pytest.raises(RuntimeError, match="one profiler at a time"):
             start_profiler()
     assert json.load(open(tmp_path / "t" / "trace.json"))["traceEvents"]
+
+
+@pytest.mark.parametrize("seen,where", [
+    ("abcdef", "whole"), ("cdef", "head"), ("abcd", "tail"),
+    ("abef", "middle")])
+def test_window_loss_is_located(seen, where):
+    from pvraft_tpu_torch.profiling.windows import lost_at, summary
+
+    full = list("abcdef")
+    assert lost_at(full, list(seen)) == where
+    row = summary({"r": [full, list(seen), full]})["r"]
+    assert row["short"] == int(len(seen) < len(full))
+    assert row["lost_at"][where] == 1 + 2 * (where == "whole")
+    assert sum(row["lengths"].values()) == 3
+
+
+class _Window:
+    """A stand-in ``torch.profiler.profile`` whose events lose their
+    first ``drop`` records, as the card's profiler can."""
+
+    def __init__(self, log, drop):
+        self.log, self.drop = log, drop
+
+    def __enter__(self):
+        self.log.clear()
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        cuda = torch.autograd.DeviceType.CUDA
+        return [type("E", (), {"name": n, "device_type": cuda,
+                               "time_range": type("R", (), {"start": t})})
+                for t, n in enumerate(self.log)][self.drop:]
+
+
+@pytest.mark.parametrize("drop,windows", [(0, 1), (17, 1), (300, 2),
+                                          (5000, 3), (40000, None)])
+def test_device_kernels_counts_only_whole_windows(monkeypatch, drop,
+                                                  windows):
+    from pvraft_tpu_torch.ops import cuda as kernels
+
+    log = []
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: _Window(log, drop))
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: log.append("at::cuda::spin_kernel"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(kernels.time, "sleep", lambda s: None)
+    kernels.window_counts.clear()
+
+    def fn():
+        log.extend(["Memcpy HtoD", "corr_lookup_kernel(float*)"])
+        return 7
+
+    if windows is None:
+        with pytest.raises(RuntimeError, match="no count is whole"):
+            kernels.device_kernels(fn)
+        return
+    assert kernels.device_kernels(fn) == (
+        7, ["Memcpy HtoD", "corr_lookup_kernel(float*)"])
+    assert kernels.window_counts["windows"] == windows
+    assert kernels.window_counts["run_again"] == windows - 1
 
 
 def _trainer_cfg(exp, profile_dir):

@@ -166,7 +166,7 @@ def test_train_and_data_config_defaults_match_jax():
 
 @pytest.mark.parametrize("cls,kw", [
     (tconfig.TrainConfig, {"ckpt_backend": "orbax"}),
-    (tconfig.TrainConfig, {"eval_batch": 4}),
+    (tconfig.ParallelConfig, {"seq_axis": 4}),
 ])
 def test_train_config_rejects_later_slices(cls, kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
