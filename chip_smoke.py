@@ -226,7 +226,7 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            pvraft_tpu_torch.doctor`` on the card names ``batch``; a
            default Trainer afterwards trains, and its step's kernels are
            held against phase 7's (in ``main``) and the telemetry step's;
-           ``step_time`` unarmed and armed in turns; the step profiler
+           ``step_time`` unarmed and armed, one reading each; the step profiler
            (``profiling/step_profiler.py``) at the flagship, its
            ``gru_fused`` rung launching kernel 2;
   phase 15 the cost plane and the program inventory (``cost_plane``,
@@ -262,6 +262,26 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            GB per rank;
            (c) the graphed Evaluator at ``eval_batch`` 4 against 1
            (per-scene EPE within 1e-5 at 1 iteration; recorded at 32);
+  phase 17 sequence parallelism (``seq_parallel``, ``seq_parallel_phase``;
+           after phase 16): two gloo ranks on the card as one seq group
+           (a 1 x 2 mesh, ``seq_shard``), each a process of this script
+           (``--leg seq``) holding 4,096 rows of each cloud of the
+           flagship per-device batch 2 x 8,192, against this process's
+           one-rank model on the same weights and batch: (a) the ring
+           kNN graphs against the dense ones (flips named, near-ties and
+           rare), then, the reference on the ranks' graphs, the forward
+           at 1 and 8 iterations, the truncations' flips named, near-ties
+           and rare, every point no flip reaches within 5e-4 / 1e-3 at
+           1 iteration, the 8-iteration flows within 10x the model's own
+           one-ulp floor; (b) a step at 1 iteration (loss within 1e-6,
+           gradients under ``GRAD_BOUNDS["iters1"]``), then 3 eager
+           train steps on one batch under ``deterministic()``: step 1
+           under ``GRAD_BOUNDS["iters8"]``, the loss falling, 8 kernel-1
+           launches a step per rank in a profiler window
+           (``device_kernels``), ms a step, peak GB and the collectives
+           a step per rank; (c) the eager
+           Evaluator at 1 iteration, per-scene EPE within 1e-5 of one
+           process;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -289,7 +309,7 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 6, 7. Each phase
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 6, 7. Each phase
 prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -4038,12 +4058,14 @@ def train_levers_phase(seed, dev):
 
 # -------------------------------------------------------------- phase 14 --
 
-# step_time readings, a fresh process each, in turns: the flagship
-# graphed step with the monitors and the divergence detector unarmed and
-# armed (``Trainer.dispatch``: the state's copy, the monitors in the
-# graph, one host read a step).
-TELEMETRY_TURNS = (("unarmed", ()), ("armed", ("--telemetry",)),
-                   ("armed", ("--telemetry",)), ("unarmed", ()))
+# step_time readings, a fresh process each: the flagship graphed step
+# with the monitors and the divergence detector unarmed and armed
+# (``Trainer.dispatch``: the state's copy, the monitors in the graph, one
+# host read a step). One reading a way: with phase 17 the whole script
+# took 1,010.7 s of its 1,200 s on an H100 80GB HBM3 at 700 W, and these
+# readings (~27 s each, a Trainer's build in a fresh process) are the
+# first depth to cut.
+TELEMETRY_TURNS = (("unarmed", ()), ("armed", ("--telemetry",)))
 # The monitors of the graphed kernel step against the plain eager step's
 # (use_pallas=False): this many times the plain path's own run-to-run
 # spread, and never below MONITOR_MIN_BAR (relative).
@@ -4138,7 +4160,7 @@ def rel(a, b):
 
 def step_time_armed_turns():
     """``python -m pvraft_tpu_torch.step_time --no-serve [--telemetry]``,
-    a fresh process per reading, in turns (TELEMETRY_TURNS)."""
+    a fresh process per reading (TELEMETRY_TURNS)."""
     import subprocess
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4178,9 +4200,9 @@ def train_observability_phase(seed, dev, smi):
     ``batch``. (4) A default Trainer afterwards: its graphed step's
     kernels (against phase 7's count in ``main``) and the telemetry step's,
     every kernel counted; one healthy epoch. (5) ``step_time`` unarmed
-    and armed in turns. (6) The step profiler at the flagship: the record
-    validates, its ``gru_fused`` rung launches kernel 2, its ``step``
-    beside ``step_time``'s graphed step."""
+    and armed, a fresh process each. (6) The step profiler at the
+    flagship: the record validates, its ``gru_fused`` rung launches
+    kernel 2, its ``step`` beside ``step_time``'s graphed step."""
     import subprocess
 
     from pvraft_tpu_torch.config import ModelConfig
@@ -4382,7 +4404,7 @@ def train_observability_phase(seed, dev, smi):
         gc.collect()
         torch.cuda.empty_cache()
 
-    # (5) Armed against unarmed, fresh processes in turns.
+    # (5) Armed against unarmed, fresh processes.
     out["step_time"] = step_time_armed_turns()
 
     # (6) The step profiler at the flagship.
@@ -5197,6 +5219,548 @@ def parallel_phase(seed):
     return out
 
 
+# -------------------------------------------------------------- phase 17 --
+
+SEQ_WORLD = 2                # ranks of the seq group (one card, gloo)
+SEQ_STEPS = 3                # compared eager train steps, on one batch
+SEQ_TIMED = 2                # timed eager steps after them
+SEQ_LOSS_REL = 1e-6          # (b) the 1-iteration step's loss
+SEQ_EVAL_TOL = 1e-5          # (c) per-scene EPE at 1 iteration
+# (a) the flagship parity leg's bars (tests/test_torch_flagship_parity.py):
+# a point no flip reaches within atol 5e-4 / rtol 1e-3; flips below 2% of
+# the points, each a near-tie (gap below 1e-3); points beyond the bar
+# below 2%.
+SEQ_FLOW_ATOL, SEQ_FLOW_RTOL = 5e-4, 1e-3
+SEQ_TIE_GAP, SEQ_RARE = 1e-3, 0.02
+# (a) a kNN graph flip (a point whose 32 neighbours differ between the
+# ring and the dense build) is a near-tie when its 32nd and 33rd squared
+# distances lie within this (~100 float32 ulps of the O(1) terms whose
+# cancellation gives them).
+SEQ_KNN_GAP = 1e-5
+# (a) 8 untrained iterations amplify any float32 difference chaotically
+# (measured on one H100: features 9e-6 apart part the flows by up to 0.58).
+# There the sharded flows are held to the one-process model's own floor,
+# the same model on the same graphs with its input clouds moved by one
+# ulp (seq_floor): their median error within SEQ_FLOOR_FACTOR of the
+# floor's (the sharded features start up to ~10x further apart than such
+# a move leaves them).
+SEQ_FLOOR_FACTOR = 10.0
+
+
+def seq_cfg(seed, seq):
+    """Phase 17's flagship training config: ``seq_shard`` on a seq axis of
+    :data:`SEQ_WORLD` for the ranks (``seq``), off for the one-process
+    reference."""
+    from pvraft_tpu_torch.config import ParallelConfig
+    from pvraft_tpu_torch.profile_train import flagship_train_config
+
+    return flagship_train_config(
+        seed, parallel=ParallelConfig(seq_axis=SEQ_WORLD if seq else 1),
+        seq_shard=seq)
+
+
+def recording(encoder, fmaps, graphs):
+    """A forward hook on ``encoder`` (a PointEncoder) that appends each
+    call's features and graph indices to ``fmaps`` and ``graphs`` (on the
+    host)."""
+    def hook(_m, _a, out):
+        fmaps.append(out[0].detach().cpu())
+        graphs.append(out[1].neighbors.detach().cpu())
+
+    return encoder.register_forward_hook(hook)
+
+
+@contextlib.contextmanager
+def given_graphs(encoder, neighbors):
+    """``encoder`` (a PointEncoder) takes the kNN graphs ``neighbors``
+    (global indices, in turn, cycling) where it would build its own: the
+    one-process reference on the ranks' graphs, so that a graph flip at a
+    near-tie (named by :func:`graph_flips`) moves neither side's
+    features."""
+    import itertools
+
+    from pvraft_tpu_torch.ops.geometry import Graph, gather_neighbors
+
+    turn = itertools.cycle(neighbors)
+    own = encoder.forward
+
+    def forward(pc, graph=None, mask=None):
+        if graph is None:
+            idx = next(turn).to(pc.device)
+            graph = Graph(idx, gather_neighbors(pc, idx) - pc[:, :, None, :])
+        return own(pc, graph, mask)
+
+    encoder.forward = forward
+    try:
+        yield
+    finally:
+        del encoder.forward
+
+
+@contextlib.contextmanager
+def given_truncation(model, keep):
+    """``model`` (a PVRaft) keeps the candidates ``keep`` (B, N, K) global
+    indices into pc2, the ranks' ring truncation, in place of its own
+    top-K: the values are its own products at those indices, so its
+    gradients flow as its truncation's would. (b)'s reference runs so,
+    and a truncation flip at a near-tie (named in (a)) moves neither
+    side's gradients."""
+    from pvraft_tpu_torch.ops.corr import CorrState, corr_volume
+    from pvraft_tpu_torch.ops.geometry import gather_neighbors
+
+    def corr_init(fmap1, fmap2, xyz2, valid2=None):
+        idx = keep.to(fmap1.device)
+        corr = torch.gather(corr_volume(fmap1, fmap2), -1, idx)
+        return CorrState(corr=corr, xyz=gather_neighbors(xyz2, idx))
+
+    model._corr_init = corr_init
+    try:
+        yield
+    finally:
+        del model._corr_init
+
+
+def seq_forward(model, batch):
+    """The flows at 1 and 8 iterations, both clouds' features and graph
+    indices (pc1's, then pc2's), without gradients."""
+    fmaps, graphs = [], []
+    handle = recording(model.feature_extractor, fmaps, graphs)
+    out = {}
+    try:
+        with torch.no_grad():
+            for iters in (1, 8):
+                flows, _ = model(batch["pc1"], batch["pc2"], iters)
+                out[f"flows{iters}"] = flows[-1].cpu()
+    finally:
+        handle.remove()
+    out["fmap1"], out["fmap2"] = fmaps[:2]
+    out["graph1"], out["graph2"] = graphs[:2]
+    return out
+
+
+def seq_probe(model, batch, gamma):
+    """(b)'s step at 1 iteration, under ``deterministic()``, on an SGD at
+    rate 0 (the parameters do not move; the step reduces its gradients
+    as any train step of ``model`` does): its loss and gradients."""
+    from pvraft_tpu_torch.engine.steps import make_train_step
+
+    step = make_train_step(model, torch.optim.SGD(model.parameters(),
+                                                  lr=0.0),
+                           lambda _: 0.0, gamma, 1)
+    with deterministic():
+        loss = float(step(batch)["loss"])
+    return loss, {n: p.grad.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+
+
+def seq_steps(trainer, batch, window):
+    """(b)'s eager steps on one batch: first :func:`seq_probe`'s step at
+    1 iteration, then :data:`SEQ_STEPS` under
+    ``deterministic()`` (each one's loss, step 1's gradients) and
+    :data:`SEQ_TIMED` as in training (ms each, synchronised), the
+    wrapper launches and the seq axis's collectives a step, the peak GB;
+    then ``window(step)``'s profiler count of one more step."""
+    from pvraft_tpu_torch.parallel import collectives
+
+    probe = seq_probe(trainer.model, batch, trainer.cfg.train.gamma)
+    losses, ms, grads = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.CALLS.clear()
+    for i in range(SEQ_STEPS + SEQ_TIMED):
+        t0 = time.perf_counter()
+        with (deterministic() if i < SEQ_STEPS
+              else contextlib.nullcontext()):
+            m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in trainer.model.named_parameters()}
+    n = SEQ_STEPS + SEQ_TIMED
+    out = {"losses": losses, "ms": ms, "grads": grads, "probe": probe,
+           "launches_per_step": {k: v / n for k, v in read_counts().items()},
+           "collectives_per_step": {k: v / n for k, v in
+                                    collectives.CALLS.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["window"] = window(lambda: trainer.train_step(batch))
+    return out
+
+
+def seq_eval(ev):
+    """The Evaluator's per-scene EPE (this rank's shares on a rank) over
+    its scenes in order, the graphs it used (pc1's and pc2's of each
+    scene), and its means."""
+    per, graphs = [], []
+    handle = recording(ev.model.feature_extractor, [], graphs)
+    try:
+        for host in ev.loader.epoch(0):
+            per += ev.eval_step(ev._put(host))[0]["epe3d"].tolist()
+    finally:
+        handle.remove()
+    return {"epe": per, "graphs": graphs, "means": ev.run()}
+
+
+def group_window(mesh, dev):
+    """A profiler window (``ops/cuda.device_kernels``) that the ranks of a
+    group take together: ``fn`` runs in the first window only, and where
+    any rank's profiler lost records and ran its window again (with no
+    work in it), every rank takes another, up to three times. Returns
+    (the kernels per wrapper, the windows taken)."""
+    from pvraft_tpu_torch.ops import cuda as kernels
+    from pvraft_tpu_torch.parallel.mesh import all_true
+
+    def window(fn):
+        for attempt in range(1, 4):
+            ran = []
+
+            def once():
+                if not ran:
+                    ran.append(fn())
+
+            before = kernels.window_counts["run_again"]
+            _, names = kernels.device_kernels(once)
+            if all_true(kernels.window_counts["run_again"] == before, mesh,
+                        dev):
+                counts = dict(NO_LAUNCHES)
+                for name in names:
+                    wrapper = kernels.kernel_of(name)
+                    if wrapper is not None:
+                        counts[wrapper] += 1
+                return {"launches": counts, "windows": attempt}
+        raise RuntimeError("the ranks' profiler windows lost records three "
+                           "times")
+
+    return window
+
+
+def seq_leg_rank(seed, rank, world, port, path, dev=None):
+    """Phase 17, one rank of the seq group: the flagship eager Trainer on
+    a 1 x ``world`` mesh in a gloo group on the one card; (a) its rows'
+    forward, (b) its train steps, (c) the eager Evaluator at 1
+    iteration."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import first_batch
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.parallel import initialize, make_mesh, shutdown
+    from pvraft_tpu_torch.parallel.ring import ring_truncation
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    dev = dev or torch.device("cuda")
+    initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+               backend="gloo", local_rank=0)
+    try:
+        with scratch_dir() as root:
+            cfg = seq_cfg(seed, True).replace(
+                exp_path=os.path.join(root, f"rank{rank}"))
+            trainer = Trainer(cfg, device=dev, graphs=False,
+                              weights=seeded_state_dict(ModelConfig(), seed))
+            mesh = trainer.mesh
+            check(mesh.shape == {"data": 1, "seq": world}
+                  and mesh.seq_index == rank
+                  and trainer.model.seq_group is not None
+                  and trainer.train_step.reduce.n_seq == world,
+                  "phase 17: the rank's mesh, model or step is not "
+                  "sequence-parallel")
+            batch = trainer._put(first_batch(trainer.train_loader))
+            out = {"forward": seq_forward(trainer.model, batch),
+                   "rows": list(batch["pc1"].shape)}
+            with torch.no_grad():
+                out["keep"] = ring_truncation(
+                    out["forward"]["fmap1"].to(dev),
+                    out["forward"]["fmap2"].to(dev), cfg.model.truncate_k,
+                    mesh.seq_group)[1].cpu()
+            out["steps"] = seq_steps(trainer, batch, group_window(mesh, dev))
+            trainer.close()
+            del trainer, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            ecfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, eval_iters=1))
+            ev = Evaluator(ecfg.replace(exp_path=os.path.join(
+                root, f"eval{rank}")), device=dev,
+                mesh=make_mesh(n_seq=world), graphs=False)
+            out["eval"] = seq_eval(ev)
+            ev.close()
+        torch.save(out, path)
+    finally:
+        shutdown()
+
+
+def graph_flips(pc, neighbors, k):
+    """The points whose ``k`` nearest neighbours (global indices
+    ``neighbors``, the ranks' ring) differ from the dense build's, and
+    the largest of their k-th to (k+1)-th squared-distance gaps."""
+    from pvraft_tpu_torch.ops.geometry import pairwise_sqdist
+
+    d = torch.topk(pairwise_sqdist(pc, pc), k + 1, dim=-1, largest=False)
+    want = d.indices[..., :k].sort(-1).values.cpu()
+    flip = (want != neighbors.sort(-1).values).any(-1)
+    gap = (d.values[..., k] - d.values[..., k - 1]).cpu()
+    return {"flips": int(flip.sum()),
+            "max_gap": float(gap[flip].max()) if flip.any() else 0.0}
+
+
+def seq_flips(one, joined, iters, dev, k):
+    """The points whose truncation (each side's top-K of its own
+    features) differs between one process and the joined ranks, on the
+    same graphs, their truncation gaps (one process's K-th less (K+1)-th
+    correlation), the points within ``iters`` graph hops of a flip, and
+    the flows' agreement on the points no flip reaches."""
+    import math
+
+    gaps = None
+    for side in (one, joined):
+        f1, f2 = side["fmap1"].to(dev), side["fmap2"].to(dev)
+        corr = torch.bmm(f1, f2.transpose(1, 2)) / math.sqrt(f1.shape[-1])
+        top = torch.topk(corr, k + 1, dim=-1)
+        side["keep"] = top.indices[..., :k].sort(-1).values
+        if side is one:
+            gaps = (top.values[..., k - 1] - top.values[..., k]).cpu()
+        del corr, top
+    flipped = (one["keep"] != joined["keep"]).any(-1).cpu()
+    reached = flipped.clone()
+    nbr = one["graph1"]
+    for _ in range(iters):
+        reached = reached | torch.gather(
+            reached, 1, nbr.reshape(nbr.shape[0], -1)).reshape(
+                nbr.shape).any(-1)
+    want, got = one[f"flows{iters}"], joined[f"flows{iters}"]
+    err = (want - got).abs()
+    beyond = (err > SEQ_FLOW_ATOL + SEQ_FLOW_RTOL * got.abs()).any(-1)
+    points = flipped.numel()
+    far = ~reached
+    return {"corr_flips": int(flipped.sum()),
+            "flip_share": float(flipped.sum()) / points,
+            "max_flip_gap": float(gaps[flipped].max())
+            if flipped.any() else 0.0,
+            "fmap_max_abs_err": max(
+                float((one[f] - joined[f]).abs().max())
+                for f in ("fmap1", "fmap2")),
+            "reached_share": float(reached.sum()) / points,
+            "beyond_share": float(beyond.sum()) / points,
+            "max_abs_err": float(err.max()),
+            "unreached_max_abs_err": float(err[far].max())
+            if far.any() else 0.0,
+            "unreached_beyond": int((beyond & far).sum())}
+
+
+def seq_floor(model, batch, graphs, gamma, seq_flows):
+    """The one-process model's own float32 floor at 8 iterations: the
+    same model on the same graphs with both clouds moved up by one ulp,
+    against the clouds as they are: the flows' median and worst
+    |difference| beside ``seq_flows``' (the sharded flows' against one
+    process), and the sequence loss's relative change."""
+    from pvraft_tpu_torch.engine.loss import sequence_loss
+
+    up = {k: torch.nextafter(batch[k], torch.full_like(batch[k], torch.inf))
+          for k in ("pc1", "pc2")}
+    with torch.no_grad(), given_graphs(model.feature_extractor, graphs):
+        flows = [model(b["pc1"], b["pc2"], 8)[0] for b in (batch, up)]
+    floor = (flows[1][-1] - flows[0][-1]).abs().cpu()
+    loss = [float(sequence_loss(f, batch["mask"], batch["flow"], gamma))
+            for f in flows]
+    return {"median_abs_err": float(floor.median()),
+            "max_abs_err": float(floor.max()),
+            "seq_median_abs_err": float(seq_flows.median()),
+            "seq_max_abs_err": float(seq_flows.max()),
+            "loss_rel": abs(loss[1] - loss[0]) / abs(loss[0])}
+
+
+def seq_parallel_phase(seed, dev):
+    """Phase 17 (``seq_parallel``; after phase 16, before the profiler
+    phases): sequence parallelism. Two gloo ranks on the card as one seq
+    group (``--leg seq`` processes) hold 4,096 rows of each cloud of the
+    flagship per-device batch 2 x 8,192; this process runs the one-rank
+    eager Trainer and Evaluator on the same weights and batch. (a) The
+    ranks' ring kNN graphs against the dense build (:func:`graph_flips`:
+    flips near-ties and rare); the reference then runs on the ranks'
+    graphs (:func:`given_graphs`) here and in (b) and (c), so that a
+    graph flip's change of the features does not hide what the rest of
+    the sharded model computes. The forward at 1 and 8 iterations
+    against one process (:func:`seq_flips`: truncation flips near-ties
+    and rare, every point no flip reaches within the flagship parity
+    bar, points beyond it rare); at 8 iterations (:func:`seq_floor`)
+    their median error within :data:`SEQ_FLOOR_FACTOR` of the model's own
+    one-ulp floor. (b) The reference on the ranks' truncation too
+    (:func:`given_truncation`). A step at 1 iteration (:func:`seq_probe`): loss
+    within :data:`SEQ_LOSS_REL`, gradients under ``GRAD_BOUNDS["iters1"]``
+    (the worst leaf there, or within :data:`SEQ_FLOOR_FACTOR` of the same
+    step's one-ulp floor);
+    then 3 eager steps on one batch under ``deterministic()``: step 1
+    under ``GRAD_BOUNDS["iters8"]``, the loss falling on both sides, the
+    ranks equal; 8 kernel-1 launches a
+    step per rank (wrapper counts, and the card's in one profiler window
+    the ranks take together); ms a step, peak GB, collectives a step.
+    (c) The eager Evaluator at 1 iteration: per-scene EPE (the ranks'
+    shares summed) within :data:`SEQ_EVAL_TOL` of one process."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.data import first_batch
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.ops import cuda as kernels
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with scratch_dir() as root:
+        port = str(free_port())
+        paths = [os.path.join(root, f"seq{r}.pt") for r in range(SEQ_WORLD)]
+        run_legs([(f"seq{r}", ["--leg", "seq", "--seed", str(seed),
+                               "--rank", str(r), "--world", str(SEQ_WORLD),
+                               "--port", port, "--out", paths[r]])
+                  for r in range(SEQ_WORLD)], root)
+        legs_s = time.perf_counter() - t_phase
+        ranks = [torch.load(p, weights_only=False) for p in paths]
+        joined = {k: torch.cat([r["forward"][k] for r in ranks], dim=1)
+                  for k in ranks[0]["forward"]}
+        cfg = seq_cfg(seed, False).replace(exp_path=os.path.join(root,
+                                                                 "one"))
+        trainer = Trainer(cfg, device=dev, graphs=False,
+                          weights=seeded_state_dict(ModelConfig(), seed))
+        batch = trainer._put(first_batch(trainer.train_loader))
+        knn = {f"pc{c}": graph_flips(batch[f"pc{c}"], joined[f"graph{c}"],
+                                     cfg.model.graph_k) for c in (1, 2)}
+
+        def window(fn):
+            _, counts = kernels.measured_launches(fn)
+            return {"launches": counts, "windows": 1}
+
+        graphs = [joined["graph1"], joined["graph2"]]
+        with given_graphs(trainer.model.feature_extractor, graphs):
+            one_fwd = seq_forward(trainer.model, batch)
+        floor = seq_floor(trainer.model, batch, graphs, cfg.train.gamma,
+                          (joined["flows8"] - one_fwd["flows8"]).abs())
+        keep = torch.cat([r.pop("keep") for r in ranks], dim=1)
+        with given_graphs(trainer.model.feature_extractor, graphs), \
+                given_truncation(trainer.model, keep):
+            # The 1-iteration step's own floor: the clouds moved by one ulp.
+            up = dict(batch, **{k: torch.nextafter(
+                batch[k], torch.full_like(batch[k], torch.inf))
+                for k in ("pc1", "pc2")})
+            probe_floor = seq_probe(trainer.model, up, cfg.train.gamma)
+            one_steps = seq_steps(trainer, batch, window)
+        trainer.close()
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        ev = Evaluator(cfg.replace(
+            train=dataclasses.replace(cfg.train, eval_iters=1),
+            exp_path=os.path.join(root, "eval")), device=dev, graphs=False)
+        eval_graphs = [torch.cat(g, dim=1) for g in zip(
+            *(r["eval"]["graphs"] for r in ranks))]
+        with given_graphs(ev.model.feature_extractor, eval_graphs):
+            one_eval = seq_eval(ev)
+        ev.close()
+    # Every check of the phase is read before any fails it.
+    fails = []
+
+    def need(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    # (a) the graphs, then the forward on them.
+    for cloud, g in knn.items():
+        need(g["flips"] < SEQ_RARE * joined["graph1"].shape[1]
+             and g["max_gap"] < SEQ_KNN_GAP,
+             f"phase 17 (a): {cloud}'s ring kNN graph against the dense "
+             f"one: {g}")
+    need(ranks[0]["rows"] == [cfg.train.batch_size,
+                              cfg.data.max_points // SEQ_WORLD, 3],
+         f"phase 17: a rank holds {ranks[0]['rows']} rows")
+    forward = {}
+    for iters in (1, 8):
+        forward[f"iters{iters}"] = seq_flips(one_fwd, joined, iters, dev,
+                                             cfg.model.truncate_k)
+    f = forward["iters1"]
+    need(f["flip_share"] < SEQ_RARE and f["max_flip_gap"] < SEQ_TIE_GAP
+         and f["beyond_share"] < SEQ_RARE and f["unreached_beyond"] == 0,
+         f"phase 17 (a): the sharded flows at 1 iteration against one "
+         f"process: {f}")
+    forward["floor8"] = floor
+    need(np.isfinite(floor["seq_max_abs_err"])
+         and floor["seq_median_abs_err"]
+         <= SEQ_FLOOR_FACTOR * floor["median_abs_err"],
+         f"phase 17 (a): the sharded flows at 8 iterations against one "
+         f"process, beside its own floor: {floor}")
+    # (b) the steps.
+    for r in ranks[1:]:
+        need(r["steps"]["losses"][:SEQ_STEPS]
+             == ranks[0]["steps"]["losses"][:SEQ_STEPS],
+             "phase 17 (b): the ranks' losses differ")
+    got, want = ranks[0]["steps"], one_steps
+    # The ranks' gradients: each rank's share of the scenes', summed over
+    # the group by the step's reduction; the reference on the ranks' graphs
+    # and truncation (given_truncation). At 1 iteration the loss is held to
+    # SEQ_LOSS_REL and the gradients to GRAD_BOUNDS["iters1"]; at the
+    # flagship's 8, whose untrained iterations amplify float32 differences
+    # as (a) shows, to GRAD_BOUNDS["iters8"] (the floor's loss change
+    # beside them).
+    # A scalar leaf whose gradient sums millions of terms of both signs
+    # (measured on one H100: the lookup's PReLU slope) moves by
+    # ~1e-2 under any change of summation order: its worst leaf is held
+    # to 1e-2 or to SEQ_FLOOR_FACTOR times the one-ulp floor's.
+    probe = grad_agreement(got["probe"], want["probe"])
+    probe["floor"] = grad_agreement(probe_floor, want["probe"])
+    bar1 = dict(GRAD_BOUNDS["iters1"], max_rel=max(
+        GRAD_BOUNDS["iters1"]["max_rel"],
+        SEQ_FLOOR_FACTOR * probe["floor"]["max_rel"]), loss_rel=SEQ_LOSS_REL)
+    need(probe["loss_rel"] <= bar1["loss_rel"]
+         and probe["min_cos"] >= bar1["min_cos"]
+         and probe["max_rel"] <= bar1["max_rel"],
+         f"phase 17 (b): the step at 1 iteration against one process: "
+         f"{probe} (bars {bar1})")
+    grads = grad_agreement((got["losses"][0], got["grads"]),
+                           (want["losses"][0], want["grads"]))
+    loss_rel = grads["loss_rel"]
+    bar = GRAD_BOUNDS["iters8"]
+    need(grads["min_cos"] >= bar["min_cos"]
+         and grads["loss_rel"] <= bar["loss_rel"],
+         f"phase 17 (b): step 1 at 8 iterations against one process: "
+         f"{grads} (bars {bar}; the one-ulp floor {floor})")
+    for side in (got, want):
+        losses = side["losses"][:SEQ_STEPS]
+        need(losses[-1] < losses[0],
+             f"phase 17 (b): the loss does not fall: {losses}")
+    for r in ranks:
+        need(r["steps"]["launches_per_step"]["fused_corr_lookup"] == 8
+             and r["steps"]["window"]["launches"]["fused_corr_lookup"] == 8,
+             f"phase 17 (b): a rank's step launched kernel 1 "
+             f"{r['steps']['launches_per_step']} (wrapper) / "
+             f"{r['steps']['window']} (profiler)")
+    # (c) the Evaluator.
+    per_scene = np.sum([r["eval"]["epe"] for r in ranks], axis=0)
+    eval_err = float(np.max(np.abs(per_scene - np.asarray(
+        one_eval["epe"]))))
+    means_err = max(abs(ranks[0]["eval"]["means"][k] - v)
+                    for k, v in one_eval["means"].items())
+    need(eval_err <= SEQ_EVAL_TOL and means_err <= SEQ_EVAL_TOL
+         and all(r["eval"]["means"] == ranks[0]["eval"]["means"]
+                 for r in ranks),
+         f"phase 17 (c): per-scene EPE {per_scene.tolist()} against "
+         f"{one_eval['epe']}, means {ranks[0]['eval']['means']} / "
+         f"{one_eval['means']}")
+    check(not fails, " | ".join(fails))
+    for side in (*[r["steps"] for r in ranks], one_steps):
+        del side["grads"], side["probe"]
+    for r in (*ranks, {"eval": one_eval}):
+        del r["eval"]["graphs"]
+    return {"knn": knn, "forward": forward,
+            "steps": {"ranks": [r["steps"] for r in ranks],
+                      "one_process": one_steps, "loss_rel": loss_rel,
+                      "grads": grads, "bounds": bar, "iters1": probe,
+                      "iters1_bounds": bar1},
+            "eval": {"per_scene_epe": per_scene.tolist(),
+                     "one_process": one_eval, "per_scene_max_abs_err":
+                     eval_err, "means_max_abs_err": means_err,
+                     "ranks_means": ranks[0]["eval"]["means"]},
+            "legs_s": legs_s, "phase_s": time.perf_counter() - t_phase}
+
+
 OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
                                           "corr_knn": 64}),
                 ("hidden32_context96_fused_gru",
@@ -5463,7 +6027,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     # Phase 16 runs its legs as processes of this script (--leg).
-    ap.add_argument("--leg", choices=("one", "rank"), default=None,
+    ap.add_argument("--leg", choices=("one", "rank", "seq"), default=None,
                     help=argparse.SUPPRESS)
     for flag in ("--rank", "--world", "--port"):
         ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
@@ -5480,6 +6044,9 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         if args.leg == "one":
             parallel_leg_one(args.seed, args.port, args.out)
+        elif args.leg == "seq":
+            seq_leg_rank(args.seed, args.rank, args.world, args.port,
+                         args.out)
         else:
             parallel_leg_rank(args.seed, args.rank, args.world, args.port,
                               args.out)
@@ -5588,6 +6155,9 @@ def main() -> int:
     parallel = parallel_phase(args.seed)
     emit({"phase": "parallel", **parallel})
 
+    seq = seq_parallel_phase(args.seed, dev)
+    emit({"phase": "seq_parallel", **seq})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -5664,6 +6234,8 @@ def main() -> int:
             "gloo_rank_train_launches_per_step":
                 parallel["gloo_two_ranks"]["ranks"][0]["launches_per_step"][
                     name],
+            "seq_rank_train_launches_per_step":
+                seq["steps"]["ranks"][0]["window"]["launches"][name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

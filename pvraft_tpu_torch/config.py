@@ -34,8 +34,10 @@ device. ``donate`` is accepted and changes nothing: a captured graph
 writes into its own buffers, so there is no input buffer to give away.
 ``data_axis`` is the data-parallel ranks (-1: every rank of the process
 group; ``parallel/mesh.py::make_mesh`` holds it to the world size);
-``seq_axis`` other than 1 and ``ModelConfig.seq_shard`` arrive with the
-sequence-parallel ring (ROADMAP queue 1 item 8b).
+``seq_axis`` is the ranks each scene's points are sharded over, and
+``ModelConfig.seq_shard`` makes a model on such a mesh sequence-parallel
+(``parallel/ring.py``, ``models/raft.py``). Stage 2 under ``seq_shard``
+is ROADMAP queue 1 item 8c (:data:`SEQ_REFINE`).
 
 ``ModelConfig.scan_unroll`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX package unrolls its
@@ -124,7 +126,6 @@ class ModelConfig:
             raise ValueError("approx_knn is not supported with seq_shard")
         # Knobs of features a later slice of the port brings.
         later = (
-            ("seq_shard", self.seq_shard, SEQ_PARALLEL),
             ("scatter_free_vjp", self.scatter_free_vjp,
              "its recorded disposition (ROADMAP queue 1 item 7): a "
              "TPU-motivated VJP whose forward equals the default path's"),
@@ -132,9 +133,9 @@ class ModelConfig:
         reject_later(self, later)
 
 
-# Where the refusals of the sequence axis point.
-SEQ_PARALLEL = ("the sequence-parallel half of the parallel slice (ROADMAP "
-                "queue 1 item 8b)")
+# Where the refusals of stage 2 on a sequence axis point.
+SEQ_REFINE = ("stage 2 (PVRaftRefine, --refine) under seq_shard is not ported "
+              "yet: it arrives with ROADMAP queue 1 item 8c")
 
 
 def reject_later(cfg: Any, later: Iterable[Tuple[str, bool, str]]) -> None:
@@ -244,8 +245,8 @@ class ParallelConfig:
     ``donate`` is accepted and changes nothing: a captured graph writes
     into its own buffers. ``data_axis``: the ranks of the data axis (-1:
     every rank; checked against the world size by ``make_mesh``);
-    ``seq_axis`` other than 1 raises ``NotImplementedError``, naming the
-    sequence-parallel slice."""
+    ``seq_axis``: the ranks of the sequence axis (each scene's points
+    sharded over them, with ``ModelConfig.seq_shard``)."""
 
     data_axis: int = -1
     seq_axis: int = 1
@@ -270,7 +271,6 @@ class ParallelConfig:
             raise ValueError("steps_per_dispatch > 1 already removes the "
                              "per-step dispatches; host_roundtrip (a "
                              "per-step host sync) would put them back")
-        reject_later(self, (("seq_axis", self.seq_axis != 1, SEQ_PARALLEL),))
 
 
 @dataclasses.dataclass(frozen=True)

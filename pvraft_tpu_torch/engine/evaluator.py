@@ -19,6 +19,13 @@ over the ranks where ``eval_scene_shard`` says that is exact, and the
 sums and counts of every rank meet in one collective at the end
 (``parallel/mesh.py::combine_sums``); rank 0 alone writes the log, the
 stream and the tags. ``dump_dir`` is single-process, as in JAX.
+On a mesh with a seq axis (``ModelConfig.seq_shard``, the test CLI's
+``--seq_parallel``) the ranks of a seq group evaluate the same scenes,
+each on its rows of their points (``parallel/mesh.py::
+seq_shard_batch``), and their per-scene metrics are summed over the
+group before the data axis's collective. With gloo on the card the eval
+step there runs eagerly (``graphs=False``): a gloo collective cannot be
+captured.
 
 With ``TrainConfig.refine`` the model is a ``PVRaftRefine`` and the
 step the refine eval step (the masked L1 and the metrics of the refined
@@ -54,6 +61,7 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pvraft_tpu_torch.config import Config
 from pvraft_tpu_torch.data import (
@@ -72,16 +80,19 @@ from pvraft_tpu_torch.engine.checkpoint import (
 )
 from pvraft_tpu_torch.engine.steps import (
     BATCH_KEYS,
+    make_eval_step,
     make_graphed_eval_step,
 )
 from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
 from pvraft_tpu_torch.obs.events import RunTelemetry
 from pvraft_tpu_torch.parallel.mesh import (
     Mesh,
+    check_seq_axis,
     combine_sums,
     eval_scene_shard,
     make_mesh,
     replicate,
+    seq_shard_batch,
 )
 from pvraft_tpu_torch.rng import torch_seed
 from pvraft_tpu_torch.weights import params_from_jax, seeded_state_dict
@@ -102,6 +113,19 @@ def build_eval_dataset(cfg: Config):
     raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
+def _check_seq(cfg: Config, mesh: Mesh, device: torch.device,
+               graphs: bool) -> None:
+    """What a seq axis refuses (``check_seq_axis``), and a captured step
+    over a gloo seq group on the card."""
+    check_seq_axis(mesh, cfg.model.seq_shard, cfg.train.refine)
+    if (graphs and device.type == "cuda" and mesh.seq_group is not None
+            and dist.get_backend(mesh.seq_group) != "nccl"):
+        raise ValueError(
+            f"a captured eval step on a seq axis needs NCCL: a "
+            f"{dist.get_backend(mesh.seq_group)} collective cannot be "
+            f"captured in a CUDA graph; pass graphs=False")
+
+
 class Evaluator:
     """``Evaluator(cfg, device=None, mesh=None)``: the eval dataset, a
     PVRaft (a PVRaftRefine with ``train.refine``) with seeded weights
@@ -109,14 +133,17 @@ class Evaluator:
     until :meth:`load` or :meth:`load_torch`, and the captured eval
     program. Runs on ``cuda`` unless ``device`` names another device.
     ``mesh``: the ranks (default: every rank of the process group on the
-    data axis, as the JAX ``make_mesh(n_seq=1)``)."""
+    data axis, as the JAX ``make_mesh(n_seq=1)``). ``graphs``: the
+    captured eval step (default) or the eager one, which a seq axis needs
+    on the card where its backend is not NCCL."""
 
     def __init__(self, cfg: Config,
                  device: Union[str, torch.device, None] = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, graphs: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh()
+        _check_seq(cfg, self.mesh, self.device, graphs)
         self.telemetry = RunTelemetry(cfg.exp_path, "TestAlone",
                                       cfg.data.dataset,
                                       enabled=self.mesh.process_index == 0)
@@ -131,26 +158,37 @@ class Evaluator:
         self.loader = PrefetchLoader(
             self.dataset, self.eval_batch, drop_last=False,
             num_workers=min(2, cfg.data.num_workers), shard=self.shard)
-        self.model = (PVRaftRefine if t.refine else PVRaft)(cfg.model)
+        self.model = (PVRaftRefine(cfg.model) if t.refine
+                      else PVRaft(cfg.model, self.mesh))
         self.model.load_state_dict(seeded_state_dict(
             cfg.model, torch_seed(t.seed, "model.init"), t.refine),
             strict=True)
         self.model.to(self.device).eval()
         replicate(self.model, self.mesh)
         self.epoch: Optional[int] = None
+        if not graphs:
+            self.eval_step = make_eval_step(
+                self.model, t.eval_iters, t.gamma, per_scene=True,
+                refine=t.refine)
+            return
         self.eval_step = make_graphed_eval_step(
             self.model, t.eval_iters, t.gamma, self.device, per_scene=True,
             strict_retrace=t.strict_retrace, refine=t.refine)
-        scenes = to_device(first_batch(self.loader), self.device)
+        scenes = self._put(first_batch(self.loader))
         tail = (len(self.dataset) // self.shard[1]) % self.eval_batch
         for size in sorted({scenes["pc1"].shape[0], tail} - {0},
                            reverse=True):
             self.eval_step.graphs.program_for(
                 [scenes[k][:size] for k in BATCH_KEYS])
 
+    def _put(self, host_batch):
+        """A host batch on the device: this rank's rows of its scenes."""
+        return to_device(seq_shard_batch(host_batch, self.mesh), self.device)
+
     def compile_report(self):
-        """The captured program's records."""
-        return self.eval_step.graphs.report()
+        """The captured program's records (none with ``graphs=False``)."""
+        graphs = getattr(self.eval_step, "graphs", None)
+        return graphs.report() if graphs is not None else []
 
     def load(self, path: str) -> int:
         """Load a checkpoint's parameters (the port's or the JAX
@@ -187,7 +225,7 @@ class Evaluator:
         n_scenes = len(self.dataset) // self.shard[1]
         for batch, scene in device_prefetch(
                 self.loader.epoch(0),
-                lambda b: (b, to_device(b, self.device))):
+                lambda b: (b, self._put(b))):
             metrics, flow = self.eval_step(scene)
             if dump_dir is not None:
                 flow = flow.cpu().numpy()

@@ -29,13 +29,16 @@ CUDA graph whose learning rates come from one device tensor of K
 entries, filled once before each replay. Both stages, as the JAX
 ``refine=True``. All of them are bitwise equal to as many single steps.
 
-Data parallelism (``parallel/``): with a process group, every train step
-factory's body (:func:`_train_body`) averages the gradients, the loss
-and the EPE over the group's ranks in one collective
+Data and sequence parallelism (``parallel/``): with a process group,
+every train step factory's body (:func:`_train_body`) reduces the
+gradients, the loss and the EPE over the group's ranks in one collective
 (:class:`GradientAllReduce`) right after the backward, before the bf16
 gradient cast, the monitors and Adam: the JAX order, where GSPMD's
 gradients are global before either reads them. It runs at every world
-size, 1 included.
+size, 1 included. A sequence-parallel model (``PVRaft(cfg, mesh)`` with
+``seq_shard``) holds this rank's rows of each scene: its loss and EPE
+are this rank's share of the scene's (``engine/loss.py``), and the
+reduction sums over the seq axis and averages over the data axis.
 
 ``telemetry=True`` (every train step factory) adds the in-step numerics
 monitors (``obs/monitors.py``) as ``metrics["telemetry"]``, as the JAX
@@ -61,6 +64,7 @@ from pvraft_tpu_torch.engine.loss import compute_loss, sequence_loss
 from pvraft_tpu_torch.engine.metrics import epe_train, flow_metrics
 from pvraft_tpu_torch.obs import monitors
 from pvraft_tpu_torch.obs.retrace import GraphCache
+from pvraft_tpu_torch.parallel.collectives import group_size
 from pvraft_tpu_torch.parallel.distributed import is_initialized
 from pvraft_tpu_torch.serve.aot import capture
 from pvraft_tpu_torch.weights import trained_parameters
@@ -72,9 +76,17 @@ EVAL_KEYS = ("loss", "epe3d", "acc3d_strict", "acc3d_relax", "outlier")
 
 def sequence_loss_of(model, batch: Batch, gamma: float, num_iters: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The train step's loss: (sequence loss, flows (T, B, N, 3))."""
+    """The train step's loss: (sequence loss, flows (T, B, N, 3)); a
+    sequence-parallel model's share of it."""
     flows, _ = model(batch["pc1"], batch["pc2"], num_iters)
-    return sequence_loss(flows, batch["mask"], batch["flow"], gamma), flows
+    return sequence_loss(flows, batch["mask"], batch["flow"], gamma,
+                         seq_group_of(model)), flows
+
+
+def seq_group_of(model) -> Any:
+    """The seq group a sequence-parallel model's points are sharded over,
+    else None."""
+    return getattr(model, "seq_group", None)
 
 
 def refine_loss_of(model, batch: Batch, num_iters: int
@@ -221,24 +233,28 @@ LossOf = Callable[[Batch], Tuple[torch.Tensor, torch.Tensor,
 
 
 class GradientAllReduce:
-    """The data-parallel reduction of one train step (the gradient
-    all-reduce GSPMD inserts into the JAX step): the gradients of the
-    parameters ``optimizer`` trains, then the step's loss and EPE, packed
-    into one flat float32 bucket, one collective over ``group``, and the
-    result scaled to the mean over its ranks: every rank's gradients
-    become the global batch's, the same bit for bit on every rank, and
-    the loss and EPE the global batch's means. On NCCL the collective
-    averages itself (``ReduceOp.AVG``, a premultiplied sum: at one rank an
-    in-place SUM launches no kernel, an average launches one, so a
-    profile of the step shows the reduction); gloo has no average, so it
-    sums and the bucket is scaled by 1 / world. Inside a
-    captured step the collective is captured too (NCCL only)."""
+    """The reduction of one train step (the gradient all-reduce GSPMD
+    inserts into the JAX step): the gradients of the parameters
+    ``optimizer`` trains, then the step's loss and EPE, packed into one
+    flat float32 bucket, one collective over ``group`` (the whole run),
+    and the result scaled by ``n_seq / world``: summed over the ranks of
+    each seq group (``n_seq`` of them, whose gradients, loss and EPE are
+    shares of their scenes') and averaged over the data axis. Every rank's
+    gradients become the global batch's, the same bit for bit on every
+    rank, and the loss and EPE the global batch's means. On NCCL without
+    a seq axis the collective averages itself (``ReduceOp.AVG``, a
+    premultiplied sum: at one rank an in-place SUM launches no kernel, an
+    average launches one, so a profile of the step shows the reduction);
+    else it sums and the bucket is scaled. Inside a captured step the
+    collective is captured too (NCCL only)."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, group: Any):
+    def __init__(self, optimizer: torch.optim.Optimizer, group: Any,
+                 n_seq: int = 1):
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.group = group
         self.world = dist.get_world_size(group)
-        self.average = dist.get_backend(group) == "nccl"
+        self.n_seq = n_seq
+        self.average = dist.get_backend(group) == "nccl" and n_seq == 1
         self.calls = 0
 
     def __call__(self, loss: torch.Tensor, epe: torch.Tensor
@@ -250,7 +266,7 @@ class GradientAllReduce:
             dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
         else:
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-            flat.mul_(1.0 / self.world)
+            flat.mul_(self.n_seq / self.world)
         parts = flat.split([g.numel() for g in grads] + [1, 1])
         torch._foreach_copy_(grads, [v.view_as(g)
                                      for v, g in zip(parts, grads)])
@@ -258,10 +274,14 @@ class GradientAllReduce:
         return parts[-2].reshape(()), parts[-1].reshape(())
 
 
-def data_group() -> Any:
-    """The group a train step reduces over: the whole process group where
-    there is one (of any size, 1 included), else None (one process:
-    nothing to reduce)."""
+def data_group(model=None) -> Any:
+    """The group a train step reduces over: the whole group of
+    ``model``'s mesh where it has one (``PVRaft(cfg, mesh)``), else the
+    whole process group where there is one (of any size, 1 included),
+    else None (one process: nothing to reduce)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.group is not None:
+        return mesh.group
     return dist.group.WORLD if is_initialized() else None
 
 
@@ -270,15 +290,18 @@ def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None,
                 ) -> Callable[..., Tuple[torch.Tensor, ...]]:
     """zero_grad / ``loss_of`` / backward / with a process group, the
     gradients, loss and EPE through :class:`GradientAllReduce` over
-    :func:`data_group` / the gradients through
+    :func:`data_group` of ``loss_of.model`` (summed over its seq group
+    where the model is sequence-parallel) / the gradients through
     :func:`maybe_cast_grads` / step at the optimizer's current learning
     rate; returns (loss, epe) of the last flow, then ``monitor``'s leaves
     where it is given (read from the reduced gradients and loss; the
     flows' leaves are this rank's batch's). ``body.reduce`` is the
     reduction, or None."""
-    group = data_group()
-    reduce = GradientAllReduce(optimizer, group) if group is not None \
-        else None
+    model = getattr(loss_of, "model", None)
+    seq = seq_group_of(model)
+    group = data_group(model)
+    reduce = (GradientAllReduce(optimizer, group, group_size(seq))
+              if group is not None else None)
 
     def body(pc1, pc2, mask, flow):
         batch = {"pc1": pc1, "pc2": pc2, "mask": mask, "flow": flow}
@@ -287,7 +310,7 @@ def _train_body(optimizer, loss_of: LossOf, grad_dtype: Optional[str] = None,
         loss.backward()
         with torch.no_grad():
             loss = loss.detach()
-            epe = epe_train(last, mask, flow)
+            epe = epe_train(last, mask, flow, seq)
             if reduce is not None:
                 loss, epe = reduce(loss, epe)
         _cast_param_grads(optimizer, grad_dtype)
@@ -307,6 +330,7 @@ def _stage1_loss(model, gamma: float, num_iters: int) -> LossOf:
         loss, flows = sequence_loss_of(model, batch, gamma, num_iters)
         return loss, flows[-1], flows
 
+    loss_of.model = model
     return loss_of
 
 
@@ -315,6 +339,7 @@ def _refine_loss(model, num_iters: int) -> LossOf:
         loss, flow = refine_loss_of(model, batch, num_iters)
         return loss, flow, None
 
+    loss_of.model = model
     return loss_of
 
 
@@ -769,12 +794,15 @@ def make_eval_step(model, num_iters: int, gamma: float,
     """``step(batch) -> (metrics, flow)``: the sequence loss and
     :func:`flow_metrics` of the last flow (``refine``: the masked L1 and
     the metrics of a PVRaftRefine's refined flow), as batch means or, with
-    ``per_scene``, as (B,) tensors (one value per scene)."""
+    ``per_scene``, as (B,) tensors (one value per scene). A
+    sequence-parallel model's values are this rank's shares of its
+    scenes' (summed over the seq group, they are the scenes')."""
+    seq = seq_group_of(model)
 
     def loss_of(flows, mask, gt):
         if refine:
             return compute_loss(flows, mask, gt)
-        return sequence_loss(flows, mask, gt, gamma)
+        return sequence_loss(flows, mask, gt, gamma, seq)
 
     def eval_step(batch: Batch) -> Tuple[Batch, torch.Tensor]:
         mask, gt = batch["mask"], batch["flow"]
@@ -789,12 +817,12 @@ def make_eval_step(model, num_iters: int, gamma: float,
                 per = [{"loss": loss_of(flows[..., b:b + 1, :, :],
                                         mask[b:b + 1], gt[b:b + 1]),
                         **flow_metrics(flow[b:b + 1], mask[b:b + 1],
-                                       gt[b:b + 1])}
+                                       gt[b:b + 1], seq)}
                        for b in range(flow.shape[0])]
                 out = {k: torch.stack([p[k] for p in per]) for k in per[0]}
             else:
                 out = {"loss": loss_of(flows, mask, gt),
-                       **flow_metrics(flow, mask, gt)}
+                       **flow_metrics(flow, mask, gt, seq)}
         return out, flow
 
     return eval_step

@@ -106,8 +106,19 @@ checkpoints (a barrier and a visibility check follow, before any rank
 reads one), events, logs and TensorBoard tags. As in JAX, several
 processes refuse ``steps_per_dispatch`` > 1 and ``host_roundtrip``, and
 take no divergence snapshots; graphs need NCCL (gloo collectives cannot
-be captured: with gloo on the card, ``graphs=False``); ``make_mesh``
-refuses a sequence axis (ROADMAP queue 1 item 8b).
+be captured: with gloo on the card, ``graphs=False``).
+
+Sequence parallelism (the JAX ``Trainer`` on a mesh with a ``seq`` axis,
+``ModelConfig.seq_shard``): ``parallel.seq_axis`` ranks share each scene,
+rank ``r`` at data index ``r // seq_axis``. The model is
+``PVRaft(cfg.model, mesh)`` (``models/raft.py``); the ranks of one data
+index load the same block of every batch and each takes its contiguous
+rows of every scene's points (``parallel/mesh.py::seq_shard_batch``; a
+point count the seq axis does not divide raises). Each step sums the
+seq group's gradients and averages over the data axis; the per-scene
+eval metrics are summed over the seq group before they meet over the
+data axis (``combine_sums``). Stage 2 under a seq axis raises, naming
+ROADMAP queue 1 item 8c.
 """
 
 from __future__ import annotations
@@ -171,10 +182,12 @@ from pvraft_tpu_torch.parallel.mesh import (
     all_true,
     barrier,
     batch_contract,
+    check_seq_axis,
     combine_sums,
     eval_scene_shard,
     make_mesh,
     replicate,
+    seq_shard_batch,
 )
 from pvraft_tpu_torch.profiling.timers import StepTimer, trace_context
 from pvraft_tpu_torch.programs.costs import CostSurface, hardware_utilization
@@ -215,8 +228,10 @@ def build_datasets(cfg: Config):
 def _check_parallel(cfg: Config, mesh: Mesh, device: torch.device,
                     graphs: bool) -> None:
     """The levers a data-parallel run refuses (the JAX Trainer's
-    refusals, and the port's own: graphs need NCCL)."""
+    refusals, and the port's own: graphs need NCCL; a seq axis needs
+    ``seq_shard``, and stage 2 on one is item 8c)."""
     par = cfg.parallel
+    check_seq_axis(mesh, cfg.model.seq_shard, cfg.train.refine)
     if mesh.process_count > 1 and par.steps_per_dispatch > 1:
         raise ValueError(
             "parallel.steps_per_dispatch > 1 is single-process only (the "
@@ -307,7 +322,9 @@ class Trainer:
         self.log.info(
             f"mesh {mesh.shape}: per-device batch {t.batch_size} -> global "
             f"batch {self.global_batch}"
-            + (f" ({bs}/process x {n_proc})" if n_proc > 1 else ""))
+            + (f" ({bs}/process x {n_proc})" if n_proc > 1 else "")
+            + (f", each scene's points over {mesh.n_seq} ranks"
+               if mesh.n_seq > 1 else ""))
         if self.global_batch > len(self.train_ds):
             raise ValueError(
                 f"global batch {self.global_batch} (= {t.batch_size}/device "
@@ -320,7 +337,8 @@ class Trainer:
                 cfg.model, torch_seed(cfg.train.seed, "model.init"), refine)
         elif any(isinstance(v, Mapping) for v in weights.values()):
             weights = params_from_jax(weights)
-        self.model = (PVRaftRefine if refine else PVRaft)(cfg.model)
+        self.model = (PVRaftRefine(cfg.model) if refine
+                      else PVRaft(cfg.model, mesh))
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device)
         # Every leaf replicates (the rules' specs are all ()); the refine
@@ -332,7 +350,8 @@ class Trainer:
         self.train_loader = PrefetchLoader(
             self.train_ds, bs, shuffle=True, drop_last=True,
             num_workers=d.num_workers, seed=cfg.train.seed,
-            native=d.native_loader, shard=(mesh.process_index, n_proc))
+            native=d.native_loader,
+            shard=(mesh.data_index, mesh.data_shares))
         # eval_batch scenes a step, per-scene metrics (0: one scene per
         # data rank); scene-sharded over the processes where exact.
         self.eval_batch = max(1, n_data if t.eval_batch <= 0
@@ -426,8 +445,8 @@ class Trainer:
         them; the single step where it runs (with K > 1: an epoch's
         tail); the eval step at every batch size of the val and test
         loaders."""
-        batch = to_device(first_batch(self.train_loader), self.device)
-        scenes = to_device(first_batch(self.val_loader), self.device)
+        batch = self._put(first_batch(self.train_loader))
+        scenes = self._put(first_batch(self.val_loader))
         captures = []
         if self.multi_step is None or self.steps_per_epoch % self.steps_k:
             captures.append((self.train_step.graphs,
@@ -466,9 +485,13 @@ class Trainer:
         """Host batches -> (host batch, device batch) pairs, the copies of
         the next ``parallel.device_prefetch - 1`` issued before the
         current one is consumed."""
-        return device_prefetch(host_batches,
-                               lambda b: (b, to_device(b, self.device)),
+        return device_prefetch(host_batches, lambda b: (b, self._put(b)),
                                self.cfg.parallel.device_prefetch)
+
+    def _put(self, host_batch):
+        """A host batch on the device: this rank's rows of its scenes
+        (all of them without a seq axis)."""
+        return to_device(seq_shard_batch(host_batch, self.mesh), self.device)
 
     def compile_report(self) -> List[Dict[str, Any]]:
         """The captured train and eval programs' records (empty with

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -29,19 +29,20 @@ class CorrLookup(nn.Module):
     rows from the head GroupNorms. The lookup runs in float32 at every
     compute dtype (its operands, ``CorrState`` and the coordinates, are
     float32); the heads' Denses run at ``cfg.compute_dtype``, so the
-    result is in it."""
+    result is in it. With a ``seq_group`` the lookup runs on this rank's
+    rows and the head GroupNorms take the group's statistics."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, seq_group: Any = None):
         super().__init__()
         self.cfg = cfg
         d = compute_dtype(cfg)
         n_vox = cfg.corr_levels * cfg.resolution**3
         self.out_conv1 = Dense(n_vox, 128, compute_dtype=d)
-        self.out_gn = GroupNorm(128)
+        self.out_gn = GroupNorm(128, seq_group=seq_group)
         self.out_prelu = PReLU()
         self.out_conv2 = Dense(128, 64, compute_dtype=d)
         self.knn_conv = Dense(4, 64, compute_dtype=d)
-        self.knn_gn = GroupNorm(64)
+        self.knn_gn = GroupNorm(64, seq_group=seq_group)
         self.knn_prelu = PReLU()
         self.knn_out = Dense(64, 64, compute_dtype=d)
 

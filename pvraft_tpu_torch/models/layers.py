@@ -12,17 +12,29 @@ casts its input, kernel and bias to its ``compute_dtype`` and returns
 that dtype; GroupNorm computes in float32 and returns float32 (flax's
 ``GroupNorm`` with no dtype promotes to its float32 scale); PReLU casts
 its slope to the input's dtype.
+
+Sequence parallelism (``parallel/``): with a ``seq_group``, a rank holds
+a contiguous slice of each cloud's points. GroupNorm then sums its
+count, sum and sum of squares over the group before it forms the mean and
+the variance, and a SetConv gathers its neighbours' features from its
+input joined over the group, since the graph's indices are global
+(``parallel/collectives.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from pvraft_tpu_torch.ops.geometry import Graph, gather_neighbors
+from pvraft_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    gather_points,
+    group_size,
+)
 
 
 class Dense(nn.Linear):
@@ -59,22 +71,26 @@ class PReLU(nn.Module):
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                groups: int = 8, eps: float = 1e-5,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               mask: Optional[torch.Tensor] = None,
+               seq_group: Any = None) -> torch.Tensor:
     """GroupNorm over a channel-last x (B, ..., C), computed and returned
     in float32 whatever x's dtype.
 
     ``mask`` (B, N) bool, True = valid, covers x's first non-batch axis;
     masked-out positions are excluded from the statistics (serve bucket
     padding), and are normalized with the valid positions' statistics.
+    ``seq_group``: x holds this rank's rows of the points, and the
+    statistics are the group's (:func:`_group_stats`).
     """
     b, c = x.shape[0], x.shape[-1]
     xg = x.float().reshape(b, -1, groups, c // groups)
-    if mask is None:
+    if seq_group is not None:
+        mean, mean2 = _group_stats(xg, mask, x.shape, seq_group)
+    elif mask is None:
         mean = xg.mean(dim=(1, 3), keepdim=True)
         mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
     else:
-        m = mask.reshape(b, mask.shape[1], *([1] * (x.dim() - 3)))
-        m = m.expand(*x.shape[:-1]).reshape(b, -1, 1, 1)
+        m = _stat_mask(mask, x.shape)
         count = m.sum(dim=1, keepdim=True) * (c // groups)
         mean = torch.where(m, xg, 0.0).sum(dim=(1, 3), keepdim=True) / count
         mean2 = torch.where(m, xg * xg, 0.0).sum(dim=(1, 3),
@@ -84,21 +100,55 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return ((xg - mean) * mul).reshape(x.shape) + bias
 
 
+def _stat_mask(mask: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """The (B, N) mask over the positions of an x of ``shape`` (B, N,
+    ..., C), as (B, positions, 1, 1)."""
+    b = shape[0]
+    m = mask.reshape(b, mask.shape[1], *([1] * (len(shape) - 3)))
+    return m.expand(*shape[:-1]).reshape(b, -1, 1, 1)
+
+
+def _group_stats(xg: torch.Tensor, mask: Optional[torch.Tensor],
+                 shape: torch.Size, seq_group: Any):
+    """The mean and mean square of the grouped xg (B, positions, G, C/G)
+    of an x of ``shape`` over every rank of ``seq_group``: this rank's
+    sums, and with a mask its count, summed over the group in one
+    collective, then divided."""
+    per = xg.shape[-1]
+    if mask is None:
+        sums = torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))])
+        sums = all_reduce_sum(sums, seq_group)
+        count = xg.shape[1] * per * group_size(seq_group)
+    else:
+        m = _stat_mask(mask, shape)
+        n = (m.sum(dim=(1, 2, 3)) * per).to(xg.dtype)
+        sums = torch.stack([torch.where(m, xg, 0.0).sum(dim=(1, 3)),
+                            torch.where(m, xg * xg, 0.0).sum(dim=(1, 3)),
+                            n[:, None].expand(-1, xg.shape[2])])
+        sums = all_reduce_sum(sums, seq_group)
+        count = sums[2]
+    return ((sums[0] / count)[:, None, :, None],
+            (sums[1] / count)[:, None, :, None])
+
+
 class GroupNorm(nn.Module):
     """GroupNorm(8, eps 1e-5) with affine ``weight``/``bias`` (flax
-    ``scale``/``bias``), channel-last, optionally masked."""
+    ``scale``/``bias``), channel-last, optionally masked; statistics over
+    a ``seq_group``'s ranks where one is given."""
 
-    def __init__(self, channels: int, groups: int = 8, eps: float = 1e-5):
+    def __init__(self, channels: int, groups: int = 8, eps: float = 1e-5,
+                 seq_group: Any = None):
         super().__init__()
         self.groups = groups
         self.eps = eps
+        self.seq_group = seq_group
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.groups, self.eps,
-                          mask)
+                          mask, self.seq_group)
 
 
 class SetConv(nn.Module):
@@ -106,22 +156,28 @@ class SetConv(nn.Module):
     relative xyz) -> fc1 -> GN -> LeakyReLU(0.1) -> max over k -> fc2 ->
     GN -> LeakyReLU -> fc3 -> GN -> LeakyReLU. Bias-free projections at
     ``compute_dtype``; the GroupNorms return float32, and so does the
-    layer."""
+    layer. With a ``seq_group`` x holds this rank's rows, the graph's
+    indices are global, and the neighbours come from x joined over the
+    group."""
 
     def __init__(self, in_ch: int, out_ch: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 seq_group: Any = None):
         super().__init__()
         mid = (out_ch + in_ch) // 2 if in_ch % 2 == 0 else out_ch // 2
+        self.seq_group = seq_group
         self.fc1 = Dense(in_ch + 3, mid, False, compute_dtype)
-        self.gn1 = GroupNorm(mid)
+        self.gn1 = GroupNorm(mid, seq_group=seq_group)
         self.fc2 = Dense(mid, out_ch, False, compute_dtype)
-        self.gn2 = GroupNorm(out_ch)
+        self.gn2 = GroupNorm(out_ch, seq_group=seq_group)
         self.fc3 = Dense(out_ch, out_ch, False, compute_dtype)
-        self.gn3 = GroupNorm(out_ch)
+        self.gn3 = GroupNorm(out_ch, seq_group=seq_group)
 
     def forward(self, x: torch.Tensor, graph: Graph,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        nb = gather_neighbors(x, graph.neighbors)             # (B, N, k, C)
+        whole = x if self.seq_group is None else gather_points(
+            x, self.seq_group)
+        nb = gather_neighbors(whole, graph.neighbors)         # (B, N, k, C)
         edge = nb - x[:, :, None, :]
         h = torch.cat([edge, graph.rel_pos.to(x.dtype)], dim=-1)
         h = F.leaky_relu(self.gn1(self.fc1(h), mask), 0.1)

@@ -12,12 +12,22 @@ with autograd on, each iteration runs under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` and is
 recomputed in the backward (:func:`remat_iteration`); under ``no_grad``
 (serving, evaluation, the stage-2 backbone) nothing changes.
+
+Sequence parallelism (the JAX ``PVRaft(cfg, mesh)`` with ``seq_shard``):
+``PVRaft(cfg, mesh=...)`` with ``cfg.seq_shard`` and a mesh whose seq
+axis holds more than one rank runs on this rank's contiguous rows of both
+clouds (``parallel/mesh.py::seq_rows``) through the whole forward and
+backward: the kNN graphs and the correlation cache come from the rings
+of ``parallel/ring.py``, every GroupNorm takes the seq group's
+statistics, every SetConv gathers its neighbours from its input joined
+over the group, and the flows are this rank's rows. Stage 2 under
+``seq_shard`` is ROADMAP queue 1 item 8c.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +39,7 @@ from torch.utils.checkpoint import (
 )
 
 from pvraft_tpu_torch.config import (
+    SEQ_REFINE,
     ModelConfig,
     compute_dtype,
     resolve_remat_policy,
@@ -39,6 +50,7 @@ from pvraft_tpu_torch.models.layers import Dense, SetConv
 from pvraft_tpu_torch.models.update import UpdateBlock
 from pvraft_tpu_torch.ops.corr import CorrState, corr_init
 from pvraft_tpu_torch.ops.geometry import Graph
+from pvraft_tpu_torch.parallel.ring import ring_corr_init
 
 
 # The aten products whose outputs the "dots" policies keep (the JAX
@@ -81,12 +93,12 @@ class UpdateIter(nn.Module):
     on, the step runs under :func:`remat_iteration`; "save_corr" runs the
     lookup outside the checkpoint, so its output is kept and the lookup
     does not run again in the backward, and checkpoints the update
-    block."""
+    block. ``seq_group``: the ranks the points are sharded over."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, seq_group: Any = None):
         super().__init__()
-        self.corr_lookup = CorrLookup(cfg)
-        self.update_block = UpdateBlock(cfg)
+        self.corr_lookup = CorrLookup(cfg, seq_group)
+        self.update_block = UpdateBlock(cfg, seq_group)
         self.remat = resolve_remat_policy(cfg)
 
     def forward(self, net, coords2, coords1, state: CorrState, inp,
@@ -121,18 +133,48 @@ class PVRaft(nn.Module):
 
     ``cfg.compute_dtype`` sets the dtype of every Dense product and of the
     fused GRU update; the encoders' outputs, the correlation cache, the
-    GRU carry and the flows stay float32, as in the JAX model."""
+    GRU carry and the flows stay float32, as in the JAX model.
 
-    def __init__(self, cfg: ModelConfig):
+    ``mesh`` (``parallel/mesh.py::Mesh``): with ``cfg.seq_shard`` and a
+    seq axis of more than one rank, the model is sequence-parallel over
+    ``mesh.seq_group`` (``seq_group``; None otherwise): ``xyz1``/``xyz2``
+    are this rank's rows of each cloud, and so are the flows; pc1's graph
+    holds global indices."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Any = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
+        sharded = cfg.seq_shard and mesh is not None and mesh.n_seq > 1
+        if sharded and mesh.seq_group is None:
+            raise ValueError(
+                f"seq_shard over a seq axis of {mesh.n_seq} needs the mesh "
+                f"of a process group (make_mesh), not a layout without "
+                f"groups")
+        self.seq_group = seq = mesh.seq_group if sharded else None
         d = compute_dtype(cfg)
         graph = (cfg.graph_chunk, cfg.approx_knn)
         self.feature_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k,
-                                              d, *graph)
+                                              d, *graph, seq_group=seq)
         self.context_extractor = PointEncoder(cfg.encoder_width, cfg.graph_k,
-                                              d, *graph)
-        self.update_iter = UpdateIter(cfg)
+                                              d, *graph, seq_group=seq)
+        self.update_iter = UpdateIter(cfg, seq)
+
+    def _corr_init(self, fmap1, fmap2, xyz2, valid2=None) -> CorrState:
+        """The correlation cache: the ring over the seq group where the
+        model is sequence-parallel (``valid2`` refused there, as in JAX),
+        else ``ops/corr.py::corr_init``."""
+        cfg = self.cfg
+        if self.seq_group is None:
+            return corr_init(fmap1, fmap2, xyz2, cfg.truncate_k,
+                             cfg.corr_chunk, cfg.approx_topk, valid2)
+        if valid2 is not None:
+            raise ValueError(
+                "valid2 masking is not supported with seq_shard: the ring "
+                "correlation assembles exact top-k across shards without a "
+                "padding mask; serve on the unsharded correlation path")
+        return ring_corr_init(fmap1, fmap2, xyz2, cfg.truncate_k,
+                              self.seq_group)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 num_iters: int = 8, valid1: Optional[torch.Tensor] = None,
@@ -145,8 +187,7 @@ class PVRaft(nn.Module):
             fmap1, graph1 = self.feature_extractor(xyz1, mask=valid1)
             fmap2, _ = self.feature_extractor(xyz2, mask=valid2)
         with record_function("pvraft.corr_init"):
-            state = corr_init(fmap1, fmap2, xyz2, cfg.truncate_k,
-                              cfg.corr_chunk, cfg.approx_topk, valid2)
+            state = self._corr_init(fmap1, fmap2, xyz2, valid2)
         with record_function("pvraft.context"):
             fct, _ = self.context_extractor(xyz1, graph=graph1, mask=valid1)
             net, inp = torch.split(fct, [cfg.hidden_dim, cfg.context_dim],
@@ -175,6 +216,8 @@ class PVRaftRefine(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        if cfg.seq_shard:
+            raise NotImplementedError(SEQ_REFINE)
         self.cfg = cfg
         self.backbone = PVRaft(cfg)
         n = cfg.encoder_width

@@ -9,7 +9,7 @@ flow delta is float32."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,13 +73,14 @@ class ConvGRU(nn.Module):
 class FlowHead(nn.Module):
     """Parallel Dense + SetConv over the hidden state, fused to a
     3-channel flow delta; the last Dense is float32 at every compute
-    dtype."""
+    dtype. ``seq_group``: the SetConv's (its gather and GroupNorms)."""
 
     def __init__(self, hidden: int = 64,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 seq_group: Any = None):
         super().__init__()
         self.conv1 = Dense(hidden, 64, compute_dtype=compute_dtype)
-        self.setconv = SetConv(hidden, 64, compute_dtype)
+        self.setconv = SetConv(hidden, 64, compute_dtype, seq_group)
         self.out_conv1 = Dense(128, 64, compute_dtype=compute_dtype)
         self.out_conv2 = Dense(64, 3)
 
@@ -102,16 +103,17 @@ class UpdateBlock(nn.Module):
     parameters: :func:`fused_gru_update` (the CUDA kernel, with its
     hand-written backward) when ``use_pallas`` resolves True, else its
     plain version :func:`gru_math` under autograd, both at the compute
-    dtype. The FlowHead stays unfused either way."""
+    dtype. The FlowHead stays unfused either way. ``seq_group``: the
+    FlowHead's (the update itself is per point)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, seq_group: Any = None):
         super().__init__()
         self.cfg = cfg
         d = compute_dtype(cfg)
         self.motion_encoder = MotionEncoder(cfg.hidden_dim, compute_dtype=d)
         self.gru = ConvGRU(cfg.hidden_dim, cfg.context_dim + cfg.hidden_dim,
                            d)
-        self.flow_head = FlowHead(cfg.hidden_dim, d)
+        self.flow_head = FlowHead(cfg.hidden_dim, d, seq_group)
 
     def packed_weights(self):
         """The fused kernel's operand tuple (:func:`pack_gru_weights`)."""

@@ -14,6 +14,12 @@ Tags:
   bf16), the forward at both, the eval step (32 iterations, one scene),
   and stage 2's train and eval steps (32 iterations): B = 2 x 8,192,
   truncate_k 512, the train step's Adam as the Trainer makes it.
+* ``sharded``: ``dp_sp_2x2_train_step``, the stage-1 train step of one
+  rank of a 2 x 2 (data x seq) mesh (``parallel/``): on a process group
+  of 4 ranks each rank's program, with the flagship batch sharded over
+  ``data`` and each scene's points over ``seq``; on fewer ranks the
+  layout the group offers (one process: the one-rank step), as the JAX
+  spec degrades to the devices the host offers.
 * ``serve`` and ``aot``: one spec per (bucket, batch) of ``ServeConfig()``
   and per serving dtype, named ``serve_predict_<fp32|bf16>_b<bucket>_bs
   <batch>``: the function each replica captures
@@ -233,12 +239,12 @@ def _model_config(size: str, **kw):
     return ModelConfig(**kw)
 
 
-def _model(cfg, device, refine: bool = False):
+def _model(cfg, device, refine: bool = False, mesh=None):
     from pvraft_tpu_torch.models.raft import PVRaft, PVRaftRefine
     from pvraft_tpu_torch.rng import torch_seed
     from pvraft_tpu_torch.weights import seeded_state_dict
 
-    model = (PVRaftRefine if refine else PVRaft)(cfg)
+    model = PVRaftRefine(cfg) if refine else PVRaft(cfg, mesh)
     model.load_state_dict(seeded_state_dict(
         cfg, torch_seed(DEFAULT_SEED, "model.init"), refine), strict=True)
     return model.to(device)
@@ -402,6 +408,50 @@ for _name, _kind, _thunk, _kw, _b, _about in _FLAGSHIP:
              precision="any" if "bf16" in _name else "f32",
              kernels=_sources(_geometry), geometry=_geometry,
              description=f"{_about}, {_b} x {_N} points")(_thunk)
+
+
+def _dp_sp_thunk(device, size):
+    """This rank's stage-1 train step on a (data x seq) mesh of the
+    process group: 2 x 2 on 4 ranks, 1 x 2 on 2, 1 x 1 on one process
+    (other worlds raise: the flagship batch of 2 splits over at most 2
+    data indices). Its inputs are this rank's block of the flagship
+    batch and its rows of each scene."""
+    from pvraft_tpu_torch.engine.steps import _stage1_loss, _train_body
+    from pvraft_tpu_torch.parallel import (
+        make_mesh,
+        process_count,
+        seq_shard_batch,
+    )
+    from pvraft_tpu_torch.weights import trained_parameters
+
+    world = process_count()
+    if world not in (1, 2, 4):
+        raise ValueError(f"dp_sp_2x2_train_step runs on 1, 2 or 4 ranks, "
+                         f"not {world}")
+    mesh = make_mesh(n_seq=min(world, 2))
+    cfg = _model_config(size, seq_shard=mesh.n_seq > 1)
+    model = _model(cfg, device, mesh=mesh)
+    model.train()
+    iters = g.FLAGSHIP_ITERS if size == "flagship" else g.TINY_ITERS
+    optimizer = _adam((p for _, p in trained_parameters(model)), device)
+    fn = _train_body(optimizer, _stage1_loss(model, 0.8, iters))
+    fn.state, fn.module = _state(model, optimizer), model
+    batch = dict(zip(("pc1", "pc2", "mask", "flow"),
+                     _batch(device, g.FLAGSHIP_BATCH, _points(size))))
+    rows = g.FLAGSHIP_BATCH // mesh.n_data
+    block = {k: v[mesh.data_index * rows:(mesh.data_index + 1) * rows]
+             for k, v in batch.items()}
+    local = seq_shard_batch(block, mesh)
+    return fn, tuple(local[k] for k in ("pc1", "pc2", "mask", "flow"))
+
+
+register("dp_sp_2x2_train_step", tags=("flagship", "train", "sharded"),
+         kernels=_sources(_model_geometry(_B, _N, {})),
+         geometry=_model_geometry(_B, _N, {}),
+         description="stage-1 train step of one rank of a 2 x 2 (data x "
+                     "seq) mesh: ring kNN and correlation, group-wide "
+                     "GroupNorm and gathers (one process: the one-rank "
+                     "step)")(_dp_sp_thunk)
 
 
 # --- the serve table (tags "serve" and "aot") -------------------------------

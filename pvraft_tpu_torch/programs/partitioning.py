@@ -5,11 +5,11 @@ A rule is ``(regex, spec)``: ``re.search`` over a leaf's ``/``-joined
 flax path (``params/feature_extractor/conv1/fc1/kernel``), ``spec`` a
 tuple of mesh axis names (or None) per dimension; ``()`` replicates.
 Every leaf must match exactly one rule: a leaf no rule names, or one two
-rules fight over, raises. Today every leaf replicates (the model is
-~0.8 MB), which is all the data-parallel Trainer can run: it holds every
-leaf's spec to ``()`` (:func:`check_replicated`), and a leaf that would
-shard raises, naming the sequence-parallel slice (ROADMAP queue 1 item
-8b) that would bring sharded parameters.
+rules fight over, raises. Every leaf replicates (the model is ~0.8 MB):
+data parallelism replicates the parameters, and sequence parallelism
+shards the points of each scene, never a parameter. The Trainer holds
+every leaf's spec to ``()`` (:func:`check_replicated`), and a leaf that
+would shard raises: the port's Trainer places no parameter shard.
 """
 
 from __future__ import annotations
@@ -98,15 +98,14 @@ def flax_leaf_paths(state: Mapping[str, torch.Tensor]) -> List[str]:
 def check_replicated(model: torch.nn.Module,
                      rules: Rules = PARTITION_RULES) -> Dict[str, Spec]:
     """The specs of ``model``'s leaves under ``rules``, by flax path,
-    every one ``()``; a leaf the rules would shard raises: data
-    parallelism replicates every parameter, and sharded parameters
-    arrive with the sequence-parallel slice."""
+    every one ``()``; a leaf the rules would shard raises: data and
+    sequence parallelism replicate every parameter."""
     specs = match_partition_rules(rules, flax_leaf_paths(model.state_dict()))
     sharded = {p: s for p, s in specs.items() if any(a is not None for a in s)}
     if sharded:
         raise NotImplementedError(
             f"{len(sharded)} parameter leaves would shard "
-            f"({sorted(sharded)[:3]} ...): the port's data-parallel Trainer "
-            f"replicates every parameter; sharded parameters arrive with "
-            f"the sequence-parallel slice (ROADMAP queue 1 item 8b)")
+            f"({sorted(sharded)[:3]} ...): the port's Trainer replicates "
+            f"every parameter over the data and seq axes and places no "
+            f"parameter shard")
     return specs

@@ -13,7 +13,9 @@ preprocessed tree (``python -m pvraft_tpu_torch.data.preprocess.kitti``),
 The reference protocol (``engine/evaluator.py``): per-scene metrics at
 ``eval_iters`` GRU iterations, running means; ``--eval_batch`` scenes a
 step (0: one per data rank), and under ``torchrun --nproc_per_node=N -m
-pvraft_tpu_torch.test`` the ranks share the scenes. ``--weights`` takes a
+pvraft_tpu_torch.test`` the ranks share the scenes; ``--seq_parallel P``
+shards each scene's points over P of them (``--refine`` refuses it:
+ROADMAP queue 1 item 8c). ``--weights`` takes a
 msgpack checkpoint of the port or of the JAX package, ``--torch_weights``
 a reference-published ``.params`` file; with ``--refine`` either holds a
 stage-2 (``PVRaftRefine``) model, evaluated at ``eval_iters``. The flags
@@ -36,16 +38,16 @@ import sys
 from typing import List, Optional
 
 from pvraft_tpu_torch.config import (
-    SEQ_PARALLEL,
+    SEQ_REFINE,
     Config,
     DataConfig,
     ModelConfig,
+    ParallelConfig,
     TrainConfig,
 )
 
 # test.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--seq_parallel": SEQ_PARALLEL,
     "--platform": "no slice: the port picks its device with --device",
 }
 
@@ -110,7 +112,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "for visual.py")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without one)")
-    return p.parse_args(argv)
+    p.add_argument("--seq_parallel", type=int, default=1,
+                   help="ranks on the sequence axis: each scene's points "
+                        "sharded over them (seq_shard); launch the ranks "
+                        "with torchrun")
+    args = p.parse_args(argv)
+    if args.refine and args.seq_parallel > 1:
+        p.error(f"--seq_parallel {args.seq_parallel} with --refine: "
+                f"{SEQ_REFINE}")
+    return args
 
 
 def config_from_args(a: argparse.Namespace) -> Config:
@@ -120,7 +130,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           use_pallas=a.use_pallas, fused_gru=a.fused_gru,
                           compute_dtype="bfloat16" if a.bf16 else "float32",
                           corr_chunk=a.corr_chunk, graph_chunk=a.graph_chunk,
-                          approx_topk=a.approx_topk, approx_knn=a.approx_knn),
+                          approx_topk=a.approx_topk, approx_knn=a.approx_knn,
+                          seq_shard=a.seq_parallel > 1),
         data=DataConfig(dataset=a.dataset, root=a.root,
                         max_points=a.max_points, num_workers=a.num_workers,
                         strict_sizes=not a.no_strict_sizes,
@@ -128,6 +139,7 @@ def config_from_args(a: argparse.Namespace) -> Config:
                         synthetic_objects=a.synthetic_objects),
         train=TrainConfig(refine=a.refine, eval_iters=a.eval_iters,
                           eval_batch=a.eval_batch, eval_scan=a.eval_scan),
+        parallel=ParallelConfig(seq_axis=a.seq_parallel),
         exp_path=a.exp_path,
     )
 
@@ -135,11 +147,15 @@ def config_from_args(a: argparse.Namespace) -> Config:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     from pvraft_tpu_torch.engine.evaluator import Evaluator
-    from pvraft_tpu_torch.parallel import initialize, process_index
+    from pvraft_tpu_torch.parallel import initialize, make_mesh, process_index
 
-    # Under torchrun the ranks share the scenes (nothing on one process).
+    # Under torchrun the ranks share the scenes (nothing on one process);
+    # with --seq_parallel each scene's points too (the JAX test.py's
+    # make_mesh(n_data=1, n_seq=P) on one process; here every rank the
+    # seq axis leaves goes on the data axis).
     initialize(backend="gloo" if args.device == "cpu" else None)
-    ev = Evaluator(config_from_args(args), device=args.device)
+    ev = Evaluator(config_from_args(args), device=args.device,
+                   mesh=make_mesh(n_seq=args.seq_parallel))
     if args.weights:
         ev.load(args.weights)
     if args.torch_weights:

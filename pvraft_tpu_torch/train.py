@@ -53,8 +53,16 @@ initialize``: NCCL on the card, gloo on the CPU), as the root
 ``train.py`` initializes ``jax.distributed``. ``--batch_size`` is per
 device; ``--data_parallel`` is the data axis (-1, the default: every
 rank) and must equal the world size. Rank 0 alone prints, writes
-checkpoints, events, logs and tags. ``--seq_parallel`` is refused: the
-sequence-parallel ring is ROADMAP queue 1 item 8b.
+checkpoints, events, logs and tags. ``--seq_parallel P`` shards each
+scene's points over P ranks (``ModelConfig.seq_shard``, the ring of
+``parallel/ring.py``): the world is ``--data_parallel`` x P ranks, e.g.
+on the CPU with gloo::
+
+    torchrun --nproc_per_node=4 -m pvraft_tpu_torch.train --device cpu \
+        --dataset synthetic --data_parallel 2 --seq_parallel 2 ...
+
+Stage 2 (``--refine``) refuses ``--seq_parallel`` above 1: ROADMAP queue
+1 item 8c.
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ from typing import List, Optional
 
 from pvraft_tpu_torch.config import (
     LR_SCHEDULES,
-    SEQ_PARALLEL,
+    SEQ_REFINE,
     Config,
     DataConfig,
     ModelConfig,
@@ -76,7 +84,6 @@ from pvraft_tpu_torch.config import (
 
 # train.py flags of features a later slice of the port brings.
 LATER_FLAGS = {
-    "--seq_parallel": SEQ_PARALLEL,
     "--scatter_free_vjp": "its recorded disposition (ROADMAP queue 1 item 7)",
     "--platform": "no slice: the port picks its device with --device",
     "--scan_unroll": "no slice: a captured graph holds the GRU iterations "
@@ -204,9 +211,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--data_parallel", type=int, default=-1,
                    help="ranks on the data axis (-1: all; launch one "
                         "process per card with torchrun)")
+    p.add_argument("--seq_parallel", type=int, default=1,
+                   help="ranks on the sequence axis: each scene's points "
+                        "sharded over them (seq_shard)")
     args = p.parse_args(argv)
     if args.stage1_weights and not args.refine:
         p.error("--stage1_weights needs --refine")
+    if args.refine and args.seq_parallel > 1:
+        p.error(f"--seq_parallel {args.seq_parallel} with --refine: "
+                f"{SEQ_REFINE}")
     return args
 
 
@@ -218,7 +231,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           compute_dtype="bfloat16" if a.bf16 else "float32",
                           corr_chunk=a.corr_chunk, graph_chunk=a.graph_chunk,
                           approx_topk=a.approx_topk, approx_knn=a.approx_knn,
-                          remat=a.remat, remat_policy=a.remat_policy),
+                          remat=a.remat, remat_policy=a.remat_policy,
+                          seq_shard=a.seq_parallel > 1),
         data=DataConfig(dataset=a.dataset, root=a.root,
                         max_points=a.max_points, num_workers=a.num_workers,
                         native_loader=not a.no_native_loader,
@@ -238,6 +252,7 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           checkpoint_interval=a.checkpoint_interval,
                           ckpt_backend=a.ckpt_backend, refine=a.refine),
         parallel=ParallelConfig(data_axis=a.data_parallel,
+                                seq_axis=a.seq_parallel,
                                 packed_state=a.packed_state,
                                 host_roundtrip=a.host_roundtrip,
                                 steps_per_dispatch=a.steps_per_dispatch,

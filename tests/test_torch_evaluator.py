@@ -133,8 +133,8 @@ def test_eval_cli_prints_the_means(jax_checkpoint, capsys, monkeypatch):
     ev.load(jax_checkpoint)
     assert len(lines) == 1 and json.loads(lines[0]) == ev.run()
     with pytest.raises(SystemExit):
-        tcli.main(args + ["--seq_parallel"])
-    assert "parallel slice" in capsys.readouterr().err
+        tcli.main(args + ["--refine", "--seq_parallel", "2"])
+    assert "ROADMAP queue 1 item 8c" in capsys.readouterr().err
     # The default dataset is FT3D, which needs its tree at ``root``.
     with pytest.raises(RuntimeError, match="expected 3824 test scenes"):
         Evaluator(tconfig.Config(), device="cpu")

@@ -434,15 +434,22 @@ def test_first_difference_names_the_submodule_that_parts():
     assert got["max_abs_diff"] == pytest.approx(1e-3, rel=1e-3)
 
 
-@pytest.mark.parametrize("flag,entry", [
-    ("--seq_parallel=2", "ROADMAP queue 1 item 8b"),
-    ("--seq_parallel", "ROADMAP queue 1 item 8"),
-    ("--scatter_free_vjp", "ROADMAP queue 1 item 7"),
+@pytest.mark.parametrize("flags,entry", [
+    (["--refine", "--seq_parallel=2"], "ROADMAP queue 1 item 8c"),
+    (["--refine", "--seq_parallel", "4"], "ROADMAP queue 1 item 8c"),
+    (["--scatter_free_vjp"], "ROADMAP queue 1 item 7"),
 ])
-def test_later_levers_name_their_roadmap_entry(flag, entry, capsys):
+def test_later_levers_name_their_roadmap_entry(flags, entry, capsys):
+    """Stage 2 on a sequence axis (item 8c) and the scatter-free VJP
+    (item 7) name their ROADMAP entries; stage 1 takes
+    ``--seq_parallel``."""
     with pytest.raises(SystemExit):
-        tcli.parse_args(["--dataset", "synthetic", flag])
+        tcli.parse_args(["--dataset", "synthetic", *flags])
     assert entry in capsys.readouterr().err
+    if "--refine" in flags:
+        cfg = tcli.config_from_args(tcli.parse_args(
+            ["--dataset", "synthetic", *flags[1:]]))
+        assert cfg.model.seq_shard and cfg.parallel.seq_axis > 1
 
 
 @pytest.mark.parametrize("flags,field,want", [

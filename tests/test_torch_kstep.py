@@ -91,17 +91,11 @@ def test_parallel_config_errors_match_jax(kw, ok):
 
 @pytest.mark.parametrize("kw", [{"data_axis": 2}, {"seq_axis": 2}])
 def test_parallel_config_refuses_layouts_beyond_one_card(kw):
-    """A data axis of several ranks is the data-parallel slice's (the
-    world size checks it, ``parallel/mesh.py::make_mesh``); a sequence
-    axis still raises, naming its slice."""
-    JParallel(**kw)
-    if "data_axis" in kw:
-        assert dataclasses.asdict(tconfig.ParallelConfig(**kw)) == \
-            dataclasses.asdict(JParallel(**kw))
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="parallel slice .*item 8b"):
-            tconfig.ParallelConfig(**kw)
+    """(Named for the refusals it held before the parallel slices.) A data
+    axis and a sequence axis of several ranks are taken as JAX takes them
+    (the world size checks them, ``parallel/mesh.py::make_mesh``)."""
+    assert dataclasses.asdict(tconfig.ParallelConfig(**kw)) == \
+        dataclasses.asdict(JParallel(**kw))
     assert isinstance(tconfig.Config().parallel, tconfig.ParallelConfig)
 
 

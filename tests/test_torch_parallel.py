@@ -129,8 +129,8 @@ def _spawn(fn, tmp_path, *args, world=2, timeout=GROUP_TIMEOUT_S):
 def test_make_mesh_matches_jax_exact_cover(n_data, n_seq):
     """JAX with an explicit device list (every one of the 8) must cover it
     exactly, as the port's ranks must cover the world: the same layouts
-    are built and the same ones refused. A covering layout with a
-    sequence axis is JAX's and refused by the port, naming item 8b."""
+    are built and the same ones refused, a sequence axis included
+    (``make_mesh(4, 2, world=8)`` is JAX's 4 x 2)."""
     import jax
 
     from pvraft_tpu.parallel.mesh import make_mesh as jmake_mesh
@@ -143,22 +143,42 @@ def test_make_mesh_matches_jax_exact_cover(n_data, n_seq):
         return
     if n_seq > 1:
         assert want == {"data": n_data, "seq": n_seq}
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            tmesh.make_mesh(n_data, n_seq, world=8)
-        return
     assert tmesh.make_mesh(n_data, n_seq, world=8).shape == want
 
 
 @pytest.mark.parametrize("n_seq", [2, 4, 8])
 @pytest.mark.parametrize("build", ["make_mesh", "Mesh"])
 def test_a_sequence_axis_is_refused_naming_item_8b(build, n_seq):
-    """Neither ``make_mesh`` nor a hand-built ``Mesh`` lays out a sequence
-    axis of more than one rank: the ring is item 8b."""
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    """(Named for the refusal it held before the ring was ported.) Both
+    ``make_mesh`` and a hand-built ``Mesh`` lay out a sequence axis of
+    more than one rank as JAX's ``reshape(devices, (n_data, n_seq))``
+    places the devices: rank r at data index r // n_seq and seq index
+    r % n_seq; the data axis's shares count data indices. A layout of
+    arithmetic holds no groups; a hand-built one holds the groups it is
+    given."""
+    import jax
+
+    from pvraft_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    n_data = 8 // n_seq
+    grid = np.asarray(jmake_mesh(n_data, n_seq, devices=jax.devices())
+                      .devices)
+    ids = [d.id for d in jax.devices()]
+    groups = (object(), object(), object())
+    for r in range(8):
+        mesh = (tmesh.make_mesh(n_data, n_seq, world=8) if build ==
+                "make_mesh" else tmesh.Mesh(n_data, n_seq, r, 8, *groups))
         if build == "make_mesh":
-            tmesh.make_mesh(8 // n_seq, n_seq, world=8)
+            assert (mesh.group, mesh.data_group, mesh.seq_group) == \
+                (None, None, None)
+            mesh = tmesh.Mesh(n_data, n_seq, r, 8)
         else:
-            tmesh.Mesh(8 // n_seq, n_seq, 0, 8)
+            assert (mesh.data_group, mesh.seq_group, mesh.group) == groups
+        d, s = mesh.data_index, mesh.seq_index
+        assert grid[d, s].id == ids[r]
+        assert mesh.data_shares == n_data
+        assert tmesh.seq_rows(64, mesh) == slice(s * 64 // n_seq,
+                                                 (s + 1) * 64 // n_seq)
 
 
 def test_make_mesh_refuses_a_partial_layout_where_jax_takes_a_prefix():
@@ -242,7 +262,8 @@ def test_partition_rules_cover_the_ports_leaves_as_jax_does():
         PVRaftRefine(ModelConfig()).backbone).values()) == {()}
     sharding = ((r"^params/(feature|context)_extractor/", ("data",)),
                 *tpart.PARTITION_RULES[1:])
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError,
+                       match="places no parameter shard"):
         tpart.check_replicated(model, sharding)
     overlap = (*tpart.PARTITION_RULES, (r"gru", ()))
     for side in (tpart, jpart):
@@ -281,10 +302,11 @@ def _init_worker(rank, tmp):
     except ValueError as e:
         out["partial"] = str(e)
     out["data_group"] = dist.get_world_size(mesh.data_group)
-    try:
-        tmesh.make_mesh(1, 2)
-    except NotImplementedError as e:
-        out["seq"] = str(e)
+    seq = tmesh.make_mesh(1, 2)
+    out["seq"] = (seq.shape, seq.data_index, seq.seq_index,
+                  dist.get_world_size(seq.seq_group),
+                  dist.get_world_size(seq.data_group),
+                  dist.get_world_size(seq.group))
     flag = tmesh.all_true(rank == 0, mesh, torch.device("cpu"))
     out["all_true"] = (flag, tmesh.all_true(True, mesh, torch.device("cpu")))
     return out
@@ -297,7 +319,8 @@ def test_initialize_reads_torchruns_environment(tmp_path):
         assert (out["index"], out["count"]) == (rank, 2)
         assert out["mesh"] == (2, 1, rank, 2)
         assert "does not cover 2" in out["partial"]
-        assert out["data_group"] == 2 and "item 8b" in out["seq"]
+        assert out["data_group"] == 2
+        assert out["seq"] == ({"data": 1, "seq": 2}, 0, rank, 2, 1, 2)
         assert out["all_true"] == (False, True)
 
 
@@ -682,17 +705,20 @@ def test_graphs_need_nccl_on_the_card(monkeypatch):
 
 
 def test_seq_parallel_stays_refused_naming_item_8b(capsys):
+    """(Named for the refusal it held before the ring was ported.)
+    ``seq_shard`` and ``seq_axis`` are taken, and both CLIs' ``--seq_parallel
+    2`` parses into them; only stage 2 refuses it, naming item 8c."""
     from pvraft_tpu_torch import test as ttest_cli
     from pvraft_tpu_torch import train as ttrain_cli
 
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ModelConfig(seq_shard=True)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ParallelConfig(seq_axis=2)
+    assert ModelConfig(seq_shard=True).seq_shard is True
+    assert ParallelConfig(seq_axis=2).seq_axis == 2
     for cli in (ttrain_cli, ttest_cli):
+        cfg = cli.config_from_args(cli.parse_args(["--seq_parallel", "2"]))
+        assert (cfg.model.seq_shard, cfg.parallel.seq_axis) == (True, 2)
         with pytest.raises(SystemExit):
-            cli.parse_args(["--seq_parallel", "2"])
-        assert "ROADMAP queue 1 item 8b" in capsys.readouterr().err
+            cli.parse_args(["--refine", "--seq_parallel", "2"])
+        assert "ROADMAP queue 1 item 8c" in capsys.readouterr().err
     args = ttrain_cli.parse_args(["--data_parallel", "2"])
     assert ttrain_cli.config_from_args(args).parallel.data_axis == 2
     assert TrainConfig(eval_batch=4).eval_batch == 4

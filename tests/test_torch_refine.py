@@ -711,10 +711,10 @@ def test_train_and_test_clis_run_stage_2(tmp_path, capsys):
     with pytest.raises(SystemExit):
         ttrain_cli.main(base + ["--stage1_weights", s1])
     assert "needs --refine" in capsys.readouterr().err
-    for cli in (ttrain_cli, ttest_cli):
+    for cli, args in ((ttrain_cli, base), (ttest_cli, base[:-2])):
         with pytest.raises(SystemExit):
-            cli.main(base + ["--seq_parallel"])
-        assert "not ported yet" in capsys.readouterr().err
+            cli.main(args + ["--refine", "--seq_parallel", "2"])
+        assert "item 8c" in capsys.readouterr().err
 
 
 # --- (j) a trajectory ---------------------------------------------------------
