@@ -282,6 +282,22 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            a step per rank; (c) the eager
            Evaluator at 1 iteration, per-scene EPE within 1e-5 of one
            process;
+  phase 18 the load tools and the fleet tier (``load_fleet``,
+           ``load_fleet_phase``; after phase 17) at ``load_fleet_cfg()``
+           (the flagship ModelConfig with fused_gru, fp32, buckets
+           2048/8192, batch 1): (a) ``run_load`` against one host (48
+           requests, 4 clients, 8192/3000/2048 points, every request
+           traced, the cost surface of phase 15 armed, the ledger
+           identity polled): the load, event, trace, SLO, capacity and
+           calibration documents valid, the advisor's report; (b) two
+           hosts behind the port's ``FleetRouter``: routed flows bitwise
+           the host engine's, one routed request launching kernels 1 and
+           2 eight times each (profiler), the same load routed; (c) the
+           fleet chaos legs (host 1 lost mid-load and revived on its port
+           with no capture, ``/admin/reload`` fanned out with no capture
+           or recompile, a canary that promotes and one that is
+           rejected) in a valid ``pvraft_fleet_chaos/v1`` document;
+           direct and routed p50/p95/p99 and requests/s;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -5761,6 +5777,602 @@ def seq_parallel_phase(seed, dev):
             "legs_s": legs_s, "phase_s": time.perf_counter() - t_phase}
 
 
+# -------------------------------------------------------------- phase 18 --
+
+LOAD_REQUESTS = 48           # run_load's requests, direct and routed
+LOAD_CONCURRENCY = 4
+LOAD_POINTS = (8192, 3000, 2048)
+LEG_REQUESTS = 24            # each chaos leg's requests through the router
+# The SLO the report is held to, and the stage-sum band it records (the
+# stages' p99s over the end-to-end p99; at concurrency 4 independent
+# stalls land in different stages' tails, so it is wider than a serial
+# client's [0.9, 1.1]). The phase prints the ratio; it does not gate on it.
+LOAD_SLO_P99_MS = 2000.0
+LOAD_RATIO_BAND = (0.5, 1.5)
+LOAD_LEG_TIMEOUT_S = 300.0
+
+
+def load_fleet_cfg():
+    """Phase 18's serve config: the flagship ``ModelConfig`` with
+    ``fused_gru`` (so kernels 1 and 2 both run), fp32, buckets 2048 and
+    8192, batch size 1, one replica."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(model=ModelConfig(fused_gru=True),
+                       buckets=(2048, 8192), batch_sizes=(1,),
+                       dtype="float32", replicas=1)
+
+
+def serve_identity(port):
+    """(requests, responses + rejected + in_flight) of one atomic
+    Prometheus render of a serve host."""
+    status, out, _ = http_call(port, "GET", "/metrics?format=prometheus",
+                               timeout=10)
+    if status != 200:
+        raise ValueError(f"/metrics: {status}")
+    text = out.decode("utf-8")
+    rejected = sum(float(v) for v in re.findall(
+        r"^pvraft_serve_rejected_total\{[^}]*\} (\S+)$", text, re.M))
+    return (prom_value(text, "pvraft_serve_requests_total"),
+            prom_value(text, "pvraft_serve_responses_total") + rejected
+            + prom_value(text, "pvraft_serve_in_flight"))
+
+
+def fleet_identity(port):
+    """The same identity of the router's ledger, from its ``/healthz``."""
+    status, out, _ = http_call(port, "GET", "/healthz", timeout=10)
+    if status != 200:
+        raise ValueError(f"/healthz: {status}")
+    m = json.loads(out)["metrics"]
+    return (m["requests_total"], m["responses_total"]
+            + sum(m["rejected"].values()) + m["in_flight"])
+
+
+class IdentityPoller:
+    """A thread that reads an identity every ``interval_s`` until
+    stopped: the snapshots it read, those where the two sides differed,
+    and the reads that failed."""
+
+    def __init__(self, read, interval_s):
+        import threading
+
+        self.read, self.interval_s = read, interval_s
+        self.snapshots, self.errors, self.violations = 0, 0, []
+        self._halt = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._halt.wait(self.interval_s):
+            try:
+                lhs, rhs = self.read()
+            except (OSError, ValueError, KeyError):
+                self.errors += 1
+                continue
+            self.snapshots += 1
+            if lhs != rhs:
+                self.violations.append([lhs, rhs])
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._halt.set()
+        self._thread.join(30)
+        check(not self._thread.is_alive(), "load fleet: a poller hung")
+
+
+def latency(m):
+    """The headline numbers of one ``run_load`` measurement."""
+    return {"p50_ms": m["latency_ms"]["p50"], "p95_ms": m["latency_ms"]["p95"],
+            "p99_ms": m["latency_ms"]["p99"],
+            "requests_per_s": m["throughput_rps"],
+            "requests": m["requests"], "duration_s": m["duration_s"]}
+
+
+def ms_stats(samples):
+    """Mean, median (nearest rank) and max of a few millisecond samples:
+    with ~50 of them a p99 is the max, so the max is named as such."""
+    from pvraft_tpu_torch.obs.slo import exact_quantile
+
+    return {"mean_ms": sum(samples) / len(samples),
+            "p50_ms": exact_quantile(samples, 0.5), "max_ms": max(samples)}
+
+
+def stage_breakdown(records, trace_ids, client_ms):
+    """Where one load run's time went, from the hosts' span trees of its
+    requests (``trace_ids``): each serve stage's and the host's whole
+    request span's ``ms_stats``, beside the client's latency. The client's
+    mean less the request span's is the time outside the host: the HTTP
+    hops and, where there is one, the router."""
+    from pvraft_tpu_torch.obs.trace import SERVE_STAGES, trace_shape
+
+    trees = {}
+    for r in records:
+        if r["type"] == "span":
+            trees.setdefault(r["trace_id"], []).append(r)
+    stages = {s: [] for s in SERVE_STAGES}
+    request = []
+    for tid in trace_ids:
+        roots, _, durations, complete = trace_shape(trees.get(tid, []),
+                                                    SERVE_STAGES)
+        check(complete, f"load fleet: trace {tid} is not a complete tree")
+        request.append(roots[0]["end_ms"] - roots[0]["start_ms"])
+        for s in SERVE_STAGES:
+            stages[s].append(durations[s])
+    client = ms_stats(client_ms)
+    host = ms_stats(request)
+    return {"requests": len(request), "client": client,
+            "request_span": host,
+            "outside_host_mean_ms": client["mean_ms"] - host["mean_ms"],
+            "stages": {s: ms_stats(v) for s, v in stages.items()}}
+
+
+def load_fleet_phase(seed, dev, smi):
+    """Phase 18 (``load_fleet``; after phase 17, before the profiler
+    phases): the load tools and the fleet tier on the card, at
+    ``load_fleet_cfg()`` with seeded weights. (a) One host
+    (``build_service``, every request traced, the cost surface armed from
+    phase 15's inventory): ``run_load`` sends LOAD_REQUESTS requests from
+    LOAD_CONCURRENCY clients, point counts cycling LOAD_POINTS, while a
+    poller reads the ledger identity from the host's Prometheus text. The
+    ``pvraft_serve_load/v1`` document, its event stream and its trace
+    document must be valid; from them the ``pvraft_slo/v1`` report (every
+    request a complete tree, ``stage_sum_ratio`` per program), the bucket
+    advisor's report, the capacity plan on the port's surface and the
+    calibration records (identity violations 0, every record
+    ``comparable: false``), each valid. (b) Two hosts behind the port's
+    ``FleetRouter`` (cost surface armed) on one stream: the run's first
+    requests sent through the router, steered to each host in turn (the
+    host's served count must rise by one and the other's not at all),
+    each flow bitwise the host engine's ``predict``; one 8,192-point request
+    through the router under the profiler launches kernels 1 and 2 eight
+    times each, replayed, and no wrapper eagerly; then the same traffic
+    as (a) through the router. Of both runs, direct and routed, the
+    per-stage breakdown of the hosts' span trees (``stage_breakdown``).
+    (c) The fleet chaos scenario: host 1 shut down mid-load (every
+    request resolves, spillovers > 0, the router walks it to quarantined;
+    served again on its port with no capture, it is revived);
+    ``/admin/reload`` of a checkpoint of other weights fanned out
+    mid-traffic (both digests change; no capture, no recompile
+    recorded); a canary of those weights saved again promotes; a canary
+    of another seed's weights is rejected. The ``pvraft_fleet_chaos/v1``
+    document (traffic mix from (a)'s capacity plan, the router's identity
+    polled throughout) must be valid, every client response must have
+    its ``fleet_route`` record and the stream must be valid."""
+    import threading
+
+    from pvraft_tpu_torch.engine.checkpoint import save_checkpoint
+    from pvraft_tpu_torch.fleet import (FLEET_CHAOS_SCHEMA, FleetConfig,
+                                        build_fleet, validate_fleet_artifact)
+    from pvraft_tpu_torch.obs.calibration import (CALIBRATION_SCHEMA,
+                                                  validate_calibration)
+    from pvraft_tpu_torch.obs.capacity import (build_capacity_report,
+                                               validate_capacity)
+    from pvraft_tpu_torch.obs.events import read_events, validate_events_file
+    from pvraft_tpu_torch.obs.retrace import compile_count
+    from pvraft_tpu_torch.obs.slo import build_slo_report, validate_slo_report
+    from pvraft_tpu_torch.programs.costs import CostSurface, default_costs_path
+    from pvraft_tpu_torch.rng import host_rng
+    from pvraft_tpu_torch.serve import (InferenceEngine, ServeTelemetry,
+                                        SupervisorConfig, build_service,
+                                        params_digest)
+    from pvraft_tpu_torch.serve.advisor import build_advisor_report
+    from pvraft_tpu_torch.serve.loadgen import (SCHEMA_VERSION, _post_json,
+                                                merge_measurements, run_load,
+                                                validate_load_artifact,
+                                                write_load_and_trace)
+    from pvraft_tpu_torch.weights import params_to_jax, seeded_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = load_fleet_cfg()
+    model = cfg.model
+    surface_path = default_costs_path()
+    check(os.path.exists(surface_path),
+          f"load fleet: no cost inventory at {surface_path} (phase 15 "
+          f"writes it)")
+    surface = CostSurface.load(surface_path)
+    state = seeded_state_dict(model, seed)
+    out = {"gpu": smi, "config": {
+        "buckets": list(cfg.buckets), "batch_sizes": list(cfg.batch_sizes),
+        "num_iters": cfg.num_iters, "dtype": cfg.dtype,
+        "fused_gru": model.fused_gru, "requests": LOAD_REQUESTS,
+        "concurrency": LOAD_CONCURRENCY, "point_counts": list(LOAD_POINTS),
+        "leg_requests": LEG_REQUESTS}}
+    with scratch_dir() as root:
+        # (a) One host, the load generator and the reports.
+        events = os.path.join(root, "load.events.jsonl")
+        telemetry = ServeTelemetry(events, cfg=cfg)
+        engine = InferenceEngine(state, cfg, device=dev, telemetry=telemetry)
+        server = build_service(engine, telemetry=telemetry,
+                               trace_sample_every=1, cost_surface=surface)
+        server.start()
+        try:
+            poller = IdentityPoller(lambda: serve_identity(server.port),
+                                    0.02).start()
+            try:
+                direct = run_load(server, n_requests=LOAD_REQUESTS,
+                                  concurrency=LOAD_CONCURRENCY,
+                                  point_counts=list(LOAD_POINTS), seed=seed)
+                time.sleep(0.05)
+            finally:
+                poller.stop()
+            health = http_json(server.port, "/healthz")
+        finally:
+            server.shutdown(drain=True)
+            telemetry.close()
+        check(direct["requests"]["ok"] == LOAD_REQUESTS,
+              f"load fleet (a): {direct['requests']}")
+        load_doc = {
+            "schema": SCHEMA_VERSION,
+            "config": {**out["config"], "compute_dtype": cfg.dtype,
+                       "truncate_k": model.truncate_k,
+                       "graph_k": model.graph_k, "corr_knn": model.corr_knn,
+                       "weights": f"seeded {seed}",
+                       "platform": engine.platform,
+                       "replicas": len(engine.replicas)},
+            "compile": engine.compile_report(), **direct}
+        load_path = os.path.join(root, "load.json")
+        _, trace_doc = write_load_and_trace(load_path, load_doc, events)
+        check(validate_events_file(events) == [],
+              f"load fleet (a): {validate_events_file(events)[:3]}")
+        check(trace_doc["counts"]["complete"] == LOAD_REQUESTS,
+              f"load fleet (a): traces {trace_doc['counts']}")
+        slo_doc = build_slo_report(
+            [(load_path, load_doc, events, read_events(events))],
+            LOAD_SLO_P99_MS, ratio_band=LOAD_RATIO_BAND)
+        problems = validate_slo_report(slo_doc)
+        check(not problems and slo_doc["totals"]["complete"] == LOAD_REQUESTS,
+              f"load fleet (a): SLO report {problems} {slo_doc['totals']}")
+        rp = direct["request_points"]
+        advice = build_advisor_report(
+            rp["edges"], rp["counts"], list(cfg.buckets),
+            min_bucket=cfg.min_points, source=load_path,
+            cost_surface=surface, dtype=cfg.dtype)
+        capacity = build_capacity_report(
+            surface, load_doc, slo_doc, buckets=cfg.buckets,
+            batch_sizes=cfg.batch_sizes, dtype=cfg.dtype,
+            inputs={"costs": surface_path, "load": load_path})
+        problems = validate_capacity(capacity)
+        check(not problems and capacity["demand"],
+              f"load fleet (a): capacity plan {problems}")
+        cost = health.get("cost") or {}
+        calibration = {
+            "schema": CALIBRATION_SCHEMA, "surface": surface_path,
+            "surface_coverage": health.get("cost_surface"),
+            "platform": engine.platform, "dtype": cfg.dtype,
+            "config": load_doc["config"],
+            "identity": {"snapshots": poller.snapshots,
+                         "violations": len(poller.violations),
+                         "poll_errors": poller.errors},
+            "requests": direct["requests"],
+            "throughput_rps": direct["throughput_rps"],
+            "records": cost.get("calibration", []),
+            "device_busy_seconds": cost.get("device_busy_seconds"),
+            "predicted_device_seconds_total": cost.get(
+                "predicted_device_seconds_total")}
+        problems = validate_calibration(calibration)
+        check(not problems and poller.snapshots >= 10
+              and not any(r["comparable"] for r in calibration["records"])
+              and sum(r["n"] for r in calibration["records"])
+              == LOAD_REQUESTS,
+              f"load fleet (a): calibration {problems}, "
+              f"{poller.snapshots} snapshots, records "
+              f"{calibration['records']}")
+        out["direct"] = latency(direct)
+        out["direct"]["breakdown"] = stage_breakdown(
+            read_events(events),
+            [r["trace_id"] for r in direct["per_request"]],
+            [r["ms"] for r in direct["per_request"]])
+        out["slo"] = {
+            "p99_ms": LOAD_SLO_P99_MS, "ratio_band": list(LOAD_RATIO_BAND),
+            "totals": slo_doc["totals"],
+            "max_qps_under_slo": slo_doc["max_qps_under_slo"],
+            "programs": [{k: p[k] for k in ("bucket", "batch", "requests",
+                                             "stage_p99_sum_ms",
+                                             "stage_sum_ratio", "meets_slo")}
+                         | {"e2e_p99_ms": p["e2e"]["p99_ms"]}
+                         for p in slo_doc["programs"]]}
+        out["advisor"] = {"objective": advice["objective"],
+                          "proposed": advice["proposed"],
+                          "current": advice["current"],
+                          "improvement": advice["improvement"]}
+        out["capacity"] = {"traffic": capacity["traffic"],
+                           "per_bucket": capacity["per_bucket"],
+                           "demand": capacity["demand"],
+                           "measured_evidence":
+                               capacity["measured_evidence"]}
+        out["calibration"] = {"identity": calibration["identity"],
+                              "records": calibration["records"]}
+        del engine, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) Two hosts behind the port's router, on one stream.
+        fleet_events = os.path.join(root, "fleet.events.jsonl")
+        ftel = ServeTelemetry(fleet_events, cfg=cfg)
+        engines = [InferenceEngine(state, cfg, device=dev, telemetry=ftel)
+                   for _ in range(2)]
+        compiles = compile_count()
+        sup_cfg = SupervisorConfig(degraded_after=1, quarantine_after=2,
+                                   probe_interval_s=0.1)
+
+        def host(i, port=0):
+            s = build_service(engines[i], telemetry=ftel,
+                              trace_sample_every=1, supervisor_cfg=sup_cfg,
+                              port=port)
+            s.start()
+            return s
+
+        servers = [host(0), host(1)]
+        every_server = list(servers)
+        # The default poll cadence (0.5 s): a lost host stays in the
+        # rotation for two polls, and the requests sent to it meanwhile
+        # spill over.
+        fleet_cfg = FleetConfig(quarantine_after=2, predict_timeout_s=120.0,
+                                canary_fraction=0.5, canary_min_samples=6)
+        router = build_fleet(servers, cfg=fleet_cfg, telemetry=ftel,
+                             cost_surface=surface)
+        router.start()
+        target = f"{router.host}:{router.port}"
+        sampler = IdentityPoller(lambda: fleet_identity(router.port),
+                                 0.15).start()
+        try:
+            # The run's first requests, each steered to one host by a
+            # dispatch held open on the other.
+            rng = host_rng(seed, "serve.loadgen")
+            bitwise = []
+            for i in range(2 * len(LOAD_POINTS)):
+                n = LOAD_POINTS[i % len(LOAD_POINTS)]
+                pc1 = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+                pc2 = pc1 + rng.normal(0, 0.05, (n, 3)).astype(np.float32)
+                b = i % 2
+                served = [s.batcher.counts["served"] for s in servers]
+                router.backends[1 - b].begin_dispatch(1.0)
+                try:
+                    status, flow, _ = http_predict(router.port, pc1, pc2)
+                finally:
+                    router.backends[1 - b].end_dispatch(1.0)
+                # Counted before the answer, so it is read exactly here.
+                gained = [s.batcher.counts["served"] - c
+                          for s, c in zip(servers, served)]
+                check(gained == [int(h == b) for h in range(2)],
+                      f"load fleet (b): request {i} steered to host {b} "
+                      f"was served {gained} times by hosts 0 and 1")
+                want = engines[b].predict(pc1, pc2)
+                check(status == 200 and np.array_equal(flow, want),
+                      f"load fleet (b): request {i} ({n} points) through "
+                      f"the router to host {b}: status {status}, max |d| "
+                      f"{float(np.abs(flow - want).max()) if flow is not None else None}")
+                bitwise.append({"points": n, "host": b})
+                if i == 0:
+                    lone = (pc1, pc2)
+            _, counts, wrapper = measured(
+                lambda: http_predict(router.port, *lone))
+            want_launches = want_serve("fused_gru", cfg.num_iters)
+            check(counts == want_launches and wrapper == NO_LAUNCHES,
+                  f"load fleet (b): a routed request ran {counts} (wrappers "
+                  f"{wrapper}), expected {want_launches}")
+            # The router passes no trace id on: the routed run's span
+            # trees are those whose root began while it ran.
+            routed_from = time.monotonic() * 1000.0
+            routed = run_load(None, targets=[target],
+                              n_requests=LOAD_REQUESTS,
+                              concurrency=LOAD_CONCURRENCY,
+                              point_counts=list(LOAD_POINTS), seed=seed)
+            routed_to = time.monotonic() * 1000.0
+            check(routed["requests"]["ok"] == LOAD_REQUESTS,
+                  f"load fleet (b): routed {routed['requests']}")
+            rounds = [routed]
+
+            def leg(n, leg_seed, retries):
+                res = {}
+
+                def drive():
+                    res["round"] = run_load(
+                        None, targets=[target], n_requests=n,
+                        concurrency=LOAD_CONCURRENCY,
+                        point_counts=list(LOAD_POINTS), seed=leg_seed,
+                        retries=retries)
+
+                t = threading.Thread(target=drive, daemon=True)
+                t.start()
+                return t, res
+
+            def joined(t, res):
+                t.join(LOAD_LEG_TIMEOUT_S)
+                check(not t.is_alive() and "round" in res,
+                      "load fleet (c): a load leg did not finish")
+                rounds.append(res["round"])
+                return res["round"]
+
+            def responses():
+                return router.metrics.snapshot()["responses_total"]
+
+            # (c1) Host 1 shut down mid-load, then served again.
+            before = router.metrics.snapshot()
+            t, res = leg(LEG_REQUESTS, seed + 1, 2)
+            wait_for(lambda: responses() >= before["responses_total"]
+                     + LEG_REQUESTS // 4, LOAD_LEG_TIMEOUT_S)
+            port1 = servers[1].port
+            servers[1].shutdown(drain=True)
+            killed_at = responses()
+            loss = joined(t, res)
+            quarantined = wait_for(
+                lambda: router.backends[1].state == "quarantined", 15)
+            spillovers = (router.metrics.snapshot()["spillovers_total"]
+                          - before["spillovers_total"])
+            resolved = loss["requests"]["errors"] == 0
+            check(resolved and spillovers > 0 and quarantined,
+                  f"load fleet (c1): {loss['requests']}, spillovers "
+                  f"{spillovers}, host 1 {router.backends[1].state}")
+            servers[1] = host(1, port=port1)
+            every_server.append(servers[1])
+            revived = wait_for(
+                lambda: router.backends[1].state == "healthy", 15)
+            check(revived and compile_count() == compiles,
+                  f"load fleet (c1): host 1 {router.backends[1].state}, "
+                  f"{compile_count() - compiles} captures")
+
+            # (c2) A checkpoint of other weights fanned out mid-traffic.
+            paths = {}
+            states = {"v2": seeded_state_dict(model, seed + 1),
+                      "v4": seeded_state_dict(model, seed + 7)}
+            states["v3"] = states["v2"]
+            for epoch, name in enumerate(("v2", "v3", "v4"), start=1):
+                paths[name], = save_checkpoint(
+                    os.path.join(root, name), params_to_jax(states[name]),
+                    {}, epoch, checkpoint_interval=0)
+            before = router.metrics.snapshot()
+            t, res = leg(LEG_REQUESTS, seed + 2, 1)
+            wait_for(lambda: responses() >= before["responses_total"]
+                     + LEG_REQUESTS // 4, LOAD_LEG_TIMEOUT_S)
+            swap = _post_json(router.host, router.port, "/admin/reload",
+                              {"ckpt": paths["v2"], "drain_timeout_s": 60.0},
+                              timeout=LOAD_LEG_TIMEOUT_S)
+            swapped = joined(t, res)
+            rows = (swap["body"] or {}).get("swapped") or []
+            new_digest = params_digest(states["v2"])
+            check(swap["status"] == 200 and len(rows) == 2
+                  and all(r["status"] == 200
+                          and r["report"]["digest"] == new_digest
+                          != r["report"]["previous_digest"] for r in rows)
+                  and swapped["requests"]["errors"] == 0,
+                  f"load fleet (c2): swap {swap['status']} {rows}, "
+                  f"{swapped['requests']}")
+            check(compile_count() == compiles,
+                  f"load fleet (c2): {compile_count() - compiles} captures")
+
+            # (c3, c4) Canaries: the same weights saved again, then
+            # another seed's.
+            verdicts = {}
+            for name, want in (("v3", "promote"), ("v4", "reject")):
+                armed = _post_json(
+                    router.host, router.port, "/admin/reload",
+                    {"ckpt": paths[name], "backend": 1, "canary": True,
+                     "drain_timeout_s": 60.0}, timeout=LOAD_LEG_TIMEOUT_S)
+                check(armed["status"] == 200
+                      and armed["body"]["canary"]["armed"],
+                      f"load fleet (c): canary {name}: {armed}")
+                verdict = None
+                for r in range(4):
+                    joined(*leg(LEG_REQUESTS, seed + 3 + r, 0))
+                    verdict = router.canary.status()["verdict"]
+                    if verdict is not None:
+                        break
+                check(verdict is not None and verdict["verdict"] == want,
+                      f"load fleet (c): canary {name}: {verdict}, want "
+                      f"{want}")
+                verdicts[want] = {"ckpt": name, "swap": armed["body"],
+                                  **verdict}
+            router.disarm_canary()
+            final = router.metrics.snapshot()
+        finally:
+            sampler.stop()
+            router.shutdown()
+            for s in servers:
+                s.shutdown(drain=True)
+            ftel.close()
+        watchdog_trips = sum(s.batcher.metrics.recompiles_total
+                             for s in every_server)
+        problems = validate_events_file(fleet_events)
+        check(not problems, f"load fleet: the fleet stream {problems[:3]}")
+        records = read_events(fleet_events)
+        routed_traces = sorted({
+            r["trace_id"] for r in records
+            if r["type"] == "span" and "parent_id" not in r
+            and routed_from <= r["start_ms"] <= routed_to})
+        check(len(routed_traces) == LOAD_REQUESTS,
+              f"load fleet (b): {len(routed_traces)} span trees began in "
+              f"the routed run of {LOAD_REQUESTS} requests")
+        recompiles = sum(r["type"] == "recompile" for r in records)
+        routes = [r for r in records if r["type"] == "fleet_route"]
+        reasons = collections.Counter(r["reason"] for r in routes)
+        client_routes = len(routes) - reasons["shadow"]
+        check(client_routes == final["requests_total"]
+              and reasons["shadow"] == final["shadow_total"],
+              f"load fleet: {dict(reasons)} fleet_route records for "
+              f"{final['requests_total']} requests, "
+              f"{final['shadow_total']} shadows")
+        verdict_records = [r["verdict"] for r in records
+                           if r["type"] == "canary_verdict"]
+        check(verdict_records == ["promote", "reject"],
+              f"load fleet: canary_verdict records {verdict_records}")
+        merged = merge_measurements(rounds)
+        fleet_load = {
+            "schema": SCHEMA_VERSION,
+            "config": {**load_doc["config"], "targets": [target],
+                       "requests": merged["requests"]["total"],
+                       "weights": f"seeded {seed} (+ v2/v3/v4 swaps)"},
+            "compile": [row for e in engines for row in e.compile_report()],
+            **merged}
+        mix = [{"bucket": r["bucket"], "fraction": r["traffic_fraction"],
+                "capacity_bucket": r["bucket"]}
+               for r in capacity["per_bucket"]]
+        chaos = {
+            "schema": FLEET_CHAOS_SCHEMA,
+            "config": {
+                "backends": 2,
+                "targets": [f"127.0.0.1:{s.port}" for s in servers],
+                "router": target, "buckets": list(cfg.buckets),
+                "batch_sizes": list(cfg.batch_sizes),
+                "compute_dtype": cfg.dtype, "replicas_per_backend": 1,
+                "traffic_mix": mix,
+                "traffic_mix_source": "phase 18 (a)'s capacity plan",
+                "fleet": dataclasses.asdict(fleet_cfg), "seed": seed},
+            "load": fleet_load,
+            "phases": [
+                {"phase": "baseline", "requests": routed["requests"],
+                 "duration_s": routed["duration_s"]},
+                {"phase": "backend_loss", "killed_backend": 1,
+                 "killed_at_responses": killed_at,
+                 "spillovers": spillovers, "resolved": resolved,
+                 "observed": {"quarantined": quarantined,
+                              "revived": revived},
+                 "requests": loss["requests"], "retries": 2},
+                {"phase": "hot_swap",
+                 "swap": {"ckpt": paths["v2"], "swapped": rows},
+                 "requests": swapped["requests"]},
+                {"phase": "canary", "verdict": verdicts["promote"],
+                 "rejected_candidate": verdicts["reject"],
+                 "canary_served": final["canary_total"],
+                 "shadows": final["shadow_total"]}],
+            "reconciliation": {"holds": not sampler.violations,
+                               "snapshots": sampler.snapshots,
+                               "final": final},
+            "recompiles": recompiles, "watchdog_trips": watchdog_trips}
+        problems = (validate_fleet_artifact(chaos)
+                    + validate_load_artifact(fleet_load))
+        check(not problems, f"load fleet: the fleet chaos document "
+                            f"{problems}")
+        out["routed"] = latency(routed)
+        out["routed"]["breakdown"] = stage_breakdown(
+            records, routed_traces, [r["ms"] for r in routed["per_request"]])
+        out["fleet"] = {
+            "bitwise": bitwise, "spillovers": spillovers,
+            "killed_at_responses": killed_at, "loss": loss["requests"],
+            "quarantined": quarantined, "revived": revived,
+            "swap_digests": [r["report"]["digest"] for r in rows],
+            "recompiles": recompiles, "watchdog_trips": watchdog_trips,
+            "captures_after_build": compile_count() - compiles,
+            "verdicts": {k: {f: v[f] for f in ("ckpt", "epe", "bound",
+                                               "rel_epe", "rel_bound",
+                                               "samples")}
+                         for k, v in verdicts.items()},
+            "identity": {"snapshots": sampler.snapshots,
+                         "violations": len(sampler.violations),
+                         "poll_errors": sampler.errors},
+            "ledger": final, "fleet_route": dict(reasons),
+            "load": merged["requests"]}
+        out["launches"] = counts
+    del engines, servers, every_server, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
                                           "corr_knn": 64}),
                 ("hidden32_context96_fused_gru",
@@ -6158,6 +6770,9 @@ def main() -> int:
     seq = seq_parallel_phase(args.seed, dev)
     emit({"phase": "seq_parallel", **seq})
 
+    load_fleet = load_fleet_phase(args.seed, dev, smi)
+    emit({"phase": "load_fleet", **load_fleet})
+
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.
     off = off_flagship_phase(args.seed, dev)
@@ -6236,6 +6851,7 @@ def main() -> int:
                     name],
             "seq_rank_train_launches_per_step":
                 seq["steps"]["ranks"][0]["window"]["launches"][name],
+            "fleet_routed_request_launches": load_fleet["launches"][name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

@@ -285,7 +285,7 @@ class Trainer:
         # The cost block's inventory: looked up at the first epoch's end.
         self._cost_surface: Any = cost_surface
         self.device = resolve_device(device)
-        t, par = cfg.train, cfg.parallel
+        par = cfg.parallel
         self.mesh = mesh = mesh if mesh is not None else make_mesh(
             None if par.data_axis < 0 else par.data_axis, par.seq_axis)
         _check_parallel(cfg, mesh, self.device, graphs)
@@ -294,6 +294,20 @@ class Trainer:
         self.log = self.telemetry.log
         self.tb = self.telemetry.tb
         self.telemetry.emit_header(cfg, mode="train")
+        # Whatever raises after this point leaves no open sink behind.
+        try:
+            self._build(weights, opt_state, graphs, capturable)
+        except BaseException:
+            self.telemetry.close()
+            raise
+
+    def _build(self, weights: Optional[Mapping], opt_state: Any,
+               graphs: bool, capturable: Optional[bool]) -> None:
+        """The rest of ``__init__``, once the telemetry is open: the
+        datasets, the model, the optimizer, the steps and their
+        captures."""
+        cfg, mesh = self.cfg, self.mesh
+        t, par = cfg.train, cfg.parallel
         self.detector = (DivergenceDetector(t.divergence_window,
                                             t.divergence_zscore)
                          if t.telemetry else None)

@@ -200,6 +200,94 @@ def collect_traces(records: Sequence[Dict[str, Any]],
             "traces": traces}
 
 
+def validate_trace_artifact(doc: Any,
+                            path: str = "<artifact>") -> List[str]:
+    """Schema problems of a ``pvraft_trace/v1`` document ([] = valid).
+    Completeness and the counts are recomputed from the spans, so a
+    hand-edited ``complete`` cannot pass. ``expected_stages`` must be the
+    serve vocabulary or the train step's (the step profiler's breakdown):
+    an empty list would mark every trace complete."""
+    from pvraft_tpu_torch.profiling.step_profiler import BREAKDOWN_STAGES
+
+    if not isinstance(doc, dict):
+        return [f"{path}: artifact is {type(doc).__name__}, not an object"]
+    problems: List[str] = []
+    if doc.get("schema") != TRACE_SCHEMA:
+        problems.append(
+            f"{path}: schema {doc.get('schema')!r} != {TRACE_SCHEMA!r}")
+    for key in ("expected_stages", "counts", "traces"):
+        if key not in doc:
+            problems.append(f"{path}: missing field {key!r}")
+    if problems:
+        return problems
+    if not isinstance(doc["expected_stages"], list) or tuple(
+            doc["expected_stages"]) not in (SERVE_STAGES, BREAKDOWN_STAGES):
+        problems.append(
+            f"{path}: expected_stages {doc['expected_stages']!r} is not a "
+            f"known stage vocabulary (serve: {list(SERVE_STAGES)}, train: "
+            f"{list(BREAKDOWN_STAGES)}) — completeness would be meaningless")
+        return problems
+    if not isinstance(doc["traces"], list) or not isinstance(
+            doc["counts"], dict):
+        problems.append(
+            f"{path}: traces must be a list and counts an object")
+        return problems
+    expected = set(doc["expected_stages"])
+    n_complete = n_orphans = n_spans = 0
+    for t_i, trace in enumerate(doc["traces"]):
+        where = f"{path}: traces[{t_i}]"
+        if (not isinstance(trace, dict)
+                or not isinstance(trace.get("spans"), list)
+                or not all(isinstance(s, dict) for s in trace["spans"])):
+            problems.append(
+                f"{where}: not an object with a list of span objects")
+            continue
+        spans = trace["spans"]
+        for s_i, span in enumerate(spans):
+            for key in SPAN_REQUIRED:
+                if key not in span:
+                    problems.append(
+                        f"{where}.spans[{s_i}]: missing {key!r}")
+            if "start_ms" in span and "end_ms" in span and (
+                    span["end_ms"] < span["start_ms"]):
+                problems.append(
+                    f"{where}.spans[{s_i}]: end_ms {span['end_ms']} < "
+                    f"start_ms {span['start_ms']}")
+            if span.get("trace_id") != trace.get("trace_id"):
+                problems.append(
+                    f"{where}.spans[{s_i}]: trace_id "
+                    f"{span.get('trace_id')!r} != {trace.get('trace_id')!r}")
+        roots, orphans, stages, complete = trace_shape(spans, expected)
+        if bool(trace.get("complete")) != complete:
+            problems.append(
+                f"{where}: complete={trace.get('complete')!r} but spans "
+                f"say {complete} (roots={len(roots)}, "
+                f"orphans={len(orphans)}, "
+                f"missing={sorted(expected - set(stages))})")
+        n_complete += complete
+        n_orphans += len(orphans)
+        n_spans += len(spans)
+    want = {"traces": len(doc["traces"]), "spans": n_spans,
+            "complete": n_complete, "orphan_spans": n_orphans}
+    if doc["counts"] != want:
+        problems.append(
+            f"{path}: counts {doc['counts']} != recomputed {want}")
+    return problems
+
+
+def validate_trace_artifact_file(path: str) -> List[str]:
+    """As the JAX validator words it: a file that cannot be read or
+    parsed is one ``unreadable`` problem."""
+    import json
+
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        return [f"{path}: unreadable: {e}"]
+    return validate_trace_artifact(doc, path=path)
+
+
 def trace_from_step_profile(record: Dict[str, Any],
                             trace_id: Optional[str] = None
                             ) -> List[Dict[str, Any]]:

@@ -11,6 +11,8 @@ points, for the CPU tests: the same code, every width kept.
 from __future__ import annotations
 
 from pvraft_tpu_torch.serve.engine import (
+    SERVE_BF16_EPE_BOUND,
+    SERVE_BF16_REL_EPE_BOUND,
     SERVE_DEFAULT_BATCH_SIZES,
     SERVE_DEFAULT_BUCKETS,
 )
@@ -33,6 +35,30 @@ KERNEL_SHAPE = (1, 8192)
 # general GRU at hidden 32 / context 96 (correlation features 64).
 GENERAL_LOOKUP = {"k": 1024, "knn": 64, "resolution": 3, "levels": 3}
 GENERAL_GRU = {"hidden": 32, "context": 96, "corr": 64}
+
+# --- the fleet router (fleet/) --------------------------------------------
+
+# The JAX package's FLEET_DEFAULTS. A backend that misses `degraded_after`
+# consecutive /healthz polls is degraded (still routed to); at
+# `quarantine_after` it leaves the rotation until a probe poll succeeds.
+# `retry_after_s` is the Retry-After of a request every backend shed;
+# `predict_timeout_s` one forward's budget. The canary gate routes
+# `canary_fraction` of the traffic to the new weights and renders its
+# verdict after `canary_min_samples` comparisons, against the bf16
+# serving bounds: a weight swap that moves the flows more than the
+# precision change does is not promoted.
+FLEET_DEFAULTS = {
+    "poll_interval_s": 0.5,
+    "poll_timeout_s": 5.0,
+    "degraded_after": 1,
+    "quarantine_after": 3,
+    "retry_after_s": 1,
+    "predict_timeout_s": 60.0,
+    "canary_fraction": 0.25,
+    "canary_min_samples": 8,
+    "canary_epe_bound": SERVE_BF16_EPE_BOUND,
+    "canary_rel_epe_bound": SERVE_BF16_REL_EPE_BOUND,
+}
 
 # --- "tiny": the CPU tests' size --------------------------------------------
 

@@ -27,6 +27,8 @@ STREAMS: Tuple[Tuple[str, str], ...] = (
     ("data.subsample", "per-scene subsample permutations"),
     ("data.synthetic", "synthetic scene-flow scene generation"),
     ("serve.probe", "supervisor health-probe payload cloud"),
+    ("serve.loadgen", "load-generator request payloads"),
+    ("serve.retry_jitter", "load-generator retry backoff jitter"),
     ("profile.data", "step-profiler synthetic input clouds"),
     ("replay.input", "the program catalog's inputs (programs/catalog.py), "
                      "which the bitwise replay rebuilds"),

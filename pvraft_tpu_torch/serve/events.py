@@ -13,8 +13,9 @@ monitor emit concurrently, so every emit goes through one lock: the
 stream's ``seq`` stays sequential.
 
 With a cost surface armed, ``cost_calibration`` (one per priced
-dispatch, ``serve/costing.py``). The fleet's ``fleet_route`` and
-``canary_verdict`` (item 11) are not emitted yet.
+dispatch, ``serve/costing.py``). A fleet router (``fleet/router.py``)
+writes ``fleet_route`` (one per routing decision) and ``canary_verdict``
+(its canary gate's verdict) through the same class.
 """
 
 from __future__ import annotations
@@ -141,6 +142,37 @@ class ServeTelemetry:
                    **given(path=path, previous_digest=previous_digest,
                            replicas=replicas, swap_ms=swap_ms,
                            drained=drained))
+
+    def emit_fleet_route(self, backend: int, reason: str,
+                         bucket: Optional[int] = None,
+                         queue_depth: Optional[int] = None,
+                         predicted_s: Optional[float] = None,
+                         attempts: Optional[int] = None,
+                         canary: Optional[bool] = None,
+                         status: Optional[int] = None) -> None:
+        """One routing decision of the fleet router: which backend got a
+        request and why (``least_loaded``, ``spillover``, ``canary``,
+        ``shadow``)."""
+        self._emit("fleet_route", backend=backend, reason=reason,
+                   **given(bucket=bucket, queue_depth=queue_depth,
+                           predicted_s=predicted_s, attempts=attempts,
+                           canary=canary, status=status))
+
+    def emit_canary_verdict(self, verdict: str, epe: float, bound: float,
+                            rel_epe: Optional[float] = None,
+                            rel_bound: Optional[float] = None,
+                            samples: Optional[int] = None,
+                            fraction: Optional[float] = None,
+                            canary_backend: Optional[int] = None,
+                            baseline_backend: Optional[int] = None
+                            ) -> None:
+        """The router's canary gate fired: the mean EPE between canary
+        and incumbent flows against its bound."""
+        self._emit("canary_verdict", verdict=verdict, epe=epe, bound=bound,
+                   **given(rel_epe=rel_epe, rel_bound=rel_bound,
+                           samples=samples, fraction=fraction,
+                           canary_backend=canary_backend,
+                           baseline_backend=baseline_backend))
 
     def emit_shutdown(self, served: int, rejected: int,
                       drained: int) -> None:

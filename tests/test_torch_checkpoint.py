@@ -51,6 +51,7 @@ from pvraft_tpu_torch.weights import (
     params_to_jax,
     seeded_state_dict,
 )
+from torch_engines import close_engines  # noqa: F401  (autouse)
 
 TINY = {"truncate_k": 16, "corr_knn": 8, "graph_k": 8}
 N, ITERS, LR_SCHEDULE = 48, 2, "cosine"

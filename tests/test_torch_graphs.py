@@ -63,6 +63,7 @@ from pvraft_tpu_torch.weights import (
     params_from_jax,
     seeded_state_dict,
 )
+from torch_engines import close_engines  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 TINY_SERVE = {"truncate_k": 16, "corr_knn": 8, "graph_k": 4}

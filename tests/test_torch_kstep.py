@@ -44,6 +44,7 @@ from pvraft_tpu_torch.weights import (
     seeded_state_dict,
     trained_parameters,
 )
+from torch_engines import close_engines  # noqa: F401  (autouse)
 
 TINY = {"truncate_k": 16, "corr_knn": 8, "graph_k": 8}
 B, N, ITERS, GAMMA = 2, 48, 2, 0.8

@@ -39,6 +39,7 @@ from pvraft_tpu_torch import train as train_cli
 from pvraft_tpu_torch.data import first_batch
 from pvraft_tpu_torch.engine.evaluator import Evaluator
 from pvraft_tpu_torch.engine.trainer import Trainer, build_datasets
+from torch_engines import close_engines  # noqa: F401  (autouse)
 
 TINY = {"truncate_k": 16, "corr_knn": 8, "graph_k": 8}
 N, ITERS = 48, 2

@@ -997,7 +997,7 @@ OBS_DEFAULTS = {"events": "", "trace_sample": 16, "trace_dir": "",
 def test_cli_observability_flags(monkeypatch, capsys, case):
     """The five observability flags and ``--cost_surface`` (either
     spelling) parse to the JAX CLI's defaults and values; ``validate-load``
-    is refused."""
+    answers a missing file as the JAX CLI does."""
     import pvraft_tpu.serve.__main__ as jcli
     from pvraft_tpu_torch.serve import __main__ as cli
 
@@ -1012,9 +1012,10 @@ def test_cli_observability_flags(monkeypatch, capsys, case):
             "cost_surface": ["--cost_surface", "x"],
             "cost-surface": ["--cost-surface=x"]}.get(case)
     if argv is None:
-        with pytest.raises(SystemExit):
-            cli.main(["validate-load", "a.json"])
-        assert "validate-load is not ported yet" in capsys.readouterr().err
+        assert cli.main(["validate-load", "a.json"]) == 1
+        err = capsys.readouterr().err
+        assert jcli.main(["validate-load", "a.json"]) == 1
+        assert capsys.readouterr().err == err and "unreadable" in err
         return
     cli.main(["serve", "--ckpt", "x", *argv])
     jcli.main(["serve", "--ckpt", "x", *argv])

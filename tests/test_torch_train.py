@@ -45,6 +45,7 @@ from pvraft_tpu_torch.engine.schedule import make_lr_schedule
 from pvraft_tpu_torch.engine.steps import make_eval_step, scheduled_step
 from pvraft_tpu_torch.models import PVRaft as TRaft
 from pvraft_tpu_torch.weights import opt_state_from_jax, params_from_jax
+from torch_engines import close_engines  # noqa: F401  (autouse)
 
 TINY = {"truncate_k": 16, "corr_knn": 8, "graph_k": 8}
 B, N, ITERS, GAMMA = 2, 48, 2, 0.8
@@ -127,7 +128,7 @@ def test_rng_streams_match_jax():
         assert trng.stream_tag(name) == jrng.stream_tag(name)
         assert trng.host_entropy(3, name, 7) == jrng.host_entropy(3, name, 7)
     with pytest.raises(ValueError):
-        trng.stream_tag("serve.loadgen")
+        trng.stream_tag("serve.undeclared")
 
 
 @pytest.mark.parametrize("n_objects", [1, 3])
