@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``pvraft_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--phase refine|seq_parallel ...]
 
 Run from the root of a checkout on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA. It builds the port's
@@ -119,8 +119,10 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            backbone bitwise unchanged, step and eval times and peak
            memory; head gradients and refined flows, kernels against
            plain versions (1 iteration: ``GRAD_BOUNDS``, FLOW_BOUND_1; 32:
-           the median within FLOOR_FACTOR x the plain path's own
-           run-to-run median); one step graphed against eager, a 2-epoch
+           the median against the deterministic plain flow within
+           FLOOR_FACTOR x the median of FLOOR_RUNS float-atomic plain
+           runs against it, pooled); one step graphed against eager, a
+           2-epoch
            ``fit`` resumed from epoch 0 and the refine Evaluator against
            ``fit``'s test means, all bitwise; ``ServeConfig(refine=True)``
            from the checkpoint, replays against eager bitwise, request
@@ -281,7 +283,18 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            (``device_kernels``), ms a step, peak GB and the collectives
            a step per rank; (c) the eager
            Evaluator at 1 iteration, per-scene EPE within 1e-5 of one
-           process;
+           process; (d) stage 2 on the same group: each rank's eager
+           refine Trainer (``PVRaftRefine(cfg, mesh)``, fused_gru, the
+           same backbone weights, a head of its own seed) on the same
+           batch against this process's one-rank refine model on the
+           ranks' graphs: the refined flow at 1 iteration (the ranks'
+           truncation too) with every point within 5e-4 / 1e-3, at 8
+           within 10x the refine model's one-ulp floor; a refine step at
+           1 iteration (loss within 1e-6, head gradients under
+           ``GRAD_BOUNDS["iters1"]``, every backbone gradient None);
+           kernels 1 and 2 launched 8 times a step per rank, ms a
+           step, peak GB and the collectives a step; the refine
+           Evaluator at 1 iteration within 1e-5 a scene;
   phase 18 the load tools and the fleet tier (``load_fleet``,
            ``load_fleet_phase``; after phase 17) at ``load_fleet_cfg()``
            (the flagship ModelConfig with fused_gru, fp32, buckets
@@ -2147,7 +2160,12 @@ REFINE_STEPS = 10            # graphed refine steps (4 scenes, bs 2)
 # (PERF.md section 6, PR 9), far above FLOW_BOUND. So at 32 iterations the
 # kernels are held to the plain path's own run-to-run spread, measured in
 # the same run, times FLOOR_FACTOR (or FLOW_BOUND where that is larger).
+# Both sides are measured against one fixed reference, the deterministic
+# plain flow, and the spread is pooled over FLOOR_RUNS float-atomic plain
+# runs: one run's median moved from 0.0385 to 0.0905 between two runs of
+# the same tree.
 FLOOR_FACTOR = 2.0
+FLOOR_RUNS = 3
 REFINE_SERVE = {"buckets": (4096, 8192), "batch_sizes": (1, 4)}
 
 
@@ -2181,10 +2199,13 @@ def refine_phase(seed, dev):
     plain versions on the same weights and batch: head gradients at 1
     iteration under GRAD_BOUNDS, every head leaf's gradient at 32
     iterations finite and non-zero and every backbone leaf's None; the
-    refined flow max |dflow| <= FLOW_BOUND_1 at 1 iteration, and at 32 a
-    median within FLOOR_FACTOR x the plain path's own run-to-run median
-    (atomic against deterministic sums, same run), or FLOW_BOUND where
-    that is larger; the maxima are reported (selection flips). Under
+    refined flow max |dflow| <= FLOW_BOUND_1 at 1 iteration, and at 32
+    the kernels' median |dflow| against the deterministic plain flow
+    within FLOOR_FACTOR x the plain path's own run-to-run median (the
+    per-point differences of FLOOR_RUNS float-atomic plain runs against
+    that same deterministic flow, pooled; each run's median printed
+    beside it), or FLOW_BOUND where that is larger; the maxima are
+    reported (selection flips). Under
     ``deterministic()``: one refine step graphed against eager on the
     same capturable Adam (loss and parameters bitwise), and a 2-epoch
     refine ``fit`` resumed from its epoch-0 checkpoint (epoch 1 bitwise).
@@ -2308,6 +2329,9 @@ def refine_phase(seed, dev):
         with torch.no_grad():
             flows = {k: {it: m(batch["pc1"], batch["pc2"], it)
                          for it in (1, iters)} for k, m in models.items()}
+            atomic = [flows["plain"][iters]] + [
+                models["plain"](batch["pc1"], batch["pc2"], iters)
+                for _ in range(FLOOR_RUNS - 1)]
             with deterministic():
                 plain_det = models["plain"](batch["pc1"], batch["pc2"], iters)
 
@@ -2315,28 +2339,34 @@ def refine_phase(seed, dev):
             return (a - b).abs().amax(-1).flatten().cpu().numpy()
 
         d1 = diffs(flows["kernels"][1], flows["plain"][1])
-        dn = diffs(flows["kernels"][iters], flows["plain"][iters])
-        floor = diffs(flows["plain"][iters], plain_det)
+        dn = diffs(flows["kernels"][iters], plain_det)
+        runs = [diffs(f, plain_det) for f in atomic]
+        floor = np.concatenate(runs)
+        run_medians = [float(np.median(r)) for r in runs]
         bound_n = max(FLOW_BOUND, FLOOR_FACTOR * float(np.median(floor)))
         check(float(d1.max()) <= FLOW_BOUND_1,
               f"refine: refined flow, 1 iteration, max |dflow| "
               f"{float(d1.max())}")
         check(np.median(dn) <= bound_n,
               f"refine: refined flow, {iters} iterations, median |dflow| "
-              f"{np.median(dn)} (the plain path against itself: "
-              f"{np.median(floor)})")
+              f"against the deterministic plain flow {np.median(dn)} (the "
+              f"float-atomic plain runs against it: pooled "
+              f"{np.median(floor)}, each {run_medians})")
         out["kernels_vs_plain"] = {
             "grads_iters1": one, "head_leaves": len(g32) - len(backbone),
             "flow_iters1_max": float(d1.max()),
-            f"flow_iters{iters}_median": float(np.median(dn)),
-            f"flow_iters{iters}_max": float(dn.max()),
-            f"plain_vs_plain_iters{iters}_median": float(np.median(floor)),
-            f"plain_vs_plain_iters{iters}_max": float(floor.max()),
+            f"kernels_vs_deterministic_iters{iters}_median":
+                float(np.median(dn)),
+            f"kernels_vs_deterministic_iters{iters}_max": float(dn.max()),
+            f"atomic_vs_deterministic_iters{iters}_pooled_median":
+                float(np.median(floor)),
+            f"atomic_vs_deterministic_iters{iters}_run_medians": run_medians,
+            f"atomic_vs_deterministic_iters{iters}_max": float(floor.max()),
             f"mean_abs_flow_iters{iters}": float(
-                flows["plain"][iters].norm(dim=-1).mean()),
+                plain_det.norm(dim=-1).mean()),
             "bounds": {"grads": bar, "iters1_max": FLOW_BOUND_1,
                        f"iters{iters}_median": bound_n}}
-        del models, flows, g32
+        del models, flows, atomic, plain_det, g32
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5261,6 +5291,11 @@ SEQ_KNN_GAP = 1e-5
 # floor's (the sharded features start up to ~10x further apart than such
 # a move leaves them).
 SEQ_FLOOR_FACTOR = 10.0
+# (d) the refine leg: eager refine steps at 8 iterations timed on each
+# rank, after one untimed; its model runs fused_gru, so that both kernels
+# run in the sharded backbone.
+SEQ_REFINE_TIMED = 2
+SEQ_REFINE_MODEL = {"fused_gru": True}
 
 
 def seq_cfg(seed, seq):
@@ -5405,12 +5440,17 @@ def seq_steps(trainer, batch, window):
     return out
 
 
+def encoder_of(model):
+    """The feature encoder of a PVRaft, or of a PVRaftRefine's backbone."""
+    return getattr(model, "backbone", model).feature_extractor
+
+
 def seq_eval(ev):
     """The Evaluator's per-scene EPE (this rank's shares on a rank) over
     its scenes in order, the graphs it used (pc1's and pc2's of each
     scene), and its means."""
     per, graphs = [], []
-    handle = recording(ev.model.feature_extractor, [], graphs)
+    handle = recording(encoder_of(ev.model), [], graphs)
     try:
         for host in ev.loader.epoch(0):
             per += ev.eval_step(ev._put(host))[0]["epe3d"].tolist()
@@ -5452,11 +5492,245 @@ def group_window(mesh, dev):
     return window
 
 
+def seq_refine_cfg(seed, seq):
+    """(d)'s config: :func:`seq_cfg`'s with ``train.refine`` (8
+    iterations) and :data:`SEQ_REFINE_MODEL`."""
+    cfg = seq_cfg(seed, seq)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, **SEQ_REFINE_MODEL),
+        train=dataclasses.replace(cfg.train, refine=True))
+
+
+def seq_refine_state(seed, cfg):
+    """(d)'s weights: the stage-1 legs' seeded backbone (``seed``) under a
+    head of its own seed."""
+    from pvraft_tpu_torch.config import ModelConfig
+    from pvraft_tpu_torch.weights import seeded_state_dict
+
+    state = seeded_state_dict(cfg.model, seed + 1, refine=True)
+    state.update({f"backbone.{k}": v for k, v in
+                  seeded_state_dict(ModelConfig(), seed).items()})
+    return state
+
+
+def refine_probe(model, batch):
+    """(d)'s refine step at 1 iteration under ``deterministic()``, on an
+    SGD at rate 0 over the head (the step reduces the head's gradients as
+    any refine step of ``model`` does): its loss, the head's gradients,
+    and the backbone leaves that got one."""
+    from pvraft_tpu_torch.engine.steps import make_refine_train_step
+    from pvraft_tpu_torch.weights import trained_parameters
+
+    head = trained_parameters(model)
+    step = make_refine_train_step(
+        model, torch.optim.SGD([p for _, p in head], lr=0.0),
+        lambda _: 0.0, 1)
+    with deterministic():
+        loss = float(step(batch)["loss"])
+    return ((loss, {n: p.grad.detach().cpu().clone() for n, p in head}),
+            [n for n, p in model.backbone.named_parameters()
+             if p.grad is not None])
+
+
+def seq_refine_rank(seed, root, rank, world, dev):
+    """(d) on one rank: the eager refine Trainer on the seq group, its
+    rows' refined flows at 1 and 8 iterations with the graphs and the
+    ring truncation they used, :func:`refine_probe`, timed refine steps
+    (ms each, wrapper launches, collectives a step, peak GB) and the
+    eager refine Evaluator at 1 iteration."""
+    from pvraft_tpu_torch.data import first_batch
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+    from pvraft_tpu_torch.parallel import collectives, make_mesh
+    from pvraft_tpu_torch.parallel.ring import ring_truncation
+
+    cfg = seq_refine_cfg(seed, True).replace(
+        exp_path=os.path.join(root, f"refine{rank}"))
+    trainer = Trainer(cfg, device=dev, graphs=False,
+                      weights=seq_refine_state(seed, cfg))
+    model = trainer.model
+    check(model.seq_group is not None
+          and model.ref_conv3.gn3.seq_group is model.seq_group
+          and trainer.train_step.reduce.n_seq == world,
+          "phase 17 (d): the rank's refine model or step is not "
+          "sequence-parallel")
+    batch = trainer._put(first_batch(trainer.train_loader))
+    fmaps, graphs = [], []
+    handle = recording(model.backbone.feature_extractor, fmaps, graphs)
+    try:
+        with torch.no_grad():
+            out = {f"flow{it}": model(batch["pc1"], batch["pc2"], it).cpu()
+                   for it in (1, 8)}
+    finally:
+        handle.remove()
+    out["graphs"] = graphs[:2]
+    with torch.no_grad():
+        out["keep"] = ring_truncation(
+            fmaps[0].to(dev), fmaps[1].to(dev), cfg.model.truncate_k,
+            model.seq_group)[1].cpu()
+    out["probe"], out["backbone_grads"] = refine_probe(model, batch)
+    ms, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.CALLS.clear()
+    n = 1 + SEQ_REFINE_TIMED
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    out["steps"] = {
+        "losses": losses, "ms": ms, "timed_ms": ms[1:],
+        "launches_per_step": {k: v / n for k, v in read_counts().items()},
+        "collectives_per_step": {k: v / n for k, v in
+                                 collectives.CALLS.items()},
+        "step_reductions": trainer.train_step.reduce.calls,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    state = seq_refine_state(seed, cfg)
+    out["backbone_unchanged"] = all(
+        torch.equal(p.cpu(), state[f"backbone.{k}"])
+        for k, p in model.backbone.named_parameters())
+    trainer.close()
+    del trainer, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev = Evaluator(cfg.replace(
+        train=dataclasses.replace(cfg.train, eval_iters=1),
+        exp_path=os.path.join(root, f"refine_eval{rank}")), device=dev,
+        mesh=make_mesh(n_seq=world), graphs=False)
+    out["eval"] = seq_eval(ev)
+    ev.close()
+    return out
+
+
+def seq_refine_reference(seed, dev, root, ranks):
+    """(d)'s one-process side, on the ranks' graphs (and truncation where
+    named): the refine model on the same weights and batch, its refined
+    flows at 1 iteration (graphs and truncation given) and 8 (graphs
+    given), its one-ulp floor at 8 as :func:`seq_floor`'s (the clouds
+    moved up by one ulp against the clouds as they are), beside the
+    sharded flow's error, :func:`refine_probe` on the clouds and on the
+    clouds moved by one ulp (the step's floor), and the eager refine
+    Evaluator at 1 iteration on the ranks' eval graphs."""
+    from pvraft_tpu_torch.data import first_batch
+    from pvraft_tpu_torch.engine.evaluator import Evaluator
+    from pvraft_tpu_torch.engine.trainer import Trainer
+
+    cfg = seq_refine_cfg(seed, False).replace(
+        exp_path=os.path.join(root, "refine_one"))
+    trainer = Trainer(cfg, device=dev, graphs=False,
+                      weights=seq_refine_state(seed, cfg))
+    model = trainer.model
+    batch = trainer._put(first_batch(trainer.train_loader))
+    graphs = [torch.cat(g, dim=1) for g in zip(
+        *(r["refine"]["graphs"] for r in ranks))]
+    keep = torch.cat([r["refine"]["keep"] for r in ranks], dim=1)
+    joined = {it: torch.cat([r["refine"][f"flow{it}"] for r in ranks], dim=1)
+              for it in (1, 8)}
+    up = ulp_up(batch)
+    with given_graphs(encoder_of(model), graphs):
+        with torch.no_grad():
+            flow8, flow8_up = (model(b["pc1"], b["pc2"], 8).cpu()
+                               for b in (batch, up))
+        with given_truncation(model.backbone, keep):
+            with torch.no_grad():
+                flow1 = model(batch["pc1"], batch["pc2"], 1).cpu()
+            probe_floor, _ = refine_probe(model, up)
+            probe, backbone_grads = refine_probe(model, batch)
+    floor, seq8 = (flow8_up - flow8).abs(), (joined[8] - flow8).abs()
+    trainer.close()
+    del trainer, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev = Evaluator(cfg.replace(
+        train=dataclasses.replace(cfg.train, eval_iters=1),
+        exp_path=os.path.join(root, "refine_eval")), device=dev,
+        graphs=False)
+    eval_graphs = [torch.cat(g, dim=1) for g in zip(
+        *(r["refine"]["eval"]["graphs"] for r in ranks))]
+    with given_graphs(encoder_of(ev.model), eval_graphs):
+        one_eval = seq_eval(ev)
+    ev.close()
+    err1 = (joined[1] - flow1).abs()
+    beyond = (err1 > SEQ_FLOW_ATOL + SEQ_FLOW_RTOL * joined[1].abs()).any(-1)
+    return {"iters1": {"max_abs_err": float(err1.max()),
+                       "beyond": int(beyond.sum()),
+                       "points": beyond.numel()},
+            "floor8": {"median_abs_err": float(floor.median()),
+                       "max_abs_err": float(floor.max()),
+                       "seq_median_abs_err": float(seq8.median()),
+                       "seq_max_abs_err": float(seq8.max())},
+            "probe": probe, "probe_floor": probe_floor,
+            "backbone_grads": backbone_grads, "eval": one_eval}
+
+
+def seq_refine_checks(ranks, one, need):
+    """(d)'s bars, each through ``need``; returns the record the phase
+    prints."""
+    f1 = one["iters1"]
+    need(f1["beyond"] == 0,
+         f"phase 17 (d): the sharded refined flow at 1 iteration against "
+         f"one process on the ranks' graphs and truncation: {f1}")
+    floor = one["floor8"]
+    need(np.isfinite(floor["seq_max_abs_err"])
+         and floor["seq_median_abs_err"]
+         <= SEQ_FLOOR_FACTOR * floor["median_abs_err"],
+         f"phase 17 (d): the sharded refined flow at 8 iterations against "
+         f"one process, beside its own floor: {floor}")
+    got = [r["refine"] for r in ranks]
+    for r in got[1:]:
+        need(r["probe"][0] == got[0]["probe"][0]
+             and r["steps"]["losses"] == got[0]["steps"]["losses"],
+             "phase 17 (d): the ranks' refine losses differ")
+    probe = grad_agreement(got[0]["probe"], one["probe"])
+    probe["floor"] = grad_agreement(one["probe_floor"], one["probe"])
+    bar = dict(GRAD_BOUNDS["iters1"], max_rel=max(
+        GRAD_BOUNDS["iters1"]["max_rel"],
+        SEQ_FLOOR_FACTOR * probe["floor"]["max_rel"]), loss_rel=SEQ_LOSS_REL)
+    need(probe["loss_rel"] <= bar["loss_rel"]
+         and probe["min_cos"] >= bar["min_cos"]
+         and probe["max_rel"] <= bar["max_rel"],
+         f"phase 17 (d): the refine step at 1 iteration against one "
+         f"process: {probe} (bars {bar})")
+    need(all(not r["backbone_grads"] for r in got)
+         and not one["backbone_grads"]
+         and all(r["backbone_unchanged"] for r in got),
+         f"phase 17 (d): backbone leaves with a gradient "
+         f"{[r['backbone_grads'][:3] for r in got]} / "
+         f"{one['backbone_grads'][:3]}, or a backbone that moved")
+    for r in got:
+        launches = r["steps"]["launches_per_step"]
+        need(launches["fused_corr_lookup"] == 8
+             and launches["fused_gru_update"] == 8
+             and r["steps"]["step_reductions"] == 1 + SEQ_REFINE_TIMED,
+             f"phase 17 (d): a rank's refine step launched {launches}")
+        need(all(np.isfinite(r["steps"]["losses"])),
+             f"phase 17 (d): refine losses {r['steps']['losses']}")
+    per_scene = np.sum([r["eval"]["epe"] for r in got], axis=0)
+    eval_err = float(np.max(np.abs(per_scene - np.asarray(
+        one["eval"]["epe"]))))
+    need(eval_err <= SEQ_EVAL_TOL
+         and all(r["eval"]["means"] == got[0]["eval"]["means"] for r in got),
+         f"phase 17 (d): refine per-scene EPE {per_scene.tolist()} against "
+         f"{one['eval']['epe']}")
+    return {"iters1": f1, "floor8": floor, "step_iters1": probe,
+            "step_iters1_bounds": bar,
+            "ranks": [{k: r[k] for k in ("steps", "backbone_unchanged")}
+                      for r in got],
+            "eval": {"per_scene_epe": per_scene.tolist(),
+                     "one_process": one["eval"]["epe"],
+                     "per_scene_max_abs_err": eval_err,
+                     "ranks_means": got[0]["eval"]["means"],
+                     "one_process_means": one["eval"]["means"]}}
+
+
 def seq_leg_rank(seed, rank, world, port, path, dev=None):
     """Phase 17, one rank of the seq group: the flagship eager Trainer on
     a 1 x ``world`` mesh in a gloo group on the one card; (a) its rows'
     forward, (b) its train steps, (c) the eager Evaluator at 1
-    iteration."""
+    iteration, (d) stage 2 (:func:`seq_refine_rank`)."""
     from pvraft_tpu_torch.config import ModelConfig
     from pvraft_tpu_torch.data import first_batch
     from pvraft_tpu_torch.engine.evaluator import Evaluator
@@ -5501,6 +5775,10 @@ def seq_leg_rank(seed, rank, world, port, path, dev=None):
                 mesh=make_mesh(n_seq=world), graphs=False)
             out["eval"] = seq_eval(ev)
             ev.close()
+            del ev
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["refine"] = seq_refine_rank(seed, root, rank, world, dev)
         torch.save(out, path)
     finally:
         shutdown()
@@ -5564,6 +5842,13 @@ def seq_flips(one, joined, iters, dev, k):
             "unreached_beyond": int((beyond & far).sum())}
 
 
+def ulp_up(batch):
+    """``batch`` with both clouds moved up by one ulp."""
+    return dict(batch, **{k: torch.nextafter(
+        batch[k], torch.full_like(batch[k], torch.inf))
+        for k in ("pc1", "pc2")})
+
+
 def seq_floor(model, batch, graphs, gamma, seq_flows):
     """The one-process model's own float32 floor at 8 iterations: the
     same model on the same graphs with both clouds moved up by one ulp,
@@ -5572,10 +5857,9 @@ def seq_floor(model, batch, graphs, gamma, seq_flows):
     process), and the sequence loss's relative change."""
     from pvraft_tpu_torch.engine.loss import sequence_loss
 
-    up = {k: torch.nextafter(batch[k], torch.full_like(batch[k], torch.inf))
-          for k in ("pc1", "pc2")}
     with torch.no_grad(), given_graphs(model.feature_extractor, graphs):
-        flows = [model(b["pc1"], b["pc2"], 8)[0] for b in (batch, up)]
+        flows = [model(b["pc1"], b["pc2"], 8)[0]
+                 for b in (batch, ulp_up(batch))]
     floor = (flows[1][-1] - flows[0][-1]).abs().cpu()
     loss = [float(sequence_loss(f, batch["mask"], batch["flow"], gamma))
             for f in flows]
@@ -5612,7 +5896,19 @@ def seq_parallel_phase(seed, dev):
     step per rank (wrapper counts, and the card's in one profiler window
     the ranks take together); ms a step, peak GB, collectives a step.
     (c) The eager Evaluator at 1 iteration: per-scene EPE (the ranks'
-    shares summed) within :data:`SEQ_EVAL_TOL` of one process."""
+    shares summed) within :data:`SEQ_EVAL_TOL` of one process. (d) Stage
+    2 on the same group (:func:`seq_refine_rank`, the reference
+    :func:`seq_refine_reference`, the bars :func:`seq_refine_checks`):
+    the refined flow at 1 iteration on the ranks' graphs and truncation,
+    every point within the flagship parity bar; at 8 iterations on their
+    graphs, the median error within :data:`SEQ_FLOOR_FACTOR` of the
+    refine model's one-ulp floor (32 untrained iterations are chaotic:
+    phase 9); a refine step at 1 iteration under ``deterministic()``:
+    loss within :data:`SEQ_LOSS_REL`, head gradients under (b)'s
+    1-iteration bar, every backbone leaf's gradient None; 8 launches of
+    kernels 1 and 2 a step per rank (wrapper counts), ms a step, peak GB,
+    collectives a step; the refine Evaluator's per-scene EPE within
+    :data:`SEQ_EVAL_TOL`."""
     from pvraft_tpu_torch.config import ModelConfig
     from pvraft_tpu_torch.data import first_batch
     from pvraft_tpu_torch.engine.evaluator import Evaluator
@@ -5655,10 +5951,8 @@ def seq_parallel_phase(seed, dev):
         with given_graphs(trainer.model.feature_extractor, graphs), \
                 given_truncation(trainer.model, keep):
             # The 1-iteration step's own floor: the clouds moved by one ulp.
-            up = dict(batch, **{k: torch.nextafter(
-                batch[k], torch.full_like(batch[k], torch.inf))
-                for k in ("pc1", "pc2")})
-            probe_floor = seq_probe(trainer.model, up, cfg.train.gamma)
+            probe_floor = seq_probe(trainer.model, ulp_up(batch),
+                                    cfg.train.gamma)
             one_steps = seq_steps(trainer, batch, window)
         trainer.close()
         del trainer, batch
@@ -5672,6 +5966,10 @@ def seq_parallel_phase(seed, dev):
         with given_graphs(ev.model.feature_extractor, eval_graphs):
             one_eval = seq_eval(ev)
         ev.close()
+        del ev
+        gc.collect()
+        torch.cuda.empty_cache()
+        one_refine = seq_refine_reference(seed, dev, root, ranks)
     # Every check of the phase is read before any fails it.
     fails = []
 
@@ -5760,6 +6058,7 @@ def seq_parallel_phase(seed, dev):
          f"phase 17 (c): per-scene EPE {per_scene.tolist()} against "
          f"{one_eval['epe']}, means {ranks[0]['eval']['means']} / "
          f"{one_eval['means']}")
+    refine = seq_refine_checks(ranks, one_refine, need)
     check(not fails, " | ".join(fails))
     for side in (*[r["steps"] for r in ranks], one_steps):
         del side["grads"], side["probe"]
@@ -5774,6 +6073,7 @@ def seq_parallel_phase(seed, dev):
                      "one_process": one_eval, "per_scene_max_abs_err":
                      eval_err, "means_max_abs_err": means_err,
                      "ranks_means": ranks[0]["eval"]["means"]},
+            "refine": refine,
             "legs_s": legs_s, "phase_s": time.perf_counter() - t_phase}
 
 
@@ -6635,9 +6935,17 @@ def bench_phase(dev):
 # ------------------------------------------------------------------ main --
 
 
+# The phases that run alone after the kernel build (``--phase``): each
+# needs only the seed and the device.
+ALONE = {"refine": refine_phase, "seq_parallel": seq_parallel_phase}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", action="append", choices=sorted(ALONE),
+                    help="run only this phase after the build (repeat for "
+                         "more, in order); the kernels line is not printed")
     # Phase 16 runs its legs as processes of this script (--leg).
     ap.add_argument("--leg", choices=("one", "rank", "seq"), default=None,
                     help=argparse.SUPPRESS)
@@ -6686,6 +6994,15 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "kernel_build_s": build_s, "ptxas": ptxas,
           "tf32_matmul": False, "tf32_cudnn": False})
+    if args.phase:
+        for name in args.phase:
+            t1 = time.perf_counter()
+            res = ALONE[name](args.seed, dev)
+            emit({"phase": name, **res,
+                  "alone_s": time.perf_counter() - t1})
+        print(smi, flush=True)
+        emit({"ok": True, "phases": args.phase})
+        return 0
 
     rng = np.random.default_rng(args.seed)
     lookup = {f"{b}x{n}": check_lookup(rng, b, n, dev) for b, n in LOOKUP_SHAPES}
@@ -6851,6 +7168,8 @@ def main() -> int:
                     name],
             "seq_rank_train_launches_per_step":
                 seq["steps"]["ranks"][0]["window"]["launches"][name],
+            "seq_rank_refine_train_launches_per_step":
+                seq["refine"]["ranks"][0]["steps"]["launches_per_step"][name],
             "fleet_routed_request_launches": load_fleet["launches"][name],
             **extra.get(name, {}),
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),

@@ -36,8 +36,7 @@ writes into its own buffers, so there is no input buffer to give away.
 group; ``parallel/mesh.py::make_mesh`` holds it to the world size);
 ``seq_axis`` is the ranks each scene's points are sharded over, and
 ``ModelConfig.seq_shard`` makes a model on such a mesh sequence-parallel
-(``parallel/ring.py``, ``models/raft.py``). Stage 2 under ``seq_shard``
-is ROADMAP queue 1 item 8c (:data:`SEQ_REFINE`).
+(``parallel/ring.py``, ``models/raft.py``), stage 2's head included.
 
 ``ModelConfig.scan_unroll`` is accepted, so that configs shared with the
 JAX package load, and changes nothing: the JAX package unrolls its
@@ -131,11 +130,6 @@ class ModelConfig:
              "TPU-motivated VJP whose forward equals the default path's"),
         )
         reject_later(self, later)
-
-
-# Where the refusals of stage 2 on a sequence axis point.
-SEQ_REFINE = ("stage 2 (PVRaftRefine, --refine) under seq_shard is not ported "
-              "yet: it arrives with ROADMAP queue 1 item 8c")
 
 
 def reject_later(cfg: Any, later: Iterable[Tuple[str, bool, str]]) -> None:

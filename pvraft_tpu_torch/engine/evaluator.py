@@ -117,7 +117,7 @@ def _check_seq(cfg: Config, mesh: Mesh, device: torch.device,
                graphs: bool) -> None:
     """What a seq axis refuses (``check_seq_axis``), and a captured step
     over a gloo seq group on the card."""
-    check_seq_axis(mesh, cfg.model.seq_shard, cfg.train.refine)
+    check_seq_axis(mesh, cfg.model.seq_shard)
     if (graphs and device.type == "cuda" and mesh.seq_group is not None
             and dist.get_backend(mesh.seq_group) != "nccl"):
         raise ValueError(
@@ -158,8 +158,8 @@ class Evaluator:
         self.loader = PrefetchLoader(
             self.dataset, self.eval_batch, drop_last=False,
             num_workers=min(2, cfg.data.num_workers), shard=self.shard)
-        self.model = (PVRaftRefine(cfg.model) if t.refine
-                      else PVRaft(cfg.model, self.mesh))
+        self.model = (PVRaftRefine if t.refine else PVRaft)(cfg.model,
+                                                            self.mesh)
         self.model.load_state_dict(seeded_state_dict(
             cfg.model, torch_seed(t.seed, "model.init"), t.refine),
             strict=True)

@@ -92,9 +92,12 @@ def seq_group_of(model) -> Any:
 def refine_loss_of(model, batch: Batch, num_iters: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The refine train step's loss: (masked L1 of the refined flow, the
-    refined flow (B, N, 3)) (``tools/engine_refine.py:142``)."""
+    refined flow (B, N, 3)) (``tools/engine_refine.py:142``); a
+    sequence-parallel model's share of it (the mask counted over its
+    seq group)."""
     flow = model(batch["pc1"], batch["pc2"], num_iters)
-    return compute_loss(flow, batch["mask"], batch["flow"]), flow
+    return compute_loss(flow, batch["mask"], batch["flow"],
+                        seq_group_of(model)), flow
 
 
 def optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
@@ -801,7 +804,7 @@ def make_eval_step(model, num_iters: int, gamma: float,
 
     def loss_of(flows, mask, gt):
         if refine:
-            return compute_loss(flows, mask, gt)
+            return compute_loss(flows, mask, gt, seq)
         return sequence_loss(flows, mask, gt, gamma, seq)
 
     def eval_step(batch: Batch) -> Tuple[Batch, torch.Tensor]:

@@ -117,8 +117,9 @@ rows of every scene's points (``parallel/mesh.py::seq_shard_batch``; a
 point count the seq axis does not divide raises). Each step sums the
 seq group's gradients and averages over the data axis; the per-scene
 eval metrics are summed over the seq group before they meet over the
-data axis (``combine_sums``). Stage 2 under a seq axis raises, naming
-ROADMAP queue 1 item 8c.
+data axis (``combine_sums``). Stage 2 runs so too: the model is
+``PVRaftRefine(cfg.model, mesh)``, whose backbone and head hold this
+rank's rows; ``load_stage1_weights`` gives every rank the same backbone.
 """
 
 from __future__ import annotations
@@ -229,9 +230,9 @@ def _check_parallel(cfg: Config, mesh: Mesh, device: torch.device,
                     graphs: bool) -> None:
     """The levers a data-parallel run refuses (the JAX Trainer's
     refusals, and the port's own: graphs need NCCL; a seq axis needs
-    ``seq_shard``, and stage 2 on one is item 8c)."""
+    ``seq_shard``)."""
     par = cfg.parallel
-    check_seq_axis(mesh, cfg.model.seq_shard, cfg.train.refine)
+    check_seq_axis(mesh, cfg.model.seq_shard)
     if mesh.process_count > 1 and par.steps_per_dispatch > 1:
         raise ValueError(
             "parallel.steps_per_dispatch > 1 is single-process only (the "
@@ -284,6 +285,8 @@ class Trainer:
         self.cfg = cfg
         # The cost block's inventory: looked up at the first epoch's end.
         self._cost_surface: Any = cost_surface
+        # The last cost block's step_ratio and hw_utilization unrounded.
+        self.step_cost: Optional[Dict[str, Any]] = None
         self.device = resolve_device(device)
         par = cfg.parallel
         self.mesh = mesh = mesh if mesh is not None else make_mesh(
@@ -351,8 +354,7 @@ class Trainer:
                 cfg.model, torch_seed(cfg.train.seed, "model.init"), refine)
         elif any(isinstance(v, Mapping) for v in weights.values()):
             weights = params_from_jax(weights)
-        self.model = (PVRaftRefine(cfg.model) if refine
-                      else PVRaft(cfg.model, mesh))
+        self.model = (PVRaftRefine if refine else PVRaft)(cfg.model, mesh)
         self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device)
         # Every leaf replicates (the rules' specs are all ()); the refine
@@ -732,8 +734,9 @@ class Trainer:
         measured step seconds beside the inventory's flagship train step
         at the model's compute dtype (``CostSurface.lookup_train_step``),
         its roofline seconds, their ratio and the hardware utilization
-        its flops give. A run at another shape reads the ratio as scale
-        evidence. Any failure gives None."""
+        its flops give, rounded (the JAX block's digits; ``step_cost``
+        keeps the two unrounded). A run at another shape reads the ratio
+        as scale evidence. Any failure gives None."""
         if self._cost_surface is None or isinstance(self._cost_surface, str):
             try:
                 self._cost_surface = CostSurface.load(self._cost_surface)
@@ -748,11 +751,13 @@ class Trainer:
             return None
         platform = "gpu" if self.device.type == "cuda" else self.device.type
         util = hardware_utilization(rec.flops, step_s, dtype)
+        ratio = step_s / rec.device_seconds
+        self.step_cost = {"step_ratio": ratio, "hw_utilization": util}
         return {
             "program": rec.name,
             "basis": rec.basis,
             "predicted_step_ms": round(rec.device_seconds * 1e3, 3),
-            "step_ratio": round(step_s / rec.device_seconds, 4),
+            "step_ratio": round(ratio, 4),
             "hw_utilization": round(util, 6) if util is not None else None,
             "platform": platform,
             "comparable": platform == "tpu" and rec.comparable,

@@ -20,8 +20,9 @@ clouds (``parallel/mesh.py::seq_rows``) through the whole forward and
 backward: the kNN graphs and the correlation cache come from the rings
 of ``parallel/ring.py``, every GroupNorm takes the seq group's
 statistics, every SetConv gathers its neighbours from its input joined
-over the group, and the flows are this rank's rows. Stage 2 under
-``seq_shard`` is ROADMAP queue 1 item 8c.
+over the group, and the flows are this rank's rows. ``PVRaftRefine(cfg,
+mesh=...)`` runs that backbone and its head on the same rows: the head's
+SetConvs gather over the group and take its GroupNorm statistics.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from torch.utils.checkpoint import (
 )
 
 from pvraft_tpu_torch.config import (
-    SEQ_REFINE,
     ModelConfig,
     compute_dtype,
     resolve_remat_policy,
@@ -212,19 +212,25 @@ class PVRaftRefine(nn.Module):
     ``encoder_width``, at the compute dtype) and a float32 Dense to 3.
     ``forward(xyz1, xyz2, num_iters, valid1, valid2)`` returns the
     refined flow (B, N, 3); ``valid1`` masks the head's GroupNorms as the
-    backbone's."""
+    backbone's.
 
-    def __init__(self, cfg: ModelConfig):
+    ``mesh``: as :class:`PVRaft`'s. Where the backbone is
+    sequence-parallel, ``xyz1``/``xyz2`` and the refined flow are this
+    rank's rows, pc1's graph holds global indices, and the head's
+    SetConvs take the backbone's ``seq_group`` (the JAX head gets no
+    mesh: GSPMD shards it)."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Any = None):
         super().__init__()
-        if cfg.seq_shard:
-            raise NotImplementedError(SEQ_REFINE)
         self.cfg = cfg
-        self.backbone = PVRaft(cfg)
+        self.mesh = mesh
+        self.backbone = PVRaft(cfg, mesh)
+        self.seq_group = seq = self.backbone.seq_group
         n = cfg.encoder_width
         d = compute_dtype(cfg)
-        self.ref_conv1 = SetConv(3, n, d)
-        self.ref_conv2 = SetConv(n, 2 * n, d)
-        self.ref_conv3 = SetConv(2 * n, 4 * n, d)
+        self.ref_conv1 = SetConv(3, n, d, seq)
+        self.ref_conv2 = SetConv(n, 2 * n, d, seq)
+        self.ref_conv3 = SetConv(2 * n, 4 * n, d, seq)
         self.fc = Dense(4 * n, 3)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,

@@ -154,14 +154,9 @@ def eval_scene_shard(n_scenes: int, eval_batch: int, mesh: Mesh
     return (0, 1)
 
 
-def check_seq_axis(mesh: Mesh, seq_shard: bool, refine: bool) -> None:
-    """What a seq axis of more than one rank refuses: stage 2 (ROADMAP
-    queue 1 item 8c) and a model without ``seq_shard`` (the ranks of a
-    seq group share each scene's points)."""
-    from pvraft_tpu_torch.config import SEQ_REFINE
-
-    if mesh.n_seq > 1 and refine:
-        raise NotImplementedError(SEQ_REFINE)
+def check_seq_axis(mesh: Mesh, seq_shard: bool) -> None:
+    """What a seq axis of more than one rank refuses: a model without
+    ``seq_shard`` (the ranks of a seq group share each scene's points)."""
     if mesh.n_seq > 1 and not seq_shard:
         raise ValueError(
             f"a seq axis of {mesh.n_seq} ranks needs ModelConfig.seq_shard "

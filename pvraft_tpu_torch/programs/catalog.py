@@ -244,7 +244,7 @@ def _model(cfg, device, refine: bool = False, mesh=None):
     from pvraft_tpu_torch.rng import torch_seed
     from pvraft_tpu_torch.weights import seeded_state_dict
 
-    model = PVRaftRefine(cfg) if refine else PVRaft(cfg, mesh)
+    model = (PVRaftRefine if refine else PVRaft)(cfg, mesh)
     model.load_state_dict(seeded_state_dict(
         cfg, torch_seed(DEFAULT_SEED, "model.init"), refine), strict=True)
     return model.to(device)

@@ -14,8 +14,8 @@ The reference protocol (``engine/evaluator.py``): per-scene metrics at
 ``eval_iters`` GRU iterations, running means; ``--eval_batch`` scenes a
 step (0: one per data rank), and under ``torchrun --nproc_per_node=N -m
 pvraft_tpu_torch.test`` the ranks share the scenes; ``--seq_parallel P``
-shards each scene's points over P of them (``--refine`` refuses it:
-ROADMAP queue 1 item 8c). ``--weights`` takes a
+shards each scene's points over P of them (``--refine`` included).
+``--weights`` takes a
 msgpack checkpoint of the port or of the JAX package, ``--torch_weights``
 a reference-published ``.params`` file; with ``--refine`` either holds a
 stage-2 (``PVRaftRefine``) model, evaluated at ``eval_iters``. The flags
@@ -38,7 +38,6 @@ import sys
 from typing import List, Optional
 
 from pvraft_tpu_torch.config import (
-    SEQ_REFINE,
     Config,
     DataConfig,
     ModelConfig,
@@ -116,11 +115,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="ranks on the sequence axis: each scene's points "
                         "sharded over them (seq_shard); launch the ranks "
                         "with torchrun")
-    args = p.parse_args(argv)
-    if args.refine and args.seq_parallel > 1:
-        p.error(f"--seq_parallel {args.seq_parallel} with --refine: "
-                f"{SEQ_REFINE}")
-    return args
+    return p.parse_args(argv)
 
 
 def config_from_args(a: argparse.Namespace) -> Config:

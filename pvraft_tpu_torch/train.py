@@ -61,8 +61,12 @@ on the CPU with gloo::
     torchrun --nproc_per_node=4 -m pvraft_tpu_torch.train --device cpu \
         --dataset synthetic --data_parallel 2 --seq_parallel 2 ...
 
-Stage 2 (``--refine``) refuses ``--seq_parallel`` above 1: ROADMAP queue
-1 item 8c.
+Stage 2 takes it too: each rank imports the same stage-1 checkpoint into
+its backbone and runs the head on its rows, e.g.::
+
+    torchrun --nproc_per_node=2 -m pvraft_tpu_torch.train --device cpu \
+        --dataset synthetic --refine --seq_parallel 2 \
+        --stage1_weights CKPT ...
 """
 
 from __future__ import annotations
@@ -74,7 +78,6 @@ from typing import List, Optional
 
 from pvraft_tpu_torch.config import (
     LR_SCHEDULES,
-    SEQ_REFINE,
     Config,
     DataConfig,
     ModelConfig,
@@ -217,9 +220,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.stage1_weights and not args.refine:
         p.error("--stage1_weights needs --refine")
-    if args.refine and args.seq_parallel > 1:
-        p.error(f"--seq_parallel {args.seq_parallel} with --refine: "
-                f"{SEQ_REFINE}")
     return args
 
 

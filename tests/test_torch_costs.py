@@ -529,7 +529,13 @@ def test_trainer_cost_block_passes_the_jax_validator(inventory, tmp_path,
     assert (cost["basis"], cost["platform"], cost["comparable"]) == \
         ("roofline", "cpu", False)
     assert cost["predicted_step_ms"] == round(rec.device_seconds * 1e3, 3)
-    assert cost["step_ratio"] > 0 and cost["hw_utilization"] > 0
+    # The block rounds the utilization to 6 decimals, and at this tiny CPU
+    # step (~5e-7) a loaded machine rounds it to 0: the figure it rounds
+    # must be positive, and the block must carry it rounded.
+    whole = trainer.step_cost
+    assert cost["step_ratio"] > 0 and whole["hw_utilization"] > 0
+    assert cost["step_ratio"] == round(whole["step_ratio"], 4)
+    assert cost["hw_utilization"] == round(whole["hw_utilization"], 6)
     bad = dict(summary, cost=dict(cost, comparable=True))
     assert jvalidate_event(bad)
 

@@ -441,16 +441,20 @@ def test_first_difference_names_the_submodule_that_parts():
     (["--scatter_free_vjp"], "ROADMAP queue 1 item 7"),
 ])
 def test_later_levers_name_their_roadmap_entry(flags, entry, capsys):
-    """Stage 2 on a sequence axis (item 8c) and the scatter-free VJP
-    (item 7) name their ROADMAP entries; stage 1 takes
-    ``--seq_parallel``."""
+    """The scatter-free VJP (item 7) names its ROADMAP entry; stage 2 on a
+    sequence axis (item 8c, since ported) parses, as stage 1's
+    ``--seq_parallel`` does."""
+    if "--refine" in flags:
+        for args in (flags, flags[1:]):
+            cfg = tcli.config_from_args(tcli.parse_args(
+                ["--dataset", "synthetic", *args]))
+            assert cfg.model.seq_shard and cfg.parallel.seq_axis > 1
+            assert cfg.train.refine == ("--refine" in args)
+        assert capsys.readouterr().err == ""
+        return
     with pytest.raises(SystemExit):
         tcli.parse_args(["--dataset", "synthetic", *flags])
     assert entry in capsys.readouterr().err
-    if "--refine" in flags:
-        cfg = tcli.config_from_args(tcli.parse_args(
-            ["--dataset", "synthetic", *flags[1:]]))
-        assert cfg.model.seq_shard and cfg.parallel.seq_axis > 1
 
 
 @pytest.mark.parametrize("flags,field,want", [

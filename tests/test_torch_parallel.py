@@ -707,7 +707,7 @@ def test_graphs_need_nccl_on_the_card(monkeypatch):
 def test_seq_parallel_stays_refused_naming_item_8b(capsys):
     """(Named for the refusal it held before the ring was ported.)
     ``seq_shard`` and ``seq_axis`` are taken, and both CLIs' ``--seq_parallel
-    2`` parses into them; only stage 2 refuses it, naming item 8c."""
+    2`` parses into them, with ``--refine`` too (stage 2 on a seq axis)."""
     from pvraft_tpu_torch import test as ttest_cli
     from pvraft_tpu_torch import train as ttrain_cli
 
@@ -716,9 +716,11 @@ def test_seq_parallel_stays_refused_naming_item_8b(capsys):
     for cli in (ttrain_cli, ttest_cli):
         cfg = cli.config_from_args(cli.parse_args(["--seq_parallel", "2"]))
         assert (cfg.model.seq_shard, cfg.parallel.seq_axis) == (True, 2)
-        with pytest.raises(SystemExit):
-            cli.parse_args(["--refine", "--seq_parallel", "2"])
-        assert "ROADMAP queue 1 item 8c" in capsys.readouterr().err
+        cfg = cli.config_from_args(cli.parse_args(
+            ["--refine", "--seq_parallel", "2"]))
+        assert (cfg.train.refine, cfg.model.seq_shard,
+                cfg.parallel.seq_axis) == (True, True, 2)
+        assert capsys.readouterr().err == ""
     args = ttrain_cli.parse_args(["--data_parallel", "2"])
     assert ttrain_cli.config_from_args(args).parallel.data_axis == 2
     assert TrainConfig(eval_batch=4).eval_batch == 4

@@ -3,8 +3,10 @@
 Gloo groups of two ranks (``tests/test_torch_parallel.py``'s spawner) as
 one seq group (a 1 x 2 mesh), each rank on its rows of every scene, at
 tiny sizes (64 points, truncate_k 16, corr_knn 8, graph_k 8, 2
-iterations), against one process; the refusals of a seq axis; the
-catalog's ``dp_sp_2x2_train_step`` on 4 ranks. The rings
+iterations), against one process; both CLIs at stage 2 too; the
+refusals of a seq axis; the catalog's ``dp_sp_2x2_train_step`` on 4
+ranks. Stage 2's model, steps, Trainer and Evaluator on a seq axis:
+``tests/test_torch_seq_refine.py``. The rings
 and the model against the JAX package: ``tests/test_torch_seq_parallel.py``.
 """
 
@@ -133,9 +135,57 @@ def test_clis_train_and_evaluate_at_seq_parallel_2(tmp_path, capfd):
     assert all(np.isfinite(v) for v in lines[-1].values())
 
 
+def _refine_cli_worker(rank, tmp, stage1):
+    from pvraft_tpu_torch import test as test_cli
+    from pvraft_tpu_torch import train as train_cli
+
+    exp = os.path.join(tmp, "exp")
+    flags = ["--dataset", "synthetic", "--device", "cpu", "--max_points",
+             str(N), "--synthetic_size", "2", "--truncate_k", "16",
+             "--corr_knn", "8", "--num_workers", "0", "--seq_parallel", "2",
+             "--refine"]
+    train_cli.main(flags + ["--exp_path", exp, "--iters", "1",
+                            "--eval_iters", "1", "--num_epochs", "1",
+                            "--stage1_weights", stage1])
+    test_cli.main(flags + ["--exp_path", os.path.join(tmp, "test"),
+                           "--eval_iters", "1", "--weights", os.path.join(
+                               exp, "checkpoints", "best_checkpoint.msgpack")])
+    return sorted(os.listdir(os.path.join(exp, "checkpoints")))
+
+
+def test_refine_clis_train_and_evaluate_at_seq_parallel_2(tmp_path, capfd):
+    """``train --refine --seq_parallel 2 --stage1_weights CKPT`` in a group
+    of two ranks imports the stage-1 checkpoint on both and writes one
+    checkpoint set, and ``test --refine --seq_parallel 2`` evaluates it;
+    rank 0 alone prints."""
+    from pvraft_tpu_torch.engine.checkpoint import save_checkpoint
+    from pvraft_tpu_torch.models import PVRaft
+    from pvraft_tpu_torch.weights import (
+        opt_state_to_jax, params_to_jax, seeded_state_dict)
+
+    cfg = ModelConfig(truncate_k=16, corr_knn=8)
+    stage1 = seeded_state_dict(cfg, 3)
+    model = PVRaft(cfg)
+    model.load_state_dict(stage1)
+    path = save_checkpoint(
+        str(tmp_path / "stage1"), params_to_jax(stage1),
+        opt_state_to_jax(torch.optim.Adam(model.parameters()), model),
+        0, 0)[0]
+    ranks = _spawn(_refine_cli_worker, tmp_path / "ranks", path)
+    assert ranks[0] == ranks[1] == ["best_checkpoint.msgpack",
+                                    "last_checkpoint.msgpack"]
+    lines = [json.loads(x) for x in capfd.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [sorted(x) for x in lines] == [
+        ["epoch", "train", "val"], ["device", "test"],
+        ["acc3d_relax", "acc3d_strict", "epe3d", "loss", "outlier"]]
+    assert all(np.isfinite(v) for v in lines[-1].values())
+
+
 def test_sequence_axis_refusals():
-    """A seq axis without ``seq_shard``, stage 2 on one (item 8c), a
-    ``valid2`` mask on the ring, and a seq layout without groups raise;
+    """A seq axis without ``seq_shard`` and a seq layout without groups
+    raise, for stage 2 as for stage 1; stage 2 on a seq axis (item 8c,
+    since ported) passes the Trainer's checks and builds;
     ``seq_rows`` refuses a point count the axis does not divide."""
     from pvraft_tpu_torch.engine.trainer import _check_parallel
     from pvraft_tpu_torch.models import PVRaft, PVRaftRefine
@@ -144,13 +194,20 @@ def test_sequence_axis_refusals():
     mesh = Mesh(1, 2, 0, 2)
     with pytest.raises(ValueError, match="needs ModelConfig.seq_shard"):
         _check_parallel(_cfg("unused"), mesh, torch.device("cpu"), False)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        _check_parallel(_cfg("unused", 2, refine=True), mesh,
+    with pytest.raises(ValueError, match="needs ModelConfig.seq_shard"):
+        _check_parallel(_cfg("unused", refine=True), mesh,
                         torch.device("cpu"), False)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        PVRaftRefine(ModelConfig(seq_shard=True, **TINY))
-    with pytest.raises(ValueError, match="process group"):
-        PVRaft(ModelConfig(seq_shard=True, **TINY), mesh)
+    _check_parallel(_cfg("unused", 2, refine=True), mesh,
+                    torch.device("cpu"), False)
+    for cls in (PVRaft, PVRaftRefine):
+        with pytest.raises(ValueError, match="process group"):
+            cls(ModelConfig(seq_shard=True, **TINY), mesh)
+    # Without a mesh, or on a seq axis of one, stage 2 is the one-rank
+    # model (the sharded build on real groups: test_torch_seq_refine.py).
+    for m in (None, Mesh(1, 1, 0, 1)):
+        refine = PVRaftRefine(ModelConfig(seq_shard=True, **TINY), m)
+        assert refine.seq_group is None
+        assert refine.ref_conv1.seq_group is None
     assert seq_rows(64, Mesh(1, 2, 1, 2)) == slice(32, 64)
     with pytest.raises(ValueError, match="must divide the point count"):
         seq_rows(63, mesh)

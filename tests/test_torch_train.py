@@ -374,10 +374,15 @@ def test_train_cli_runs_on_the_cpu_and_rejects_later_flags(capsys,
                 "--eval_iters", "1", "--num_epochs", "1"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 and '"test"' in lines[-1]
+    # A flag of a feature not ported names its ROADMAP entry; stage 2 on a
+    # seq axis is ported, and on one process the mesh refuses a seq axis
+    # of 2 (no ranks to cover it).
     with pytest.raises(SystemExit):
-        train.main(["--dataset", "synthetic", "--refine", "--seq_parallel",
-                    "2"])
-    assert "not ported yet" in capsys.readouterr().err
+        train.main(["--dataset", "synthetic", "--scatter_free_vjp"])
+    assert "ROADMAP queue 1 item 7" in capsys.readouterr().err
+    with pytest.raises(ValueError, match=">= 1 device"):
+        train.main(["--dataset", "synthetic", "--device", "cpu",
+                    "--refine", "--seq_parallel", "2"])
 
 
 def test_kernel_bench_runs_on_the_cpu_and_needs_cuda_otherwise(
