@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``pvraft_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed S] [--phase refine|seq_parallel ...]
+    python3 chip_smoke.py [--seed S] [--phase refine|seq_parallel|static_checks ...]
 
 Run from the root of a checkout on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA. It builds the port's
@@ -311,6 +311,12 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            or recompile, a canary that promotes and one that is
            rejected) in a valid ``pvraft_fleet_chaos/v1`` document;
            direct and routed p50/p95/p99 and requests/s;
+  phase 19 the port's static checks (``static_checks``,
+           ``static_checks_phase``; after phase 18): ``python -m
+           pvraft_tpu_torch.analysis concurrency`` (threadcheck) and
+           ``... determinism`` (detcheck) over the port's own source, each
+           in a subprocess, each at 0 findings; files checked, findings
+           and seconds. No kernel is launched;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -338,7 +344,8 @@ it would tilt the eager-against-graphed times of phases 2-4. The
 the kernel bench), the two general ones (launches from phase 6) and the
 bf16 GRU kernel (launches from phase 7's bf16 requests and steps).
 
-Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 6, 7. Each phase
+Phases run in the order 0-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+6, 7. Each phase
 prints one JSON line. Then the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -363,6 +370,11 @@ import time
 import numpy as np
 import torch
 
+from pvraft_tpu_torch.device import (
+    deterministic_algorithms,
+    fix_cublas_workspace,
+    set_tf32,
+)
 from pvraft_tpu_torch.kernel_bench import device_ms
 from pvraft_tpu_torch.ops import kernel_bounds
 from pvraft_tpu_torch.ops.cuda import KERNEL_SYMBOLS, gru_variant, lookup_variant
@@ -1186,11 +1198,8 @@ def deterministic():
     """PyTorch's deterministic algorithms (sorted scatter-add and gather
     backward instead of float atomics) for a gradient comparison: then
     only the kernels' own summation order differs between two paths."""
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic_algorithms(True):
         yield
-    finally:
-        torch.use_deterministic_algorithms(False)
 
 
 @contextlib.contextmanager
@@ -6679,6 +6688,47 @@ OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
                  {"hidden_dim": 32, "context_dim": 96, "fused_gru": True}))
 
 
+# -------------------------------------------------------------- phase 19 --
+
+# The port's static checks: (CLI subcommand, the tool's name in its
+# summary line).
+STATIC_CHECKS = (("concurrency", "threadcheck"), ("determinism", "detcheck"))
+
+
+def static_checks_phase(seed, dev):
+    """Phase 19 (``static_checks``; after phase 18, before the profiler
+    phases): the port's static checks over its own source, each CLI in a
+    subprocess of this Python: ``python -m pvraft_tpu_torch.analysis
+    concurrency`` (threadcheck, GC rules over ``serve/``, ``fleet/``,
+    ``obs/``, ``data/loader.py``) and ``... determinism`` (detcheck, GD
+    rules over the package, the program registry's hazard closure
+    included). Each must exit 0 with 0 findings; the files checked,
+    findings and seconds of each. Launches no kernel."""
+    import subprocess
+
+    out = {"python": sys.version.split()[0]}
+    for cmd, tool in STATIC_CHECKS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pvraft_tpu_torch.analysis", cmd],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        seconds = time.perf_counter() - t0
+        m = re.search(rf"{tool}: (\d+) finding\(s\) in (\d+) file\(s\)",
+                      proc.stderr)
+        check(m is not None,
+              f"static checks: {cmd} printed no summary (exit "
+              f"{proc.returncode}): {proc.stderr[-2000:]}")
+        findings, files = int(m.group(1)), int(m.group(2))
+        check(proc.returncode == 0 and findings == 0,
+              f"static checks: {tool} exit {proc.returncode}, {findings} "
+              f"finding(s):\n{proc.stdout[-4000:]}")
+        check(files > 0, f"static checks: {tool} checked no file")
+        out[cmd] = {"tool": tool, "files": files, "findings": findings,
+                    "seconds": seconds}
+    return out
+
+
 def off_flagship_phase(seed, dev):
     """One 8,192-point request per OFF_FLAGSHIP configuration, seeded
     weights, ``use_pallas=None``, through ``predict`` of a captured engine
@@ -6937,7 +6987,8 @@ def bench_phase(dev):
 
 # The phases that run alone after the kernel build (``--phase``): each
 # needs only the seed and the device.
-ALONE = {"refine": refine_phase, "seq_parallel": seq_parallel_phase}
+ALONE = {"refine": refine_phase, "seq_parallel": seq_parallel_phase,
+         "static_checks": static_checks_phase}
 
 
 def main() -> int:
@@ -6958,10 +7009,9 @@ def main() -> int:
         return 2
     # cuBLAS is deterministic only with a fixed workspace; phase 3 compares
     # gradients under torch.use_deterministic_algorithms.
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    fix_cublas_workspace()
     if args.leg is not None:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_tf32(False)
         if args.leg == "one":
             parallel_leg_one(args.seed, args.port, args.out)
         elif args.leg == "seq":
@@ -6977,8 +7027,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_tf32(False)
     t0 = time.perf_counter()
     libs = kernels.build_all()
     for name in libs:
@@ -7089,6 +7138,9 @@ def main() -> int:
 
     load_fleet = load_fleet_phase(args.seed, dev, smi)
     emit({"phase": "load_fleet", **load_fleet})
+
+    static = static_checks_phase(args.seed, dev)
+    emit({"phase": "static_checks", **static})
 
     # Phases 6 and 7 run the profiler, which slows the process's later
     # eager launches: they come last.

@@ -19,8 +19,17 @@ the voxel means, each behind an autograd Function (``ops/cuda/``): a
 tuned kernel at the flagship's shapes and a general one for every other
 shape.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+``ModelConfig`` is imported on first use, so that a tool that needs no
+torch (the threadcheck CLI) does not import it.
 """
 
-from pvraft_tpu_torch.config import ModelConfig
-
 __all__ = ["ModelConfig"]
+
+
+def __getattr__(name):
+    if name == "ModelConfig":
+        from pvraft_tpu_torch.config import ModelConfig
+
+        return ModelConfig
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -25,7 +25,6 @@ everywhere. A difference is never loosened to a tolerance.
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -36,18 +35,6 @@ SCHEMA_VERSION = "pvraft_determinism/v1"
 
 # The train step and a serve dispatch at the default serving dtype.
 REPLAY_PROGRAMS = ("flagship_train_step_fp32", "serve_predict_bf16_b8192_bs4")
-
-
-@contextlib.contextmanager
-def _deterministic(on: bool):
-    import torch
-
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(on or was)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was)
 
 
 def _leaves(fn, out) -> List[Tuple[str, Any]]:
@@ -115,27 +102,33 @@ def _first_difference(a, b) -> Optional[Dict[str, Any]]:
     return None
 
 
-def replay_report(device="cpu", size: str = "tiny",
+def replay_report(device=None, size: str = "tiny",
                   programs: Sequence[str] = REPLAY_PROGRAMS
                   ) -> Dict[str, Any]:
-    """Run each program twice from scratch and compare bit for bit."""
+    """Run each program twice from scratch and compare bit for bit, on
+    ``device`` (the card unless another device is named)."""
     import gc
 
     import torch
 
+    from pvraft_tpu_torch.device import (
+        deterministic_algorithms,
+        resolve_device,
+    )
     from pvraft_tpu_torch.programs import get, load_catalog
     from pvraft_tpu_torch.serve.aot import first_difference
 
     load_catalog()
-    dev = torch.device(device)
+    dev = resolve_device(device)
     entries: List[Dict[str, Any]] = []
-    with _deterministic(dev.type == "cuda"):
+    with deterministic_algorithms(dev.type == "cuda"):
         for name in programs:
             first = _run_once(name, dev, size)
             second = _run_once(name, dev, size)
             same = (first["digest"] == second["digest"]
                     and len(first["leaves"]) == len(second["leaves"]))
             entry = {"name": name, "tags": list(get(name).tags),
+                     "determinism": get(name).determinism,
                      "n_output_leaves": len(first["leaves"]),
                      "digest": first["digest"],
                      "digest_rerun": second["digest"],

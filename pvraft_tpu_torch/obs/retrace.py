@@ -138,16 +138,12 @@ class RetraceWatchdog:
         with self._lock:
             self._watched[name] = [programs, None]
 
-    def _compiles(self) -> int:
-        # The caller holds _lock.
-        return compile_count() + self._injected
-
     def seal(self) -> bool:
         """Close the program set: from here any compile in the process is
         a trip. Always armed (the counter needs no runtime hook)."""
         with self._lock:
             self._sealed = True
-            self._global_baseline = self._compiles()
+            self._global_baseline = compile_count() + self._injected
         return True
 
     def close(self) -> None:
@@ -168,7 +164,7 @@ class RetraceWatchdog:
         window (another engine capturing its table between dispatches)
         does not trip this one."""
         with self._lock:
-            return self._compiles()
+            return compile_count() + self._injected
 
     def check(self, signature: Any = None, program: Optional[str] = None,
               window_start: Optional[int] = None) -> List[Dict[str, Any]]:
@@ -191,7 +187,7 @@ class RetraceWatchdog:
                                   "baseline": slot[1]})
                     slot[1] = size  # one growth, one event
             if self._sealed:
-                compiles = self._compiles()
+                compiles = compile_count() + self._injected
                 # The ratchet: two dispatches whose windows both opened
                 # before one compile report it once.
                 start = (max(window_start, self._global_baseline)

@@ -54,6 +54,7 @@ from pvraft_tpu_torch.config import (
     TrainConfig,
 )
 from pvraft_tpu_torch.data import PrefetchLoader, first_batch, to_device
+from pvraft_tpu_torch.device import set_tf32
 from pvraft_tpu_torch.engine.steps import (
     refine_loss_of,
     scheduled_step,
@@ -178,8 +179,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_tf32(False)
     cfg = flagship_train_config(args.seed, refine=args.refine,
                                 grad_dtype=args.dtype,
                                 fused_gru=args.fused_gru,

@@ -100,6 +100,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     dev = resolve_device(None)
     state = seeded_state_dict(ModelConfig(), args.seed)
+    # graftlint: disable-next=GD002 -- profile inputs of recorded runs
     rng = np.random.default_rng(args.seed + 1)
     requests = [(8192, [scene(rng, 8192, 8192)]),
                 (4096, [scene(rng, int(rng.integers(3000, 4097)),

@@ -27,6 +27,13 @@ Tags:
 * ``profile``: the step profiler's ladder rungs
   (``profiling/step_profiler.py::ladder_programs``).
 
+Every spec declares its ``determinism=`` stance (detcheck GD003): the
+lookup's backward scatter-adds into knn indices that are distinct per
+point, and the voxel counts add exact 0/1 values, so neither depends on
+the order of its adds on the card; the plain voxel means' float sums do,
+but with ``use_pallas`` the card runs the kernel, and on the CPU
+scatter-adds run in order. Collectives run only on a process group.
+
 Every input comes from the ``replay.input`` stream (``rng.py``): input
 ``i`` of a program always draws from the same substream, so two builds
 of a spec get bitwise the same inputs (``analysis/determinism/
@@ -75,6 +82,16 @@ def _inputs(device, *shapes: Tuple[Sequence[int], str]):
 
 def _points(size: str, flagship: int = g.FLAGSHIP_POINTS) -> int:
     return flagship if size == "flagship" else g.TINY_POINTS
+
+
+# The determinism= stances (see the module docstring).
+_KERNEL_STANCE = "unique-index-scatter; exact voxel counts"
+_GRU_STANCE = ("no hazard op of its own; reaches the lookup's "
+               "unique-index-scatter through ops/cuda")
+_MODEL_STANCE = ("unique-index-scatter; exact voxel counts; no collective "
+                 "in one process")
+_SHARDED_STANCE = ("unique-index-scatter; exact voxel counts; all_reduce "
+                   "and ring order fixed by the mesh")
 
 
 # --- the kernels (tag "kernel") ---------------------------------------------
@@ -215,6 +232,7 @@ for _name, _source, _factory, _args, _geom in _KERNELS:
             tags=("kernel", "cuda"),
             precision="any" if "bf16" in _name else "f32",
             kernels=(_source,), geometry=_geometry,
+            determinism=_GRU_STANCE if "gru" in _name else _KERNEL_STANCE,
             description=f"csrc/{_source}.cu "
                         f"{'gradient' if _grad else 'forward'}, "
                         f"{_b} x {_n}",
@@ -407,6 +425,7 @@ for _name, _kind, _thunk, _kw, _b, _about in _FLAGSHIP:
     register(_name, tags=("flagship", _kind),
              precision="any" if "bf16" in _name else "f32",
              kernels=_sources(_geometry), geometry=_geometry,
+             determinism=_MODEL_STANCE,
              description=f"{_about}, {_b} x {_N} points")(_thunk)
 
 
@@ -448,6 +467,7 @@ def _dp_sp_thunk(device, size):
 register("dp_sp_2x2_train_step", tags=("flagship", "train", "sharded"),
          kernels=_sources(_model_geometry(_B, _N, {})),
          geometry=_model_geometry(_B, _N, {}),
+         determinism=_SHARDED_STANCE,
          description="stage-1 train step of one rank of a 2 x 2 (data x "
                      "seq) mesh: ring kNN and correlation, group-wide "
                      "GroupNorm and gathers (one process: the one-rank "
@@ -482,6 +502,7 @@ for _dtype, _short in SERVE_DTYPES.items():
             tags=("serve", "aot"),
             precision="f32" if _short == "fp32" else "any",
             kernels=_sources(_geometry), geometry=_geometry,
+            determinism=_MODEL_STANCE,
             description=f"serve predict ({_short}) bucket {_bucket} x batch "
                         f"{_bs}: the replica's "
                         f"{predict_program_name(_bucket, _bs, _dtype)}",
@@ -521,6 +542,7 @@ for _stage in MEASUREMENTS:
                  if _stage not in ("encoder", "corr_cum") else {})
     register(f"profile.{_stage}", tags=("profile",),
              kernels=_sources(_geometry), geometry=_geometry,
+             determinism=_MODEL_STANCE,
              description=f"step-profiler ladder rung {_stage!r} "
                          "(profiling/step_profiler.py)")(
         _profile_thunk(_stage))

@@ -271,17 +271,19 @@ def hbm_limit_of(device) -> int:
     return HBM_CAPACITY_BYTES
 
 
-def cost_record(spec: ProgramSpec, device="cpu", size: str = "flagship",
+def cost_record(spec: ProgramSpec, device=None, size: str = "flagship",
                 hbm_limit_bytes: Optional[int] = None) -> Dict[str, Any]:
-    """Build ``spec`` on ``device`` at ``size``, count one run and return
-    its ``pvraft_costs/v1`` record. A failure is recorded (``ok: false``
-    and the error), never raised: one broken program must not hide the
-    rest of the inventory."""
+    """Build ``spec`` on ``device`` (the card unless another device is
+    named) at ``size``, count one run and return its ``pvraft_costs/v1``
+    record. A failure is recorded (``ok: false`` and the error), never
+    raised: one broken program must not hide the rest of the inventory."""
     import gc
 
     import torch
 
-    dev = torch.device(device)
+    from pvraft_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
     limit = hbm_limit_of(dev) if hbm_limit_bytes is None else hbm_limit_bytes
     rec: Dict[str, Any] = {"name": spec.name, "target": target_of(dev),
                            "tags": list(spec.tags), "size": size}
@@ -317,12 +319,15 @@ def cost_record(spec: ProgramSpec, device="cpu", size: str = "flagship",
     return rec
 
 
-def run_costs(specs: Sequence[ProgramSpec], device="cpu",
+def run_costs(specs: Sequence[ProgramSpec], device=None,
               size: str = "flagship", log=None) -> Dict[str, Any]:
-    """The inventory of ``specs`` counted on ``device`` at ``size``."""
+    """The inventory of ``specs`` counted on ``device`` (the card unless
+    another device is named) at ``size``."""
     import torch
 
-    dev = torch.device(device)
+    from pvraft_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
     t0 = time.monotonic()
     results: List[Dict[str, Any]] = []
     doc: Dict[str, Any] = {

@@ -2,10 +2,10 @@
 ``pvraft_tpu/programs/spec.py``): every program the port runs, declared
 once.
 
-A :class:`ProgramSpec` is a name, a thunk, tags, the precision intent, a
-description and its declaration site. The thunk builds the program on a
-given device at a given size: ``thunk(device, size) -> (fn,
-example_inputs)``, where ``fn(*example_inputs)`` runs it once and
+A :class:`ProgramSpec` is a name, a thunk, tags, the precision intent,
+its determinism stance, a description and its declaration site. The
+thunk builds the program on a given device at a given size:
+``thunk(device, size) -> (fn, example_inputs)``, where ``fn(*example_inputs)`` runs it once and
 ``size`` is "flagship" (the shapes the port serves and trains) or "tiny"
 (the same code at a few points, for tests on the CPU). ``fn`` may carry
 ``fn.state``, the tensors it reads besides its inputs (parameters, Adam's
@@ -13,7 +13,10 @@ state), which count among its arguments, and ``fn.module``, the model it
 runs. ``kernels`` names the
 ``csrc/*.cu`` sources the program launches on the card and ``geometry``
 the shapes it gives them (``tests/test_torch_launch_geometry.py`` checks
-every launch plan over the catalog by it).
+every launch plan over the catalog by it). ``determinism`` is the
+detcheck GD003 stance: a short declared position on the program's
+accumulation order (float-atomic scatter-adds, collective reductions),
+required of any spec whose import closure reaches such an op.
 
 The registry is what ``python -m pvraft_tpu_torch.programs`` lists and
 counts (``programs/costs.py``: the ``pvraft_costs/v1`` inventory) and
@@ -50,14 +53,18 @@ class ProgramSpec:
     kernels: Tuple[str, ...] = ()
     geometry: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                                  hash=False, compare=False)
+    determinism: str = ""
     path: str = ""
     line: int = 0
 
-    def build(self, device="cpu", size: str = "flagship"):
-        """``(fn, example_inputs)`` on ``device`` at ``size``."""
+    def build(self, device=None, size: str = "flagship"):
+        """``(fn, example_inputs)`` on ``device`` (the card unless another
+        device is named: ``device.resolve_device``) at ``size``."""
+        from pvraft_tpu_torch.device import resolve_device
+
         if size not in SIZES:
             raise ValueError(f"size {size!r} is not one of {SIZES}")
-        return self.thunk(device, size)
+        return self.thunk(resolve_device(device), size)
 
 
 _REGISTRY: Dict[str, ProgramSpec] = {}
@@ -77,7 +84,7 @@ def register_spec(spec: ProgramSpec) -> ProgramSpec:
 def register(name: str, *, tags: Tuple[str, ...] = (),
              precision: str = "f32", description: str = "",
              kernels: Tuple[str, ...] = (),
-             geometry: Dict[str, Any] = None):
+             geometry: Dict[str, Any] = None, determinism: str = ""):
     """Decorator form: anchors path and line at the ``register(...)``
     call, so that loop-registered thunks each name their own loop call.
     The description defaults to the thunk's first docstring line."""
@@ -91,7 +98,7 @@ def register(name: str, *, tags: Tuple[str, ...] = (),
             name=name, thunk=thunk, tags=tuple(tags), precision=precision,
             description=description or (doc.splitlines()[0] if doc else ""),
             kernels=tuple(kernels), geometry=dict(geometry or {}),
-            path=anchor_path, line=anchor_line))
+            determinism=determinism, path=anchor_path, line=anchor_line))
         return thunk
 
     return deco

@@ -93,8 +93,7 @@ class BatcherConfig:
 
 class _Request:
     __slots__ = ("pc1", "pc2", "result", "error", "done", "t_enqueue",
-                 "t_dequeue", "abandoned", "trace", "bucket", "_final",
-                 "_finalized")
+                 "t_dequeue", "abandoned", "trace", "bucket", "_final")
 
     def __init__(self, pc1: np.ndarray, pc2: np.ndarray):
         self.pc1 = pc1
@@ -112,22 +111,17 @@ class _Request:
         self.trace = None
         self.bucket: Optional[int] = None
         # Exactly one party (the dispatch counting a response, or the
-        # failure path) records this request's outcome: the first to set
-        # _finalized under _final, which is only ever tried, never waited
-        # for, and held for the test-and-set alone.
-        self._final = ordered_lock("_Request._final")
-        self._finalized = False  # guarded-by: _final
+        # failure path) records this request's outcome: the one whose
+        # try-lock of _final wins. The lock is only ever tried, never
+        # waited for and never released, so it cannot close a deadlock
+        # cycle: a plain lock, outside the order sanitizer (whose held
+        # stack it would never leave).
+        self._final = threading.Lock()
 
     def finalize(self) -> bool:
         """True exactly once, for the party that records the outcome (a
-        party that finds another one setting the flag has lost)."""
-        if not self._final.acquire(blocking=False):
-            return False
-        try:
-            won, self._finalized = not self._finalized, True
-            return won
-        finally:
-            self._final.release()
+        party that finds the lock taken has lost)."""
+        return self._final.acquire(blocking=False)
 
     def resolve(self, result: np.ndarray) -> None:
         self.result = result

@@ -95,6 +95,18 @@ class SupervisorConfig:
         return max(1, int(math.ceil(self.probe_interval_s)))
 
 
+def _transition(states: List[str], replicas, i: int, new: str,
+                reason: str) -> Dict[str, Any]:
+    """Apply one transition to ``states`` and return its
+    ``replica_state`` record. Module-level, and the caller holds the
+    supervisor's lock: the lock analysis (threadcheck GC001) then sees
+    every state mutation at a locked call site."""
+    assert new in REPLICA_STATES
+    old, states[i] = states[i], new
+    return {"replica": i, "state": new, "from_state": old, "reason": reason,
+            "device_id": int(getattr(replicas[i], "device_id", i))}
+
+
 def _observe_latency(ewma: Dict[int, List[float]], cfg: SupervisorConfig,
                      bucket: int, seconds: float) -> bool:
     """Outlier decision and moving-average update for one dispatch (the
@@ -157,16 +169,6 @@ class ReplicaSupervisor:
         self._thread_lock = ordered_lock("ReplicaSupervisor._thread_lock")
         self._thread: Optional[threading.Thread] = None  # guarded-by: _thread_lock
 
-    def _set(self, i: int, new: str, reason: str) -> Dict[str, Any]:
-        """One transition (the caller holds ``_lock``); returns its
-        ``replica_state`` record for :meth:`_emit`."""
-        assert new in REPLICA_STATES
-        old, self._state[i] = self._state[i], new
-        self._transitions += 1
-        return {"replica": i, "state": new, "from_state": old,
-                "reason": reason,
-                "device_id": int(getattr(self.replicas[i], "device_id", i))}
-
     def _emit(self, transitions: List[Dict[str, Any]]) -> None:
         """Emit transitions decided under ``_lock``, after its release."""
         if self.telemetry is not None:
@@ -193,13 +195,17 @@ class ReplicaSupervisor:
                 if (self._state[i] == "healthy"
                         and self._outlier_streak[i]
                         >= self.cfg.latency_outlier_after):
-                    transitions.append(
-                        self._set(i, "degraded", "latency_outlier"))
+                    transitions.append(_transition(
+                        self._state, self.replicas, i,
+                        "degraded", "latency_outlier"))
+                    self._transitions += 1
             else:
                 self._fail_streak[i] = 0
                 self._outlier_streak[i] = 0
                 if self._state[i] == "degraded":
-                    transitions.append(self._set(i, "healthy", "recovered"))
+                    transitions.append(_transition(
+                        self._state, self.replicas, i, "healthy", "recovered"))
+                    self._transitions += 1
         self._emit(transitions)
 
     def record_failure(self, i: int, reason: str = "dispatch_error") -> None:
@@ -210,10 +216,14 @@ class ReplicaSupervisor:
             if self._state[i] not in ("quarantined", "probing"):
                 self._fail_streak[i] += 1
                 if self._fail_streak[i] >= self.cfg.quarantine_after:
-                    transitions.append(self._set(i, "quarantined", reason))
+                    transitions.append(_transition(
+                        self._state, self.replicas, i, "quarantined", reason))
+                    self._transitions += 1
                 elif (self._fail_streak[i] >= self.cfg.degraded_after
                       and self._state[i] == "healthy"):
-                    transitions.append(self._set(i, "degraded", reason))
+                    transitions.append(_transition(
+                        self._state, self.replicas, i, "degraded", reason))
+                    self._transitions += 1
         self._emit(transitions)
 
     def note_dispatch_start(self, i: int, t: float) -> int:
@@ -301,7 +311,10 @@ class ReplicaSupervisor:
                         > self.cfg.wedge_timeout_s
                         and self._state[i] not in ("quarantined",
                                                    "probing")):
-                    transitions.append(self._set(i, "quarantined", "wedged"))
+                    transitions.append(_transition(
+                        self._state, self.replicas, i,
+                        "quarantined", "wedged"))
+                    self._transitions += 1
         self._emit(transitions)
 
     def _probe_quarantined(self) -> None:
@@ -315,7 +328,9 @@ class ReplicaSupervisor:
             with self._lock:
                 if self._state[i] != "quarantined":
                     continue
-                transitions = [self._set(i, "probing", "probe")]
+                transitions = [_transition(
+                    self._state, self.replicas, i, "probing", "probe")]
+                self._transitions += 1
                 self._probes += 1
             self._emit(transitions)
             ok = self._probe(i)
@@ -325,11 +340,15 @@ class ReplicaSupervisor:
                 if ok:
                     self._fail_streak[i] = 0
                     self._outlier_streak[i] = 0
-                    transitions = [self._set(i, "healthy", "probe_ok")]
+                    transitions = [_transition(
+                        self._state, self.replicas, i, "healthy", "probe_ok")]
+                    self._transitions += 1
                 else:
                     self._probe_failures += 1
-                    transitions = [self._set(i, "quarantined",
-                                             "probe_failed")]
+                    transitions = [_transition(
+                        self._state, self.replicas, i,
+                        "quarantined", "probe_failed")]
+                    self._transitions += 1
             self._emit(transitions)
 
     def _probe(self, i: int) -> bool:

@@ -258,13 +258,26 @@ def test_swap_waits_for_the_run_in_flight(state):
             with replica._count_lock:
                 replica._running = False
 
+    # The swap's weights are built, and its arrival at the replica seen,
+    # before the hold is released: under load the weights and the digest
+    # could take longer than the window below.
+    new = seeded_state_dict(TConfig(**TINY), 2)
+    entered = threading.Event()
+    replica_swap = replica.swap_params
+
+    def spy(*args, **kw):
+        entered.set()
+        return replica_swap(*args, **kw)
+
+    replica.swap_params = spy
     t = threading.Thread(target=hold)
     t.start()
     assert holding.wait(10)
     out = {}
     swap = threading.Thread(target=lambda: out.update(eng.swap_params(
-        seeded_state_dict(TConfig(**TINY), 2), drain_timeout_s=0.01)))
+        new, drain_timeout_s=0.01)))
     swap.start()
+    assert entered.wait(30)
     assert not _until(lambda: "digest" in out, timeout=0.2)
     release.set()
     swap.join(30)
