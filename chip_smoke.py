@@ -182,9 +182,7 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            4096 and remat "full" (peak memory, ms, losses within 1e-4
            relative; a dense step that does not fit is recorded); a
            1-iteration forward at 1 x 8,192 with chunks of 2048 against
-           the dense one (max |dflow| <= 1e-4); ``python -m
-           pvraft_tpu_torch.step_time --no-serve`` at K = 1 (packed) and
-           K = 4, a fresh process a reading, one each; last, one 4-step
+           the dense one (max |dflow| <= 1e-4); last, one 4-step
            call under the profiler with fused_gru off and on: kernel 1
            (and 2) 32 times;
   phase 13 serve observability (``serve_observability``,
@@ -228,7 +226,7 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            pvraft_tpu_torch.doctor`` on the card names ``batch``; a
            default Trainer afterwards trains, and its step's kernels are
            held against phase 7's (in ``main``) and the telemetry step's;
-           ``step_time`` unarmed and armed, one reading each; the step profiler
+           the step profiler
            (``profiling/step_profiler.py``) at the flagship, its
            ``gru_fused`` rung launching kernel 2;
   phase 15 the cost plane and the program inventory (``cost_plane``,
@@ -253,10 +251,9 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            this script (``--leg``) so that no process group outlives it:
            (a) the flagship graphed Trainer in an NCCL group of one rank
            against no group: captured under ``deterministic()``, 3 steps
-           bitwise; captured as for training, one NCCL reduction kernel
-           and 8 kernel-1 launches in a replayed step (profiler), ms a
-           step in turns, and a fused_gru step (8 kernel-2 launches
-           beside the reduction); (b) two gloo ranks on the card, eager,
+           bitwise, then one NCCL reduction kernel and 8 kernel-1
+           launches in a replayed step (profiler), and a fused_gru step
+           (8 kernel-2 launches beside the reduction); (b) two gloo ranks on the card, eager,
            per-device batch 2, against one process at batch 4 (step-1
            loss and gradients) and against their twin in one process
            (under deterministic(): 3 steps' losses, step-1 gradients and
@@ -314,9 +311,15 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
   phase 19 the port's static checks (``static_checks``,
            ``static_checks_phase``; after phase 18): ``python -m
            pvraft_tpu_torch.analysis concurrency`` (threadcheck) and
-           ``... determinism`` (detcheck) over the port's own source, each
-           in a subprocess, each at 0 findings; files checked, findings
-           and seconds. No kernel is launched;
+           ``... determinism`` (detcheck) and ``... sharding``
+           (shardcheck, GS004 over ``engine/``, ``obs/``, ``parallel/``)
+           over the port's own source, each in a subprocess, each at 0
+           findings; files checked, findings and seconds; then the pod
+           plan (``analysis/sharding/planner.py``) from phase 15's card
+           inventory: its scene verdicts and 1 x 1 rows, and its
+           prediction for phase 12's chunked step (2 x 16,384, chunks
+           4096, remat "full") within [0.8, 1.25] of that step's
+           measured peak. No kernel is launched;
   phase 6  off the flagship (``off_flagship``): one 8,192-point request
            at truncate_k 1024 / corr_knn 64, and one at hidden 32 /
            context 96 with fused_gru, ``use_pallas=None``: the profiler
@@ -3760,11 +3763,6 @@ LONG_POINTS = 16384          # the chunks' clouds (2 x 16,384)
 LONG_CHUNK = 4096            # corr_chunk and graph_chunk there
 FLAGSHIP_CHUNK = 2048        # corr_chunk and graph_chunk at 1 x 8,192
 CHUNK_LOSS_REL = 1e-4        # dense against chunked loss at 16,384 points
-# step_time readings, a fresh process each: ms per step of the packed
-# single step (K = 1) and of the K-step graph, one reading each (each
-# costs ~25 s of Trainer build; the script keeps under its time limit).
-STEP_TIME_TURNS = (("k1", ("--packed_state",)),
-                   ("k4", ("--steps_per_dispatch", str(KSTEP))))
 
 
 def packed_config(seed, scenes=4, **par):
@@ -4022,34 +4020,6 @@ def chunk_runs(seed, dev, state):
     return result
 
 
-def step_time_turns(dev):
-    """``python -m pvraft_tpu_torch.step_time --no-serve`` for the packed
-    single step and the K-step graph, a fresh process per reading
-    (STEP_TIME_TURNS); returns each reading's line."""
-    import subprocess
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    out = []
-    for name, flags in STEP_TIME_TURNS:
-        proc = subprocess.run(
-            [sys.executable, "-m", "pvraft_tpu_torch.step_time",
-             "--no-serve", *flags], cwd=root, capture_output=True,
-            text=True, timeout=300)
-        check(proc.returncode == 0,
-              f"step_time {flags}: rc {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        out.append({"way": name, "flags": list(flags),
-                    "train_step_ms": line["train_step_ms"],
-                    "eval_step_ms": line["eval_step_ms"],
-                    "train_peak_mem_bytes": line["train_peak_mem_bytes"],
-                    "trainer_build_s": line["trainer_build_s"],
-                    "steps_per_call": line["steps_per_call"],
-                    "programs": line["programs"],
-                    "samples": line["samples"]["train"]})
-    return out
-
-
 def kstep_launches(seed, dev, state, ways=TRAIN_WAYS[:2]):
     """One K-step call of the flagship trainer (8 scenes: no tail, so no
     single step is captured) under the profiler, each of ``ways``
@@ -4101,11 +4071,6 @@ def train_levers_phase(seed, dev):
     out["remat"] = remat_runs(seed, dev, state, batch)
     del batch
     out["chunks"] = chunk_runs(seed, dev, state)
-    out["step_time"] = step_time_turns(dev)
-    per = {}
-    for r in out["step_time"]:
-        per.setdefault(r["way"], []).append(r["train_step_ms"])
-    out["kstep"]["step_ms"] = per
     out["kstep"]["launches"] = kstep_launches(seed, dev, state)
     out["wall_s"] = time.perf_counter() - t0
     return out
@@ -4113,14 +4078,6 @@ def train_levers_phase(seed, dev):
 
 # -------------------------------------------------------------- phase 14 --
 
-# step_time readings, a fresh process each: the flagship graphed step
-# with the monitors and the divergence detector unarmed and armed
-# (``Trainer.dispatch``: the state's copy, the monitors in the graph, one
-# host read a step). One reading a way: with phase 17 the whole script
-# took 1,010.7 s of its 1,200 s on an H100 80GB HBM3 at 700 W, and these
-# readings (~27 s each, a Trainer's build in a fresh process) are the
-# first depth to cut.
-TELEMETRY_TURNS = (("unarmed", ()), ("armed", ("--telemetry",)))
 # The monitors of the graphed kernel step against the plain eager step's
 # (use_pallas=False): this many times the plain path's own run-to-run
 # spread, and never below MONITOR_MIN_BAR (relative).
@@ -4213,28 +4170,6 @@ def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def step_time_armed_turns():
-    """``python -m pvraft_tpu_torch.step_time --no-serve [--telemetry]``,
-    a fresh process per reading (TELEMETRY_TURNS)."""
-    import subprocess
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    out = []
-    for name, flags in TELEMETRY_TURNS:
-        proc = subprocess.run(
-            [sys.executable, "-m", "pvraft_tpu_torch.step_time",
-             "--no-serve", *flags], cwd=root, capture_output=True,
-            text=True, timeout=300)
-        check(proc.returncode == 0,
-              f"step_time {flags}: rc {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        out.append({"way": name, "train_step_ms": line["train_step_ms"],
-                    "samples": line["samples"]["train"],
-                    "trainer_build_s": line["trainer_build_s"]})
-    return out
-
-
 def train_observability_phase(seed, dev, smi):
     """Phase 14 (``train_observability``; after phase 13, before the
     profiler phases): the flagship ``TrainConfig`` (B = 2 x 8,192, 8
@@ -4254,10 +4189,9 @@ def train_observability_phase(seed, dev, smi):
     error; ``python -m pvraft_tpu_torch.doctor`` on the card names
     ``batch``. (4) A default Trainer afterwards: its graphed step's
     kernels (against phase 7's count in ``main``) and the telemetry step's,
-    every kernel counted; one healthy epoch. (5) ``step_time`` unarmed
-    and armed, a fresh process each. (6) The step profiler at the
+    every kernel counted; one healthy epoch. (5) The step profiler at the
     flagship: the record validates, its ``gru_fused`` rung launches
-    kernel 2, its ``step`` beside ``step_time``'s graphed step."""
+    kernel 2."""
     import subprocess
 
     from pvraft_tpu_torch.config import ModelConfig
@@ -4459,10 +4393,7 @@ def train_observability_phase(seed, dev, smi):
         gc.collect()
         torch.cuda.empty_cache()
 
-    # (5) Armed against unarmed, fresh processes.
-    out["step_time"] = step_time_armed_turns()
-
-    # (6) The step profiler at the flagship.
+    # (5) The step profiler at the flagship.
     record = profile_step(ModelConfig(), points=8192, batch=2, iters=8,
                           reps=3, device=dev, variant="fp32", seed=seed)
     problems = validate_step_profile(record)
@@ -4470,13 +4401,8 @@ def train_observability_phase(seed, dev, smi):
     check(not problems and fused.get("fused_gru_update") == 8
           and record["platform"] == "gpu",
           f"step profiler: {problems}; gru_fused rung launches {fused}")
-    graphed_ms = statistics.median(
-        r["train_step_ms"] for r in out["step_time"] if r["way"] == "unarmed")
-    out["step_profile"] = {
-        "record": record,
-        "step_ms": 1e3 * record["total_step_s"],
-        "step_time_graphed_ms": graphed_ms,
-        "gap": 1e3 * record["total_step_s"] / graphed_ms - 1}
+    out["step_profile"] = {"record": record,
+                           "step_ms": 1e3 * record["total_step_s"]}
     gc.collect()
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
@@ -4734,7 +4660,6 @@ def cost_plane_phase(seed, dev, smi):
 # -------------------------------------------------------------- phase 16 --
 
 PARALLEL_STEPS = 3           # compared train steps of each leg
-PARALLEL_TIMED = 4           # steps timed per turn of leg (a)
 GLOO_STEPS = 5               # eager steps of leg (b): 3 compared, all timed
 PARALLEL_LEG_S = 420.0       # bound on each leg's process
 EVAL_BATCH = 4               # leg (c): scenes a step
@@ -4986,11 +4911,9 @@ def parallel_leg_one(seed, port, path):
     process of their own: (c) the Evaluator; (a) the flagship graphed
     Trainer without a process group, then in an NCCL group of one rank
     (``initialize``): captured under ``deterministic()``, 3 steps bitwise
-    equal; captured as in training (a pair built anew), ms a step in
-    turns (groupless, NCCL, NCCL, groupless) and one replay of each under
-    the profiler; one replayed ``fused_gru`` step in the group. Then the
-    group is left and the reference of (b) runs: the eager Trainer at
-    batch 4."""
+    equal, then one replay of each under the profiler; one replayed
+    ``fused_gru`` step in the group. Then the group is left and the
+    reference of (b) runs: the eager Trainer at batch 4."""
     from pvraft_tpu_torch.config import ModelConfig
     from pvraft_tpu_torch.engine.trainer import Trainer
     from pvraft_tpu_torch.parallel import initialize, shutdown
@@ -5020,7 +4943,7 @@ def parallel_leg_one(seed, port, path):
                 exp_path=os.path.join(root, name)), device=dev,
                 weights=state)
 
-        # The groupless pair is built before the group exists: a step
+        # The groupless trainer is built before the group exists: a step
         # reduces over the process group there is when it is made.
         with deterministic():
             plain = trainer("plain")
@@ -5028,9 +4951,6 @@ def parallel_leg_one(seed, port, path):
             plain_steps = compared_steps(plain, batches)
         check(plain.train_step.reduce is None,
               "leg (a): the groupless step reduces")
-        release(plain)
-        del plain
-        timed_plain = trainer("plain_timed")
         initialize(f"localhost:{port}", num_processes=1, process_id=0,
                    backend="nccl", local_rank=0)
         with deterministic():
@@ -5044,33 +4964,21 @@ def parallel_leg_one(seed, port, path):
         check(nccl_steps == plain_steps,
               f"leg (a): NCCL world 1 against no group, 3 steps: "
               f"{nccl_steps} / {plain_steps}")
-        det_programs = nccl.compile_report()[:1]
-        release(nccl)
-        del nccl, reduce
-        timed_nccl = trainer("nccl_timed")
-        check(timed_nccl.train_step.reduce is not None
-              and timed_plain.train_step.reduce is None,
-              "leg (a): the timed pair's reductions")
-        turns = []
-        for name, t in (("groupless", timed_plain), ("nccl", timed_nccl),
-                        ("nccl", timed_nccl), ("groupless", timed_plain)):
-            turns.append((name, cuda_ms(
-                lambda t=t: t.train_step(batches[0]),
-                reps=PARALLEL_TIMED, warmup=1)))
+        del reduce
         counts, kernels_reduce = replay_kernels(
-            lambda: timed_nccl.train_step(batches[0]))
+            lambda: nccl.train_step(batches[0]))
         plain_counts, plain_reduce = replay_kernels(
-            lambda: timed_plain.train_step(batches[0]))
+            lambda: plain.train_step(batches[0]))
         check(counts["fused_corr_lookup"] == cfg.train.iters
               and sum(kernels_reduce.values()) == 1 and not plain_reduce
               and plain_counts == counts,
               f"leg (a): one replay ran {counts} and reductions "
               f"{kernels_reduce} (groupless: {plain_counts}, "
               f"{plain_reduce})")
-        programs = timed_nccl.compile_report()[:1]
-        plain_programs = timed_plain.compile_report()[:1]
-        release(timed_plain, timed_nccl)
-        del timed_plain, timed_nccl
+        programs = nccl.compile_report()[:1]
+        plain_programs = plain.compile_report()[:1]
+        release(plain, nccl)
+        del plain, nccl
         # Kernel 2 beside the collective: one fused_gru step, replayed.
         fused = trainer("nccl_fused_gru",
                         flagship_train_config(seed, fused_gru=True))
@@ -5088,17 +4996,16 @@ def parallel_leg_one(seed, port, path):
         release(fused)
         del fused
         out["nccl_world1"] = {
-            "steps": nccl_steps, "bitwise": True, "turns_ms": turns,
+            "steps": nccl_steps, "bitwise": True,
             "launches_per_step": counts, "allreduce_kernels": kernels_reduce,
             "groupless_launches_per_step": plain_counts,
             "fused_gru_launches_per_step": fused_counts,
             "fused_gru_allreduce_kernels": fused_reduce,
             "fused_gru_loss": float(first["loss"]),
             "programs": programs, "groupless_programs": plain_programs,
-            "deterministic_programs": det_programs,
             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
-            "mode": "bitwise: deterministic() captures; turns and "
-                    "replays: captures as in training"}
+            "mode": "deterministic() captures, compared bitwise and "
+                    "replayed"}
         shutdown()
         # The reference at batch 4, and the two ranks' twin in this
         # process (under deterministic(), as the ranks' compared steps).
@@ -5189,10 +5096,9 @@ def parallel_phase(seed):
     data parallelism over ``torch.distributed``, each leg in a process of
     its own so that no process group outlives it. (a) The flagship graphed
     Trainer in an NCCL group of one rank against no group: 3 steps
-    bitwise (``deterministic()`` captures), then as captured for
-    training one NCCL reduction kernel and 8 kernel-1 launches a replayed
-    step and ms a step in turns, and a ``fused_gru`` step with 8 kernel-2
-    launches beside the reduction. (b) Two gloo ranks on the one card, eager, at
+    bitwise (``deterministic()`` captures), then one NCCL reduction
+    kernel and 8 kernel-1 launches a replayed step of those captures, and
+    a ``fused_gru`` step with 8 kernel-2 launches beside the reduction. (b) Two gloo ranks on the one card, eager, at
     per-device batch 2, against one process at batch 4 (step 1's loss
     within ``PARALLEL_LOSS_REL``, its gradients under ``GRAD_BOUNDS``, 8
     iterations, and ``BATCH4_GRAD_REL`` on the worst leaf) and against their twin in one process
@@ -6692,18 +6598,81 @@ OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
 
 # The port's static checks: (CLI subcommand, the tool's name in its
 # summary line).
-STATIC_CHECKS = (("concurrency", "threadcheck"), ("determinism", "detcheck"))
+STATIC_CHECKS = (("concurrency", "threadcheck"), ("determinism", "detcheck"),
+                 ("sharding", "shardcheck"))
+# The pod plan's prediction for phase 12's chunked step against its
+# measured peak.
+PLAN_BAND = (0.8, 1.25)
 
 
-def static_checks_phase(seed, dev):
+def plan_leg(dev, chunked=None):
+    """The pod plan (``analysis/sharding/planner.py``) for H100 meshes,
+    built from phase 15's card inventory (``programs/costs.py::
+    default_costs_path()``; where there is none, as when phase 19 runs
+    alone, the plan's two programs are counted here) and written to
+    ``_build/pod_plan.json``: its scene verdicts, its 1 x 1 rows and its
+    sharded-step cross-check. ``chunked``: phase 12's chunked step
+    (``chunk_runs``: 2 x LONG_POINTS, chunks LONG_CHUNK, remat "full");
+    the plan's prediction for that step must lie within PLAN_BAND of its
+    measured peak. Without it nothing is compared, and the record says
+    so."""
+    from pvraft_tpu_torch.analysis.sharding.planner import (
+        basis_inventory,
+        build_plan,
+        default_plan_path,
+        predict_step_bytes,
+        write_plan,
+    )
+    from pvraft_tpu_torch.programs.costs import default_costs_path
+
+    t0 = time.perf_counter()
+    costs = default_costs_path()
+    out = {"inventory": costs}
+    if not os.path.exists(costs):
+        costs = basis_inventory(dev)
+        out["inventory"] = "counted here: " + ", ".join(
+            r["name"] for r in costs["programs"])
+    try:
+        plan = build_plan(costs)
+    except ValueError as err:
+        check(False, f"static checks: the pod plan: {err}")
+    write_plan(plan, default_plan_path())
+    out.update(
+        path=default_plan_path(), scene_verdicts=plan["scene_verdicts"],
+        scenario=plan["scenario"],
+        mesh_1x1=next(m for m in plan["meshes"]
+                      if (m["dp"], m["sp"]) == (1, 1)),
+        cross_check=plan["sharded_step_cross_check"])
+    predicted = predict_step_bytes(plan, LONG_POINTS, 2, LONG_CHUNK)
+    out["predicted_2x16384"] = predicted
+    if chunked is None:
+        out["compared"] = ("nothing: phase 12's chunked step did not run "
+                           "in this process")
+    else:
+        measured = chunked["peak_gb"] * 1e9
+        ratio = predicted["total_bytes"] / measured
+        out.update(measured_peak_gb=chunked["peak_gb"], ratio=ratio,
+                   band=list(PLAN_BAND))
+        check(PLAN_BAND[0] <= ratio <= PLAN_BAND[1],
+              f"static checks: the pod plan predicts "
+              f"{predicted['total_bytes'] / 1e9:.3f} GB for phase 12's "
+              f"chunked step, which peaked at {chunked['peak_gb']:.3f} GB: "
+              f"ratio {ratio:.3f} outside {PLAN_BAND}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def static_checks_phase(seed, dev, chunked=None):
     """Phase 19 (``static_checks``; after phase 18, before the profiler
     phases): the port's static checks over its own source, each CLI in a
     subprocess of this Python: ``python -m pvraft_tpu_torch.analysis
     concurrency`` (threadcheck, GC rules over ``serve/``, ``fleet/``,
-    ``obs/``, ``data/loader.py``) and ``... determinism`` (detcheck, GD
+    ``obs/``, ``data/loader.py``), ``... determinism`` (detcheck, GD
     rules over the package, the program registry's hazard closure
-    included). Each must exit 0 with 0 findings; the files checked,
-    findings and seconds of each. Launches no kernel."""
+    included) and ``... sharding`` (shardcheck, GS004 over ``engine/``,
+    ``obs/``, ``parallel/``). Each must exit 0 with 0 findings; the files
+    checked, findings and seconds of each. Then :func:`plan_leg`, with
+    phase 12's chunked step where ``main`` ran it. Launches no kernel."""
     import subprocess
 
     out = {"python": sys.version.split()[0]}
@@ -6726,6 +6695,7 @@ def static_checks_phase(seed, dev):
         check(files > 0, f"static checks: {tool} checked no file")
         out[cmd] = {"tool": tool, "files": files, "findings": findings,
                     "seconds": seconds}
+    out["plan"] = plan_leg(dev, chunked)
     return out
 
 
@@ -7139,7 +7109,8 @@ def main() -> int:
     load_fleet = load_fleet_phase(args.seed, dev, smi)
     emit({"phase": "load_fleet", **load_fleet})
 
-    static = static_checks_phase(args.seed, dev)
+    static = static_checks_phase(args.seed, dev,
+                                 levers["chunks"]["steps"]["chunked"])
     emit({"phase": "static_checks", **static})
 
     # Phases 6 and 7 run the profiler, which slows the process's later

@@ -1,4 +1,5 @@
-"""CLI: ``python -m pvraft_tpu_torch.analysis {concurrency,determinism}``.
+"""CLI: ``python -m pvraft_tpu_torch.analysis {concurrency,determinism,
+sharding}``.
 
 ``concurrency`` (threadcheck) runs the GC001+ rules (guarded-by
 discipline, lock-order cycles, check-then-act shapes, un-joined threads)
@@ -18,14 +19,30 @@ report (``--out`` writes it), ``--check R`` holds it against a saved
 report. The replay runs on the card unless ``--device cpu``; ``--size``
 defaults to "flagship" on the card and "tiny" on the CPU.
 
-Both static checks print one line per finding and exit 1 on any; the
-replay exits 1 on a divergence or a failed check.
+``sharding`` (shardcheck) runs GS004 (a filesystem write that no
+process-0 test dominates) over the port's every-rank planes (default
+scope ``engine/``, ``obs/``, ``parallel/``); pure stdlib AST. With
+``--plan`` it builds the ``pvraft_pod_plan/v1`` document instead
+(``analysis/sharding/planner.py``): per-device bytes, the ring's
+traffic and a fits verdict for each (data, seq) mesh of one 8-GPU node
+and each scene size, from a costs document (``--costs``, default
+``programs/costs.py::default_costs_path()``; without one there, the two
+programs the plan reads are counted on ``--device``) and the port's
+model; ``--out`` writes it, ``--check P`` holds it against a saved plan.
+``--measure`` then runs one remat train step on the card at the largest
+scene the plan says fits one card and prints the plan's prediction
+beside ``max_memory_allocated``.
+
+The static checks print one line per finding and exit 1 on any; the
+replay exits 1 on a divergence or a failed check; the plan exits 1 when
+it cannot be built (a GS004 finding, a failed cross-check).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -80,6 +97,78 @@ def _cmd_determinism(args) -> int:
     diags, nfiles = check_paths(args.paths or list(default_scope()),
                                 rule_ids=_select(args))
     return _report("detcheck", diags, nfiles)
+
+
+def _cmd_sharding(args) -> int:
+    from pvraft_tpu_torch.analysis.sharding.check import (
+        check_paths,
+        default_scope,
+    )
+    from pvraft_tpu_torch.analysis.sharding.rules import all_sharding_rules
+
+    if args.list_rules:
+        return _list_rules(all_sharding_rules())
+    if args.plan or args.check or args.measure:
+        return _sharding_plan(args)
+    diags, nfiles = check_paths(args.paths or list(default_scope()),
+                                rule_ids=_select(args))
+    return _report("shardcheck", diags, nfiles)
+
+
+def _sharding_plan(args) -> int:
+    from pvraft_tpu_torch.analysis.sharding.planner import (
+        basis_inventory,
+        build_plan,
+        check_plan_file,
+        fold_chunk,
+        largest_fitting_scene,
+        measure_step_peak,
+        predict_step_bytes,
+        write_plan,
+    )
+    from pvraft_tpu_torch.programs.costs import default_costs_path
+
+    costs = args.costs or default_costs_path()
+    if not args.costs and not os.path.exists(costs):
+        print(f"sharding --plan: no costs document at {costs}; counting "
+              f"the plan's two programs", file=sys.stderr)
+        costs = basis_inventory(args.device)
+    if args.check:
+        problems = check_plan_file(args.check, costs)
+        for p in problems:
+            print(p, file=sys.stderr)
+        if not problems:
+            print(f"{args.check}: OK (matches the plan rebuilt from the "
+                  f"costs document and the port's model)")
+        return 1 if problems else 0
+    try:
+        plan = build_plan(costs)
+    except (OSError, ValueError) as e:
+        print(f"sharding --plan: {e}", file=sys.stderr)
+        return 1
+    if args.out:
+        write_plan(plan, args.out)
+        print(f"wrote {args.out}", file=sys.stderr)
+    elif not args.measure:
+        print(json.dumps(plan, indent=1, sort_keys=True))
+    for n_points, verdict in sorted(plan["scene_verdicts"].items(),
+                                    key=lambda kv: int(kv[0])):
+        print(f"[pod] {n_points} points: {verdict}", file=sys.stderr)
+    if args.measure:
+        points = largest_fitting_scene(plan)
+        if points is None:
+            print("sharding --measure: no scene fits one card",
+                  file=sys.stderr)
+            return 1
+        chunk = fold_chunk(points)
+        predicted = predict_step_bytes(plan, points, 1, chunk)
+        got = measure_step_peak(points, chunk=chunk, device=args.device)
+        measured = got.get("max_memory_allocated")
+        print(json.dumps({"predicted": predicted, "measured": got,
+                          "ratio": (predicted["total_bytes"] / measured
+                                    if measured else None)},
+                         sort_keys=True))
+    return 0
 
 
 def _determinism_replay(args) -> int:
@@ -142,6 +231,25 @@ def main(argv=None) -> int:
                        help="cpu: replay on the CPU (default: the card)")
     p_det.add_argument("--size", default=None, choices=["flagship", "tiny"])
     p_det.set_defaults(fn=_cmd_determinism)
+    p_shard = sub.add_parser(
+        "sharding", help="shardcheck: GS004 over the every-rank planes, "
+                         "or the pod plan (--plan)")
+    _static_args(p_shard, "GS", "engine/, obs/, parallel/")
+    p_shard.add_argument("--plan", action="store_true",
+                         help="build the pvraft_pod_plan/v1 document")
+    p_shard.add_argument("--costs", default="", metavar="PATH",
+                         help="the costs document (default: "
+                              "programs/costs.py::default_costs_path())")
+    p_shard.add_argument("--out", default="", help="write the plan here")
+    p_shard.add_argument("--check", default="", metavar="PLAN",
+                         help="hold the rebuilt plan against a saved one")
+    p_shard.add_argument("--measure", action="store_true",
+                         help="one remat train step at the largest scene "
+                              "that fits one card, against the plan")
+    p_shard.add_argument("--device", default=None, choices=["cpu", "cuda"],
+                         help="cpu: count and measure on the CPU (default: "
+                              "the card)")
+    p_shard.set_defaults(fn=_cmd_sharding)
     args = parser.parse_args(argv)
     return args.fn(args)
 

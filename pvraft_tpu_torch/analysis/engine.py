@@ -257,16 +257,18 @@ def collect_suppressions(paths: Sequence[str]) -> List[Pragma]:
 
 
 def known_rule_ids() -> Set[str]:
-    """Ids of every rule of the port's checkers, threading (GC) and
-    determinism (GD), with each family's syntax-error id: one namespace
-    for the shared pragma grammar."""
+    """Ids of every rule of the port's checkers, threading (GC),
+    determinism (GD) and sharding (GS), with each family's syntax-error
+    id: one namespace for the shared pragma grammar."""
     from pvraft_tpu_torch.analysis.concurrency.rules import (
         all_concurrency_rules,
     )
     from pvraft_tpu_torch.analysis.determinism.rules import (
         all_determinism_rules,
     )
+    from pvraft_tpu_torch.analysis.sharding.rules import all_sharding_rules
 
     ids = {r.id for r in all_concurrency_rules()}
     ids |= {r.id for r in all_determinism_rules()}
-    return ids | {"GC000", "GD000"}
+    ids |= {r.id for r in all_sharding_rules()}
+    return ids | {"GC000", "GD000", "GS000"}

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from pvraft_tpu_torch.engine import msgpack
+from pvraft_tpu_torch.parallel.distributed import process_index
 from pvraft_tpu_torch.weights import params_from_jax, params_to_jax
 
 SUFFIX = ".msgpack"
@@ -74,7 +75,10 @@ def save_checkpoint(ckpt_dir: str, params: Mapping[str, Any],
     ``best`` (the naming of the reference's ``tools/utils.py:7-17``).
     ``params``: the flax variables dict (``params_to_jax``);
     ``opt_state``: the optax state dict (``opt_state_to_jax``). Returns
-    the paths written."""
+    the paths; process 0 alone writes them, as in the JAX package (the
+    ranks hold the same state, and concurrent writes to one ``.tmp``
+    could interleave a truncation with a rename): a caller with several
+    processes waits for it before reading them (``Trainer.save``)."""
     if backend == "orbax":
         raise _no_orbax("save_checkpoint")
     if backend not in BACKENDS:
@@ -82,8 +86,9 @@ def save_checkpoint(ckpt_dir: str, params: Mapping[str, Any],
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"epoch": int(epoch), "params": params, "opt_state": opt_state}
     paths = checkpoint_paths(ckpt_dir, epoch, checkpoint_interval, best)
-    for p in paths:
-        _write(p, payload)
+    if process_index() == 0:
+        for p in paths:
+            _write(p, payload)
     return paths
 
 

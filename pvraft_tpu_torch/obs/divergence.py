@@ -40,6 +40,7 @@ import numpy as np
 
 from pvraft_tpu_torch.engine import msgpack
 from pvraft_tpu_torch.obs.events import sanitize
+from pvraft_tpu_torch.parallel.distributed import process_index
 
 SNAPSHOT_SCHEMA = "pvraft_snapshot/v1"
 
@@ -97,11 +98,17 @@ class DivergenceDetector:
 def dump_snapshot(snap_dir: str, batch: Mapping[str, np.ndarray],
                   params: Mapping[str, Any], opt_state: Mapping[str, Any], *,
                   step: int, epoch: int, reason: str, loss: float, cfg=None,
-                  extra_meta: Optional[Dict[str, Any]] = None) -> str:
-    """Write one ``pvraft_snapshot/v1`` directory and return its path.
-    ``params`` and ``opt_state`` are the flax state-dict trees of numpy
-    arrays (``params_to_jax``, ``opt_state_to_jax``) of the state BEFORE
-    the offending update; ``batch`` is that step's host batch."""
+                  extra_meta: Optional[Dict[str, Any]] = None
+                  ) -> Optional[str]:
+    """Write one ``pvraft_snapshot/v1`` directory and return its path;
+    on a rank other than 0 write nothing and return None (a snapshot is
+    process-0 filesystem state, as in the JAX package; the Trainer takes
+    none with several processes). ``params`` and ``opt_state`` are the
+    flax state-dict trees of numpy arrays (``params_to_jax``,
+    ``opt_state_to_jax``) of the state BEFORE the offending update;
+    ``batch`` is that step's host batch."""
+    if process_index() != 0:
+        return None
     out = os.path.join(snap_dir, f"step_{step:07d}")
     os.makedirs(out, exist_ok=True)
     np.savez(os.path.join(out, "batch.npz"),

@@ -404,9 +404,16 @@ def run_metadata(cfg=None, mode: str = "train") -> Dict[str, Any]:
 class EventLog:
     """Append-only ``pvraft_events/v1`` JSONL writer; every record is
     validated before it is written, and an invalid one raises. A
-    disabled log constructs and no-ops."""
+    disabled log constructs and no-ops.
 
-    def __init__(self, path: str, enabled: bool = True):
+    Process-0-only by default, as the JAX ``EventLog``: ``enabled=None``
+    resolves to ``process_index() == 0``, so a bare ``EventLog(path)``
+    writes once in a multi-process group and the other ranks' logs
+    no-op."""
+
+    def __init__(self, path: str, enabled: Optional[bool] = None):
+        if enabled is None:
+            enabled = process_index() == 0
         self.path = path
         self.enabled = bool(enabled)
         self.seq = 0

@@ -404,6 +404,10 @@ _FLAGSHIP = (
     ("flagship_train_step_fp32", "train", _train_thunk({}, "float32", False),
      {}, _B, "stage-1 train step (fp32): forward, sequence loss, backward, "
              "Adam"),
+    ("flagship_train_step_fp32_remat", "train",
+     _train_thunk({"remat": True}, "float32", False), {}, _B,
+     "stage-1 train step (fp32, remat: each GRU iteration recomputed in "
+     "the backward), the pod planner's activation basis"),
     ("flagship_train_step_bf16", "train",
      _train_thunk(_BF16, "bfloat16", False), _BF16, _B,
      "stage-1 train step (bf16, fused_gru, bf16 gradients)"),
@@ -455,6 +459,7 @@ def _dp_sp_thunk(device, size):
     optimizer = _adam((p for _, p in trained_parameters(model)), device)
     fn = _train_body(optimizer, _stage1_loss(model, 0.8, iters))
     fn.state, fn.module = _state(model, optimizer), model
+    fn.mesh = {"data": mesh.n_data, "seq": mesh.n_seq}
     batch = dict(zip(("pc1", "pc2", "mask", "flow"),
                      _batch(device, g.FLAGSHIP_BATCH, _points(size))))
     rows = g.FLAGSHIP_BATCH // mesh.n_data

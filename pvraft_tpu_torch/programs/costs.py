@@ -29,8 +29,10 @@ or "host"), ``tags``, ``flops``, ``bytes_accessed``, ``ok``, ``memory``
 (``argument_size_in_bytes``, ``output_size_in_bytes``,
 ``live_bytes_estimate``, ``fits_hbm`` against the document's
 ``hbm_limit_bytes``, ``fits_16GiB_hbm`` answered literally, and on the
-card ``max_memory_allocated`` of the run), and ``count_s`` where JAX
-records compile seconds.
+card ``max_memory_allocated`` of the run and ``allocated_at_start``, the
+bytes allocated when it began: its arguments and whatever else the
+process held), ``count_s`` where JAX records compile seconds, and for a
+program on a mesh (``fn.mesh``) the record's ``mesh``, its axis sizes.
 
 **The surface** (:class:`CostSurface`) prices a program from its record
 by the roofline, ``max(flops / peak, bytes / bandwidth)``, at the H100's
@@ -73,7 +75,8 @@ COSTS_SCHEMA = "pvraft_costs/v1"
 GIB16 = 16 * 1024**3
 
 _MEMORY_BYTE_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
-                     "live_bytes_estimate", "max_memory_allocated")
+                     "live_bytes_estimate", "max_memory_allocated",
+                     "allocated_at_start")
 
 # Factory ops that allocate without writing.
 _NO_TRAFFIC = ("empty", "empty_like", "empty_strided", "new_empty",
@@ -292,6 +295,7 @@ def cost_record(spec: ProgramSpec, device=None, size: str = "flagship",
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
+            at_start = int(torch.cuda.memory_allocated(dev))
         got = count_program(fn, inputs)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -304,6 +308,9 @@ def cost_record(spec: ProgramSpec, device=None, size: str = "flagship",
         if dev.type == "cuda":
             memory["max_memory_allocated"] = int(
                 torch.cuda.max_memory_allocated(dev))
+            memory["allocated_at_start"] = at_start
+        if getattr(fn, "mesh", None) is not None:
+            rec["mesh"] = dict(fn.mesh)
         rec.update(flops=float(got["flops"]),
                    bytes_accessed=float(got["bytes_accessed"]),
                    kernel_launches=got["kernel_launches"],

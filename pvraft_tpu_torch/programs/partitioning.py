@@ -14,8 +14,9 @@ would shard raises: the port's Trainer places no parameter shard.
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,6 +78,27 @@ def match_partition_rules(rules: Rules, leaf_paths: Sequence[str]
     if problems:
         raise ValueError("partition-rule coverage: " + "; ".join(problems))
     return mapping
+
+
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4,
+                "int8": 1, "uint8": 1, "bool": 1, "float64": 8}
+
+
+def leaf_bytes(leaf: Mapping[str, Any]) -> int:
+    """Bytes of one leaf record (``{"path", "shape", "dtype"}``)."""
+    return (math.prod(leaf["shape"])
+            * _DTYPE_BYTES.get(leaf.get("dtype", "float32"), 4))
+
+
+def shard_factor(spec: Sequence[Optional[str]],
+                 mesh_shape: Mapping[str, int]) -> int:
+    """How many ways a leaf with ``spec`` splits on a mesh: the product
+    of the named axes' sizes (``()`` or all-None: 1, replicated)."""
+    factor = 1
+    for axis in spec:
+        if axis is not None:
+            factor *= int(mesh_shape.get(axis, 1))
+    return factor
 
 
 def flax_leaf_paths(state: Mapping[str, torch.Tensor]) -> List[str]:

@@ -342,7 +342,8 @@ def test_rule_table_matches_the_jax_checker():
 
 def test_known_rule_ids():
     assert {"GC000", "GC001", "GC002", "GC003", "GC004", "GD000", "GD001",
-            "GD002", "GD003", "GD004", "GD005"} == known_rule_ids()
+            "GD002", "GD003", "GD004", "GD005", "GS000",
+            "GS004"} == known_rule_ids()
 
 
 # --- the port's own source -------------------------------------------------
