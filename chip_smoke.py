@@ -310,10 +310,12 @@ CUDA kernels from ``pvraft_tpu_torch/csrc`` and then:
            direct and routed p50/p95/p99 and requests/s;
   phase 19 the port's static checks (``static_checks``,
            ``static_checks_phase``; after phase 18): ``python -m
-           pvraft_tpu_torch.analysis concurrency`` (threadcheck) and
-           ``... determinism`` (detcheck) and ``... sharding``
-           (shardcheck, GS004 over ``engine/``, ``obs/``, ``parallel/``)
-           over the port's own source, each in a subprocess, each at 0
+           pvraft_tpu_torch.analysis concurrency`` (threadcheck),
+           ``... determinism`` (detcheck), ``... sharding`` (shardcheck,
+           GS004 over ``engine/``, ``obs/``, ``parallel/``) and ``...
+           lint`` (graftlint, GL006 and GL007 over the package, this
+           script and ``tests/test_torch_*.py``) over the port's own
+           source, each in a subprocess, each at 0
            findings; files checked, findings and seconds; then the pod
            plan (``analysis/sharding/planner.py``) from phase 15's card
            inventory: its scene verdicts and 1 x 1 rows, and its
@@ -6599,7 +6601,7 @@ OFF_FLAGSHIP = (("truncate_k1024_knn64", {"truncate_k": 1024,
 # The port's static checks: (CLI subcommand, the tool's name in its
 # summary line).
 STATIC_CHECKS = (("concurrency", "threadcheck"), ("determinism", "detcheck"),
-                 ("sharding", "shardcheck"))
+                 ("sharding", "shardcheck"), ("lint", "graftlint"))
 # The pod plan's prediction for phase 12's chunked step against its
 # measured peak.
 PLAN_BAND = (0.8, 1.25)
@@ -6669,9 +6671,11 @@ def static_checks_phase(seed, dev, chunked=None):
     concurrency`` (threadcheck, GC rules over ``serve/``, ``fleet/``,
     ``obs/``, ``data/loader.py``), ``... determinism`` (detcheck, GD
     rules over the package, the program registry's hazard closure
-    included) and ``... sharding`` (shardcheck, GS004 over ``engine/``,
-    ``obs/``, ``parallel/``). Each must exit 0 with 0 findings; the files
-    checked, findings and seconds of each. Then :func:`plan_leg`, with
+    included), ``... sharding`` (shardcheck, GS004 over ``engine/``,
+    ``obs/``, ``parallel/``) and ``... lint`` (graftlint, GL006 and GL007
+    over the package, this script and ``tests/test_torch_*.py``). Each
+    must exit 0 with 0 findings; the files checked, findings and seconds
+    of each. Then :func:`plan_leg`, with
     phase 12's chunked step where ``main`` ran it. Launches no kernel."""
     import subprocess
 

@@ -1,5 +1,14 @@
-"""CLI: ``python -m pvraft_tpu_torch.analysis {concurrency,determinism,
-sharding}``.
+"""CLI: ``python -m pvraft_tpu_torch.analysis {lint,concurrency,
+determinism,sharding}``.
+
+``lint`` (graftlint) runs GL006 (mutable default arguments) and GL007
+(an f-string passed to ``*.debug.print``) over the port's own Python
+(default scope the ``pvraft_tpu_torch`` package, ``chip_smoke.py`` and
+``tests/test_torch_*.py``; the JAX package's ``lint`` requires paths);
+pure stdlib AST. ``--stats`` prints the suppression-debt report instead
+of findings: every active pragma under the paths, counted per rule id of
+the port's one namespace (GC, GD, GS and GL), a warning for an unknown
+id, exit 1 on a pragma without a ``-- reason``.
 
 ``concurrency`` (threadcheck) runs the GC001+ rules (guarded-by
 discipline, lock-order cycles, check-then-act shapes, un-joined threads)
@@ -63,6 +72,60 @@ def _report(tool: str, diags, nfiles: int) -> int:
 
 def _select(args):
     return tuple(args.select.split(",")) if args.select else ()
+
+
+def _cmd_lint(args) -> int:
+    from pvraft_tpu_torch.analysis.lint import default_scope, lint_paths
+    from pvraft_tpu_torch.analysis.rules import all_lint_rules
+
+    if args.list_rules:
+        return _list_rules(all_lint_rules())
+    paths = args.paths or list(default_scope())
+    if args.stats:
+        return _lint_stats(paths)
+    diags, nfiles = lint_paths(paths, rule_ids=_select(args))
+    return _report("graftlint", diags, nfiles)
+
+
+def _lint_stats(paths) -> int:
+    """Suppression-debt report: what the checks are not checking, per
+    rule. Exit 1 on any reason-less suppression."""
+    from pvraft_tpu_torch.analysis.engine import (
+        collect_suppressions,
+        known_rule_ids,
+    )
+
+    pragmas = collect_suppressions(paths)
+    known = known_rule_ids()
+    per_rule: dict = {}
+    reasonless = []
+    unknown = []
+    for p in pragmas:
+        for rid in p.ids:
+            stats = per_rule.setdefault(
+                rid, {"line": 0, "next": 0, "file": 0, "reasonless": 0})
+            stats[p.kind] += 1
+            if not p.reason:
+                stats["reasonless"] += 1
+            if rid != "all" and rid not in known:
+                unknown.append((p, rid))
+        if not p.reason:
+            reasonless.append(p)
+    for rid in sorted(per_rule):
+        s = per_rule[rid]
+        total = s["line"] + s["next"] + s["file"]
+        print(f"{rid:<7} {total:>3} suppression(s)  "
+              f"(line={s['line']} next={s['next']} file={s['file']}, "
+              f"{s['reasonless']} without reason)")
+    for p, rid in unknown:
+        print(f"{p.path}:{p.line}: warning: suppression names unknown "
+              f"rule {rid}")
+    for p in reasonless:
+        print(f"{p.path}:{p.line}: reason-less suppression of "
+              f"{','.join(p.ids)} (append `-- why`)")
+    print(f"graftlint --stats: {len(pragmas)} active pragma(s), "
+          f"{len(reasonless)} without reason", file=sys.stderr)
+    return 1 if reasonless else 0
 
 
 def _cmd_concurrency(args) -> int:
@@ -213,6 +276,15 @@ def main(argv=None) -> int:
         prog="python -m pvraft_tpu_torch.analysis", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p_lint = sub.add_parser(
+        "lint", help="graftlint: GL006 and GL007 over the port's Python")
+    _static_args(p_lint, "GL", "the pvraft_tpu_torch package, chip_smoke.py "
+                               "and tests/test_torch_*.py; the JAX "
+                               "package's lint requires paths")
+    p_lint.add_argument("--stats", action="store_true",
+                        help="suppression-debt report (exit 1 on "
+                             "reason-less suppressions)")
+    p_lint.set_defaults(fn=_cmd_lint)
     p_conc = sub.add_parser(
         "concurrency", help="threadcheck: the GC rules over the "
                             "hand-threaded planes")

@@ -1,4 +1,4 @@
-"""The port's analysis engine: what its two static checkers share (the
+"""The port's analysis engine: what its static checkers share (the
 port's own copy of the rule-agnostic parts of
 ``pvraft_tpu/analysis/engine.py``).
 
@@ -45,6 +45,19 @@ class Diagnostic:
         return f"{self.path}:{self.line}:{self.col}: {self.rule_id} {self.message}"
 
 
+def dotted_name(node: ast.AST) -> str:
+    """'os.path.join'-style spelling of a Name/Attribute chain ('' when
+    the chain bottoms out in a call or subscript)."""
+    parts: List[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return ""
+
+
 class LintContext:
     """Per-file state handed to every rule."""
 
@@ -60,13 +73,18 @@ class LintContext:
         else:
             self.norm_path = os.path.abspath(path).replace(os.sep, "/")
 
+    def diag(self, node: ast.AST, rule_id: str, message: str) -> Diagnostic:
+        """A finding anchored at ``node``'s line and column."""
+        return Diagnostic(self.path, getattr(node, "lineno", 1),
+                          getattr(node, "col_offset", 0), rule_id, message)
+
 
 class Rule:
     """Base class: subclasses set ``id``/``title`` and implement ``check``.
 
-    ``id`` is the stable suppression key (``GCxxx``, ``GDxxx``); ``title``
-    a short slug; the class docstring is the explanation ``--list-rules``
-    prints."""
+    ``id`` is the stable suppression key (``GCxxx``, ``GDxxx``,
+    ``GSxxx``, ``GLxxx``); ``title`` a short slug; the class docstring is
+    the explanation ``--list-rules`` prints."""
 
     id: str = ""
     title: str = ""
@@ -258,17 +276,20 @@ def collect_suppressions(paths: Sequence[str]) -> List[Pragma]:
 
 def known_rule_ids() -> Set[str]:
     """Ids of every rule of the port's checkers, threading (GC),
-    determinism (GD) and sharding (GS), with each family's syntax-error
-    id: one namespace for the shared pragma grammar."""
+    determinism (GD), sharding (GS) and graftlint (GL), with each
+    family's syntax-error id: one namespace for the shared pragma
+    grammar."""
     from pvraft_tpu_torch.analysis.concurrency.rules import (
         all_concurrency_rules,
     )
     from pvraft_tpu_torch.analysis.determinism.rules import (
         all_determinism_rules,
     )
+    from pvraft_tpu_torch.analysis.rules import all_lint_rules
     from pvraft_tpu_torch.analysis.sharding.rules import all_sharding_rules
 
     ids = {r.id for r in all_concurrency_rules()}
     ids |= {r.id for r in all_determinism_rules()}
     ids |= {r.id for r in all_sharding_rules()}
-    return ids | {"GC000", "GD000", "GS000"}
+    ids |= {r.id for r in all_lint_rules()}
+    return ids | {"GC000", "GD000", "GS000", "GL000"}

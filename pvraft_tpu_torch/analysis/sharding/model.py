@@ -31,6 +31,8 @@ import ast
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from pvraft_tpu_torch.analysis.engine import dotted_name as _dotted
+
 # Filesystem mutations GS004 watches: the JAX package's set and
 # ``torch.save``. ``os.makedirs``/``os.mkdir`` with ``exist_ok=True`` are
 # exempt (an idempotent ensure is safe on every rank at once).
@@ -41,19 +43,6 @@ WRITE_APIS = frozenset({
     "shutil.rmtree", "shutil.copytree", "shutil.copy", "shutil.copy2",
     "shutil.move", "torch.save",
 })
-
-
-def _dotted(node: ast.AST) -> str:
-    """'os.path.join'-style spelling of a Name/Attribute chain ('' when
-    the chain bottoms out in a call or subscript)."""
-    parts: List[str] = []
-    while isinstance(node, ast.Attribute):
-        parts.append(node.attr)
-        node = node.value
-    if isinstance(node, ast.Name):
-        parts.append(node.id)
-        return ".".join(reversed(parts))
-    return ""
 
 
 def _tail(node: ast.AST) -> str:

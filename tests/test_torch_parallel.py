@@ -73,19 +73,27 @@ def _cfg(exp, batch_size=2, **train) -> Config:
 # --- spawned groups -----------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _held_store():
+    """A store server on a port the kernel picks, held by this process
+    until the group is done, as torchrun's agent holds its store: the
+    ranks join it as clients (``TORCHELASTIC_USE_AGENT_STORE``). A port
+    found free, released and bound again by rank 0 seconds later can be
+    taken in between by any connection on the host; a held one cannot.
+    Returns (store, port); drop the store when the group has left."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, is_master=True,
+                                       wait_for_workers=False)
+    return store, store.port
 
 
 def _rank_entry(fn, rank, world, port, tmp, args):
-    """A rank: joins the gloo group through torchrun's environment,
-    runs ``fn(rank, tmp, *args)``, saves its result, leaves the group."""
+    """A rank: joins the gloo group through torchrun's environment (the
+    spawner's store, as torchrun's agent's), runs ``fn(rank, tmp,
+    *args)``, saves its result, leaves the group."""
     torch.set_num_threads(2)
     os.environ.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
                        "RANK": str(rank), "WORLD_SIZE": str(world),
-                       "LOCAL_RANK": str(rank)})
+                       "LOCAL_RANK": str(rank),
+                       "TORCHELASTIC_USE_AGENT_STORE": "True"})
     assert tdist.initialize() is True
     try:
         out = fn(rank, tmp, *args)
@@ -98,13 +106,14 @@ def _spawn(fn, tmp_path, *args, world=2, timeout=GROUP_TIMEOUT_S):
     """Run ``fn`` on ``world`` gloo ranks; their results, by rank. A rank
     alive after ``timeout`` seconds is killed, and the test fails."""
     ctx = multiprocessing.get_context("spawn")
-    port = _free_port()
+    store, port = _held_store()
     procs = [ctx.Process(target=_rank_entry,
                          args=(fn, r, world, port, str(tmp_path), args))
              for r in range(world)]
+    started = time.monotonic()
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+    deadline = started + timeout
     try:
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -114,11 +123,27 @@ def _spawn(fn, tmp_path, *args, world=2, timeout=GROUP_TIMEOUT_S):
             p.kill()
         for p in procs:
             p.join(10)
+        del store
+    seconds = time.monotonic() - started
     assert not hung, f"{len(hung)} rank(s) still running after {timeout} s"
     assert [p.exitcode for p in procs] == [0] * world, \
-        f"rank exit codes {[p.exitcode for p in procs]}"
+        f"rank exit codes {[p.exitcode for p in procs]} after {seconds:.1f} s"
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
+
+
+def test_the_rendezvous_port_stays_held_until_the_group_is_done():
+    """No other socket can bind the spawner's store port while the store
+    lives, and a rank joins through it as torchrun's workers join their
+    agent's store."""
+    store, port = _held_store()
+    with socket.socket() as s, pytest.raises(OSError):
+        s.bind(("127.0.0.1", port))
+    client = torch.distributed.TCPStore("127.0.0.1", port, world_size=2,
+                                        is_master=False)
+    client.set("rank1", "up")
+    assert store.get("rank1") == b"up"
+    del client, store
 
 
 # --- the contract arithmetic against JAX --------------------------------------
@@ -373,19 +398,23 @@ def _factory_steps(kind, graphed):
 
 @pytest.mark.parametrize("graphed", [False, True])
 @pytest.mark.parametrize("kind", ["single", "refine", "packed", "multistep"])
-def test_every_train_step_factory_reduces_in_a_group_of_one(kind, graphed):
+def test_every_train_step_factory_reduces_in_a_group_of_one(kind, graphed,
+                                                           monkeypatch):
     """In a gloo group of one rank (this process) every factory's step
     runs its collective, not short-circuited at world 1, and stays
     bitwise the step without a group: a sum over one rank scaled by 1.
     Without a group there is no reduction."""
     want, want_state, none = _factory_steps(kind, graphed)
     assert none is None
-    assert tdist.initialize(f"127.0.0.1:{_free_port()}", num_processes=1,
+    store, port = _held_store()
+    monkeypatch.setenv("TORCHELASTIC_USE_AGENT_STORE", "True")
+    assert tdist.initialize(f"127.0.0.1:{port}", num_processes=1,
                             process_id=0, backend="gloo") is True
     try:
         got, state, reduce = _factory_steps(kind, graphed)
     finally:
         tdist.shutdown()
+        del store
     assert reduce is not None and reduce.world == 1 and not reduce.average
     assert reduce.calls >= 2
     assert got == want

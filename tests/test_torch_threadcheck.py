@@ -343,7 +343,7 @@ def test_rule_table_matches_the_jax_checker():
 def test_known_rule_ids():
     assert {"GC000", "GC001", "GC002", "GC003", "GC004", "GD000", "GD001",
             "GD002", "GD003", "GD004", "GD005", "GS000",
-            "GS004"} == known_rule_ids()
+            "GS004", "GL000", "GL006", "GL007"} == known_rule_ids()
 
 
 # --- the port's own source -------------------------------------------------
@@ -372,7 +372,7 @@ def test_scope_is_clean_for_the_jax_checker_too():
 def test_no_reasonless_pragma_in_the_port():
     pragmas = collect_suppressions([os.path.join(REPO, "pvraft_tpu_torch")])
     ours = [p for p in pragmas
-            if any(i.startswith(("GC", "GD")) for i in p.ids)]
+            if any(i.startswith(("GC", "GD", "GS", "GL")) for i in p.ids)]
     assert ours, "the port's GD002 pragmas are missing"
     assert [p for p in ours if not p.reason] == []
     known = known_rule_ids()
